@@ -52,6 +52,55 @@ def test_flash3_kernel_rejects_what_it_has_no_template_for(cuda_device):
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tattn.flash3_fwd(torch.zeros(1, 8, 192, device=cuda_device,
                                      dtype=torch.float16), 1)
+    # with a gradient to record the forward still launches the kernel; its
+    # backward is flash3_bwd (tested below)
     x = torch.zeros(1, 8, 192, device=cuda_device, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        tattn.flash3_fwd(x, 1)
+    tattn.reset_launch_counts()
+    tattn.flash_mha_packed_qkv(x, num_heads=1).sum().backward()
+    assert tattn.LAUNCHES == {"flash3_fwd": 1, "flash3_bwd": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2 ** -7)])
+@pytest.mark.parametrize("B,S,H,causal", [(64, 257, 16, False),
+                                          (66, 77, 12, True),
+                                          (3, 17, 4, True), (2, 64, 2, False),
+                                          (2, 65, 2, True), (1, 130, 2, True)])
+def test_flash3_bwd_kernel_matches_plain(cuda_device, dtype, tol, B, S, H,
+                                         causal):
+    """dq, dk, dv against the plain backward, max |err| over max |ref| per
+    gradient, as chip_smoke.py states it: f32 1e-5 (another order of
+    summation), bf16 2^-7 (one bf16 spacing of the largest value). The
+    shapes are the training step's image and text shapes and ragged tiles;
+    two launches give identical bits (no atomics)."""
+    D = H * 64
+    qkv = _qkv(B, S, H, 64, seed=S).to(cuda_device, dtype)
+    do = torch.from_numpy(np.random.RandomState(S + 1).randn(B, S, D)
+                          .astype(np.float32)).to(cuda_device, dtype)
+    _, lse = tattn.flash3_fwd(qkv, H, causal)
+    tattn.reset_launch_counts()
+    got = tattn.flash3_bwd(qkv, do, lse, H, causal)
+    assert tattn.LAUNCHES["flash3_bwd"] == 1
+    ref = tattn.flash_mha_packed_qkv_bwd_reference(qkv, do, lse, H, causal)
+    for i in range(3):
+        a, r = got[..., i * D:(i + 1) * D].float(), ref[..., i * D:(i + 1) * D]
+        r = r.float()
+        assert float((a - r).abs().max()) <= tol * float(r.abs().max())
+    assert torch.equal(got, tattn.flash3_bwd(qkv, do, lse, H, causal))
+
+
+@pytest.mark.cuda
+def test_flash3_bwd_kernel_rejects_what_it_has_no_template_for(cuda_device):
+    qkv = torch.zeros(1, 8, 192, device=cuda_device)
+    lse = torch.zeros(1, 8, 1, device=cuda_device)
+    with pytest.raises(ValueError, match="do must be"):
+        tattn.flash3_bwd(qkv, torch.zeros(1, 8, 64, device=cuda_device,
+                                          dtype=torch.bfloat16), lse, 1)
+    with pytest.raises(ValueError, match="lse must be"):
+        tattn.flash3_bwd(qkv, torch.zeros(1, 8, 64, device=cuda_device),
+                         lse[..., :0], 1)
+    with pytest.raises(ValueError, match="head width"):
+        tattn.flash3_bwd(torch.zeros(1, 8, 3 * 2 * 32, device=cuda_device),
+                         torch.zeros(1, 8, 64, device=cuda_device),
+                         torch.zeros(1, 8, 2, device=cuda_device), 2)

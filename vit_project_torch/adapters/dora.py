@@ -7,8 +7,10 @@ trees beside the model:
 - ``static``:    {tower: {block_idx: {D, bias}}}, the frozen unit-column
   direction matrix and the cloned out_proj bias.
 
-Serving bakes them into the attention out_proj of the adapted blocks
-(``bake``), so the served forward carries no adapter math.
+Training makes the trainable leaves f32 tensors that require grad
+(``make_trainable``) and hands ``assemble(trainable, static)`` to the
+forward; serving bakes them into the attention out_proj of the adapted
+blocks (``bake``), so the served forward carries no adapter math.
 """
 from __future__ import annotations
 
@@ -55,6 +57,35 @@ def apply_dora(model, spec: dict, *, r: int, alpha: int = 16,
     return trainable, static, {"r": r, "alpha": alpha, "dropout": dropout}
 
 
+def assemble(trainable: dict, static: dict) -> dict:
+    """Zip trainable+static into {"visual": {idx: {trainable, buffers}}, ...}
+    for clip_hba_forward."""
+    return {tower: {idx: {"trainable": trainable[tower][idx],
+                          "buffers": static[tower][idx]}
+                    for idx in trainable[tower]}
+            for tower in trainable}
+
+
+def make_trainable(trainable: dict, device=None) -> dict:
+    """A copy of the tree whose leaves are f32 leaf tensors on `device`
+    that require grad: what the optimizer updates (in place)."""
+    return {tower: {idx: {k: torch.as_tensor(v).detach().to(
+                              device=device, dtype=torch.float32)
+                          .clone().requires_grad_(True)
+                          for k, v in tr.items()}
+                    for idx, tr in blocks.items()}
+            for tower, blocks in trainable.items()}
+
+
+def trainable_leaves(trainable: dict) -> list:
+    """[(tower, block_idx, name, tensor)] in one fixed order (towers as
+    given, blocks ascending, names in ADAPTER_PARAM_NAMES order): the
+    optimizer's parameter order and the key of the optax-layout state."""
+    return [(tower, idx, name, blocks[idx][name])
+            for tower, blocks in trainable.items()
+            for idx in sorted(blocks) for name in ADAPTER_PARAM_NAMES]
+
+
 def count_trainable_parameters(trainable: dict) -> int:
     return vdora.count_params(trainable)
 
@@ -66,6 +97,18 @@ def count_trainable_parameters(trainable: dict) -> int:
 def _module_path(tower: str, idx: int) -> str:
     t = "visual.transformer" if tower == "visual" else "transformer"
     return f"clip_model.{t}.resblocks.{idx}.attn.out_proj"
+
+
+def spec_module_paths(spec: dict) -> set:
+    """Reference-style module paths of every adapter a spec covers."""
+    return {_module_path(t, int(i)) for t, idxs in spec.items() for i in idxs}
+
+
+def checkpoint_module_paths(flat: dict) -> set:
+    """Reference-style module paths of every adapter present in a flat
+    {path.param: tensor} checkpoint mapping (to_reference_names layout)."""
+    suffixes = tuple(f".{n}" for n in ADAPTER_PARAM_NAMES)
+    return {k.rsplit(".", 1)[0] for k in flat if k.endswith(suffixes)}
 
 
 def to_reference_names(trainable: dict) -> dict:

@@ -1,0 +1,57 @@
+"""Dual file+console logging, format-compatible with the reference logs
+(copy of the per-run logger of the JAX package's core/logs.py; reference
+setup_logger, new_cvpr_train_behavior_things_pipeline.py:51-85).
+
+The port runs one process, so the file handler needs no primary-process
+gate; it still opens its file at the first record, as the JAX package's
+does.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import sys
+
+_FORMAT = "%(asctime)s - %(levelname)s - %(message)s"
+_DATEFMT = "%Y-%m-%d %H:%M:%S"
+
+
+class _LazyFileHandler(logging.Handler):
+    """Truncating (mode "w") file handler that opens at the first record."""
+
+    def __init__(self, path: str, formatter: logging.Formatter):
+        super().__init__(logging.INFO)
+        self._path = path
+        self._inner: logging.FileHandler | None = None
+        self.setFormatter(formatter)
+
+    def emit(self, record):
+        if self._inner is None:
+            d = os.path.dirname(self._path)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            self._inner = logging.FileHandler(self._path, mode="w")
+            self._inner.setLevel(logging.INFO)
+            self._inner.setFormatter(self.formatter)
+        self._inner.emit(record)
+
+    def close(self):
+        if self._inner is not None:
+            self._inner.close()
+        super().close()
+
+
+def setup_logger(log_file_path: str) -> logging.Logger:
+    """Per-run training logger: the run's log file and stdout."""
+    logger = logging.getLogger("training_logger")
+    logger.setLevel(logging.INFO)
+    for h in logger.handlers:
+        h.close()
+    logger.handlers = []
+    formatter = logging.Formatter(_FORMAT, datefmt=_DATEFMT)
+    logger.addHandler(_LazyFileHandler(log_file_path, formatter))
+    ch = logging.StreamHandler(sys.stdout)
+    ch.setLevel(logging.INFO)
+    ch.setFormatter(formatter)
+    logger.addHandler(ch)
+    return logger

@@ -7,6 +7,8 @@ OpenAI checkpoint (or one converted from the JAX package by
 ``load_state_dict(strict=True)``. ``clip_hba_forward`` returns the
 [B, n_prompts] logit-scaled cosine similarities between each image and each
 prompt, re-encoding the prompts on every call as the JAX forward does.
+With DoRA adapters (training) the adapted blocks' out_proj is the DoRA
+layer, as in the JAX forward.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..ops import dora as vdora
 from ..ops import nn as vnn
 from . import vit as vvit
 from .vit import ViTConfig
@@ -40,6 +43,19 @@ class CLIPConfig:
 CLIP_VIT_L14 = CLIPConfig(visual=vvit.CLIP_VIT_L14_VISUAL,
                           text=TextConfig(width=768, layers=12, heads=12),
                           embed_dim=768)
+
+
+# random-init backbones by name (the ViT entries of the JAX package's
+# CLIP_CONFIGS that the port runs)
+CLIP_CONFIGS = {
+    "ViT-L/14": CLIP_VIT_L14,
+    "test-tiny": CLIPConfig(
+        visual=ViTConfig(patch=32, width=32, layers=2, heads=2,
+                         image_size=224, out_dim=16),
+        text=TextConfig(width=32, layers=2, heads=2, vocab_size=49408,
+                        context_length=77),
+        embed_dim=16),
+}
 
 
 def tiny_clip_config(width=32, layers=2, heads=2, patch=16, image_size=32,
@@ -123,14 +139,19 @@ def init_clip_weights_(model: CLIP, generator: torch.Generator) -> CLIP:
 
 
 def encode_text(model: CLIP, tokens: torch.Tensor, *,
-                compute_dtype=torch.float32) -> torch.Tensor:
+                compute_dtype=torch.float32, adapters: dict | None = None,
+                adapter_cfg: dict | None = None,
+                dropout_key: vdora.DropoutKey | None = None,
+                deterministic: bool = True) -> torch.Tensor:
     """tokens [N, context] -> [N, embed_dim] f32.
 
     Causal transformer; features at the EOT position (the argmax of the
     token ids, since EOT is the largest id), then projected in f32."""
     x = model.token_embedding.weight[tokens].to(compute_dtype)
     x = x + model.positional_embedding.to(x.dtype)
-    x = model.transformer(x)
+    x = vvit.run_blocks(model.transformer, x, adapters=adapters,
+                        adapter_cfg=adapter_cfg, dropout_key=dropout_key,
+                        deterministic=deterministic)
     x = vnn.layer_norm(x, model.ln_final.weight, model.ln_final.bias)
     eot = torch.argmax(tokens, dim=-1)
     feats = x[torch.arange(x.shape[0], device=x.device), eot]
@@ -139,19 +160,41 @@ def encode_text(model: CLIP, tokens: torch.Tensor, *,
 
 
 def encode_image(model: CLIP, images: torch.Tensor, *,
-                 compute_dtype=torch.float32) -> torch.Tensor:
+                 compute_dtype=torch.float32, adapters: dict | None = None,
+                 adapter_cfg: dict | None = None,
+                 dropout_key: vdora.DropoutKey | None = None,
+                 deterministic: bool = True) -> torch.Tensor:
     """images [B, H, W, 3] (normalized, NHWC) -> [B, embed_dim] f32."""
     return vvit.clip_visual_encode(model.visual, images,
-                                   compute_dtype=compute_dtype)
+                                   compute_dtype=compute_dtype,
+                                   adapters=adapters, adapter_cfg=adapter_cfg,
+                                   dropout_key=dropout_key,
+                                   deterministic=deterministic)
 
 
 def clip_hba_forward(model: CLIP, images: torch.Tensor,
                      prompt_tokens: torch.Tensor, *,
-                     compute_dtype=torch.float32) -> torch.Tensor:
+                     compute_dtype=torch.float32, adapters: dict | None = None,
+                     adapter_cfg: dict | None = None,
+                     dropout_key: vdora.DropoutKey | None = None,
+                     deterministic: bool = True) -> torch.Tensor:
     """images -> [B, n_prompts] scores (the CLIPHBA contract): the logit
-    scale times the cosine similarity of each image and prompt embedding."""
-    img = encode_image(model, images, compute_dtype=compute_dtype)
-    txt = encode_text(model, prompt_tokens, compute_dtype=compute_dtype)
+    scale times the cosine similarity of each image and prompt embedding.
+
+    adapters = {"visual": {idx: dora}, "text": {idx: dora}}
+    (adapters/dora.py assemble); `dropout_key` splits into a vision and a
+    text stream, as the JAX forward splits its key."""
+    adapters = adapters or {}
+    kv = kt = None
+    if dropout_key is not None:
+        kv, kt = dropout_key.split()
+    img = encode_image(model, images, compute_dtype=compute_dtype,
+                       adapters=adapters.get("visual"),
+                       adapter_cfg=adapter_cfg, dropout_key=kv,
+                       deterministic=deterministic)
+    txt = encode_text(model, prompt_tokens, compute_dtype=compute_dtype,
+                      adapters=adapters.get("text"), adapter_cfg=adapter_cfg,
+                      dropout_key=kt, deterministic=deterministic)
     img = img / torch.linalg.vector_norm(img, dim=-1, keepdim=True)
     txt = txt / torch.linalg.vector_norm(txt, dim=-1, keepdim=True)
     scale = torch.exp(model.logit_scale)

@@ -8,6 +8,10 @@ loaded with ``load_state_dict(strict=True)``:
   ``clip_state_dict_from_jax_params``, which follows that package's
   ``clip_state_dict_from_params``.
 
+The DoRA adapter trees cross between the packages through
+``adapters_from_jax`` and ``adapters_to_jax``; the optimizer state through
+``ckpt/clip_ckpt.py``.
+
 ViT visual towers only; the ModifiedResNet family is not ported yet.
 """
 from __future__ import annotations
@@ -122,3 +126,20 @@ def clip_state_dict_from_jax_params(tree: dict, cfg: CLIPConfig) -> dict:
     sd["text_projection"] = _t(t["text_projection"])
     sd["logit_scale"] = _t(tree["logit_scale"])
     return sd
+
+
+def adapters_from_jax(tree: dict, device=None) -> dict:
+    """A JAX-package DoRA tree ({tower: {block_idx: {name: array}}}, the
+    trainable or the static half) as f32 tensors on `device`."""
+    return {t: {int(i): {k: torch.from_numpy(np.array(v, np.float32)).to(device)
+                         for k, v in d.items()}
+                for i, d in blocks.items()}
+            for t, blocks in tree.items()}
+
+
+def adapters_to_jax(tree: dict) -> dict:
+    """The port's DoRA tree as the JAX package's numpy tree."""
+    return {t: {int(i): {k: v.detach().cpu().numpy().astype(np.float32)
+                         for k, v in d.items()}
+                for i, d in blocks.items()}
+            for t, blocks in tree.items()}

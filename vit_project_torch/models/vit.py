@@ -8,7 +8,10 @@ modules only hold parameters, under OpenAI CLIP's state-dict names
 - ``block_forward``: the pre-norm block with the semantics of the JAX
   block's fused-kernel branch. The 1/sqrt(dh) score scale is folded into the
   q rows of the packed [3D, D] projection (weight and bias), ONE matmul
-  emits [B, S, 3D], and that goes whole to the flash attention op.
+  emits [B, S, 3D], and that goes whole to the flash attention op. A DoRA
+  adapter, when given, replaces the attention out_proj.
+- ``run_blocks``: a tower's blocks with their adapters and per-block
+  dropout streams (shared by the image and text towers).
 - ``clip_visual_encode``: stem (patch embed + CLS + positions + ln_pre),
   blocks, then ln_post over the CLS token and the projection, in f32.
 """
@@ -21,6 +24,7 @@ import torch
 from torch import nn
 
 from ..ops import attention as vattn
+from ..ops import dora as vdora
 from ..ops import nn as vnn
 
 
@@ -125,21 +129,50 @@ def _prescaled_in_proj(attn: MultiheadAttention, dh: int, dtype):
     return w, b
 
 
-def block_forward(blk: ResidualAttentionBlock, x: torch.Tensor) -> torch.Tensor:
+def block_forward(blk: ResidualAttentionBlock, x: torch.Tensor, *,
+                  adapter: dict | None = None,
+                  adapter_cfg: dict | None = None,
+                  dropout_key: vdora.DropoutKey | None = None,
+                  deterministic: bool = True) -> torch.Tensor:
     """Pre-norm transformer block on x [B, S, D] (x.dtype is the compute
-    dtype). Attention goes through the packed flash op."""
+    dtype). Attention goes through the packed flash op; with `adapter`
+    ({trainable, buffers}) the out_proj is the DoRA layer instead."""
     h = vnn.layer_norm(x, blk.ln_1.weight, blk.ln_1.bias)
     D = h.shape[-1]
     w, b = _prescaled_in_proj(blk.attn, D // blk.heads, h.dtype)
     qkv = vnn.dense(h, w.t(), b)                                  # [B, S, 3D]
     o = vattn.flash_mha_packed_qkv(qkv, num_heads=blk.heads,
                                    causal=blk.causal)
-    o = vnn.dense(o, blk.attn.out_proj.weight.t(), blk.attn.out_proj.bias)
+    if adapter is not None:
+        o = vdora.dora_linear(
+            o, adapter["trainable"], adapter["buffers"],
+            alpha=adapter_cfg["alpha"], r=adapter_cfg["r"],
+            dropout_p=adapter_cfg.get("dropout", 0.0),
+            dropout_key=dropout_key, deterministic=deterministic)
+    else:
+        o = vnn.dense(o, blk.attn.out_proj.weight.t(), blk.attn.out_proj.bias)
     x = x + o
     h = vnn.layer_norm(x, blk.ln_2.weight, blk.ln_2.bias)
     h = vnn.mlp(h, blk.mlp.c_fc.weight.t(), blk.mlp.c_fc.bias,
                 blk.mlp.c_proj.weight.t(), blk.mlp.c_proj.bias)
     return x + h
+
+
+def run_blocks(transformer: Transformer, x: torch.Tensor, *,
+               adapters: dict | None = None, adapter_cfg: dict | None = None,
+               dropout_key: vdora.DropoutKey | None = None,
+               deterministic: bool = True) -> torch.Tensor:
+    """Every block of `transformer` on x; block i takes adapters[i] (if
+    any) and the dropout stream dropout_key.fold_in(i)."""
+    adapters = adapters or {}
+    for i, blk in enumerate(transformer.resblocks):
+        ad = adapters.get(i)
+        dk = None
+        if ad is not None and dropout_key is not None:
+            dk = dropout_key.fold_in(i)
+        x = block_forward(blk, x, adapter=ad, adapter_cfg=adapter_cfg,
+                          dropout_key=dk, deterministic=deterministic)
+    return x
 
 
 def _clip_visual_stem(visual: VisionTransformer, images: torch.Tensor, *,
@@ -164,9 +197,15 @@ def _clip_visual_out(visual: VisionTransformer, x: torch.Tensor) -> torch.Tensor
 
 
 def clip_visual_encode(visual: VisionTransformer, images: torch.Tensor, *,
-                       compute_dtype=torch.float32) -> torch.Tensor:
+                       compute_dtype=torch.float32,
+                       adapters: dict | None = None,
+                       adapter_cfg: dict | None = None,
+                       dropout_key: vdora.DropoutKey | None = None,
+                       deterministic: bool = True) -> torch.Tensor:
     """CLIP visual tower: images [B, H, W, 3] (normalized, NHWC) ->
-    [B, out_dim] f32."""
+    [B, out_dim] f32. `adapters` maps block index -> {trainable, buffers}."""
     x = _clip_visual_stem(visual, images, compute_dtype=compute_dtype)
-    x = visual.transformer(x)
+    x = run_blocks(visual.transformer, x, adapters=adapters,
+                   adapter_cfg=adapter_cfg, dropout_key=dropout_key,
+                   deterministic=deterministic)
     return _clip_visual_out(visual, x)

@@ -25,7 +25,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 # library name -> its source under csrc/
-SOURCES = {"flash3_fwd": "flash3_fwd.cu"}
+SOURCES = {"flash3_fwd": "flash3_fwd.cu", "flash3_bwd": "flash3_bwd.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -4,14 +4,49 @@ Counterpart of the JAX package's ops/dora.py. Weights are [in, out] (the
 transposed view of a torch Linear weight); the direction matrix D has
 unit-norm columns over the in axis and the magnitude m is per output column.
 ΔA and ΔB are kaiming-uniform(a=sqrt(5)) at init, so the adapted weight at
-step 0 is not the pretrained weight. Serving bakes the adapted weight once
-(adapters/dora.py bake), so only the deterministic weight is needed here.
+step 0 is not the pretrained weight. Dropout acts on the low-rank weight
+update ΔD, not on the activations (the reference's deliberate choice,
+ref :467-468).
+
+Dropout draws from a ``torch.Generator`` seeded by a ``DropoutKey``: a path
+of integers (dropout_seed, epoch, batch, tower, block) folded in the order
+of the JAX package's ``fold_in`` chain (train/clip_loop.py:724,809,441,
+models/clip.py:295-304, models/vit.py:494-496). A resume replays the same
+masks; the bits differ from JAX's, so tests use p=0 or pass the keep-mask.
 """
 from __future__ import annotations
 
+import hashlib
+from dataclasses import dataclass
+
 import torch
 
+from . import nn as vnn
+
 EPS = 1e-8
+
+
+@dataclass(frozen=True)
+class DropoutKey:
+    """A pure, replayable dropout stream: the integers folded in so far."""
+    path: tuple[int, ...]
+
+    @classmethod
+    def root(cls, seed: int) -> "DropoutKey":
+        return cls((int(seed),))
+
+    def fold_in(self, i: int) -> "DropoutKey":
+        return DropoutKey(self.path + (int(i),))
+
+    def split(self) -> tuple["DropoutKey", "DropoutKey"]:
+        """Two independent children (the vision and text streams)."""
+        return self.fold_in(0), self.fold_in(1)
+
+    def generator(self, device) -> torch.Generator:
+        """A generator on `device` seeded by a hash of the path."""
+        digest = hashlib.blake2b(repr(self.path).encode(), digest_size=8)
+        seed = int.from_bytes(digest.digest(), "little") & ((1 << 63) - 1)
+        return torch.Generator(device=device).manual_seed(seed)
 
 
 def _kaiming_uniform(shape: tuple[int, int], generator: torch.Generator,
@@ -43,15 +78,49 @@ def dora_init(generator: torch.Generator, w: torch.Tensor, r: int):
     return trainable, {"D": D}
 
 
-def dora_weight(trainable: dict, D: torch.Tensor, *, alpha: int,
-                r: int) -> torch.Tensor:
-    """Adapted [in, out] weight m * colnorm(D + B @ A * alpha/r), in f32
-    (dropout off: the serving and evaluation form)."""
+def dropout_keep_mask(shape, p: float, key: DropoutKey,
+                      device) -> torch.Tensor:
+    """Bernoulli(1 - p) keep-mask of `shape` drawn from `key`'s stream."""
+    u = torch.rand(shape, generator=key.generator(device), device=device)
+    return u < (1.0 - p)
+
+
+def dora_weight(trainable: dict, D: torch.Tensor, *, alpha: int, r: int,
+                dropout_p: float = 0.0, dropout_key: DropoutKey | None = None,
+                deterministic: bool = True,
+                keep: torch.Tensor | None = None) -> torch.Tensor:
+    """Adapted [in, out] weight m * colnorm(D + dropout(B @ A * alpha/r)),
+    in f32. Dropout runs when not `deterministic` and dropout_p > 0, with
+    the keep-mask `keep` if given, else one drawn from `dropout_key`."""
     delta = torch.matmul(trainable["delta_D_B"].float(),
                          trainable["delta_D_A"].float()) * (alpha / r)
+    if not deterministic and dropout_p > 0.0:
+        if keep is None:
+            if dropout_key is None:
+                raise ValueError(
+                    "dora_weight: deterministic=False with dropout_p > 0 "
+                    "requires a dropout_key")
+            keep = dropout_keep_mask(delta.shape, dropout_p, dropout_key,
+                                     delta.device)
+        delta = torch.where(keep, delta / (1.0 - dropout_p),
+                            torch.zeros((), device=delta.device))
     D_new = D.float() + delta
     norms = torch.linalg.vector_norm(D_new, dim=0, keepdim=True) + EPS
     return (D_new / norms) * trainable["m"].float()
+
+
+def dora_linear(x: torch.Tensor, trainable: dict, buffers: dict, *,
+                alpha: int, r: int, dropout_p: float = 0.0,
+                dropout_key: DropoutKey | None = None,
+                deterministic: bool = True,
+                keep: torch.Tensor | None = None) -> torch.Tensor:
+    """y = x @ W_adapted + bias; buffers {D: [in, out], bias: [out] or
+    absent}. The weight is computed in f32 and the product runs in x's
+    type (the JAX package's dora_linear)."""
+    w = dora_weight(trainable, buffers["D"], alpha=alpha, r=r,
+                    dropout_p=dropout_p, dropout_key=dropout_key,
+                    deterministic=deterministic, keep=keep)
+    return vnn.dense(x, w, buffers.get("bias"))
 
 
 def count_params(trainable_tree: dict) -> int:

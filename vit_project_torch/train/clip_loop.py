@@ -1,0 +1,561 @@
+"""CLIP-HBA behavioral training loop (counterpart of the JAX package's
+train/clip_loop.py; reference train_model + run_behavioral_training,
+new_cvpr_train_behavior_things_pipeline.py:782-1227).
+
+- per epoch: train over shuffled batches -> eval on the test split ->
+  behavioral RSA on the 48 inference images -> DoRA checkpoint ->
+  random-state checkpoint -> CSV row -> early stopping;
+- NaN guard: a batch whose loss, targets or predictions are non-finite is
+  skipped without an optimizer update, and AdamW's step count stays where
+  it was (reference :929-998 `continue`);
+- resume: CSV pre-population, DoRA + optimizer-state restore, replayable
+  data order (PCG64) and dropout streams (ops/dora.py DropoutKey).
+
+The datasets are uploaded to the device once and each batch is gathered
+there by index and normalized on the device. The frozen CLIP weights need
+no gradient, so autograd differentiates only from the first adapted block
+on: at the reference configuration one step runs the attention backward
+kernel once (image block 23).
+
+The port's AdamW updates the adapter tensors in place (the JAX loop returns
+new trees). Later slices bring the perturbation injectors, the frozen-prefix
+cache, remat and the embedding dumps (slice 3) and the data-parallel and
+sequence-parallel modes (slice 5); until then those options raise.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+from datetime import datetime
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from ..adapters import dora as adora
+from ..ckpt import clip_ckpt
+from ..core import csvio
+from ..core.configs import ClipRunConfig
+from ..core.device import resolve_device
+from ..core.logs import setup_logger
+from ..core.profiling import EpochTimer
+from ..data import things as dthings
+from ..data.spose66 import classnames66
+from ..models import clip as vclip
+from ..models import convert as vconvert
+from ..models import tokenizer as vtok
+from ..ops import dora as vdora
+from ..ops import rsa as vrsa
+from ..perturb import injectors, windows
+
+# eval runs the whole test set as one batch while it stays under this many
+# tokens (512 ViT-L/14 images; the JAX loop's cap)
+EVAL_TOKEN_CAP = 132_000
+
+SLICE3 = "slice 3 of the port (the paradigm drivers)"
+SLICE5 = "slice 5 of the port (the parallel modes)"
+
+
+def make_optimizer(params, lr: float) -> torch.optim.AdamW:
+    """torch AdamW with the reference's defaults (AdamW(params, lr=lr),
+    ref :1181): betas (0.9, 0.999), eps 1e-8, decoupled weight decay 0.01;
+    the same update as the JAX package's optax.adamw."""
+    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=0.01)
+
+
+def _unported(what: str, where: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: it comes with "
+                               f"{where}")
+
+
+class ClipHBATrainer:
+    """The frozen CLIP, the adapters' static half, the prompts, and the
+    train / eval / RSA steps."""
+
+    def __init__(self, clip_cfg: vclip.CLIPConfig, model: vclip.CLIP,
+                 adapter_cfg: dict, static: dict, prompt_tokens, lr: float,
+                 compute_dtype=torch.bfloat16,
+                 perturb_distribution: str = "target",
+                 dist_mean: float = 0.0, dist_std: float = 1.0, mesh=None,
+                 remat: bool = False, sp: bool = False,
+                 sp_ring: bool = False):
+        if mesh is not None or sp or sp_ring:
+            raise _unported("data-parallel and sequence-parallel training",
+                            SLICE5)
+        if remat:
+            raise _unported("remat", SLICE3)
+        self.cfg = clip_cfg
+        self.model = model.requires_grad_(False)
+        self.device = next(model.parameters()).device
+        self.acfg = adapter_cfg
+        self.static = {t: {i: {k: v.to(self.device) for k, v in d.items()}
+                           for i, d in blocks.items()}
+                       for t, blocks in static.items()}
+        self.prompts = torch.as_tensor(np.asarray(prompt_tokens),
+                                       dtype=torch.long, device=self.device)
+        self.lr = lr
+        self.compute_dtype = compute_dtype
+        self.perturb_distribution = perturb_distribution
+        self.dist_mean = dist_mean
+        self.dist_std = dist_std
+
+    @staticmethod
+    def check_perturb_type(perturb_type: str) -> None:
+        if perturb_type != "baseline":
+            raise _unported(f"perturb_type={perturb_type!r} (the "
+                            f"perturbation injectors)", SLICE3)
+
+    def init_optimizer(self, trainable: dict) -> torch.optim.AdamW:
+        return make_optimizer(
+            [leaf for *_, leaf in adora.trainable_leaves(trainable)], self.lr)
+
+    def upload_dataset(self, images_u8: np.ndarray,
+                       targets: np.ndarray | None = None):
+        """A dataset on the device: (uint8 images, f32 targets or None)."""
+        img = torch.from_numpy(np.ascontiguousarray(images_u8)).to(
+            self.device)
+        tgt = None
+        if targets is not None:
+            tgt = torch.from_numpy(np.asarray(targets, np.float32)).to(
+                self.device)
+        return img, tgt
+
+    def forward(self, trainable: dict, images: torch.Tensor,
+                dropout_key: vdora.DropoutKey | None = None,
+                deterministic: bool = True) -> torch.Tensor:
+        """[B, n_prompts] predictions from normalized images."""
+        return vclip.clip_hba_forward(
+            self.model, images, self.prompts,
+            compute_dtype=self.compute_dtype,
+            adapters=adora.assemble(trainable, self.static),
+            adapter_cfg=self.acfg, dropout_key=dropout_key,
+            deterministic=deterministic)
+
+    def train_step(self, trainable: dict, optimizer: torch.optim.Optimizer,
+                   all_images_u8: torch.Tensor, all_targets: torch.Tensor,
+                   idx, dropout_key: vdora.DropoutKey):
+        """One masked-MSE step on the rows `idx` of the resident dataset.
+        Returns (loss, ok); when not ok (non-finite loss, targets or
+        predictions) the parameters and the optimizer are left as they
+        were."""
+        rows = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
+        images = dthings.normalize_uint8(all_images_u8[rows])
+        targets = all_targets[rows]
+        optimizer.zero_grad(set_to_none=True)
+        preds = self.forward(trainable, images, dropout_key,
+                             deterministic=False)
+        row_mse = torch.mean((preds - targets) ** 2, dim=-1)
+        loss = torch.sum(row_mse) / row_mse.shape[0]
+        loss.backward()
+        ok = (torch.isfinite(loss) & torch.all(torch.isfinite(targets))
+              & torch.all(torch.isfinite(preds)))
+        loss_f, ok_f = torch.stack([loss.detach(), ok.float()]).tolist()
+        if ok_f:
+            optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        return loss_f, bool(ok_f)
+
+    @torch.no_grad()
+    def evaluate_resident(self, trainable: dict, imgs_dev: torch.Tensor,
+                          tgts_dev: torch.Tensor, n: int,
+                          batch_size: int) -> float:
+        """Dataset-weighted MSE (reference evaluate_model :584-602 sums
+        loss * batch and divides by len(dataset)). The whole set runs as
+        one batch under the token cap, else in batches of `batch_size`
+        (eval has no cross-batch dependence)."""
+        bs = n if n * self.cfg.visual.seq_len <= EVAL_TOKEN_CAP else batch_size
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for s in range(0, n, bs):
+            preds = self.forward(
+                trainable, dthings.normalize_uint8(imgs_dev[s:s + bs]))
+            total += torch.sum(torch.mean((preds - tgts_dev[s:s + bs]) ** 2,
+                                          dim=-1))
+        return float(total) / n
+
+    @torch.no_grad()
+    def behavioral_rsa(self, trainable: dict, inference_images_u8,
+                       reference_rdm):
+        """48-image inference + RDM + Spearman (reference behavioral_RSA
+        :605-654). Returns (rho, p, model_rdm, embeddings) on the host."""
+        imgs = inference_images_u8
+        if not isinstance(imgs, torch.Tensor):
+            imgs, _ = self.upload_dataset(imgs)
+        emb = self.forward(trainable, dthings.normalize_uint8(imgs))
+        rho, p, model_rdm = vrsa.behavioral_rsa(emb, reference_rdm)
+        return rho, p, model_rdm.cpu().numpy(), emb.cpu().numpy()
+
+
+def train_model(trainer: ClipHBATrainer, trainable: dict,
+                optimizer: torch.optim.Optimizer, *, train_images,
+                train_targets, test_images, test_targets, inference_images,
+                reference_rdm, shuffler: dthings.EpochShuffler, epochs: int,
+                batch_size: int, training_res_path: str, training_run: int,
+                perturb_length: int, perturb_seed: int, perturb_type: str,
+                logger=None, early_stopping_patience: int = 5,
+                dora_parameters_path: str = "./dora_params",
+                random_state_path: str = "./random_states",
+                dropout_seed: int = 0, data_seed: int = 0,
+                resume_from_epoch: int = 0,
+                previous_training_res_path: str | None = None,
+                dump_dir: str | None = None, inference_names=None,
+                nod_images=None, nod_names=None, nod_dump_dir=None,
+                host_prefetch: bool = False, preempt_guard=None,
+                frozen_cache: bool = False, on_epoch=None):
+    """The per-epoch loop (reference train_model :782-1063). Returns the final
+    (trainable, optimizer, last_epoch0); the adapters and the optimizer are
+    updated in place.
+
+    `host_prefetch` is accepted and changes nothing but timing in the JAX
+    package; the port copies the checkpoint trees synchronously until its
+    host-copy module is ported. `preempt_guard` is polled at epoch
+    boundaries, after the epoch's checkpoints are written, and gets
+    `stopped_at_epoch` when it stops the run. `on_epoch`, if given, is
+    called after each epoch with {epoch, steps, train_s, epoch_s}: the
+    seconds of its training steps and of the whole epoch."""
+    trainer.check_perturb_type(perturb_type)
+    if frozen_cache:
+        raise _unported("frozen_cache (the frozen-prefix activation cache)",
+                        SLICE3)
+    if dump_dir is not None or nod_images is not None:
+        raise _unported("the per-epoch embedding dumps", SLICE3)
+    log = logger.info if logger else print
+    best_test_loss = 500000.0  # reference initializes to 500000 (ref :790)
+    epochs_no_improve = 0
+
+    os.makedirs(dora_parameters_path, exist_ok=True)
+    csvio.init_clip_csv(training_res_path, resume_from_epoch,
+                        previous_training_res_path, logger)
+
+    dropout_root = vdora.DropoutKey.root(dropout_seed)
+    n_train = len(train_images)
+    n_test = len(test_images)
+    last_epoch0 = resume_from_epoch - 1
+
+    train_imgs_dev, train_tgts_dev = trainer.upload_dataset(train_images,
+                                                            train_targets)
+    test_imgs_dev, test_tgts_dev = trainer.upload_dataset(test_images,
+                                                          test_targets)
+    inf_imgs_dev, _ = trainer.upload_dataset(inference_images)
+
+    if resume_from_epoch == 0:
+        # initial (pre-training) eval + RSA, logged but not written to the CSV
+        # (reference baseline pipeline cvpr...baseline.py:623-624)
+        init_loss = trainer.evaluate_resident(trainable, test_imgs_dev,
+                                              test_tgts_dev, n_test,
+                                              batch_size)
+        init_rho, init_p, _, _ = trainer.behavioral_rsa(
+            trainable, inf_imgs_dev, reference_rdm)
+        log(f"Initial (epoch 0) Validation Loss: {init_loss:.4f}, "
+            f"Behavioral RSA: {init_rho:.4f} (p={init_p:.4f})")
+
+    for epoch in range(resume_from_epoch, epochs):
+        flags = windows.epoch_flags(epoch, training_run, perturb_length,
+                                    perturb_type)
+        timer = EpochTimer()
+        batch_list = list(shuffler.batches(epoch))
+        dropout_epoch_key = dropout_root.fold_in(epoch)
+        losses, oks = [], []
+        for bi, idx in enumerate(batch_list):
+            loss, ok = trainer.train_step(trainable, optimizer,
+                                          train_imgs_dev, train_tgts_dev,
+                                          idx, dropout_epoch_key.fold_in(bi))
+            losses.append(loss)
+            oks.append(ok)
+        train_s = timer.seconds()
+        for bi in np.nonzero(~np.asarray(oks))[0]:
+            log(f"WARNING: non-finite batch {bi} skipped "
+                f"(epoch {epoch + 1})")
+        sizes = np.array([len(b) for b in batch_list])
+        # a skipped batch's loss is NaN: mask before multiplying
+        total_loss = float(np.sum(np.where(oks, losses, 0.0) * sizes))
+        # reference divides by the full dataset size regardless of skips
+        avg_train_loss = total_loss / n_train
+
+        train_timing = timer.finish(images=n_train)
+        avg_test_loss = trainer.evaluate_resident(
+            trainable, test_imgs_dev, test_tgts_dev, n_test, batch_size)
+        log(f"Epoch {epoch + 1}: Training Loss: {avg_train_loss:.4f}, "
+            f"Validation Loss: {avg_test_loss:.4f} [{train_timing}]")
+
+        rho, p_value, _, _ = trainer.behavioral_rsa(
+            trainable, inf_imgs_dev, reference_rdm)
+        log(f"Behavioral RSA Correlation & p-value: {rho:.4f}, {p_value:.4f}")
+
+        # checkpoints BEFORE the CSV row: a crash between the two leaves
+        # "checkpoint without row" (the epoch is retrained on resume), never
+        # "row without checkpoint"
+        clip_ckpt.save_dora_parameters(trainable, dora_parameters_path,
+                                       epoch, logger=logger)
+        log(f"DoRA parameters saved for epoch {epoch + 1}")
+        clip_ckpt.save_random_states(
+            clip_ckpt.optax_state_from_adamw(optimizer, trainable), epoch,
+            random_state_path, data_seed, {"dropout_seed": dropout_seed},
+            logger=logger)
+        csvio.append_clip_row(training_res_path, epoch + 1, avg_train_loss,
+                              avg_test_loss, rho, p_value, **flags)
+        if on_epoch is not None:
+            on_epoch({"epoch": epoch + 1, "steps": len(batch_list),
+                      "train_s": train_s, "epoch_s": timer.seconds()})
+
+        # patience freezes on pure window arithmetic (reference :1044-1056)
+        in_win = windows.in_window(epoch, training_run, perturb_length)
+        if avg_test_loss < best_test_loss:
+            best_test_loss = avg_test_loss
+            epochs_no_improve = 0
+        elif not in_win:
+            epochs_no_improve += 1
+        last_epoch0 = epoch
+        if epochs_no_improve == early_stopping_patience:
+            log(f"Early stopping triggered at epoch {epoch + 1}")
+            break
+        # epoch-boundary preemption poll, skipped on the final epoch (a
+        # completed run must not be flagged as preempted)
+        if preempt_guard is not None and epoch + 1 < epochs:
+            if preempt_guard.should_stop():
+                log(f"Preemption requested - stopped cleanly after epoch "
+                    f"{epoch + 1} (its checkpoints are saved; resume with "
+                    f"resume_from_epoch={epoch + 1})")
+                preempt_guard.stopped_at_epoch = epoch + 1
+                break
+
+    return trainable, optimizer, last_epoch0
+
+
+def build_run_assets(cfg: ClipRunConfig, logger, device):
+    """Everything a CLIP-HBA run needs before any training state exists:
+    the frozen model on `device` and its config, decoded datasets, split
+    indices, inference set + reference RDM, tokenized prompts, perturbation
+    stats, and the DoRA (trainable, static) trees."""
+    if cfg.clip_weights and not os.path.exists(cfg.clip_weights):
+        # a mistyped weights path must not silently become random towers
+        raise FileNotFoundError(
+            f"clip_weights path does not exist: {cfg.clip_weights}")
+    loaded_pretrained = bool(cfg.clip_weights)
+    if loaded_pretrained:
+        sd = vconvert.load_torch_state_dict(cfg.clip_weights)
+        clip_cfg = vconvert.clip_config_from_state_dict(sd)
+        model = vconvert.clip_from_state_dict(sd, device, clip_cfg)
+        del sd
+        logger.info(f"Loaded CLIP weights from {cfg.clip_weights}")
+    else:
+        if cfg.backbone not in vclip.CLIP_CONFIGS:
+            raise ValueError(
+                f"unsupported backbone {cfg.backbone!r}; supported: "
+                f"{sorted(vclip.CLIP_CONFIGS)}")
+        clip_cfg = vclip.CLIP_CONFIGS[cfg.backbone]
+        model = vclip.init_clip_weights_(
+            vclip.empty_clip(clip_cfg, device),
+            torch.Generator(device=device).manual_seed(cfg.random_seed))
+        logger.info("WARNING: no clip_weights provided - using random "
+                    "initialization (testing only)")
+    model.requires_grad_(False)
+
+    dataset = dthings.ThingsDataset(cfg.csv_file, cfg.img_dir,
+                                    size=clip_cfg.visual.image_size)
+    mean, std = injectors.perturb_distribution_stats(
+        dataset.targets, cfg.perturb_distribution)
+
+    # split: replay the baseline split if provided, else fresh + persist
+    if cfg.baseline_split_indices_path and \
+            os.path.exists(cfg.baseline_split_indices_path):
+        info = dthings.load_split_indices(cfg.baseline_split_indices_path,
+                                          logger)
+        train_idx = info["train_indices"]
+        test_idx = info["test_indices"]
+        logger.info("Using baseline dataset split")
+    else:
+        train_idx, test_idx = dthings.random_split_indices(
+            len(dataset), cfg.train_portion, cfg.random_seed)
+        split_path = os.path.join(cfg.random_state_path,
+                                  "dataset_split_indices.pth")
+        dthings.save_split_indices(split_path, train_idx, test_idx,
+                                   cfg.random_seed)
+        logger.info(f"Saved fresh dataset split to {split_path}")
+
+    inference = dthings.ThingsInferenceDataset(
+        cfg.inference_csv_file, cfg.img_dir, cfg.RDM48_triplet_dir,
+        size=clip_cfg.visual.image_size)
+    reference_rdm = inference.load_reference_rdm()
+
+    tok = vtok.default_tokenizer(cfg.bpe_vocab)
+    if loaded_pretrained and isinstance(tok, vtok.HashTokenizer):
+        # hash-tokenized prompts are meaningless to a pretrained text tower
+        # and would silently destroy behavioral RSA: a hard error with an
+        # explicit escape hatch
+        msg = (
+            "Pretrained CLIP weights loaded but no BPE vocab found — the "
+            "HashTokenizer fallback would feed the 66 SPoSE prompts to the "
+            "pretrained text tower in the wrong token space and behavioral "
+            "RSA would be near zero. Pass bpe_vocab=<path to "
+            "bpe_simple_vocab_16e6.txt.gz> or set CLIP_BPE_PATH; set "
+            "allow_hash_tokenizer=True to proceed anyway (testing only).")
+        if not cfg.allow_hash_tokenizer:
+            logger.error(msg)
+            raise ValueError(msg)
+        logger.warning("allow_hash_tokenizer=True: " + msg)
+    prompts = vtok.tokenize(classnames66, tokenizer=tok,
+                            context_length=clip_cfg.text.context_length,
+                            truncate=isinstance(tok, vtok.HashTokenizer))
+    prompts = np.minimum(prompts, clip_cfg.text.vocab_size - 1)
+
+    # DoRA surgery (ref :1147-1152), the init stream seeded from random_seed
+    spec = adora.dora_spec(clip_cfg.visual.layers, clip_cfg.text.layers,
+                           cfg.vision_layers, cfg.transformer_layers)
+    trainable, static, acfg = adora.apply_dora(
+        model, spec, r=cfg.rank, alpha=cfg.dora_alpha,
+        dropout=cfg.dora_dropout,
+        generator=torch.Generator(device=device).manual_seed(
+            cfg.random_seed + 123))
+
+    return SimpleNamespace(
+        loaded_pretrained=loaded_pretrained, model=model, clip_cfg=clip_cfg,
+        dataset=dataset, mean=mean, std=std, train_idx=train_idx,
+        test_idx=test_idx, inference=inference, reference_rdm=reference_rdm,
+        prompts=prompts, spec=spec, trainable=trainable, static=static,
+        acfg=acfg)
+
+
+def _refuse_unported(cfg: ClipRunConfig) -> None:
+    ClipHBATrainer.check_perturb_type(cfg.perturb_type)
+    if cfg.sp_devices > 1 or cfg.sp_ring:
+        raise _unported("sequence parallelism (sp_devices, sp_ring)", SLICE5)
+    if cfg.remat:
+        raise _unported("remat", SLICE3)
+    if cfg.frozen_cache:
+        raise _unported("frozen_cache", SLICE3)
+    if cfg.dump_inference_embeddings or cfg.nod_csv_file:
+        raise _unported("the embedding dumps (dump_inference_embeddings, "
+                        "nod_csv_file)", SLICE3)
+
+
+def run_behavioral_training(config, preempt_guard=None, device=None) -> dict:
+    """Config-dict entry point (reference run_behavioral_training
+    :1066-1227). Accepts the reference's dict config surface or a
+    ClipRunConfig; runs on `device` (default the GPU; 'cpu' for tests).
+    Returns {last_epoch0, training_res_path, trainable, preempted}.
+
+    With cfg.preempt_save (default) a SIGTERM stops the run cleanly at the
+    next epoch boundary and the summary carries `preempted=True`;
+    `preempt_guard` injects a prebuilt guard (tests use stubs)."""
+    cfg = (config if isinstance(config, ClipRunConfig)
+           else ClipRunConfig.from_dict(config))
+    _refuse_unported(cfg)
+    device = resolve_device(device)
+
+    log_dir = os.path.dirname(cfg.checkpoint_path) or "."
+    timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+    logger = setup_logger(os.path.join(log_dir,
+                                       f"training_log_{timestamp}.txt"))
+    logger.info("=" * 80)
+    logger.info("Starting Training Run")
+    logger.info("=" * 80)
+
+    a = build_run_assets(cfg, logger, device)
+    trainable, spec = a.trainable, a.spec
+    training_run = cfg.training_run
+
+    # DoRA checkpoint to fork from (ref :1156-1171)
+    dora_path = None
+    if cfg.resume_from_epoch > 0 and cfg.resume_dora_parameters_path:
+        dora_path = os.path.join(cfg.resume_dora_parameters_path,
+                                 f"epoch{cfg.resume_from_epoch}_dora_params.pth")
+    elif cfg.baseline_dora_directory:
+        dora_path = os.path.join(cfg.baseline_dora_directory,
+                                 f"epoch{training_run - 1}_dora_params.pth")
+    # an explicit resume source always loads (the reference gates on
+    # training_run >= 1 only, which would skip an in-place baseline resume)
+    explicit_resume = (cfg.resume_from_epoch > 0
+                       and bool(cfg.resume_dora_parameters_path))
+    if dora_path and os.path.exists(dora_path) and (training_run >= 1
+                                                    or explicit_resume):
+        trainable = clip_ckpt.load_dora_parameters(dora_path, trainable, spec,
+                                                   logger)
+        logger.info(f"Loaded DoRA parameters from {dora_path}")
+    else:
+        if explicit_resume and dora_path:
+            raise FileNotFoundError(
+                f"resume_from_epoch={cfg.resume_from_epoch} requested but "
+                f"the DoRA checkpoint does not exist: {dora_path}")
+        logger.info("Using original DoRA parameters from model initialization")
+    trainable = adora.make_trainable(trainable, device)
+
+    trainer = ClipHBATrainer(
+        a.clip_cfg, a.model, a.acfg, a.static, a.prompts, lr=cfg.lr,
+        compute_dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+        else torch.float32,
+        perturb_distribution=cfg.perturb_distribution,
+        dist_mean=a.mean, dist_std=a.std)
+    optimizer = trainer.init_optimizer(trainable)
+
+    # random-state restore (ref :1184-1201)
+    data_seed = cfg.random_seed
+    if cfg.resume_from_epoch > 0:
+        prior = cfg.resume_random_state_path or cfg.baseline_random_state_path
+        if prior:
+            state = clip_ckpt.load_random_states(prior, cfg.resume_from_epoch,
+                                                 logger)
+            if state is not None:
+                if clip_ckpt.adamw_state_matches(state["optimizer_state"],
+                                                 trainable):
+                    clip_ckpt.adamw_state_from_optax(
+                        optimizer, state["optimizer_state"], trainable)
+                else:
+                    logger.warning(
+                        "Restored optimizer state does not match this run's "
+                        "adapter config (vision_layers/transformer_layers/"
+                        "rank differ from the checkpoint's) - keeping a fresh "
+                        "optimizer state")
+                data_seed = state["data_seed"]
+                logger.info(f"Successfully restored all random states from "
+                            f"epoch {cfg.resume_from_epoch}")
+            else:
+                logger.warning("Could not load random states - starting with "
+                               "fresh random state")
+        else:
+            logger.warning("baseline_random_state_path not provided in config, "
+                           "cannot restore random states")
+
+    logger.info("\nModel Configuration:")
+    logger.info("-------------------")
+    for k, v in cfg.to_dict().items():
+        logger.info(f"{k}: {v}")
+    logger.info(f"\nNumber of trainable parameters: "
+                f"{adora.count_trainable_parameters(trainable)}\n")
+
+    dataset = a.dataset
+    shuffler = dthings.EpochShuffler(len(a.train_idx), cfg.batch_size,
+                                     data_seed)
+    guard = preempt_guard
+    own_guard = False
+    if guard is None and cfg.preempt_save:
+        from ..core.preempt import PreemptionGuard
+        guard = PreemptionGuard()
+        own_guard = True  # install signal handlers only for our own guard
+    with guard if own_guard else contextlib.nullcontext():
+        trainable, optimizer, last_epoch0 = train_model(
+            trainer, trainable, optimizer, preempt_guard=guard,
+            train_images=dataset.images_u8[a.train_idx],
+            train_targets=dataset.targets[a.train_idx],
+            test_images=dataset.images_u8[a.test_idx],
+            test_targets=dataset.targets[a.test_idx],
+            inference_images=a.inference.images_u8,
+            reference_rdm=a.reference_rdm, shuffler=shuffler,
+            epochs=cfg.epochs, batch_size=cfg.batch_size,
+            training_res_path=cfg.training_res_path,
+            training_run=training_run, perturb_length=cfg.perturb_length,
+            perturb_seed=cfg.perturb_seed, perturb_type=cfg.perturb_type,
+            logger=logger,
+            early_stopping_patience=cfg.early_stopping_patience,
+            dora_parameters_path=cfg.dora_parameters_path,
+            random_state_path=cfg.random_state_path,
+            dropout_seed=cfg.random_seed, data_seed=data_seed,
+            resume_from_epoch=cfg.resume_from_epoch,
+            previous_training_res_path=cfg.previous_training_res_path,
+            host_prefetch=cfg.host_prefetch)
+
+    return {"last_epoch0": last_epoch0,
+            "training_res_path": cfg.training_res_path,
+            "trainable": trainable,
+            "preempted": bool(getattr(guard, "stopped_at_epoch", None)
+                              if guard is not None else False)}
