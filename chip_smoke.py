@@ -8,8 +8,9 @@
    per source, all started together) and prints the build time;
 3. phase `kernel`: runs each kernel against its plain PyTorch version on
    the card at the shapes its main path gives it (the attention forward at
-   the serving buckets, the backward at the training step's image and text
-   shapes), in float32 and bfloat16, checks the largest errors against
+   the serving buckets and the ViT-B/16 step, the backward at the training
+   steps' image and text shapes, the dW+db kernel at every dense layer of
+   the ViT-B/16 step), in float32 and bfloat16, checks the largest errors against
    stated tolerances, and times the kernel, the plain version and one
    PyTorch library call for the same function beside the card's bound for
    that work;
@@ -29,7 +30,17 @@
    that a fresh trainer resumed from the epoch-1 files reproduces the
    epoch-2 row, and that one step's adapter gradients agree with the
    kernel and with the plain backward; it times steps, eval and RSA;
-6. prints one JSON line of kernel numbers, the nvidia-smi line, and last
+6. phase `vit_train`: writes a seeded synthetic ImageFolder (8 classes,
+   1,024 train and 256 val JPEGs at 256^2) and trains ViT-B/16 at full
+   width and depth (bf16 compute, batch 256, SGD) for 2 epochs through
+   ``run_vit_training`` with ``fused_dw=True``. It checks the CSV rows and
+   checkpoint files, that every step launched the dW+db kernel 49 times and
+   the attention backward 12 times (the forward 12 per forward), that a run
+   stopped after epoch 1 and resumed equals the uninterrupted run bit for
+   bit, and that one step with the kernel agrees with the same step on the
+   plain dW+db; it times steps on a batch already on the card, training
+   images/s with host decode, validation and peak memory;
+7. prints one JSON line of kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA device,
@@ -49,6 +60,7 @@ import sys
 import threading
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 
@@ -84,6 +96,14 @@ TOLERANCE = {"float32": {"o": 1e-5, "lse": 1e-5},
 #     value across a bf16 rounding boundary at most once, one bf16 spacing,
 #     which is at most 2^-7 of the largest |value| (measured: 2.4e-3).
 BWD_TOLERANCE = {"float32": 1e-5, "bfloat16": 2 ** -7}
+
+# dW+db kernel-vs-plain tolerance: max abs error of dW and of db over the
+# largest |value| of that output in the plain version, both dtypes. Both
+# versions sum exact products (a bf16 product is exact in f32) in float32, in
+# another order. A float32 sum over N = 50,432 rows carries a rounding error
+# of about sqrt(N) * 2^-24 = 1.3e-5 of its size in each version (measured on
+# an H100 SXM: 1.07e-5 on fc1 in float32); the tolerance is 8x that.
+DWDB_TOLERANCE = 1e-4
 
 SEED = 0
 RESULTS: dict = {}
@@ -134,14 +154,17 @@ def attention_cases():
     """(label, B, S, H, causal) at the serving path's shapes: the image
     tower at buckets 8, 32 and 256, and the 66 causal text prompts."""
     return [("image_b8", 8, 257, 16, False), ("image_b32", 32, 257, 16, False),
-            ("image_b256", 256, 257, 16, False), ("text_66", 66, 77, 12, True)]
+            ("image_b256", 256, 257, 16, False), ("text_66", 66, 77, 12, True),
+            ("vit_b256", 256, 197, 12, False)]
 
 
 def bwd_cases():
     """(label, B, S, H, causal) of the attention backward on the training
     path: the image tower at the training batch of 64, and the 66 causal
-    text prompts (reached when a text block below the last is adapted)."""
-    return [("image_b64", 64, 257, 16, False), ("text_66", 66, 77, 12, True)]
+    text prompts (reached when a text block below the last is adapted), and
+    the ViT-B/16 training step (batch 256, S=197, 12 heads)."""
+    return [("image_b64", 64, 257, 16, False), ("text_66", 66, 77, 12, True),
+            ("vit_b256", 256, 197, 12, False)]
 
 
 def _random_qkv(B, S, H, dtype, seed=SEED):
@@ -154,7 +177,82 @@ def _random_qkv(B, S, H, dtype, seed=SEED):
 
 
 def phase_kernel(peaks):
-    return phase_kernel_fwd(peaks) + phase_kernel_bwd(peaks)
+    return (phase_kernel_fwd(peaks) + phase_kernel_bwd(peaks)
+            + phase_kernel_dwdb(peaks))
+
+
+def dwdb_cases():
+    """(label, N, Din, Dout) of every dense layer with a bias in a ViT-B/16
+    training step at batch 256: the block's qkv, output, fc1 and fc2
+    projections over N = 256 x 197 token rows, and the head over the 256
+    CLS rows."""
+    N = 256 * 197
+    return [("qkv", N, 768, 2304), ("proj", N, 768, 768), ("fc1", N, 768, 3072),
+            ("fc2", N, 3072, 768), ("head", 256, 768, 1000)]
+
+
+def _library_dwdb(x, g):
+    """One PyTorch product with a float32 result, and the row sum: the
+    yardstick beside the kernel (never called by the port)."""
+    import torch
+    if x.dtype == torch.float32:
+        return torch.mm(x.t(), g), g.sum(0)
+    return torch.mm(x.t(), g, out_dtype=torch.float32), g.float().sum(0)
+
+
+def phase_kernel_dwdb(peaks):
+    import torch
+    from vit_project_torch.ops import fused_dw as vfdw
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for label, N, Din, Dout in dwdb_cases():
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            x = torch.randn(N, Din, generator=gen, device="cuda").to(dtype)
+            g = torch.randn(N, Dout, generator=gen, device="cuda").to(dtype)
+            dw, db = vfdw.dw_db(x, g)
+            torch.cuda.synchronize()
+            rdw, rdb = vfdw.dw_db_reference(x, g)
+            errs = {"dw": (dw - rdw).abs().max().item(),
+                    "db": (db - rdb).abs().max().item()}
+            rel = {"dw": errs["dw"] / max(rdw.abs().max().item(), 1e-30),
+                   "db": errs["db"] / max(rdb.abs().max().item(), 1e-30)}
+            if not all(np.isfinite(v) for v in errs.values()):
+                fail(f"dw_db {label} {dname}: non-finite output")
+            if max(rel.values()) > DWDB_TOLERANCE:
+                fail(f"dw_db {label} {dname}: max |err| / max |ref| {rel} "
+                     f"over the tolerance {DWDB_TOLERANCE}")
+            del dw, db, rdw, rdb
+            it = 10 if dtype == torch.bfloat16 else 3
+            kernel_ms = cuda_ms(lambda: vfdw.dw_db(x, g), it)
+            plain_ms = cuda_ms(lambda: vfdw.dw_db_reference(x, g), it)
+            library_ms = cuda_ms(lambda: _library_dwdb(x, g), it)
+            isz = x.element_size()
+            nbytes = N * (Din + Dout) * isz + (Din * Dout + Dout) * 4
+            flops = 2 * N * Din * Dout
+            t_bytes = nbytes / peaks["bytes"] * 1e3
+            t_ops = flops / peaks[dname] * 1e3
+            row = {"kernel": "dw_db", "case": label, "dtype": dname,
+                   "shape": [N, Din, Dout], "max_abs_err": max(errs.values()),
+                   "errors": errs, "relative_errors": rel,
+                   "tolerance_relative": DWDB_TOLERANCE,
+                   "splits": vfdw.row_splits(N, Din, Dout, dtype),
+                   "ms": kernel_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "mbytes": nbytes / 1e6, "gflop": flops / 1e9}
+            rows.append(row)
+            print(f"[kernel] dw_db {label:5s} [{N}x{Din}]^T[{N}x{Dout}] "
+                  f"{dname:8s} err dW {errs['dw']:.2e} ({rel['dw']:.1e} rel) "
+                  f"db {errs['db']:.2e} ({rel['db']:.1e} rel) | kernel_ms "
+                  f"{kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                  f"{library_ms:.4f} bound_ms {row['bound_ms']:.4f} "
+                  f"({row['bound_by']}: {nbytes / 1e6:.1f} MB, "
+                  f"{flops / 1e9:.1f} GFLOP)", flush=True)
+            del x, g
+            torch.cuda.empty_cache()
+    RESULTS["kernel_dwdb"] = rows
+    return rows
 
 
 def phase_kernel_bwd(peaks):
@@ -738,9 +836,269 @@ def phase_train(tmp: str):
     return launches
 
 
+def _write_image_folder(root: str, rs: np.random.RandomState,
+                        classes: int = 8, train: int = 1024, val: int = 256,
+                        size: int = 256) -> None:
+    """A seeded ImageFolder of JPEGs at size^2: each class a tint over smooth
+    random structure (8^2 noise upscaled) plus fine noise, so the images
+    decode, crop and resize like photographs rather than flat colour."""
+    from PIL import Image
+    tints = rs.randint(40, 216, (classes, 3))
+    for split, n in (("train", train), ("val", val)):
+        for c in range(classes):
+            d = os.path.join(root, split, f"class_{c:02d}")
+            os.makedirs(d, exist_ok=True)
+            for i in range(n // classes):
+                low = Image.fromarray(rs.randint(0, 256, (8, 8, 3))
+                                      .astype(np.uint8))
+                arr = np.asarray(low.resize((size, size), Image.BILINEAR),
+                                 np.float32)
+                arr = 0.5 * arr + 0.5 * tints[c] + rs.randn(size, size, 3) * 8
+                Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+                    os.path.join(d, f"{i:04d}.jpg"), quality=90)
+
+
+def _ckpt_trees(out: str):
+    from vit_project_torch.ckpt import serialization as ser
+    ck = ser.load(os.path.join(out, "checkpoint_latest.pth"))
+    return ck["params"], ck["opt_state"]
+
+
+def _trees_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_trees_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_trees_equal(x, y)
+                                        for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is b
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def _profile(fn, steps: int = 3):
+    """Device time by kernel group over `steps` calls of `fn` (torch.profiler
+    on the card), and the device's busy share of the host-clock window.
+    Returns None when the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups: dict = {}
+    others: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3 / steps
+        name = e.key.lower()
+        group = ("dw_db" if "dw_db" in name or "sum_splits" in name
+                 else "attention" if "flash3" in name
+                 else "gemm" if any(k in name for k in (
+                     "gemm", "nvjet", "xmma", "cutlass", "cublas"))
+                 else "other")
+        groups[group] = groups.get(group, 0.0) + ms
+        if group == "other":
+            others[e.key[:60]] = others.get(e.key[:60], 0.0) + ms
+    busy = sum(groups.values())
+    if busy == 0:
+        return None
+    top = dict(sorted(others.items(), key=lambda kv: -kv[1])[:6])
+    return {"ms_per_call": groups, "top_other_ms": top,
+            "device_ms_per_call": busy, "wall_ms_per_call": wall_ms / steps,
+            "idle_share": max(0.0, 1 - busy * steps / wall_ms)}
+
+
+def phase_vit_train(tmp: str):
+    import logging
+    import torch
+    from vit_project_torch.core.configs import ViTTrainConfig
+    from vit_project_torch.data.packed import make_loader
+    from vit_project_torch.models import vit as vvit
+    from vit_project_torch.ops import attention as vattn
+    from vit_project_torch.ops import fused_dw as vfdw
+    from vit_project_torch.train import vit_loop
+
+    t0 = time.time()
+    data = os.path.join(tmp, "imagenet")
+    _write_image_folder(data, np.random.RandomState(SEED))
+    vit_cfg = vvit.VIT_CONFIGS["vit_base_patch16_224"]
+    logger = logging.getLogger("chip_smoke.vit_train")
+    logger.setLevel(logging.WARNING)
+
+    def cfg(out, epochs):
+        return ViTTrainConfig(data_path=data, output_dir=out, batch_size=256,
+                              epochs=epochs, num_workers=8,
+                              compute_dtype="bfloat16", fused_dw=True,
+                              random_seed=SEED)
+    print(f"[vit_train] synthetic ImageFolder (8 classes, 1,024 train / 256 "
+          f"val JPEGs at 256^2) written in {time.time() - t0:.1f} s; ViT-B/16 "
+          f"(width 768, 12 blocks, 12 heads, S=197, 1,000 classes), batch "
+          f"256, bf16, SGD lr 0.1 m 0.9 wd 1e-4, fused_dw", flush=True)
+
+    # --- the main path: counts from 0, two epochs, counts read ---
+    out_a = os.path.join(tmp, "vit_a")
+    stats = []
+    torch.cuda.reset_peak_memory_stats()
+    vattn.reset_launch_counts()
+    vfdw.reset_launch_counts()
+    t0 = time.time()
+    res = vit_loop.run_vit_training(cfg(out_a, 2), logger=logger,
+                                    vit_cfg=vit_cfg, device="cuda",
+                                    on_epoch=stats.append)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches = {**vattn.LAUNCHES, **vfdw.LAUNCHES}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steps = sum(e["steps"] for e in stats)
+    val_batches = 2            # one batch of 256 per validation, 2 epochs
+
+    rows = _read_rows(os.path.join(out_a, "training_metrics.csv"))
+    if rows[0] != ["epoch", "train_loss", "val_loss", "val_acc"] \
+            or [r[0] for r in rows[1:]] != ["0", "1"]:
+        fail(f"expected metrics rows for epochs 0 and 1, got {rows}")
+    for r in rows[1:]:
+        vals = [float(v) for v in r[1:]]
+        if not all(np.isfinite(vals)) or not 0 <= vals[2] <= 100:
+            fail(f"bad metrics row {r}")
+    for name in ("checkpoint_epoch_000.pth", "checkpoint_epoch_001.pth",
+                 "checkpoint_latest.pth"):
+        if not os.path.exists(os.path.join(out_a, name)):
+            fail(f"missing checkpoint {name}")
+    want = {"dw_db": 49 * steps, "flash3_bwd": 12 * steps,
+            "flash3_fwd": 12 * (steps + val_batches)}
+    if any(launches[k] != v for k, v in want.items()):
+        fail(f"launches {launches} over {steps} steps and {val_batches} "
+             f"validation batches, expected {want}")
+    print(f"[vit_train] 2 epochs ({steps} steps) in {run_s:.1f} s; launches "
+          f"dw_db {launches['dw_db']} (49 per step), flash3_bwd "
+          f"{launches['flash3_bwd']} (12 per step), flash3_fwd "
+          f"{launches['flash3_fwd']} (12 per forward); rows "
+          + "; ".join(",".join(r) for r in rows[1:]), flush=True)
+
+    # a run stopped after epoch 1 and resumed in place equals run A
+    out_b = os.path.join(tmp, "vit_b")
+    vit_loop.run_vit_training(cfg(out_b, 1), logger=logger, vit_cfg=vit_cfg,
+                              device="cuda")
+    vit_loop.run_vit_training(cfg(out_b, 2), logger=logger, vit_cfg=vit_cfg,
+                              device="cuda")
+    rows_b = _read_rows(os.path.join(out_b, "training_metrics.csv"))
+    pa, ma = _ckpt_trees(out_a)
+    pb, mb = _ckpt_trees(out_b)
+    resume_exact = (rows_b == rows and _trees_equal(pa, pb)
+                    and _trees_equal(ma, mb))
+    print(f"[vit_train] stopped after epoch 1 and resumed: rows, parameters "
+          f"and momentum {'bit-exact' if resume_exact else 'DIFFER'}",
+          flush=True)
+    if not resume_exact:
+        fail(f"resumed run differs: rows {rows_b} vs {rows}")
+    del pa, ma, pb, mb
+
+    # one step twice from the same state and batch: the dW+db kernel, then
+    # the plain dW+db swapped in
+    model, momentum = res["model"], res["momentum_buf"]
+    trainer = vit_loop.ViTTrainer(vit_cfg, cfg(out_a, 2), model, "cuda")
+    loader = make_loader(os.path.join(data, "val"), 256, train=False,
+                                  size=224, workers=8)
+    imgs, lbls = trainer.place(*next(iter(loader.epoch(0))))
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    m0 = {n: b.clone() for n, b in momentum.items()}
+
+    def one_step():
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(p0[n])
+            for n, b in momentum.items():
+                b.copy_(m0[n])
+        trainer.step(momentum, imgs, lbls, 0.02)
+        return {n: p.detach().clone() for n, p in model.named_parameters()}
+    with_kernel = one_step()
+    kernel_dw_db = vfdw.dw_db
+    vfdw.dw_db = vfdw.dw_db_reference
+    try:
+        with_plain = one_step()
+    finally:
+        vfdw.dw_db = kernel_dw_db
+    # f32 dW and db from exact products summed in another order: the
+    # updates differ by float32 rounding, far below the update itself
+    step_err = {n: (with_kernel[n] - with_plain[n]).abs().max().item()
+                / max((with_plain[n] - p0[n]).abs().max().item(), 1e-30)
+                for n in p0}
+    worst = max(step_err.values())
+    print(f"[vit_train] one bf16 step, kernel vs plain dW+db: max |diff| of "
+          f"the updated parameters over the largest update {worst:.2e} "
+          f"(tolerance 1e-3) over {len(step_err)} tensors", flush=True)
+    if not worst <= 1e-3:
+        fail(f"updated parameters disagree: {step_err}")
+    del with_kernel, with_plain
+
+    # device time of a step on a batch already on the card, with the fused
+    # kernel and with the plain autograd backward
+    imgs_t, lbls_t = trainer.place(*next(iter(
+        make_loader(os.path.join(data, "train"), 256, train=True,
+                             size=224, workers=8, drop_last=True).epoch(0))))
+    step_ms = cuda_ms(lambda: trainer.step(momentum, imgs_t, lbls_t, 0.02),
+                      20)
+    trainer.fused_dw = False
+    plain_step_ms = cuda_ms(
+        lambda: trainer.step(momentum, imgs_t, lbls_t, 0.02), 20)
+    trainer.fused_dw = True
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: trainer.logits(imgs_t), 10)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # profiler cycle note
+        prof = _profile(lambda: trainer.step(momentum, imgs_t, lbls_t, 0.02))
+    if prof is None:
+        print("[vit_train] profiler: no device time seen (not measured)",
+              flush=True)
+    else:
+        print("[vit_train] profiled step (3 steps, device ms per step): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                  prof["ms_per_call"].items()))
+              + f"; device busy {prof['device_ms_per_call']:.2f} of "
+              f"{prof['wall_ms_per_call']:.2f} ms (idle share "
+              f"{prof['idle_share']:.3f}); largest of the rest: "
+              + "; ".join(f"{k} {v:.2f}" for k, v in
+                          prof["top_other_ms"].items()), flush=True)
+    # host decode alone: one training epoch of the loader without the card
+    t0 = time.time()
+    n_dec = sum(len(b[1]) for b in make_loader(
+        os.path.join(data, "train"), 256, train=True, size=224, workers=8,
+        drop_last=True).epoch(1))
+    decode_ips = n_dec / (time.time() - t0)
+    print(f"[vit_train] host decode alone (8 threads, RandomResizedCrop of "
+          f"256^2 JPEGs): {decode_ips:.1f} images/s", flush=True)
+    e2 = stats[-1]
+    ips = e2["images"] / e2["train_s"]
+    print(f"[vit_train] step on a batch on the card: {step_ms:.2f} ms with "
+          f"fused_dw ({256 / step_ms * 1e3:.1f} images/s), {plain_step_ms:.2f}"
+          f" ms with the plain backward; forward alone {fwd_ms:.2f} ms; epoch "
+          f"2: {e2['steps']} steps in {e2['train_s']:.2f} s with host decode "
+          f"({ips:.1f} training images/s), validation of 256 images "
+          f"{e2['val_s'] * 1e3:.1f} ms, epoch {e2['epoch_s']:.2f} s; peak "
+          f"device memory {peak_gib:.2f} GiB; {smi_line()}", flush=True)
+    RESULTS["vit_train"] = {
+        "steps": steps, "launches": launches, "run_s": run_s,
+        "epochs": stats, "rows": rows[1:], "resume_bit_exact": resume_exact,
+        "step_kernel_vs_plain": step_err, "step_ms": step_ms,
+        "plain_step_ms": plain_step_ms, "forward_ms": fwd_ms,
+        "train_images_per_s": ips, "val_ms": e2["val_s"] * 1e3,
+        "profile": prof, "decode_images_per_s": decode_ips,
+        "epoch_s": e2["epoch_s"], "peak_mem_gib": peak_gib}
+    del res, model, momentum, trainer, p0, m0
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernel,serve,train",
+    ap.add_argument("--phases", default="kernel,serve,train,vit_train",
                     help="comma list of phases to run (default: all)")
     ap.add_argument("--json", default=None,
                     help="also write every measured number to this file")
@@ -768,7 +1126,7 @@ def main(argv=None) -> int:
     RESULTS["card"] = smi
     phase_build()
     rows = phase_kernel(peaks) if "kernel" in phases else []
-    serve_launches = train_launches = None
+    serve_launches = train_launches = vit_launches = None
     tmp = os.path.join(ROOT, "vit_project_torch", "_build",
                        f"smoke-{os.getpid()}")
     os.makedirs(tmp, exist_ok=True)
@@ -777,12 +1135,17 @@ def main(argv=None) -> int:
             serve_launches = phase_serve(tmp)
         if "train" in phases:
             train_launches = phase_train(tmp)
+        if "vit_train" in phases:
+            vit_launches = phase_vit_train(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     def row_of(kernel, case):
         return next((r for r in rows if r["kernel"] == kernel
                      and r["case"] == case and r["dtype"] == "bfloat16"), {})
+
+    def vit(name):
+        return vit_launches and vit_launches[name]
 
     def entry(name, source, replaces, launches, by_path, errors, main_row,
               at):
@@ -797,7 +1160,8 @@ def main(argv=None) -> int:
         entry("flash3_fwd", "vit_project_torch/csrc/flash3_fwd.cu",
               "vit_project_tpu/ops/attention.py:465", serve_launches,
               {"serve": serve_launches,
-               "train": train_launches and train_launches["flash3_fwd"]},
+               "train": train_launches and train_launches["flash3_fwd"],
+               "vit_train": vit("flash3_fwd")},
               [r["max_abs_err_o"] for r in rows
                if r["kernel"] == "flash3_fwd"],
               row_of("flash3_fwd", "image_b256"),
@@ -806,19 +1170,27 @@ def main(argv=None) -> int:
         entry("flash3_bwd", "vit_project_torch/csrc/flash3_bwd.cu",
               "vit_project_tpu/ops/attention.py:480",
               train_launches and train_launches["flash3_bwd"],
-              {"train": train_launches and train_launches["flash3_bwd"]},
+              {"train": train_launches and train_launches["flash3_bwd"],
+               "vit_train": vit("flash3_bwd")},
               [r["max_abs_err"] for r in rows
                if r["kernel"] == "flash3_bwd"],
               row_of("flash3_bwd", "image_b64"),
               "image tower, training batch 64, bfloat16, qkv "
               "[64, 257, 3072], H=16; launches: the training run"),
+        entry("dw_db", "vit_project_torch/csrc/dw_db.cu",
+              "vit_project_tpu/ops/fused_dw.py:41", vit("dw_db"),
+              {"vit_train": vit("dw_db")},
+              [r["max_abs_err"] for r in rows if r["kernel"] == "dw_db"],
+              row_of("dw_db", "fc1"),
+              "ViT-B/16 step at batch 256, bfloat16, fc1: x [50432, 768], "
+              "g [50432, 3072]; launches: the vit_train run"),
     ]
     RESULTS["kernels"] = kernels
     if opts.json:
         os.makedirs(os.path.dirname(os.path.abspath(opts.json)), exist_ok=True)
         with open(opts.json, "w") as f:
             json.dump(RESULTS, f, indent=1)
-    if phases != {"kernel", "serve", "train"}:
+    if phases != {"kernel", "serve", "train", "vit_train"}:
         print("chip_smoke: partial run (--phases); no result line", flush=True)
         return 3
     print(json.dumps({"kernels": kernels}))

@@ -104,3 +104,54 @@ def test_flash3_bwd_kernel_rejects_what_it_has_no_template_for(cuda_device):
         tattn.flash3_bwd(torch.zeros(1, 8, 3 * 2 * 32, device=cuda_device),
                          torch.zeros(1, 8, 64, device=cuda_device),
                          torch.zeros(1, 8, 2, device=cuda_device), 2)
+
+
+# -- the fused dW + db kernel --------------------------------------------------
+
+def _xg(N, Din, Dout, seed):
+    rs = np.random.RandomState(seed)
+    return (torch.from_numpy(rs.randn(N, Din).astype(np.float32)),
+            torch.from_numpy(rs.randn(N, Dout).astype(np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Din,Dout", [(197, 64, 1000), (50, 768, 2304),
+                                        (300, 256, 768), (33, 13, 7),
+                                        (1000, 130, 250), (256, 768, 1000),
+                                        (4096, 768, 768)])
+def test_dw_db_kernel_matches_plain(cuda_device, dtype, N, Din, Dout):
+    """dW and db against the plain version on the same (rounded) inputs, max
+    |err| over the largest |value| of each output: 1e-5 (both are float32
+    sums of exact products in another order; over at most 4,096 rows the
+    rounding stays near sqrt(N) * 2^-24 = 4e-6; chip_smoke.py states 1e-4
+    for its 50,432 rows).
+    Ragged N, Din and Dout, a Din and Dout that are not multiples of 8 (the
+    element-wise load), and the row split; two launches give identical
+    bits (no atomics)."""
+    from vit_project_torch.ops import fused_dw as tfdw
+    x, g = (t.to(cuda_device, dtype) for t in _xg(N, Din, Dout, N + Din))
+    tfdw.reset_launch_counts()
+    dw, db = tfdw.dw_db(x, g)
+    assert tfdw.LAUNCHES["dw_db"] == 1
+    assert dw.shape == (Din, Dout) and db.shape == (Dout,)
+    assert dw.dtype == db.dtype == torch.float32
+    rdw, rdb = tfdw.dw_db_reference(x, g)
+    for a, r in ((dw, rdw), (db, rdb)):
+        assert float((a - r).abs().max()) <= 1e-5 * float(r.abs().max())
+    dw2, db2 = tfdw.dw_db(x, g)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+
+
+@pytest.mark.cuda
+def test_dw_db_kernel_rejects_what_it_does_not_take(cuda_device):
+    from vit_project_torch.ops import fused_dw as tfdw
+    x = torch.zeros(8, 16, device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfdw.dw_db(x.half(), x.half())
+    with pytest.raises(TypeError, match="share a dtype"):
+        tfdw.dw_db(x, x.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        tfdw.dw_db(x.t(), torch.zeros(16, 4, device=cuda_device))
+    with pytest.raises(ValueError, match="expected x2d"):
+        tfdw.dw_db(x, x[:4])

@@ -1,0 +1,531 @@
+"""The port's ViT-B/16 training path against the JAX package: the fused
+dW+db function and its autograd wrapper, the classifier forward through the
+weights bridge, one SGD step (fused and plain), the ImageFolder and packed
+loaders, the schedule and the metrics CSV, checkpoints resumed across
+packages in both directions, the port's own mid-epoch preemption, the
+refusals of what is not ported yet, and the ``cli.vit_train`` entry point on
+the CPU.
+
+Inputs are made with numpy from fixed seeds and handed to both packages;
+weights drawn by the JAX package reach the port through
+``models/convert.py``. float32 throughout; JAX runs with
+jax_default_matmul_precision "highest" (tests/conftest.py). On the CPU the
+port's kernel wrappers take their plain versions, and JAX's Pallas kernels
+run in interpret mode."""
+import dataclasses
+import os
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vit_project_tpu.core.configs import ViTTrainConfig as JTrainConfig
+from vit_project_tpu.models import vit as jvit
+from vit_project_tpu.ops import fused_dw as jfdw
+from vit_project_tpu.ops import nn as jnn
+from vit_project_torch.ckpt import serialization as tser
+from vit_project_torch.ckpt import vit_ckpt as tckpt
+from vit_project_torch.cli import vit_train as tcli
+from vit_project_torch.core.configs import ViTTrainConfig as TTrainConfig
+from vit_project_torch.models import convert as tconvert
+from vit_project_torch.models import vit as tvit
+from vit_project_torch.ops import fused_dw as tfdw
+from vit_project_torch.ops import nn as tnn
+from vit_project_torch.train import vit_loop as tloop
+
+NORM = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+# width 128 = 2 heads of 64 (the kernels' head width), 32 px images in 8 px
+# patches (S = 17)
+JCFG = jvit.ViTConfig(patch=8, width=128, layers=2, heads=2, image_size=32,
+                      num_classes=10)
+TCFG = tvit.ViTConfig(patch=8, width=128, layers=2, heads=2, image_size=32,
+                      num_classes=10)
+# the fixture's model: the JAX package's test-tiny with 3 classes
+JTINY = jvit.ViTConfig(patch=8, width=32, layers=2, heads=2, image_size=32,
+                       num_classes=3)
+TTINY = tvit.ViTConfig(patch=8, width=32, layers=2, heads=2, image_size=32,
+                       num_classes=3)
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _port_model(jparams, cfg=TCFG):
+    model = tvit.empty_vit(cfg, "cpu")
+    model.load_state_dict(tconvert.vit_state_dict_from_jax(_np_tree(jparams),
+                                                           cfg.patch))
+    return model
+
+
+def _assert_trees_close(a, b, rtol, atol):
+    la, lb = jax.tree_util.tree_leaves(a), jax.tree_util.tree_leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        np.testing.assert_allclose(np.asarray(x), np.asarray(y), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.fixture(scope="module")
+def imagenet(tmp_path_factory):
+    """Tiny ImageFolder (the JAX package's fixture, tests/test_vit_training.py):
+    3 classes x 16 train + 8 val PNGs at 48x48."""
+    from PIL import Image
+    root = tmp_path_factory.mktemp("imagenet")
+    rs = np.random.RandomState(0)
+    for split, n in (("train", 16), ("val", 8)):
+        for cls in ("apple", "banana", "cherry"):
+            d = root / split / cls
+            os.makedirs(d)
+            for i in range(n):
+                Image.fromarray(rs.randint(0, 255, (48, 48, 3),
+                                           dtype=np.uint8)).save(d / f"{i}.png")
+    return str(root)
+
+
+def _tiny(cfg_cls, data, out, epochs=2, **kw):
+    return cfg_cls(data_path=data, output_dir=out, batch_size=8, epochs=epochs,
+                   lr=0.01, warmup_epochs=1, num_workers=2, num_classes=3,
+                   image_size=32, compute_dtype="float32", random_seed=0, **kw)
+
+
+def _metrics(out):
+    with open(os.path.join(out, "training_metrics.csv")) as f:
+        return f.read().splitlines()
+
+
+# -- the fused dW + db function -------------------------------------------------
+
+@pytest.mark.parametrize("N,Din,Dout", [(50, 768, 2304), (197, 64, 1000),
+                                        (300, 256, 768), (64, 2048, 2560)])
+def test_dw_db_matches_jax_kernel_and_numpy(N, Din, Dout):
+    """The plain version (what a CPU tensor takes) against JAX's Pallas
+    kernel in interpret mode and against x^T g / the row sum in float64:
+    float32 sums in another order (rtol 2e-5, atol 2e-4, the JAX package's
+    own tolerance for its kernel)."""
+    rs = np.random.RandomState(N)
+    x = rs.randn(N, Din).astype(np.float32)
+    g = rs.randn(N, Dout).astype(np.float32)
+    dw, db = tfdw.dw_db(torch.from_numpy(x), torch.from_numpy(g))
+    assert dw.dtype == db.dtype == torch.float32
+    assert dw.shape == (Din, Dout) and db.shape == (Dout,)
+    jdw, jdb = jfdw.dw_db_pallas(jnp.asarray(x), jnp.asarray(g),
+                                 interpret=True)
+    for got, want in ((dw, np.asarray(jdw)), (db, np.asarray(jdb)),
+                      (dw, x.astype(np.float64).T @ g),
+                      (db, g.astype(np.float64).sum(0))):
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-4)
+
+
+def test_dw_db_row_splits_cover_the_rows():
+    """The kernel's row split: about two blocks per SM, never more splits
+    than row steps, one split when the tiles alone fill the card."""
+    bf = torch.bfloat16
+    assert tfdw.row_splits(50432, 768, 768, bf) == 8       # 36 tiles
+    assert tfdw.row_splits(50432, 768, 2304, bf) == 3      # 108 tiles
+    assert tfdw.row_splits(50432, 768, 3072, bf) == 2      # 144 tiles
+    assert tfdw.row_splits(20, 768, 768, bf) == 1          # one row step
+    assert tfdw.row_splits(50432, 768, 3072, torch.float32) == 1  # 576 tiles
+
+
+def test_dense_dw_fused_grads_match_autograd_and_jax():
+    """DenseDwFused's (dx, dW, db) against plain autograd of ``dense`` and
+    against jax.grad through JAX's dense_dw_fused (interpret mode): float32
+    sums in another order (rtol 2e-5, atol 2e-4)."""
+    rs = np.random.RandomState(1)
+    w = rs.randn(128, 256).astype(np.float32)
+    b = rs.randn(256).astype(np.float32)
+    x = rs.randn(4, 37, 128).astype(np.float32)
+
+    def port(fused):
+        tx, tw, tb = (torch.from_numpy(a).requires_grad_(True)
+                      for a in (x, w, b))
+        torch.sin(tnn.dense(tx, tw, tb, fused_dw=fused)).sum().backward()
+        return [t.grad.numpy() for t in (tx, tw, tb)]
+
+    def loss(x, w, b):
+        return jnp.sum(jnp.sin(jfdw.dense_dw_fused(x, w, b)))
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w),
+                                              jnp.asarray(b))
+    fused, plain = port(True), port(False)
+    for f, p, j in zip(fused, plain, want):
+        np.testing.assert_allclose(f, p, rtol=2e-5, atol=2e-4)
+        np.testing.assert_allclose(f, np.asarray(j), rtol=2e-5, atol=2e-4)
+
+
+def test_dense_takes_the_fused_path_only_with_a_bias():
+    x = torch.randn(3, 8, requires_grad=True)
+    w = torch.randn(8, 4, requires_grad=True)
+    y = tnn.dense(x, w, torch.zeros(4), fused_dw=True)
+    assert type(y.grad_fn).__name__.startswith("DenseDwFused")
+    y = tnn.dense(x, w, None, fused_dw=True)
+    assert not type(y.grad_fn).__name__.startswith("DenseDwFused")
+
+
+# -- the classifier forward ------------------------------------------------------
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_classifier_forward_matches_jax(use_pallas):
+    """vit_classify and forward_features (CLS and mean pooling) with the JAX
+    package's weights through the bridge, on raw uint8 images with the
+    normalization folded in. JAX on its einsum path, and on its Pallas
+    attention in interpret mode; the port on the packed attention's plain
+    version. float32: rtol 1e-4, atol 1e-5 (another order of summation in
+    the attention and the patch einsum)."""
+    params = jvit.init_vit_params(jax.random.PRNGKey(0), JCFG)
+    model = _port_model(params)
+    imgs = np.random.RandomState(2).randint(0, 256, (3, 32, 32, 3),
+                                            dtype=np.uint8)
+    want = jvit.vit_classify(params, jnp.asarray(imgs), JCFG,
+                             use_pallas=use_pallas, input_norm=NORM)
+    with torch.no_grad():
+        got = tvit.vit_classify(model, torch.from_numpy(imgs), input_norm=NORM)
+        assert got.dtype == torch.float32 and got.shape == (3, 10)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-5)
+        for pool in ("token", "avg"):
+            want = jvit.forward_features(params, jnp.asarray(imgs), JCFG,
+                                         pool=pool, use_pallas=use_pallas,
+                                         input_norm=NORM)
+            got = tvit.forward_features(model, torch.from_numpy(imgs),
+                                        pool=pool, input_norm=NORM)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-4, atol=1e-5)
+
+
+def test_patch_embed_affine_and_remat_match():
+    """The folded normalization equals normalize-then-embed, and a remat
+    forward + backward gives the same numbers as the plain one."""
+    from vit_project_torch.data import imagenet as timg
+    params = jvit.init_vit_params(jax.random.PRNGKey(3), JCFG)
+    model = _port_model(params)
+    imgs = torch.from_numpy(np.random.RandomState(4).randint(
+        0, 256, (2, 32, 32, 3), dtype=np.uint8))
+    with torch.no_grad():
+        a = tvit.vit_embed(model, imgs, input_norm=NORM)
+        b = tvit.vit_embed(model, timg.normalize_imagenet(imgs))
+    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
+    grads = []
+    for remat in (False, True):
+        model.zero_grad()
+        tvit.vit_classify(model, imgs, input_norm=NORM,
+                          remat=remat).sum().backward()
+        grads.append([p.grad.clone() for p in model.parameters()])
+    for x, y in zip(*grads):
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-7)
+
+
+def test_init_distributions_match_jax():
+    """init_vit_params draws what JAX's does: truncated normals of std 0.02
+    cut at two deviations, unit LayerNorms, zero biases."""
+    model = tvit.init_vit_params(tvit.empty_vit(TCFG, "cpu"),
+                                 torch.Generator().manual_seed(0))
+    jtree = _np_tree(jvit.init_vit_params(jax.random.PRNGKey(0), JCFG))
+    ttree = tconvert.vit_jax_from_state_dict(model.state_dict())
+    assert jax.tree_util.tree_structure(jtree) == \
+        jax.tree_util.tree_structure(ttree)
+    for j, t in zip(jax.tree_util.tree_leaves(jtree),
+                    jax.tree_util.tree_leaves(ttree)):
+        assert j.shape == t.shape
+        if np.all(j == j.flat[0]):          # LayerNorm scales, biases
+            np.testing.assert_array_equal(t, j)
+        else:
+            assert np.abs(t).max() <= 0.04 + 1e-7
+            assert abs(t.std() - j.std()) < 0.1 * j.std()
+
+
+def test_bridge_is_bit_exact_both_ways():
+    tree = _np_tree(jvit.init_vit_params(jax.random.PRNGKey(5), JCFG))
+    back = tconvert.vit_jax_from_state_dict(
+        tconvert.vit_state_dict_from_jax(tree, JCFG.patch))
+    assert jax.tree_util.tree_structure(back) == \
+        jax.tree_util.tree_structure(tree)
+    for a, b in zip(jax.tree_util.tree_leaves(tree),
+                    jax.tree_util.tree_leaves(back)):
+        np.testing.assert_array_equal(a, b)
+
+
+# -- one SGD step ---------------------------------------------------------------
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_one_train_step_matches_jax_fused_step(fused):
+    """The port's step (with and without the fused dW+db) against JAX's
+    ViTTrainer step with fused_dw=True on a one-device mesh, from the same
+    params, a non-zero momentum and a batch: the loss, every parameter and
+    every momentum buffer. float32: rtol 1e-4, atol 1e-6."""
+    from vit_project_tpu.parallel import mesh as jmesh
+    from vit_project_tpu.train import vit_loop as jloop
+    rs = np.random.RandomState(6)
+    imgs = rs.randint(0, 256, (8, 32, 32, 3), dtype=np.uint8)
+    lbls = rs.randint(0, 10, 8).astype(np.int32)
+    params = jvit.init_vit_params(jax.random.PRNGKey(7), JCFG)
+    mom = jax.tree_util.tree_map(
+        lambda p: jnp.asarray(rs.randn(*p.shape).astype(np.float32) * 1e-3),
+        params)
+    np_params, np_mom = _np_tree(params), _np_tree(mom)
+    jtr = jloop.ViTTrainer(JCFG, JTrainConfig(
+        batch_size=8, compute_dtype="float32", image_size=32, num_classes=10,
+        fused_dw=True), jmesh.make_mesh(n_data=1, devices=jax.devices()[:1]))
+    try:
+        step = jtr._make_train_step(None)
+        jp, jm, jl = step(params, mom, jnp.asarray(imgs), jnp.asarray(lbls),
+                          0.1, jax.random.PRNGKey(1), 0.1)
+        jp, jm, jl = _np_tree(jp), _np_tree(jm), float(jl)
+    finally:
+        jnn.set_dense_dw_fused(False)
+
+    model = _port_model(np_params)
+    tcfg = TTrainConfig(batch_size=8, compute_dtype="float32", image_size=32,
+                        num_classes=10, fused_dw=fused)
+    tr = tloop.ViTTrainer(TCFG, tcfg, model, "cpu")
+    momentum = tconvert.vit_state_dict_from_jax(np_mom, TCFG.patch)
+    loss = tr.step(momentum, *tr.place(imgs, lbls), 0.1)
+    assert abs(float(loss) - jl) < 1e-5 * max(1.0, abs(jl))
+    tp, tm = tloop._jax_trees(model, momentum)
+    _assert_trees_close(tp, jp, rtol=1e-4, atol=1e-6)
+    _assert_trees_close(tm, jm, rtol=1e-4, atol=1e-6)
+    assert jnn._DW_FUSED is False   # JAX's process-wide toggle restored
+
+
+def test_grad_accum_matches_the_unsplit_step():
+    """grad_accum=2 sums two microbatches' gradients: the same update as the
+    unsplit step up to float32 summation order (rtol 1e-5, atol 1e-7)."""
+    rs = np.random.RandomState(8)
+    imgs = rs.randint(0, 256, (8, 32, 32, 3), dtype=np.uint8)
+    lbls = rs.randint(0, 10, 8).astype(np.int32)
+    tree = _np_tree(jvit.init_vit_params(jax.random.PRNGKey(9), JCFG))
+    out = []
+    for G in (1, 2):
+        model = _port_model(tree)
+        tr = tloop.ViTTrainer(TCFG, TTrainConfig(
+            compute_dtype="float32", num_classes=10, grad_accum=G), model,
+            "cpu")
+        momentum = tloop.sgd_init(dict(model.named_parameters()))
+        out.append((float(tr.step(momentum, *tr.place(imgs, lbls), 0.1)),
+                    tloop._jax_trees(model, momentum)))
+    assert abs(out[0][0] - out[1][0]) < 1e-6
+    _assert_trees_close(out[0][1], out[1][1], rtol=1e-5, atol=1e-7)
+
+
+# -- loaders, schedule, CSV -------------------------------------------------------
+
+def test_image_folder_and_packed_loaders_match_jax(imagenet, tmp_path):
+    """Train batches of two epochs (shuffle and crops from the seed, the
+    epoch and the index) and the val batches, byte for byte, from the
+    ImageFolder tree and from a pack the JAX package wrote."""
+    from vit_project_tpu.data import imagenet as jimg
+    from vit_project_tpu.data import packed as jpacked
+    from vit_project_torch.data import imagenet as timg
+    from vit_project_torch.data import packed as tpacked
+    for split in ("train", "val"):
+        jpacked.pack_image_folder(os.path.join(imagenet, split),
+                                  str(tmp_path / split), shard_mb=1,
+                                  logger=None)
+    assert tpacked.is_packed(str(tmp_path / "train"))
+    assert not tpacked.is_packed(os.path.join(imagenet, "train"))
+    for split, train, epochs in (("train", True, (0, 1)),
+                                 ("val", False, (0,))):
+        kw = dict(train=train, seed=3, size=32, workers=2, drop_last=train)
+        want = jimg.ImageFolderLoader(os.path.join(imagenet, split), 8, **kw)
+        for got in (timg.ImageFolderLoader(os.path.join(imagenet, split), 8,
+                                           **kw),
+                    tpacked.make_loader(str(tmp_path / split), 8, **kw)):
+            assert len(got) == len(want)
+            assert got.classes == want.classes
+            for e in epochs:
+                pairs = list(zip(got.epoch(e), want.epoch(e)))
+                assert len(pairs) == len(want)
+                for (gi, gl), (wi, wl) in pairs:
+                    np.testing.assert_array_equal(gi, wi)
+                    np.testing.assert_array_equal(gl, wl)
+
+
+def test_schedule_and_metrics_csv_match_jax(tmp_path):
+    from vit_project_tpu.core import csvio as jcsv
+    from vit_project_tpu.train.schedules import CosineAnnealingLRWithWarmup \
+        as JSched
+    from vit_project_torch.core import csvio as tcsv
+    from vit_project_torch.train.schedules import \
+        CosineAnnealingLRWithWarmup as TSched
+    j, t = JSched(0.1, 5, 30), TSched(0.1, 5, 30)
+    for _ in range(30):
+        assert t.peek() == j.peek()
+        assert t.step() == j.step()
+        assert t.state_dict() == j.state_dict()
+    t2 = TSched(1.0, 1, 2)
+    t2.load_state_dict(j.state_dict())
+    assert t2.state_dict() == j.state_dict()
+    rows = [(0, 2.302585092994, 2.2, 12.5), (1, 1.5, 1.25e-7, 100.0)]
+    for mod, name in ((jcsv, "j.csv"), (tcsv, "t.csv")):
+        for r in rows:
+            mod.append_vit_row(str(tmp_path / "m" / name), *r)
+    assert (tmp_path / "m" / "t.csv").read_bytes() == \
+        (tmp_path / "m" / "j.csv").read_bytes()
+
+
+# -- whole runs -----------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def runs(imagenet, tmp_path_factory):
+    """Uninterrupted 2-epoch runs of both packages on the fixture."""
+    from vit_project_tpu.train.vit_loop import run_vit_training as jrun
+    root = tmp_path_factory.mktemp("runs")
+    out = {"jax": str(root / "jax"), "port": str(root / "port")}
+    jrun(_tiny(JTrainConfig, imagenet, out["jax"]), vit_cfg=JTINY)
+    tloop.run_vit_training(_tiny(TTrainConfig, imagenet, out["port"]),
+                           vit_cfg=TTINY, device="cpu")
+    return out
+
+
+def _resume_dir(src, dst):
+    """A run tree holding only epoch 0 of `src` (its checkpoint as latest,
+    its first metrics row)."""
+    os.makedirs(dst)
+    shutil.copyfile(os.path.join(src, "checkpoint_epoch_000.pth"),
+                    os.path.join(dst, "checkpoint_latest.pth"))
+    with open(os.path.join(dst, "training_metrics.csv"), "w") as f:
+        f.write("\n".join(_metrics(src)[:2]) + "\n")
+
+
+def _assert_rows_close(got, want):
+    """Epoch, losses to rtol 1e-4 (float32 in another order over one epoch
+    of training); accuracy within one of the 24 val images."""
+    g, w = got.split(","), want.split(",")
+    assert g[0] == w[0]
+    np.testing.assert_allclose([float(v) for v in g[1:3]],
+                               [float(v) for v in w[1:3]], rtol=1e-4)
+    assert abs(float(g[3]) - float(w[3])) <= 100 / 24 + 1e-6
+
+
+def test_port_run_writes_the_reference_tree(runs):
+    rows = _metrics(runs["port"])
+    assert rows[0] == "epoch,train_loss,val_loss,val_acc"
+    assert [r.split(",")[0] for r in rows[1:]] == ["0", "1"]
+    for e in (0, 1):
+        assert tckpt.epoch_checkpoint(runs["port"], e) is not None
+    ck = tckpt.load_checkpoint(tckpt.latest_checkpoint(runs["port"]))
+    assert ck["epoch"] == 1 and set(ck) == {
+        "epoch", "params", "opt_state", "scheduler_state", "train_loss",
+        "val_loss", "val_acc"}
+    jck = tser.load(os.path.join(runs["jax"], "checkpoint_latest.pth"))
+    assert jax.tree_util.tree_structure(ck["params"]) == \
+        jax.tree_util.tree_structure(_np_tree(jck["params"]))
+    assert ck["scheduler_state"] == jck["scheduler_state"]
+
+
+def test_port_resumes_a_jax_run(runs, imagenet, tmp_path):
+    out = str(tmp_path / "port_from_jax")
+    _resume_dir(runs["jax"], out)
+    tloop.run_vit_training(_tiny(TTrainConfig, imagenet, out),
+                           vit_cfg=TTINY, device="cpu")
+    got, want = _metrics(out), _metrics(runs["jax"])
+    assert got[:2] == want[:2] and len(got) == 3
+    _assert_rows_close(got[2], want[2])
+
+
+def test_jax_resumes_a_port_run(runs, imagenet, tmp_path):
+    from vit_project_tpu.train.vit_loop import run_vit_training as jrun
+    out = str(tmp_path / "jax_from_port")
+    _resume_dir(runs["port"], out)
+    jrun(_tiny(JTrainConfig, imagenet, out), vit_cfg=JTINY)
+    got, want = _metrics(out), _metrics(runs["port"])
+    assert got[:2] == want[:2] and len(got) == 3
+    _assert_rows_close(got[2], want[2])
+
+
+class _TripAfter:
+    """A preemption guard that asks to stop after `n` batches."""
+
+    def __init__(self, n):
+        self.n, self.seen, self.mid_state = n, 0, None
+
+    def should_stop(self):
+        self.seen += 1
+        return self.seen >= self.n
+
+
+def test_port_mid_epoch_preemption_resumes_bit_exactly(runs, imagenet,
+                                                       tmp_path):
+    """Stopped after 3 batches of epoch 1 (of 6), then run again: the rows,
+    parameters and momentum equal the uninterrupted run's bit for bit."""
+    out = str(tmp_path / "preempted")
+    _resume_dir(runs["port"], out)
+    res = tloop.run_vit_training(_tiny(TTrainConfig, imagenet, out),
+                                 vit_cfg=TTINY, device="cpu",
+                                 preempt_guard=_TripAfter(3))
+    assert res["preempted"]
+    pc = tser.load(os.path.join(out, "checkpoint_preempt.pth"))
+    assert (pc["epoch"], pc["batch_idx"], pc["num_batches"]) == (1, 3, 3)
+    tloop.run_vit_training(_tiny(TTrainConfig, imagenet, out),
+                           vit_cfg=TTINY, device="cpu")
+    assert not os.path.exists(os.path.join(out, "checkpoint_preempt.pth"))
+    assert _metrics(out) == _metrics(runs["port"])
+    a = tckpt.load_checkpoint(os.path.join(out, "checkpoint_latest.pth"))
+    b = tckpt.load_checkpoint(os.path.join(runs["port"],
+                                           "checkpoint_latest.pth"))
+    for k in ("params", "opt_state"):
+        for x, y in zip(jax.tree_util.tree_leaves(a[k]),
+                        jax.tree_util.tree_leaves(b[k])):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_cli_trains_on_the_cpu_and_defaults_to_the_card(imagenet, tmp_path):
+    out = str(tmp_path / "cli")
+    args = ["--data_path", imagenet, "--output_dir", out, "--backbone",
+            "test-tiny", "--epochs", "1", "--batch_size", "8",
+            "--num_workers", "2", "--compute_dtype", "float32",
+            "--keep_last", "1"]
+    tcli.main(args + ["--device", "cpu"])
+    assert [r.split(",")[0] for r in _metrics(out)[1:]] == ["0"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tcli.main(args + ["--output_dir", str(tmp_path / "cuda")])
+
+
+# -- refusals -------------------------------------------------------------------
+
+@pytest.mark.parametrize("field,value", [
+    ("pp_stages", 2), ("sp_devices", 2), ("sp_ring", True), ("ep_devices", 2),
+    ("tp_devices", 2), ("zero1", True), ("fsdp", True), ("moe_experts", 4),
+    ("host_prefetch", True), ("use_native_loader", True),
+    ("profile_dir", "trace")])
+def test_unported_modes_are_refused_by_name(imagenet, tmp_path, field, value):
+    cfg = dataclasses.replace(_tiny(TTrainConfig, imagenet,
+                                    str(tmp_path / "x")), **{field: value})
+    with pytest.raises(NotImplementedError, match=field):
+        tloop.run_vit_training(cfg, vit_cfg=TTINY, device="cpu")
+
+
+@pytest.mark.parametrize("flag", [["--sp_devices", "2"], ["--zero1"],
+                                  ["--moe_experts", "2"]])
+def test_cli_refuses_unported_flags(imagenet, tmp_path, flag):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tcli.main(["--data_path", imagenet, "--output_dir",
+                   str(tmp_path / "x"), "--backbone", "test-tiny",
+                   "--device", "cpu", *flag])
+
+
+def test_other_unported_paths_are_refused_by_name(imagenet, tmp_path):
+    from vit_project_torch.data import imagenet as timg
+    model = tvit.empty_vit(TTINY, "cpu")
+    imgs = torch.zeros(1, 32, 32, 3)
+    for kw, name in ((dict(seq_shard=object()), "seq_shard"),
+                     (dict(ring_attn=True), "ring_attn"),
+                     (dict(with_aux=True), "with_aux"),
+                     (dict(head_shard=object()), "head_shard")):
+        with pytest.raises(NotImplementedError, match=name):
+            tvit.vit_classify(model, imgs, **kw)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        tvit.empty_vit(dataclasses.replace(TTINY, moe_experts=2), "cpu")
+    with pytest.raises(NotImplementedError, match="use_native"):
+        timg.ImageFolderLoader(os.path.join(imagenet, "train"), 8,
+                               train=True, use_native=True)
+    tr = tloop.ViTTrainer(TTINY, TTrainConfig(num_classes=3), model, "cpu")
+    with pytest.raises(NotImplementedError, match="perturbation_type"):
+        tr.train_one_epoch({}, None, 0, 0.1, perturbation_type="gaussian")
+    os.makedirs(tmp_path / "pod" / "checkpoint_latest.orbax")
+    with pytest.raises(NotImplementedError, match="orbax"):
+        tckpt.latest_checkpoint(str(tmp_path / "pod"))

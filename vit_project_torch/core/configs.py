@@ -1,12 +1,16 @@
 """Config surface and dataset constants the port needs (copies of the JAX
-package's core/configs.py: ``ClipRunConfig`` and the THINGS statistics).
+package's core/configs.py: ``ClipRunConfig``, ``ViTTrainConfig`` and the
+THINGS and ImageNet statistics).
 
 ``ClipRunConfig`` mirrors the reference's plain-dict config contract
 (reference clip_train_behavior_baseline.py:11-33) so drivers are written the
 same way in both packages. Fields for features that later slices of the port
 bring (remat, sequence parallelism, the frozen-prefix cache, NOD dumps) are
 kept so a config dict means the same thing to both packages; the training
-loop refuses them by name until they are ported.
+loop refuses them by name until they are ported. ``ViTTrainConfig`` keeps
+every field of the JAX package's, with its defaults, for the same reason:
+the ViT loop refuses the parallel modes, MoE, the native loader, the
+asynchronous checkpoint copy and the profiler by name.
 """
 from __future__ import annotations
 
@@ -121,6 +125,71 @@ class ClipRunConfig:
         return dataclasses.asdict(self)
 
 
-# THINGS image normalization (exact values from the reference).
+@dataclass
+class ViTTrainConfig:
+    """ViT-B/16 ImageNet supervised training (reference train_vit_sgd.py:246-257)."""
+
+    data_path: str = ""
+    output_dir: str = "./vit_out"
+    batch_size: int = 256          # global batch (one process, one card)
+    epochs: int = 100
+    lr: float = 0.1
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    num_workers: int = 8
+    warmup_epochs: int = 5
+    num_classes: int = 1000
+    random_seed: int = 0
+    compute_dtype: str = "bfloat16"  # AMP-equivalent; bf16 needs no GradScaler
+    image_size: int = 224
+    profile_dir: Optional[str] = None  # profiler trace of the first epoch
+                                       # (not ported yet)
+    use_native_loader: bool = False    # C++ decode core (not ported yet)
+    data_echo: int = 1                 # yield each decoded train batch N times
+                                       # (mitigation when host decode cannot
+                                       # feed the device step rate)
+    remat: bool = False  # recompute each block in the backward: O(1)-block
+                         # activation memory for ~1/3 extra FLOPs
+    fused_dw: bool = False  # route every dense backward with a bias through
+                            # the fused dW+db kernel (ops/fused_dw.py)
+    pp_stages: int = 1   # pipeline stages (not ported yet)
+    pp_micro: int = 1    # microbatches per pipelined step (with pp_stages)
+    grad_accum: int = 1  # >1: split each batch into N gradient microbatches
+                         # in one step; peak activation memory drops to one
+                         # microbatch's, numerically the unsplit step (CE is
+                         # a mean over the batch)
+    device_prefetch: int = 2  # h2d lookahead: a feeder thread copies batch
+                              # k+1 to the card while batch k trains; 0 = off.
+                              # Same batches in the same order either way.
+    zero1: bool = False  # shard the SGD momentum (not ported yet)
+    fsdp: bool = False   # shard params and momentum (not ported yet)
+    tp_devices: int = 1  # tensor parallelism (not ported yet)
+    sp_devices: int = 1  # sequence parallelism (not ported yet)
+    sp_ring: bool = False  # ring attention with sp_devices (not ported yet)
+    ep_devices: int = 1  # expert parallelism (not ported yet)
+    moe_experts: int = 0  # MoE MLPs (not ported yet)
+    moe_topk: int = 1     # 1 = Switch top-1 routing, 2 = GShard top-2
+    moe_capacity: float = 1.25  # per-expert capacity factor
+    moe_aux_weight: float = 0.01  # weight of the MoE load-balance loss
+    host_prefetch: bool = False  # asynchronous copy-out of the per-epoch
+                                 # checkpoint trees (not ported yet)
+    preempt_save: bool = True  # catch SIGTERM mid-epoch, write
+                               # checkpoint_preempt.pth, exit resumable
+                               # (core/preempt.py)
+    keep_last: int = 0  # >0: delete per-epoch checkpoints older than the
+                        # last N after each save (~1 GB each at ViT-B scale
+                        # with the momentum). Keep-all default: the
+                        # measurement grid and sweep forks restore
+                        # arbitrary epochs.
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ViTTrainConfig":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+
+# Normalization constants (exact values from the reference).
 THINGS_MEAN = (0.52997664, 0.48070561, 0.41943838)
 THINGS_STD = (0.27608301, 0.26593025, 0.28238822)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)

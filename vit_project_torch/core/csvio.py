@@ -1,10 +1,12 @@
-"""CSV output contract of the CLIP per-epoch run (copy of the CLIP part of
-the JAX package's core/csvio.py).
+"""CSV output contracts of the CLIP per-epoch run and of the ViT training
+run (copies of those parts of the JAX package's core/csvio.py).
 
 The analysis notebooks of the reference parse this byte-exact schema:
 epoch,train_loss,test_loss,behavioral_rsa_rho,behavioral_rsa_p_value,
 used_random_targets,used_shuffled_targets,used_uniform_images,used_image_noise
 (reference new_cvpr_train_behavior_things_pipeline.py:795,1026-1031).
+The ViT run writes training_metrics.csv: epoch,train_loss,val_loss,val_acc
+with 0-indexed epochs and fixed float formats.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ CLIP_HEADERS = [
     "behavioral_rsa_p_value", "used_random_targets", "used_shuffled_targets",
     "used_uniform_images", "used_image_noise",
 ]
+VIT_HEADER_LINE = "epoch,train_loss,val_loss,val_acc\n"
 
 
 def init_clip_csv(
@@ -126,3 +129,17 @@ def last_completed_epoch0(training_res_path: str) -> int:
                 except (ValueError, IndexError):
                     continue
     return last
+
+
+def append_vit_row(csv_path: str, epoch: int, train_loss: float,
+                   val_loss: float, val_acc: float) -> None:
+    """Append to the ViT metrics CSV (0-indexed epochs, fixed float formats
+    matching reference save_checkpoint train_vit_sgd.py:116-123)."""
+    if not os.path.exists(csv_path):
+        d = os.path.dirname(csv_path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        with open(csv_path, "w") as f:
+            f.write(VIT_HEADER_LINE)
+    with open(csv_path, "a") as f:
+        f.write(f"{epoch},{train_loss:.6f},{val_loss:.6f},{val_acc:.4f}\n")

@@ -21,7 +21,7 @@ from torch import nn
 from ..ops import dora as vdora
 from ..ops import nn as vnn
 from . import vit as vvit
-from .vit import ViTConfig
+from .vit import CLIP_VISUAL_FLAGS, ViTConfig
 
 
 @dataclass(frozen=True)
@@ -51,7 +51,7 @@ CLIP_CONFIGS = {
     "ViT-L/14": CLIP_VIT_L14,
     "test-tiny": CLIPConfig(
         visual=ViTConfig(patch=32, width=32, layers=2, heads=2,
-                         image_size=224, out_dim=16),
+                         image_size=224, out_dim=16, **CLIP_VISUAL_FLAGS),
         text=TextConfig(width=32, layers=2, heads=2, vocab_size=49408,
                         context_length=77),
         embed_dim=16),
@@ -63,7 +63,8 @@ def tiny_clip_config(width=32, layers=2, heads=2, patch=16, image_size=32,
     """Miniature CLIP for tests."""
     return CLIPConfig(
         visual=ViTConfig(patch=patch, width=width, layers=layers, heads=heads,
-                         image_size=image_size, out_dim=embed_dim),
+                         image_size=image_size, out_dim=embed_dim,
+                         **CLIP_VISUAL_FLAGS),
         text=TextConfig(width=width, layers=layers, heads=heads,
                         vocab_size=vocab, context_length=context),
         embed_dim=embed_dim)

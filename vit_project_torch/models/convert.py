@@ -1,4 +1,5 @@
-"""The weights bridge: checkpoint files and JAX parameter trees -> ``CLIP``.
+"""The weights bridge: checkpoint files and JAX parameter trees -> ``CLIP``,
+and the ViT classifier's parameter and momentum trees both ways.
 
 Everything reaches the port's ``CLIP`` as one OpenAI-format state dict,
 loaded with ``load_state_dict(strict=True)``:
@@ -13,6 +14,14 @@ The DoRA adapter trees cross between the packages through
 ``ckpt/clip_ckpt.py``.
 
 ViT visual towers only; the ModifiedResNet family is not ported yet.
+
+The ViT classifier crosses as timm-named {name: tensor} maps
+(``VisionTransformerClassifier.state_dict()`` names): ``vit_state_dict_from_jax``
+and ``vit_jax_from_state_dict`` follow the JAX package's
+``vit_params_from_timm_state_dict`` / ``timm_state_dict_from_vit_params``
+layout, bit for bit both ways. The same two functions carry the SGD momentum,
+which is a tree of the parameters' shapes; the ViT checkpoints store both in
+the JAX tree layout, so the two packages resume each other's runs.
 """
 from __future__ import annotations
 
@@ -20,7 +29,7 @@ import numpy as np
 import torch
 
 from .clip import CLIP, CLIPConfig, TextConfig, empty_clip
-from .vit import ViTConfig
+from .vit import CLIP_VISUAL_FLAGS, ViTConfig
 
 # integer metadata an OpenAI jit archive keeps beside the weights
 _ARCHIVE_METADATA = ("input_resolution", "context_length", "vocab_size")
@@ -61,7 +70,8 @@ def clip_config_from_state_dict(sd: dict) -> CLIPConfig:
     return CLIPConfig(
         visual=ViTConfig(patch=patch, width=vision_width, layers=vision_layers,
                          heads=max(1, vision_width // 64),
-                         image_size=grid * patch, out_dim=embed_dim),
+                         image_size=grid * patch, out_dim=embed_dim,
+                         **CLIP_VISUAL_FLAGS),
         text=text, embed_dim=embed_dim)
 
 
@@ -143,3 +153,82 @@ def adapters_to_jax(tree: dict) -> dict:
                          for k, v in d.items()}
                 for i, d in blocks.items()}
             for t, blocks in tree.items()}
+
+
+# -- the ViT classifier ---------------------------------------------------------
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def vit_state_dict_from_jax(tree: dict, patch: int) -> dict:
+    """A JAX-layout ViT classifier tree (the params or the momentum; arrays
+    convertible with np.asarray) -> timm-named {name: float32 tensor}."""
+    sd = {"patch_embed.proj.weight": patch_matrix_to_conv_kernel(
+              _np(tree["patch_w"]), patch),
+          "cls_token": _np(tree["cls"]).reshape(1, 1, -1),
+          "pos_embed": _np(tree["pos"])[None]}
+    if tree.get("patch_b") is not None:
+        sd["patch_embed.proj.bias"] = _np(tree["patch_b"])
+    if "ln_pre" in tree:
+        sd["norm_pre.weight"] = _np(tree["ln_pre"]["scale"])
+        sd["norm_pre.bias"] = _np(tree["ln_pre"]["bias"])
+    for i, b in enumerate(tree["blocks"]):
+        p = f"blocks.{i}."
+        for ours, name in (("ln1", "norm1"), ("ln2", "norm2")):
+            sd[p + name + ".weight"] = _np(b[ours]["scale"])
+            sd[p + name + ".bias"] = _np(b[ours]["bias"])
+        for ours, name in (("qkv", "attn.qkv"), ("out", "attn.proj"),
+                           ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+            sd[p + name + ".weight"] = np.ascontiguousarray(
+                _np(b[ours + "_w"]).T)
+            sd[p + name + ".bias"] = _np(b[ours + "_b"])
+    sd["norm.weight"] = _np(tree["norm"]["scale"])
+    sd["norm.bias"] = _np(tree["norm"]["bias"])
+    sd["head.weight"] = np.ascontiguousarray(_np(tree["head_w"]).T)
+    sd["head.bias"] = _np(tree["head_b"])
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+def vit_jax_from_state_dict(sd: dict) -> dict:
+    """timm-named {name: tensor or array} (the classifier's parameters or
+    its momentum) -> the JAX package's ViT tree of float32 numpy arrays."""
+    layers = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+
+    def ln(prefix):
+        return {"scale": _np(sd[prefix + ".weight"]),
+                "bias": _np(sd[prefix + ".bias"])}
+
+    def t(name):
+        return np.ascontiguousarray(_np(sd[name]).T)
+
+    blocks = []
+    for i in range(layers):
+        p = f"blocks.{i}."
+        blocks.append({
+            "ln1": ln(p + "norm1"),
+            "qkv_w": t(p + "attn.qkv.weight"), "qkv_b": _np(sd[p + "attn.qkv.bias"]),
+            "out_w": t(p + "attn.proj.weight"),
+            "out_b": _np(sd[p + "attn.proj.bias"]),
+            "ln2": ln(p + "norm2"),
+            "fc1_w": t(p + "mlp.fc1.weight"), "fc1_b": _np(sd[p + "mlp.fc1.bias"]),
+            "fc2_w": t(p + "mlp.fc2.weight"), "fc2_b": _np(sd[p + "mlp.fc2.bias"]),
+        })
+    pos = _np(sd["pos_embed"])
+    tree = {
+        "patch_w": np.ascontiguousarray(_np(sd["patch_embed.proj.weight"])
+                                        .transpose(2, 3, 1, 0)
+                                        .reshape(-1, pos.shape[-1])),
+        "patch_b": (_np(sd["patch_embed.proj.bias"])
+                    if "patch_embed.proj.bias" in sd else None),
+        "cls": _np(sd["cls_token"]).reshape(-1),
+        "pos": pos.reshape(pos.shape[-2], pos.shape[-1]),
+        "blocks": blocks,
+        "norm": ln("norm"),
+        "head_w": t("head.weight"), "head_b": _np(sd["head.bias"]),
+    }
+    if "norm_pre.weight" in sd:
+        tree["ln_pre"] = ln("norm_pre")
+    return tree

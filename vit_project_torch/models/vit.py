@@ -1,9 +1,12 @@
-"""The CLIP visual tower: a pre-norm Vision Transformer with OpenAI's names.
+"""Vision Transformers: the CLIP visual tower under OpenAI's names and the
+timm-style ViT classifier under timm's names.
 
-Counterpart of the CLIP side of the JAX package's models/vit.py. The
-modules only hold parameters, under OpenAI CLIP's state-dict names
-(``conv1.weight``, ``transformer.resblocks.{i}.attn.in_proj_weight``,
-``ln_1``, ``mlp.c_fc``, ...); the forward is plain functions on them:
+Counterpart of the JAX package's models/vit.py. The modules only hold
+parameters; the forward is plain functions on them.
+
+The CLIP visual tower (``conv1.weight``,
+``transformer.resblocks.{i}.attn.in_proj_weight``, ``ln_1``, ``mlp.c_fc``,
+...):
 
 - ``block_forward``: the pre-norm block with the semantics of the JAX
   block's fused-kernel branch. The 1/sqrt(dh) score scale is folded into the
@@ -14,6 +17,22 @@ modules only hold parameters, under OpenAI CLIP's state-dict names
   dropout streams (shared by the image and text towers).
 - ``clip_visual_encode``: stem (patch embed + CLS + positions + ln_pre),
   blocks, then ln_post over the CLS token and the projection, in f32.
+
+The classifier (``VisionTransformerClassifier``: ``patch_embed.proj``,
+``cls_token``, ``pos_embed``, ``blocks.{i}.norm1/attn.qkv/attn.proj/norm2/
+mlp.fc1/mlp.fc2``, ``norm``, ``head``), the model of ViT-B/16 ImageNet
+training:
+
+- ``classifier_block``: the same fused-kernel branch of the JAX block, with
+  the tanh GELU by default and a per-call ``fused_dw`` that routes every
+  dense layer's weight and bias gradients through ``ops/fused_dw.py``;
+- ``vit_embed`` (patch embed with the input normalization folded in, CLS,
+  positions), ``vit_encode`` (blocks, final LayerNorm over all tokens, each
+  block optionally recomputed in the backward), ``vit_classify`` (f32
+  logits from the CLS token) and ``forward_features`` (CLS or mean pooling).
+
+MoE blocks, ring attention, sequence and head sharding and int8 weights are
+not ported yet and are refused by name.
 """
 from __future__ import annotations
 
@@ -21,6 +40,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops import attention as vattn
@@ -34,16 +54,40 @@ class ViTConfig:
     width: int = 768
     layers: int = 12
     heads: int = 12
+    mlp_ratio: int = 4
     image_size: int = 224
+    pre_norm: bool = False        # LayerNorm after the stem (CLIP's ln_pre)
+    patch_bias: bool = True       # CLIP's conv1 has no bias
+    quick_gelu: bool = False      # CLIP uses QuickGELU
+    gelu_approx: bool = True      # tanh-approximate GELU, the JAX package's
+                                  # default (timm's is the exact erf GELU)
     out_dim: Optional[int] = None  # CLIP projection dim (768 for ViT-L/14)
+    num_classes: Optional[int] = None  # classifier head (timm path)
+    moe_experts: int = 0          # MoE MLPs (not ported yet)
 
     @property
     def seq_len(self) -> int:
         return (self.image_size // self.patch) ** 2 + 1
 
 
+# the CLIP visual tower's flags (models/clip.py builds its towers with them)
+CLIP_VISUAL_FLAGS = dict(pre_norm=True, patch_bias=False, quick_gelu=True)
 CLIP_VIT_L14_VISUAL = ViTConfig(patch=14, width=1024, layers=24, heads=16,
-                                out_dim=768)
+                                out_dim=768, **CLIP_VISUAL_FLAGS)
+
+VIT_B16 = ViTConfig(patch=16, width=768, layers=12, heads=12, num_classes=1000)
+
+# name registry for CLI surfaces (timm-style names; the reference uses
+# timm.create_model('vit_base_patch16_224'), train_vit_sgd.py:283)
+VIT_CONFIGS = {
+    "vit_base_patch16_224": VIT_B16,
+    "vit_small_patch16_224": ViTConfig(patch=16, width=384, layers=12, heads=6,
+                                       num_classes=1000),
+    "vit_large_patch16_224": ViTConfig(patch=16, width=1024, layers=24,
+                                       heads=16, num_classes=1000),
+    "test-tiny": ViTConfig(patch=8, width=32, layers=2, heads=2,
+                           image_size=32, num_classes=10),
+}
 
 
 class MultiheadAttention(nn.Module):
@@ -93,13 +137,14 @@ class Transformer(nn.Module):
 
 
 class PatchConv(nn.Module):
-    """Holds the patch embedding as OpenAI's bias-free conv kernel
-    ``conv1.weight`` [D, 3, p, p]. It is never run as a convolution:
-    ``patch_embed`` does reshape + matmul."""
+    """Holds the patch embedding as a conv kernel ``weight`` [D, 3, p, p]
+    (and ``bias`` [D] when asked for; OpenAI's ``conv1`` has none). It is
+    never run as a convolution: ``patch_embed`` does reshape + matmul."""
 
-    def __init__(self, width: int, patch: int):
+    def __init__(self, width: int, patch: int, bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(width, 3, patch, patch))
+        self.bias = nn.Parameter(torch.empty(width)) if bias else None
 
 
 class VisionTransformer(nn.Module):
@@ -209,3 +254,220 @@ def clip_visual_encode(visual: VisionTransformer, images: torch.Tensor, *,
                    adapter_cfg=adapter_cfg, dropout_key=dropout_key,
                    deterministic=deterministic)
     return _clip_visual_out(visual, x)
+
+
+# -- the timm-style classifier -------------------------------------------------
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not ported to vit_project_torch "
+                              f"yet (the JAX package has it)")
+
+
+class Attention(nn.Module):
+    def __init__(self, width: int):
+        super().__init__()
+        self.qkv = nn.Linear(width, 3 * width)
+        self.proj = nn.Linear(width, width)
+
+
+class Mlp(nn.Module):
+    def __init__(self, width: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(width, hidden)
+        self.fc2 = nn.Linear(hidden, width)
+
+
+class Block(nn.Module):
+    def __init__(self, width: int, mlp_ratio: int):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(width)
+        self.attn = Attention(width)
+        self.norm2 = nn.LayerNorm(width)
+        self.mlp = Mlp(width, width * mlp_ratio)
+
+
+class PatchEmbed(nn.Module):
+    def __init__(self, width: int, patch: int, bias: bool):
+        super().__init__()
+        self.proj = PatchConv(width, patch, bias=bias)
+
+
+class VisionTransformerClassifier(nn.Module):
+    """Parameters of the ViT classifier under timm's state-dict names (f32
+    master weights, [out, in] linear layout)."""
+
+    def __init__(self, cfg: ViTConfig):
+        super().__init__()
+        if cfg.moe_experts:
+            _not_ported("a MoE ViT (moe_experts > 0)")
+        if cfg.num_classes is None:
+            raise ValueError("the classifier needs cfg.num_classes")
+        self.cfg = cfg
+        self.patch_embed = PatchEmbed(cfg.width, cfg.patch, cfg.patch_bias)
+        self.cls_token = nn.Parameter(torch.empty(1, 1, cfg.width))
+        self.pos_embed = nn.Parameter(torch.empty(1, cfg.seq_len, cfg.width))
+        self.norm_pre = nn.LayerNorm(cfg.width) if cfg.pre_norm else None
+        self.blocks = nn.ModuleList(Block(cfg.width, cfg.mlp_ratio)
+                                    for _ in range(cfg.layers))
+        self.norm = nn.LayerNorm(cfg.width)
+        self.head = nn.Linear(cfg.width, cfg.num_classes)
+
+
+def empty_vit(cfg: ViTConfig, device) -> VisionTransformerClassifier:
+    """A classifier whose parameters are allocated on `device` and not
+    initialized (built on the meta device: no init kernels run)."""
+    with torch.device("meta"):
+        model = VisionTransformerClassifier(cfg)
+    return model.to_empty(device=device)
+
+
+@torch.no_grad()
+def init_vit_params(model: VisionTransformerClassifier,
+                    generator: torch.Generator) -> VisionTransformerClassifier:
+    """Random weights in place, with the distributions of the JAX package's
+    init_vit_params: truncated normals of std 0.02 (cut at two deviations)
+    for the patch, block and head weights and the CLS and position
+    embeddings, unit LayerNorms, zero biases. The numbers differ from JAX's:
+    a test that compares the two packages converts one set of weights."""
+    def tn(p):
+        p.copy_(vnn.trunc_normal(p.shape, 0.02, generator=generator,
+                                 device=p.device))
+
+    tn(model.patch_embed.proj.weight)
+    if model.patch_embed.proj.bias is not None:
+        model.patch_embed.proj.bias.zero_()
+    tn(model.cls_token)
+    tn(model.pos_embed)
+    lns = [model.norm] + ([model.norm_pre] if model.norm_pre is not None
+                          else [])
+    for blk in model.blocks:
+        lns += [blk.norm1, blk.norm2]
+        for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
+            tn(lin.weight)
+            lin.bias.zero_()
+    for ln in lns:
+        ln.weight.fill_(1.0)
+        ln.bias.zero_()
+    tn(model.head.weight)
+    model.head.bias.zero_()
+    return model
+
+
+def _activation(cfg: ViTConfig):
+    if cfg.quick_gelu:
+        return vnn.quick_gelu
+    return vnn.gelu_tanh if cfg.gelu_approx else vnn.gelu
+
+
+def classifier_block(blk: Block, x: torch.Tensor, heads: int, *, act,
+                     fused_dw: bool = False) -> torch.Tensor:
+    """Pre-norm block on x [B, S, D] in the compute dtype, as the JAX block's
+    fused-kernel branch computes it: the 1/sqrt(dh) score scale multiplies
+    the q columns of the one packed projection (weight and bias, in f32, as
+    JAX's colscale does), the [B, S, 3D] result goes whole to the packed
+    flash attention op, then the output projection and the MLP. With
+    `fused_dw` every dense layer here takes (dW, db) from the fused
+    kernel."""
+    h = vnn.layer_norm(x, blk.norm1.weight, blk.norm1.bias)
+    D = h.shape[-1]
+    scale = 1.0 / ((D // heads) ** 0.5)
+    colscale = torch.ones(3 * D, dtype=torch.float32, device=h.device)
+    colscale[:D] = scale
+    w = blk.attn.qkv.weight * colscale[:, None]              # [3D, D]
+    b = blk.attn.qkv.bias * colscale
+    qkv = vnn.dense(h, w.t(), b, fused_dw=fused_dw)          # [B, S, 3D]
+    o = vattn.flash_mha_packed_qkv(qkv, num_heads=heads)
+    o = vnn.dense(o, blk.attn.proj.weight.t(), blk.attn.proj.bias,
+                  fused_dw=fused_dw)
+    x = x + o
+    h = vnn.layer_norm(x, blk.norm2.weight, blk.norm2.bias)
+    h = vnn.mlp(h, blk.mlp.fc1.weight.t(), blk.mlp.fc1.bias,
+                blk.mlp.fc2.weight.t(), blk.mlp.fc2.bias, act=act,
+                fused_dw=fused_dw)
+    return x + h
+
+
+def _refuse_parallel(seq_shard=None, ring_attn=False, with_aux=False,
+                     head_shard=None):
+    for name, given in (("seq_shard (sequence parallelism)", seq_shard),
+                        ("ring_attn (ring attention)", ring_attn),
+                        ("with_aux (the MoE load-balance loss)", with_aux),
+                        ("head_shard (tensor-parallel heads)", head_shard)):
+        if given:
+            _not_ported(name)
+
+
+def vit_embed(model: VisionTransformerClassifier, images: torch.Tensor, *,
+              input_norm: tuple | None = None, compute_dtype=torch.float32,
+              fused_dw: bool = False) -> torch.Tensor:
+    """The stem: patchify + embed (the normalization folded into the patch
+    matrix when `input_norm=(mean, std)` marks `images` as raw 0..255 NHWC),
+    CLS concat, positional add, optional pre-norm."""
+    cfg = model.cfg
+    pe = model.patch_embed.proj
+    w = vnn.conv_kernel_to_patch_matrix(pe.weight)
+    if input_norm is not None:
+        mean, std = input_norm
+        x = vnn.patch_embed_affine(images, w, pe.bias, cfg.patch, mean=mean,
+                                   std=std, compute_dtype=compute_dtype)
+    else:
+        x = vnn.patch_embed(images.to(compute_dtype), w, pe.bias, cfg.patch,
+                            fused_dw=fused_dw)
+    cls = model.cls_token.to(x.dtype).expand(x.shape[0], 1, cfg.width)
+    x = torch.cat([cls, x], dim=1)
+    x = x + model.pos_embed.to(x.dtype)
+    if model.norm_pre is not None:
+        x = vnn.layer_norm(x, model.norm_pre.weight, model.norm_pre.bias)
+    return x
+
+
+def vit_encode(model: VisionTransformerClassifier, images: torch.Tensor, *,
+               input_norm: tuple | None = None, compute_dtype=torch.float32,
+               remat: bool = False, fused_dw: bool = False,
+               **parallel) -> torch.Tensor:
+    """images [B, H, W, 3] -> tokens [B, S, width] after the final LayerNorm
+    (timm's forward_features contract).
+
+    `remat=True` recomputes each block's forward in the backward
+    (torch.utils.checkpoint) instead of holding its activations: peak memory
+    drops from O(layers) to O(1) block activations for ~1/3 more work; the
+    gradients are the same numbers."""
+    _refuse_parallel(**parallel)
+    cfg = model.cfg
+    act = _activation(cfg)
+    x = vit_embed(model, images, input_norm=input_norm,
+                  compute_dtype=compute_dtype, fused_dw=fused_dw)
+    for blk in model.blocks:
+        if remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(
+                classifier_block, blk, x, cfg.heads, act=act,
+                fused_dw=fused_dw, use_reentrant=False)
+        else:
+            x = classifier_block(blk, x, cfg.heads, act=act,
+                                 fused_dw=fused_dw)
+    return vnn.layer_norm(x, model.norm.weight, model.norm.bias)
+
+
+def vit_classify(model: VisionTransformerClassifier, images: torch.Tensor, *,
+                 input_norm: tuple | None = None, compute_dtype=torch.float32,
+                 remat: bool = False, fused_dw: bool = False,
+                 **parallel) -> torch.Tensor:
+    """Classifier logits [B, num_classes] in f32 from the CLS token."""
+    tokens = vit_encode(model, images, input_norm=input_norm,
+                        compute_dtype=compute_dtype, remat=remat,
+                        fused_dw=fused_dw, **parallel)
+    logits = vnn.dense(tokens[:, 0], model.head.weight.t(), model.head.bias,
+                       fused_dw=fused_dw)
+    return logits.float()
+
+
+def forward_features(model: VisionTransformerClassifier, images: torch.Tensor,
+                     *, pool: str = "token", input_norm: tuple | None = None,
+                     compute_dtype=torch.float32, **parallel) -> torch.Tensor:
+    """timm forward_features + pooling, the ViT RSA embeddings: pool='token'
+    is the CLS token, pool='avg' the mean of the patch tokens."""
+    tokens = vit_encode(model, images, input_norm=input_norm,
+                        compute_dtype=compute_dtype, **parallel)
+    if pool == "avg":
+        return tokens[:, 1:].mean(dim=1)
+    return tokens[:, 0]
