@@ -10,10 +10,18 @@
    the card at the shapes its main path gives it (the attention forward at
    the serving buckets and the ViT-B/16 step, the backward at the training
    steps' image and text shapes, the dW+db kernel at every dense layer of
-   the ViT-B/16 step), in float32 and bfloat16, checks the largest errors against
-   stated tolerances, and times the kernel, the plain version and one
-   PyTorch library call for the same function beside the card's bound for
-   that work;
+   the ViT-B/16 step, and the attention library's four kernels, flash_fwd /
+   flash_bwd and mha_fwd / mha_bwd, at the ViT-B/16 step, the CLIP-HBA
+   training image shape and the causal text shape), in float32 and
+   bfloat16, checks the largest errors against stated tolerances, and times
+   the kernel, the plain version and one PyTorch library call for the same
+   function beside the card's bound for that work;
+3b. phase `ops`: calls the attention library's entry points,
+   ``flash_mha_packed`` and ``attention_core`` / ``attention_core_bshd``
+   with ``use_kernel=True``, as a user would on CUDA tensors at those three
+   shapes in both dtypes, with the gradient through ``torch.autograd.grad``.
+   It checks one forward and one backward launch per call, and the output
+   and the three gradients against the same calls on the plain versions;
 4. phase `serve`: writes seeded random CLIP ViT-L/14 weights (OpenAI
    format) and rank-32 DoRA adapters (reference names) to a scratch
    directory in the checkout, builds the engine through the port's
@@ -83,6 +91,12 @@ PEAKS = {
 #     differ by up to one bf16 spacing of o, which is 1.6e-2 for |o| in
 #     [2, 4) (measured: 1.6e-2 on the causal text tower, whose first rows
 #     average few keys). lse is f32 in both (measured 1e-6).
+# The attention library's forwards (flash_fwd, mha_fwd, and the `ops` phase)
+# hold each bf16 element of o to the larger of 2e-2 and one bf16 spacing at
+# its magnitude (_o_within_tolerance): 2e-2 covers one spacing only below
+# |o| = 4 (measured on an H100 SXM: attention_core_bshd at the causal text
+# shape reached |o| in [4, 8), where the versions differed by 3.125e-2, one
+# spacing).
 TOLERANCE = {"float32": {"o": 1e-5, "lse": 1e-5},
              "bfloat16": {"o": 2e-2, "lse": 1e-4}}
 
@@ -107,6 +121,7 @@ DWDB_TOLERANCE = 1e-4
 
 SEED = 0
 RESULTS: dict = {}
+ALL_PHASES = ("kernel", "ops", "serve", "train", "vit_train")
 
 
 def fail(msg: str) -> None:
@@ -178,7 +193,305 @@ def _random_qkv(B, S, H, dtype, seed=SEED):
 
 def phase_kernel(peaks):
     return (phase_kernel_fwd(peaks) + phase_kernel_bwd(peaks)
-            + phase_kernel_dwdb(peaks))
+            + phase_kernel_dwdb(peaks) + phase_kernel_strided(peaks))
+
+
+def strided_cases():
+    """(label, B, S, H, causal) of the attention library's kernels
+    (flash_mha_packed, attention_core(_bshd) with use_kernel=True) at the
+    repo's model widths, dh 64: the ViT-B/16 step, the CLIP-HBA training
+    step's image tower and the 66 causal text prompts."""
+    return [("vit_b256", 256, 197, 12, False), ("image_b64", 64, 257, 16, False),
+            ("text_66", 66, 77, 12, True)]
+
+
+def _randn(shape, gen, dtype, scale=1.0):
+    import torch
+    return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def _bound(nbytes, flops_by_type, peaks):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and the
+    operations over the peak rate of their type, {type: operations}."""
+    t_bytes = nbytes / peaks["bytes"] * 1e3
+    t_ops = sum(n / peaks[t] for t, n in flops_by_type.items()) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _o_within_tolerance(got, ref, dname) -> bool:
+    """Whether every element of a forward output is within TOLERANCE's
+    absolute value of the plain version or, in bfloat16 where that is
+    narrower, within one bf16 spacing at the larger of the two magnitudes:
+    two nearest roundings of float32 values this close differ by at most one
+    spacing, which is 2^-5 for |o| in [4, 8), wider than 2e-2."""
+    import torch
+    diff = (got.float() - ref.float()).abs()
+    tol = torch.full_like(diff, TOLERANCE[dname]["o"])
+    if dname == "bfloat16":
+        big = torch.maximum(got.float().abs(), ref.float().abs())
+        tol = torch.maximum(tol, torch.exp2(torch.floor(torch.log2(
+            big.clamp_min(2.0 ** -126))) - 7))
+    return bool(torch.isfinite(diff).all() and (diff <= tol).all())
+
+
+def _grad_errors(got, ref):
+    """Max |err| of each of dq, dk, dv and that over the largest |ref|."""
+    errs = {n: (a.float() - r.float()).abs().max().item()
+            for n, a, r in zip(("dq", "dk", "dv"), got, ref)}
+    rel = {n: errs[n] / max(r.abs().max().item(), 1e-30)
+           for n, r in zip(("dq", "dk", "dv"), ref)}
+    return errs, rel
+
+
+def phase_kernel_strided(peaks):
+    """The four kernels of the attention library against their plain
+    versions: flash_fwd / flash_bwd on q (prescaled), k, v [B, S, D], and
+    mha_fwd / mha_bwd on [B, H, S, 64] with the scale in the kernel. The
+    library yardstick is SDPA on the same q, k, v (scale 1 for the flash
+    pair, the default 1/sqrt(64) for the mha pair; its backward alone)."""
+    import torch
+    import torch.nn.functional as F
+    from vit_project_torch.ops import attention as vattn
+    rows = []
+
+    def record(kernel, label, dtype, shape, H, causal, errs, extra, times,
+               nbytes, flops):
+        bound_ms, bound_by = _bound(nbytes, flops, peaks)
+        row = {"kernel": kernel, "case": label, "dtype": dtype,
+               "shape": shape, "heads": H, "causal": causal,
+               "max_abs_err": max(errs.values()), "errors": errs, **extra,
+               **times, "bound_ms": bound_ms, "bound_by": bound_by,
+               "mbytes": nbytes / 1e6,
+               "gflop": sum(flops.values()) / 1e9}
+        rows.append(row)
+        print(f"[kernel] {kernel:9s} {label:9s} {dtype:8s} err "
+              + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+              + f" | kernel_ms {times['ms']:.4f} plain_ms "
+              f"{times['plain_ms']:.4f} library_ms {times['library_ms']:.4f} "
+              f"bound_ms {bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.1f} MB, "
+              f"{row['gflop']:.2f} GFLOP)", flush=True)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for label, B, S, H, causal in strided_cases():
+            D = H * 64
+            isz = torch.finfo(dtype).bits // 8
+            pairs = S * (S + 1) // 2 if causal else S * S
+            fwd_flops = 4 * B * H * pairs * 64             # qk^T and pv
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+            # rows 3-4: flash_fwd / flash_bwd on [B, S, D]
+            q = _randn((B, S, D), gen, dtype, 0.125)       # q prescaled
+            k, v, do = (_randn((B, S, D), gen, dtype) for _ in range(3))
+            o, lse = vattn.flash_fwd(q, k, v, H, causal)
+            torch.cuda.synchronize()
+            ro, rl = vattn.flash_mha_packed_reference(q, k, v, H, causal)
+            errs = {"o": (o.float() - ro.float()).abs().max().item(),
+                    "lse": (lse - rl).abs().max().item()}
+            tol = TOLERANCE[dname]
+            o_ok = _o_within_tolerance(o, ro, dname)
+            del o, ro, rl
+            if not (o_ok and np.isfinite(errs["lse"])) \
+                    or errs["lse"] > tol["lse"]:
+                fail(f"flash_fwd {label} {dname}: errors {errs}, tolerance "
+                     f"{tol}")
+            qh, kh, vh, doh = (x.reshape(B, S, H, 64).transpose(1, 2)
+                               .contiguous().requires_grad_(True)
+                               for x in (q, k, v, do))
+            with torch.no_grad():
+                times = {
+                    "ms": cuda_ms(lambda: vattn.flash_fwd(q, k, v, H, causal),
+                                  10),
+                    "plain_ms": cuda_ms(
+                        lambda: vattn.flash_mha_packed_reference(
+                            q, k, v, H, causal), 3),
+                    "library_ms": cuda_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            qh, kh, vh, is_causal=causal, scale=1.0), 10)}
+            record("flash_fwd", label, dname, [B, S, D], H, causal, errs,
+                   {"tolerance": tol}, times,
+                   4 * B * S * D * isz + B * S * H * 4, {dname: fwd_flops})
+
+            got = vattn.flash_bwd(q, k, v, do, lse, H, causal)
+            torch.cuda.synchronize()
+            ref = vattn.flash_mha_packed_bwd_reference(q, k, v, do, lse, H,
+                                                       causal)
+            errs, rel = _grad_errors(got, ref)
+            del got, ref
+            btol = BWD_TOLERANCE[dname]
+            if not all(np.isfinite(e) for e in errs.values()) \
+                    or max(rel.values()) > btol:
+                fail(f"flash_bwd {label} {dname}: max |err| / max |ref| "
+                     f"{rel} over the tolerance {btol}")
+            ol = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal,
+                                                scale=1.0)
+            times = {
+                "ms": cuda_ms(lambda: vattn.flash_bwd(q, k, v, do, lse, H,
+                                                      causal), 10),
+                "plain_ms": cuda_ms(
+                    lambda: vattn.flash_mha_packed_bwd_reference(
+                        q, k, v, do, lse, H, causal), 3),
+                # the SDPA backward alone, on q, k, v of the same values
+                "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                    ol, (qh, kh, vh), doh, retain_graph=True), 10)}
+            record("flash_bwd", label, dname, [B, S, D], H, causal, errs,
+                   {"relative_errors": rel, "tolerance_relative": btol},
+                   times, 7 * B * S * D * isz + B * S * H * 4,
+                   {dname: 10 * B * H * pairs * 64})
+            del q, k, v, do, lse, qh, kh, vh, doh, ol
+
+            # rows 5-6: mha_fwd / mha_bwd on [B, H, S, 64], scale in-kernel
+            q, k, v, do = (_randn((B, H, S, 64), gen, dtype).requires_grad_(
+                i < 3) for i in range(4))
+            with torch.no_grad():
+                o = vattn.mha_fwd(q, k, v, causal)
+                torch.cuda.synchronize()
+                ro = vattn.mha_reference(q, k, v, causal=causal)
+                errs = {"o": (o.float() - ro.float()).abs().max().item()}
+                o_ok = _o_within_tolerance(o, ro, dname)
+                del o, ro
+                if not o_ok:
+                    fail(f"mha_fwd {label} {dname}: max |o err| {errs['o']} "
+                         f"over the tolerance {tol['o']} (or one bf16 "
+                         f"spacing)")
+                times = {
+                    "ms": cuda_ms(lambda: vattn.mha_fwd(q, k, v, causal), 10),
+                    "plain_ms": cuda_ms(lambda: vattn.mha_reference(
+                        q, k, v, causal=causal), 3),
+                    "library_ms": cuda_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, is_causal=causal), 10)}
+            record("mha_fwd", label, dname, [B, H, S, 64], H, causal, errs,
+                   {"tolerance": tol["o"]}, times, 4 * B * S * D * isz,
+                   {dname: fwd_flops})
+
+            with torch.no_grad():
+                got = vattn.mha_bwd(q, k, v, do, causal)
+                torch.cuda.synchronize()
+                ref = vattn.mha_bwd_reference(q, k, v, do, causal)
+                errs, rel = _grad_errors(got, ref)
+                del got, ref
+                if not all(np.isfinite(e) for e in errs.values()) \
+                        or max(rel.values()) > btol:
+                    fail(f"mha_bwd {label} {dname}: max |err| / max |ref| "
+                         f"{rel} over the tolerance {btol}")
+                times = {
+                    "ms": cuda_ms(lambda: vattn.mha_bwd(q, k, v, do, causal),
+                                  10),
+                    "plain_ms": cuda_ms(lambda: vattn.mha_bwd_reference(
+                        q, k, v, do, causal), 3)}
+            ol = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+            times["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                ol, (q, k, v), do, retain_graph=True), 10)
+            # the scores q k^T and dp = do v^T multiply the operands; dv,
+            # dq and dk multiply float32 p or ds whatever the input type
+            record("mha_bwd", label, dname, [B, H, S, 64], H, causal, errs,
+                   {"relative_errors": rel, "tolerance_relative": btol},
+                   times, 7 * B * S * D * isz,
+                   {dname: 4 * B * H * pairs * 64,
+                    "float32": 6 * B * H * pairs * 64})
+            del q, k, v, do, ol
+            torch.cuda.empty_cache()
+    RESULTS["kernel_strided"] = rows
+    return rows
+
+
+def _ops_calls(vattn, entry, B, S, H, causal, dtype, gen):
+    """Inputs of one user call of `entry` and its plain counterpart:
+    (inputs, do, call, plain) where plain(inputs, do) -> (o, (dq, dk, dv))."""
+    import torch
+    if entry == "flash_mha_packed":
+        shape, scales = (B, S, H * 64), (0.125, 1.0, 1.0)   # q prescaled
+
+        def call(q, k, v):
+            return vattn.flash_mha_packed(q, k, v, num_heads=H, causal=causal)
+
+        def plain(xs, do):
+            o, lse = vattn.flash_mha_packed_reference(*xs, H, causal)
+            return o, vattn.flash_mha_packed_bwd_reference(*xs, do, lse, H,
+                                                           causal)
+    elif entry == "attention_core":
+        shape, scales = (B, H, S, 64), (1.0,) * 3
+
+        def call(q, k, v):
+            return vattn.attention_core(q, k, v, causal=causal,
+                                        use_kernel=True)
+
+        def plain(xs, do):
+            return (vattn.mha_reference(*xs, causal=causal),
+                    vattn.mha_bwd_reference(*xs, do, causal))
+    else:
+        shape, scales = (B, S, H, 64), (1.0,) * 3
+
+        def call(q, k, v):
+            return vattn.attention_core_bshd(q, k, v, causal=causal,
+                                             use_kernel=True)
+
+        def plain(xs, do):
+            t = [x.transpose(1, 2) for x in (*xs, do)]
+            return (vattn.mha_reference(*t[:3], causal=causal).transpose(1, 2),
+                    tuple(g.transpose(1, 2) for g in
+                          vattn.mha_bwd_reference(*t, causal)))
+    xs = [_randn(shape, gen, dtype, s).requires_grad_(True) for s in scales]
+    return xs, _randn(shape, gen, dtype), call, plain
+
+
+def phase_ops():
+    """The attention library's entry points as a user calls them: for each
+    of flash_mha_packed, attention_core(use_kernel=True) and
+    attention_core_bshd(use_kernel=True), at each strided case, in f32 and
+    bf16: the forward and torch.autograd.grad on CUDA tensors, exactly one
+    forward and one backward launch per call, and the output and the three
+    gradients against the same call's plain versions. Returns the launch
+    counts of the whole phase (counted from 0)."""
+    import torch
+    from vit_project_torch.ops import attention as vattn
+    kernels = {"flash_mha_packed": ("flash_fwd", "flash_bwd"),
+               "attention_core": ("mha_fwd", "mha_bwd"),
+               "attention_core_bshd": ("mha_fwd", "mha_bwd")}
+    results = []
+    # --- the main path: counts from 0, every entry-point call, counts read ---
+    vattn.reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for label, B, S, H, causal in strided_cases():
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            for entry, (fwd, bwd) in kernels.items():
+                xs, do, call, plain = _ops_calls(vattn, entry, B, S, H, causal,
+                                                 dtype, gen)
+                before = dict(vattn.LAUNCHES)
+                o = call(*xs)
+                grads = torch.autograd.grad(o, xs, do)
+                torch.cuda.synchronize()
+                launched = {n: vattn.LAUNCHES[n] - before[n] for n in before}
+                if launched != {**dict.fromkeys(launched, 0), fwd: 1, bwd: 1}:
+                    fail(f"{entry} {label} {dname}: launches {launched}, "
+                         f"expected one {fwd} and one {bwd}")
+                with torch.no_grad():
+                    ro, rgrads = plain([x.detach() for x in xs], do)
+                err_o = (o.float() - ro.float()).abs().max().item()
+                errs, rel = _grad_errors(grads, rgrads)
+                tol, btol = TOLERANCE[dname]["o"], BWD_TOLERANCE[dname]
+                if not (_o_within_tolerance(o, ro, dname)
+                        and all(np.isfinite(e) for e in errs.values())
+                        and max(rel.values()) <= btol):
+                    fail(f"{entry} {label} {dname}: |o err| {err_o:.3e} (tol "
+                         f"{tol} or one bf16 spacing), gradients {rel} (tol "
+                         f"{btol} relative)")
+                results.append({"entry": entry, "case": label, "dtype": dname,
+                                "launches": launched, "err_o": err_o,
+                                "grad_errors": errs,
+                                "grad_relative_errors": rel})
+                print(f"[ops] {entry:19s} {label:9s} {dname:8s} launches "
+                      f"{fwd} 1, {bwd} 1; |o err| {err_o:.2e}, gradients "
+                      + " ".join(f"{n} {r:.1e}" for n, r in rel.items())
+                      + " relative", flush=True)
+                del xs, do, o, grads, ro, rgrads
+            torch.cuda.empty_cache()
+    launches = dict(vattn.LAUNCHES)
+    print(f"[ops] launches over the phase: {launches}", flush=True)
+    RESULTS["ops"] = {"calls": results, "launches": launches}
+    return launches
 
 
 def dwdb_cases():
@@ -899,7 +1212,7 @@ def _profile(fn, steps: int = 3):
         ms = e.self_device_time_total / 1e3 / steps
         name = e.key.lower()
         group = ("dw_db" if "dw_db" in name or "sum_splits" in name
-                 else "attention" if "flash3" in name
+                 else "attention" if "attn_" in name
                  else "gemm" if any(k in name for k in (
                      "gemm", "nvjet", "xmma", "cutlass", "cublas"))
                  else "other")
@@ -1098,7 +1411,7 @@ def phase_vit_train(tmp: str):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernel,serve,train,vit_train",
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma list of phases to run (default: all)")
     ap.add_argument("--json", default=None,
                     help="also write every measured number to this file")
@@ -1126,6 +1439,7 @@ def main(argv=None) -> int:
     RESULTS["card"] = smi
     phase_build()
     rows = phase_kernel(peaks) if "kernel" in phases else []
+    ops_launches = phase_ops() if "ops" in phases else None
     serve_launches = train_launches = vit_launches = None
     tmp = os.path.join(ROOT, "vit_project_torch", "_build",
                        f"smoke-{os.getpid()}")
@@ -1146,6 +1460,9 @@ def main(argv=None) -> int:
 
     def vit(name):
         return vit_launches and vit_launches[name]
+
+    def ops(name):
+        return ops_launches and ops_launches[name]
 
     def entry(name, source, replaces, launches, by_path, errors, main_row,
               at):
@@ -1185,12 +1502,26 @@ def main(argv=None) -> int:
               "ViT-B/16 step at batch 256, bfloat16, fc1: x [50432, 768], "
               "g [50432, 3072]; launches: the vit_train run"),
     ]
+    for name, source, line, shape in (
+            ("flash_fwd", "flash3_fwd.cu", 344, "q, k, v [256, 197, 768]"),
+            ("flash_bwd", "flash3_bwd.cu", 358, "q, k, v, do [256, 197, 768]"),
+            ("mha_fwd", "flash3_fwd.cu", 61, "q, k, v [256, 12, 197, 64]"),
+            ("mha_bwd", "flash3_bwd.cu", 118,
+             "q, k, v, do [256, 12, 197, 64]")):
+        kernels.append(entry(
+            name, f"vit_project_torch/csrc/{source}",
+            f"vit_project_tpu/ops/attention.py:{line}", ops(name),
+            {"ops": ops(name)},
+            [r["max_abs_err"] for r in rows if r["kernel"] == name],
+            row_of(name, "vit_b256"),
+            f"ViT-B/16 width at batch 256, bfloat16, {shape}, H=12; "
+            f"launches: the ops run"))
     RESULTS["kernels"] = kernels
     if opts.json:
         os.makedirs(os.path.dirname(os.path.abspath(opts.json)), exist_ok=True)
         with open(opts.json, "w") as f:
             json.dump(RESULTS, f, indent=1)
-    if phases != {"kernel", "serve", "train", "vit_train"}:
+    if phases != set(ALL_PHASES):
         print("chip_smoke: partial run (--phases); no result line", flush=True)
         return 3
     print(json.dumps({"kernels": kernels}))

@@ -57,7 +57,8 @@ def test_flash3_kernel_rejects_what_it_has_no_template_for(cuda_device):
     x = torch.zeros(1, 8, 192, device=cuda_device, requires_grad=True)
     tattn.reset_launch_counts()
     tattn.flash_mha_packed_qkv(x, num_heads=1).sum().backward()
-    assert tattn.LAUNCHES == {"flash3_fwd": 1, "flash3_bwd": 1}
+    assert tattn.LAUNCHES == {"flash3_fwd": 1, "flash3_bwd": 1, "flash_fwd": 0,
+                              "flash_bwd": 0, "mha_fwd": 0, "mha_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -104,6 +105,170 @@ def test_flash3_bwd_kernel_rejects_what_it_has_no_template_for(cuda_device):
         tattn.flash3_bwd(torch.zeros(1, 8, 3 * 2 * 32, device=cuda_device),
                          torch.zeros(1, 8, 64, device=cuda_device),
                          torch.zeros(1, 8, 2, device=cuda_device), 2)
+
+
+# -- the strided attention kernels: flash_fwd / flash_bwd (flash_mha_packed),
+#    mha_fwd / mha_bwd (attention_core(_bshd) with use_kernel=True) ------------
+
+def _rand(shape, seed, dtype, device, scale=1.0):
+    a = np.random.RandomState(seed).randn(*shape).astype(np.float32) * scale
+    return torch.from_numpy(a).to(device, dtype)
+
+
+def _run_kernel(kernel, B, S, H, causal, dtype, device, seed):
+    """(kernel outputs, plain outputs, launches) of one strided kernel on
+    fresh inputs: flash_* on [B, S, D] (q prescaled), mha_* on
+    [B, H, S, 64]."""
+    if kernel.startswith("flash"):
+        q, k, v, do = (_rand((B, S, H * 64), seed + i, dtype, device,
+                             0.125 if i == 0 else 1.0) for i in range(4))
+        _, lse = tattn.flash_mha_packed_reference(q, k, v, H, causal)
+        calls = {"flash_fwd": (lambda: tattn.flash_fwd(q, k, v, H, causal),
+                               lambda: tattn.flash_mha_packed_reference(
+                                   q, k, v, H, causal)),
+                 "flash_bwd": (lambda: tattn.flash_bwd(q, k, v, do, lse, H,
+                                                       causal),
+                               lambda: tattn.flash_mha_packed_bwd_reference(
+                                   q, k, v, do, lse, H, causal))}
+    else:
+        q, k, v, do = (_rand((B, H, S, 64), seed + i, dtype, device)
+                       for i in range(4))
+        calls = {"mha_fwd": (lambda: (tattn.mha_fwd(q, k, v, causal),),
+                             lambda: (tattn.mha_reference(q, k, v,
+                                                          causal=causal),)),
+                 "mha_bwd": (lambda: tattn.mha_bwd(q, k, v, do, causal),
+                             lambda: tattn.mha_bwd_reference(q, k, v, do,
+                                                             causal))}
+    kernel_fn, plain_fn = calls[kernel]
+    tattn.reset_launch_counts()
+    got = kernel_fn()
+    launches = dict(tattn.LAUNCHES)
+    again = kernel_fn()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+    return got, plain_fn(), launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S", [13, 77, 197, 257])
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd", "mha_fwd",
+                                    "mha_bwd"])
+def test_strided_attention_kernels_match_plain(cuda_device, kernel, S, causal,
+                                               dtype):
+    """Each kernel against its plain version at ragged S, as chip_smoke.py
+    states the tolerances: forwards max |err| on o of 1e-5 in f32 and 2e-2
+    (one bf16 spacing) in bf16, lse 1e-4; backwards max |err| over max |ref|
+    per gradient of 1e-5 in f32 and 2^-7 in bf16. One launch per call, and
+    two launches give identical bits."""
+    got, ref, launches = _run_kernel(kernel, 2, S, 3, causal, dtype,
+                                     cuda_device, seed=S)
+    assert launches == {**dict.fromkeys(launches, 0), kernel: 1}
+    bf16 = dtype == torch.bfloat16
+    if kernel.endswith("fwd"):
+        torch.testing.assert_close(got[0].float(), ref[0].float(), rtol=0,
+                                   atol=2e-2 if bf16 else 1e-5)
+        if kernel == "flash_fwd":
+            torch.testing.assert_close(got[1], ref[1], atol=1e-4, rtol=0)
+    else:
+        for a, r in zip(got, ref):
+            assert a.dtype == dtype
+            err = float((a.float() - r.float()).abs().max())
+            assert err <= (2 ** -7 if bf16 else 1e-5) * float(r.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_strided_kernels_read_views_as_copies(cuda_device, dtype):
+    """Operands read in place by strides give the bits of contiguous copies:
+    q, k, v as slices of one packed [B, S, 3D] tensor (which also equal the
+    packed flash3 kernels bit for bit, the same body), and [B, S, H, dh]
+    tensors seen as [B, H, S, dh] by attention_core_bshd."""
+    B, S, H, D = 2, 77, 3, 192
+    qkv = _rand((B, S, 3 * D), 1, dtype, cuda_device)
+    qkv[..., :D] *= 0.125
+    do = _rand((B, S, D), 2, dtype, cuda_device)
+    q, k, v = (qkv[..., i * D:(i + 1) * D] for i in range(3))
+    assert not q.is_contiguous()
+    o, lse = tattn.flash_fwd(q, k, v, H, True)
+    oc, lsec = tattn.flash_fwd(q.contiguous(), k.contiguous(),
+                               v.contiguous(), H, True)
+    o3, lse3 = tattn.flash3_fwd(qkv, H, True)
+    assert torch.equal(o, oc) and torch.equal(o, o3)
+    assert torch.equal(lse, lsec) and torch.equal(lse, lse3)
+    grads = tattn.flash_bwd(q, k, v, do, lse, H, True)
+    gradsc = tattn.flash_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                             do, lse, H, True)
+    assert all(torch.equal(a, b) for a, b in zip(grads, gradsc))
+    assert torch.equal(torch.cat(grads, -1), tattn.flash3_bwd(qkv, do, lse, H,
+                                                               True))
+
+    bshd = [_rand((B, S, H, 64), 3 + i, dtype, cuda_device) for i in range(4)]
+    views = [x.transpose(1, 2) for x in bshd]           # [B, H, S, dh] views
+    copies = [x.contiguous() for x in views]
+    o = tattn.mha_fwd(*views[:3])
+    assert o.transpose(1, 2).is_contiguous()             # q's layout
+    assert torch.equal(o, tattn.mha_fwd(*copies[:3]))
+    assert all(torch.equal(a, b) for a, b in zip(tattn.mha_bwd(*views),
+                                                 tattn.mha_bwd(*copies)))
+
+
+@pytest.mark.cuda
+def test_strided_kernels_reject_what_they_cannot_read(cuda_device):
+    x = torch.zeros(1, 8, 2 * 32, device=cuda_device)
+    with pytest.raises(ValueError, match="head width"):
+        tattn.flash_fwd(x, x, x, 2)
+    with pytest.raises(ValueError, match="head width"):
+        tattn.mha_fwd(*(torch.zeros(1, 2, 8, 32, device=cuda_device),) * 3)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tattn.mha_fwd(*(torch.zeros(1, 1, 8, 64, device=cuda_device,
+                                    dtype=torch.float16),) * 3)
+    buf = torch.zeros(1 * 8 * 64 + 1, device=cuda_device)
+    shifted = buf[1:].view(1, 1, 8, 64)                  # 4-byte aligned only
+    with pytest.raises(ValueError, match="16-byte"):
+        tattn.mha_fwd(shifted, shifted, shifted)
+    odd_rows = torch.zeros(1, 8, 65, device=cuda_device)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):    # row stride 65 floats
+        tattn.flash_fwd(odd_rows, odd_rows, odd_rows, 1)
+    lanes = torch.zeros(1, 1, 64, 8, device=cuda_device).transpose(-1, -2)
+    with pytest.raises(ValueError, match="last dim contiguous"):
+        tattn.mha_fwd(lanes, lanes, lanes)
+    q = torch.zeros(1, 1, 8, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="do must be"):
+        tattn.mha_bwd(q, q, q, q[:, :, :4])
+    with pytest.raises(ValueError, match="lse must be"):
+        tattn.flash_bwd(x[..., :64], x[..., :64], x[..., :64], x[..., :64],
+                        torch.zeros(1, 8, 2, device=cuda_device), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["flash_mha_packed", "attention_core",
+                                   "attention_core_bshd"])
+def test_entry_points_launch_one_forward_and_one_backward(cuda_device, entry):
+    """A user's call with a gradient: one forward launch, one backward
+    launch, and the gradients of the plain versions."""
+    B, S, H = 2, 33, 2
+    if entry == "flash_mha_packed":
+        shape, fwd, bwd = (B, S, H * 64), "flash_fwd", "flash_bwd"
+        call = lambda *a: tattn.flash_mha_packed(*a, num_heads=H)
+    else:
+        shape = (B, H, S, 64) if entry == "attention_core" else (B, S, H, 64)
+        fwd, bwd = "mha_fwd", "mha_bwd"
+        call = lambda *a: getattr(tattn, entry)(*a, use_kernel=True)
+    q_scale = 0.125 if entry == "flash_mha_packed" else 1.0  # q prescaled
+    xs = [_rand(shape, i, torch.float32, cuda_device,
+                q_scale if i == 0 else 1.0).requires_grad_(True)
+          for i in range(3)]
+    do = _rand(shape, 9, torch.float32, cuda_device)
+    tattn.reset_launch_counts()
+    o = call(*xs)
+    grads = torch.autograd.grad(o, xs, do)
+    assert tattn.LAUNCHES == {**dict.fromkeys(tattn.LAUNCHES, 0), fwd: 1,
+                              bwd: 1}
+    ys = [x.detach().cpu().requires_grad_(True) for x in xs]
+    want = torch.autograd.grad(call(*ys), ys, do.cpu())
+    for g, w in zip(grads, want):     # f32: another order of summation
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
 # -- the fused dW + db kernel --------------------------------------------------

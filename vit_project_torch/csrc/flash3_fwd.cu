@@ -1,105 +1,90 @@
-// Flash attention forward on one packed [B, S, 3D] qkv tensor, for Hopper (sm_90a).
+// Attention forward for Hopper (sm_90a): one body behind three entry points.
 //
-// Replaces the TPU kernel `_flash3_fwd_kernel` in vit_project_tpu/ops/attention.py
-// (with `_attn_masks` and `_attn_fwd_head`), reached through `flash_mha_packed_qkv`.
-// It computes what that kernel computes:
-//   - q, k and v of head h are read by stride straight out of the packed tensor:
-//     q at lanes h*dh, k at D + h*dh, v at 2D + h*dh. No split, no transpose.
-//   - q is already scaled by 1/sqrt(dh); the kernel applies no scale.
+// It replaces three TPU kernels of vit_project_tpu/ops/attention.py. All three compute
+// the same per-head softmax attention; they differ in how q, k and v lie in memory and
+// in where the score scale is applied:
+//   - `flash3_fwd` replaces `_flash3_fwd_kernel` (with `_attn_masks`, `_attn_fwd_head`),
+//     reached through `flash_mha_packed_qkv`: one packed [B, S, 3D] qkv, q at lanes
+//     h*dh, k at D + h*dh, v at 2D + h*dh, q already scaled by 1/sqrt(dh). Writes o
+//     [B, S, D] at lanes h*dh and the row log-sum-exp lse [B, S, H] in float32.
+//   - `flash_fwd` replaces `_flash_fwd_kernel`, reached through `flash_mha_packed`: the
+//     same math on three [B, S, D] tensors (q prescaled), heads as dh-lane slices; o
+//     [B, S, D] and lse [B, S, H].
+//   - `mha_fwd` replaces `_mha_kernel`, reached through `attention_core(_bshd)` with
+//     `use_pallas=True`: whole-sequence attention over [B, H, S, dh] tensors (or
+//     [B, S, H, dh], read by stride where the TPU path transposes), the float32 scores
+//     multiplied by 1/sqrt(dh) inside the kernel; o only, no lse. The TPU kernel pads S
+//     and dh to 128 with zeros and masks the padded keys, which changes nothing here.
+// Each operand is a [B, H, S, 64] view given by a batch, head and row stride
+// (attention.cuh): no split, no transpose, no copy.
 //   - key columns >= S are masked, and with `causal` every column past the row.
-//   - o is written into packed [B, S, D] at lanes h*dh, and the row log-sum-exp
-//     as lse [B, S, H] in float32.
-//   - softmax statistics are float32; in bf16, p is rounded to bf16 before the
-//     PV product (as attention.py:314 rounds p to v's type).
+//   - softmax statistics are float32; in bf16, p is rounded to bf16 before the PV
+//     product (as the TPU kernels round p to v's type).
 //
-// Design: one block per (64-row q tile, head, batch element), a loop over
-// 64-key k/v tiles staged in shared memory, and an online softmax in float32
-// registers. dh is fixed at 64 (a template for another dh raises in the wrapper).
-//   - bf16: 4 warps, each owning 16 q rows, run the two products on the tensor
-//     cores with mma.sync m16n8k16 (bf16 in, f32 accumulate). The S accumulator
-//     fragment is re-packed in registers as the A operand of the PV product.
-//   - f32: the tensor cores have no exact f32 product, so 64 threads each own one
-//     q row and compute both products with FMAs from shared memory.
+// Design: one block per (64-row q tile, head, batch element), a loop over 64-key k/v
+// tiles staged in shared memory, and an online softmax in float32 registers. dh is
+// fixed at 64 (a template for another dh raises in the wrapper).
+//   - bf16: 4 warps, each owning 16 q rows, run the two products on the tensor cores
+//     with mma.sync m16n8k16 (bf16 in, f32 accumulate). The S accumulator fragment is
+//     re-packed in registers as the A operand of the PV product. The TPU's
+//     whole-sequence kernel rounds the normalized p to bf16 where this one rounds the
+//     running exp; the two differ by at most one bf16 spacing of o.
+//   - f32: the tensor cores have no exact f32 product, so 64 threads each own one q row
+//     and compute both products with FMAs from shared memory.
+// A scale of 1 (the packed entry points) multiplies exactly, so `flash3_fwd` gives the
+// bits it gave before `flash_fwd` and `mha_fwd` shared its body.
 //
-// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s dense bf16; NVIDIA's data sheet):
-// for the image tower at serving bucket 256, qkv [256, 257, 3072] bf16, the kernel
-// must read 404 MB and write 139 MB (o and lse): 543 MB, 0.16 ms, against
-// 4*B*H*S*S*dh = 69 GFLOP, 0.07 ms. It is memory-bound. The text tower
-// ([66, 77, 2304], causal) moves about 31 MB. chip_smoke.py recomputes both
-// bounds for the card that nvidia-smi names.
+// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s dense bf16; NVIDIA's data sheet): for
+// the image tower at serving bucket 256, qkv [256, 257, 3072] bf16, the kernel must
+// read 404 MB and write 139 MB (o and lse): 543 MB, 0.16 ms, against 4*B*H*S*S*dh =
+// 69 GFLOP, 0.07 ms. It is memory-bound, as are the other entry points at the repo's
+// shapes. chip_smoke.py recomputes each bound for the card that nvidia-smi names.
 //
-// Speed is left to later work: TMA loads into a ring of shared-memory tiles,
-// wgmma in place of mma.sync, and a q tile that skips the ragged last k/v tile
-// (S = 257 leaves one valid key in the fifth tile of 64).
+// Speed is left to later work: TMA loads into a ring of shared-memory tiles, wgmma in
+// place of mma.sync, and a q tile that skips the ragged last k/v tile (S = 257 leaves
+// one valid key in the fifth tile of 64).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "attention.cuh"
 
 namespace {
 
-constexpr int kDh = 64;       // head width this file has a template for
+using namespace attn;
+
 constexpr int kBlockQ = 64;   // q rows per block
 constexpr int kBlockK = 64;   // keys per k/v tile
-constexpr int kPad = 8;       // bf16 row padding: 144-byte rows, conflict-free fragment loads
 
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+template <typename T>
+struct FwdArgs {
+  const T* q;
+  const T* k;
+  const T* v;
+  T* o;
+  float* lse;  // [B, S, H] row log-sum-exp, or null (mha_fwd writes none)
+  Strides sq, sk, sv, so;
+  int S, H, causal;
+  float scale;  // multiplies the float32 scores; 1 where q comes prescaled
+};
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy rows [row0, row0 + 64) of one 64-lane column slice into shared memory,
-// 16 bytes per thread and load; rows past S are zero.
-template <int kThreads>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16 (*dst)[kDh + kPad],
-                                               const __nv_bfloat16* src, long row_stride,
-                                               int row0, int S) {
-  for (int i = threadIdx.x; i < 64 * (kDh / 8); i += kThreads) {
-    int r = i / (kDh / 8);
-    int c = (i % (kDh / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) {
-      v = *reinterpret_cast<const uint4*>(src + (long)(row0 + r) * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(&dst[r][c]) = v;
-  }
-}
-
-__global__ void __launch_bounds__(128)
-flash3_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ o,
-                       float* __restrict__ lse, int S, int D, int H, int causal) {
-  __shared__ __align__(16) __nv_bfloat16 q_s[kBlockQ][kDh + kPad];
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBlockK][kDh + kPad];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kBlockK][kDh + kPad];
+__global__ void __launch_bounds__(128) attn_fwd_bf16_kernel(const FwdArgs<bf16> a) {
+  __shared__ __align__(16) bf16 q_s[kBlockQ][kDh + kPad];
+  __shared__ __align__(16) bf16 k_s[kBlockK][kDh + kPad];
+  __shared__ __align__(16) bf16 v_s[kBlockK][kDh + kPad];
 
   const int q0 = blockIdx.x * kBlockQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const long row_stride = 3L * D;
-  const __nv_bfloat16* base = qkv + (long)b * S * row_stride;
+  const int S = a.S;
+  const int causal = a.causal;
+  const bf16* kh = head_base(a.k, a.sk, b, h);
+  const bf16* vh = head_base(a.v, a.sv, b, h);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;  // fragment row group
   const int t = lane & 3;   // thread in group
 
-  load_tile_bf16<128>(q_s, base + h * kDh, row_stride, q0, S);
+  load_tile_bf16<128>(q_s, head_base(a.q, a.sq, b, h), a.sq.s, q0, S);
   __syncthreads();
 
   // A fragments of this warp's 16 q rows, for the 4 k-steps of 16 lanes of dh
@@ -132,8 +117,8 @@ flash3_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __r
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // every warp is done with the previous k/v tile
-    load_tile_bf16<128>(k_s, base + D + h * kDh, row_stride, k0, S);
-    load_tile_bf16<128>(v_s, base + 2 * D + h * kDh, row_stride, k0, S);
+    load_tile_bf16<128>(k_s, kh, a.sk.s, k0, S);
+    load_tile_bf16<128>(v_s, vh, a.sv.s, k0, S);
     __syncthreads();
 
     // s = q k^T for 16 rows x 64 keys: 8 n-tiles of 8 keys
@@ -150,7 +135,7 @@ flash3_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __r
       }
     }
 
-    // masks: key columns >= S, and with causal every column past the row
+    // scale; masks: key columns >= S, and with causal every column past the row
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
@@ -159,7 +144,7 @@ flash3_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __r
         const int col = k0 + nt * 8 + t * 2 + (e & 1);
         const int row = row0 + (e >> 1) * 8;
         const bool ok = col < S && (!causal || col <= row);
-        s[nt][e] = ok ? s[nt][e] : -INFINITY;
+        s[nt][e] = ok ? s[nt][e] * a.scale : -INFINITY;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
       }
     }
@@ -213,40 +198,44 @@ flash3_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __r
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
   const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  bf16* oh = head_base(a.o, a.so, b, h);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + i * 8;
     if (row >= S) continue;
-    __nv_bfloat16* orow = o + ((long)b * S + row) * D + h * kDh;
+    bf16* orow = oh + row * a.so.s;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       const uint32_t v = pack_bf16(acc[nt][2 * i] * inv[i], acc[nt][2 * i + 1] * inv[i]);
       *reinterpret_cast<uint32_t*>(orow + nt * 8 + t * 2) = v;
     }
-    if (t == 0) lse[((long)b * S + row) * H + h] = m[i] + logf(l[i]);
+    if (a.lse != nullptr && t == 0) {
+      a.lse[((long long)b * S + row) * a.H + h] = m[i] + logf(l[i]);
+    }
   }
 }
 
 constexpr int kF32Keys = 32;  // keys per k/v tile in the f32 kernel
 
-__global__ void __launch_bounds__(kBlockQ)
-flash3_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ o,
-                      float* __restrict__ lse, int S, int D, int H, int causal) {
+__global__ void __launch_bounds__(kBlockQ) attn_fwd_f32_kernel(const FwdArgs<float> a) {
   __shared__ __align__(16) float k_s[kF32Keys][kDh];
   __shared__ __align__(16) float v_s[kF32Keys][kDh];
 
   const int q0 = blockIdx.x * kBlockQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const long row_stride = 3L * D;
-  const float* base = qkv + (long)b * S * row_stride;
+  const int S = a.S;
+  const int causal = a.causal;
+  const float* qh = head_base(a.q, a.sq, b, h);
+  const float* kh = head_base(a.k, a.sk, b, h);
+  const float* vh = head_base(a.v, a.sv, b, h);
   const int row = q0 + threadIdx.x;
 
   float q[kDh];
 #pragma unroll
   for (int d = 0; d < kDh; d += 4) {
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < S) v = *reinterpret_cast<const float4*>(base + (long)row * row_stride + h * kDh + d);
+    if (row < S) v = *reinterpret_cast<const float4*>(qh + row * a.sq.s + d);
     q[d] = v.x; q[d + 1] = v.y; q[d + 2] = v.z; q[d + 3] = v.w;
   }
   float acc[kDh];
@@ -265,9 +254,8 @@ flash3_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ o,
       const int c = (i % (kDh / 4)) * 4;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
       if (k0 + r < S) {
-        const float* src = base + (long)(k0 + r) * row_stride + h * kDh + c;
-        kv = *reinterpret_cast<const float4*>(src + D);
-        vv = *reinterpret_cast<const float4*>(src + 2 * D);
+        kv = *reinterpret_cast<const float4*>(kh + (k0 + r) * a.sk.s + c);
+        vv = *reinterpret_cast<const float4*>(vh + (k0 + r) * a.sv.s + c);
       }
       *reinterpret_cast<float4*>(&k_s[r][c]) = kv;
       *reinterpret_cast<float4*>(&v_s[r][c]) = vv;
@@ -289,7 +277,7 @@ flash3_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ o,
       }
       const int col = k0 + j;
       const bool ok = col < S && (!causal || col <= row);
-      s[j] = ok ? dot : -INFINITY;
+      s[j] = ok ? dot * a.scale : -INFINITY;
       mx = fmaxf(mx, s[j]);
     }
     const float m_new = fmaxf(m, mx);
@@ -315,35 +303,75 @@ flash3_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ o,
 
   if (row < S) {
     const float inv = 1.f / l;
-    float* orow = o + ((long)b * S + row) * D + h * kDh;
+    float* orow = head_base(a.o, a.so, b, h) + row * a.so.s;
 #pragma unroll
     for (int d = 0; d < kDh; d += 4) {
       *reinterpret_cast<float4*>(orow + d) =
           make_float4(acc[d] * inv, acc[d + 1] * inv, acc[d + 2] * inv, acc[d + 3] * inv);
     }
-    lse[((long)b * S + row) * H + h] = m + logf(l);
+    if (a.lse != nullptr) a.lse[((long long)b * S + row) * a.H + h] = m + logf(l);
   }
 }
 
-}  // namespace
-
-// C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// Launches on `stream` and returns the launch's cudaError_t (0 on success).
-extern "C" int flash3_fwd(const void* qkv, void* o, void* lse, int B, int S, int D,
-                          int H, int causal, int dtype, void* stream) {
-  if (H <= 0 || D != H * kDh || B <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
+// Launch the forward over operands given as base pointers and strides st[0..3] of
+// q, k, v and o. dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+               const Strides* st, int B, int S, int H, int causal, float scale, int dtype,
+               void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  cudaStream_t cs = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    flash3_fwd_bf16_kernel<<<grid, 128, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(o),
-        static_cast<float*>(lse), S, D, H, causal);
+    const FwdArgs<bf16> a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                          static_cast<const bf16*>(v), static_cast<bf16*>(o), lse,
+                          st[0], st[1], st[2], st[3], S, H, causal, scale};
+    attn_fwd_bf16_kernel<<<grid, 128, 0, cs>>>(a);
   } else if (dtype == 0) {
-    flash3_fwd_f32_kernel<<<grid, kBlockQ, 0, st>>>(
-        static_cast<const float*>(qkv), static_cast<float*>(o), static_cast<float*>(lse),
-        S, D, H, causal);
+    const FwdArgs<float> a{static_cast<const float*>(q), static_cast<const float*>(k),
+                           static_cast<const float*>(v), static_cast<float*>(o), lse,
+                           st[0], st[1], st[2], st[3], S, H, causal, scale};
+    attn_fwd_f32_kernel<<<grid, kBlockQ, 0, cs>>>(a);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+Strides strides_at(const long long* s, int i) { return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
+
+}  // namespace
+
+// C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16. Each entry
+// launches on `stream` and returns the launch's cudaError_t (0 on success).
+
+// Packed qkv [B, S, 3D] (q prescaled) -> o [B, S, D], lse [B, S, H].
+extern "C" int flash3_fwd(const void* qkv, void* o, void* lse, int B, int S, int D,
+                          int H, int causal, int dtype, void* stream) {
+  if (H <= 0 || D != H * kDh || B <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
+  const long long lane_bytes = dtype == 1 ? 2 : 4;
+  const char* base = static_cast<const char*>(qkv);
+  const Strides packed{(long long)S * 3 * D, kDh, 3LL * D};
+  const Strides out{(long long)S * D, kDh, D};
+  const Strides st[4] = {packed, packed, packed, out};
+  return launch_fwd(base, base + D * lane_bytes, base + 2 * D * lane_bytes, o,
+                    static_cast<float*>(lse), st, B, S, H, causal, 1.f, dtype, stream);
+}
+
+// ptrs: q (prescaled), k, v, o, lse [B, S, H]; strides: (batch, head, row) of q, k, v, o.
+extern "C" int flash_fwd(const void* const* ptrs, const long long* strides, int B, int S,
+                         int H, int causal, int dtype, void* stream) {
+  const Strides st[4] = {strides_at(strides, 0), strides_at(strides, 1),
+                         strides_at(strides, 2), strides_at(strides, 3)};
+  return launch_fwd(ptrs[0], ptrs[1], ptrs[2], const_cast<void*>(ptrs[3]),
+                    static_cast<float*>(const_cast<void*>(ptrs[4])), st, B, S, H, causal,
+                    1.f, dtype, stream);
+}
+
+// ptrs: q, k, v, o; strides as flash_fwd's. The scores are scaled by 1/sqrt(dh).
+extern "C" int mha_fwd(const void* const* ptrs, const long long* strides, int B, int S,
+                       int H, int causal, int dtype, void* stream) {
+  const Strides st[4] = {strides_at(strides, 0), strides_at(strides, 1),
+                         strides_at(strides, 2), strides_at(strides, 3)};
+  return launch_fwd(ptrs[0], ptrs[1], ptrs[2], const_cast<void*>(ptrs[3]), nullptr, st, B,
+                    S, H, causal, 1.f / sqrtf((float)kDh), dtype, stream);
 }
