@@ -12,16 +12,18 @@
    steps' image and text shapes, the dW+db kernel at every dense layer of
    the ViT-B/16 step, and the attention library's four kernels, flash_fwd /
    flash_bwd and mha_fwd / mha_bwd, at the ViT-B/16 step, the CLIP-HBA
-   training image shape and the causal text shape), in float32 and
+   training image shape and the causal text shape, and the LayerNorm pair
+   ln_fwd / ln_bwd at those three shapes' residual streams), in float32 and
    bfloat16, checks the largest errors against stated tolerances, and times
    the kernel, the plain version and one PyTorch library call for the same
    function beside the card's bound for that work;
 3b. phase `ops`: calls the attention library's entry points,
    ``flash_mha_packed`` and ``attention_core`` / ``attention_core_bshd``
-   with ``use_kernel=True``, as a user would on CUDA tensors at those three
-   shapes in both dtypes, with the gradient through ``torch.autograd.grad``.
-   It checks one forward and one backward launch per call, and the output
-   and the three gradients against the same calls on the plain versions;
+   with ``use_kernel=True``, and ``layer_norm_fused``, as a user would on
+   CUDA tensors at those three shapes in both dtypes, with the gradients
+   through ``torch.autograd.grad``. It checks one forward and one backward
+   launch per call, and the output and the gradients against the same
+   calls on the plain versions;
 4. phase `serve`: writes seeded random CLIP ViT-L/14 weights (OpenAI
    format) and rank-32 DoRA adapters (reference names) to a scratch
    directory in the checkout, builds the engine through the port's
@@ -119,6 +121,20 @@ BWD_TOLERANCE = {"float32": 1e-5, "bfloat16": 2 ** -7}
 # an H100 SXM: 1.07e-5 on fc1 in float32); the tolerance is 8x that.
 DWDB_TOLERANCE = 1e-4
 
+# LayerNorm kernel-vs-plain tolerances (ln_fwd / ln_bwd):
+#   y: float32 1e-5 abs (both compute the centred statistics and the affine
+#     map in f32, summing in another order); bfloat16 `_o_within_tolerance`'s
+#     rule, one bf16 spacing at the element (both round one f32 value once);
+#   dx: max |err| over the largest |dx| of the plain version, 1e-5 in f32
+#     (another order of the two row sums) and 2^-7 in bf16 (one bf16
+#     spacing, as BWD_TOLERANCE);
+#   dscale, dbias: max |err| over their largest value, DWDB_TOLERANCE's
+#     1e-4 in both dtypes (f32 sums over up to 50,432 rows in another order).
+# Measured on an H100 SXM: y 1.4e-6 in f32; dx 3.6e-7 (f32) and 2.5e-3
+# (bf16) of the largest |dx|; dscale and dbias 2.5e-7 of their largest.
+LN_TOLERANCE = {"float32": {"dx": 1e-5, "dparams": 1e-4},
+                "bfloat16": {"dx": 2 ** -7, "dparams": 1e-4}}
+
 SEED = 0
 RESULTS: dict = {}
 ALL_PHASES = ("kernel", "ops", "serve", "train", "vit_train")
@@ -193,7 +209,8 @@ def _random_qkv(B, S, H, dtype, seed=SEED):
 
 def phase_kernel(peaks):
     return (phase_kernel_fwd(peaks) + phase_kernel_bwd(peaks)
-            + phase_kernel_dwdb(peaks) + phase_kernel_strided(peaks))
+            + phase_kernel_dwdb(peaks) + phase_kernel_strided(peaks)
+            + phase_kernel_ln(peaks))
 
 
 def strided_cases():
@@ -396,6 +413,150 @@ def phase_kernel_strided(peaks):
     return rows
 
 
+def ln_cases():
+    """(label, B, S, D) of layer_norm_fused at the residual streams of the
+    strided cases, [B * S, D] rows: the ViT-B/16 step (50,432 rows of 768,
+    197 whole blocks of 256), the CLIP-HBA training image tower (16,448 of
+    1,024: 64 rows past the last whole block) and the causal text tower
+    (5,082 of 768: 218 rows past)."""
+    return [(label, B, S, H * 64) for label, B, S, H, _ in strided_cases()]
+
+
+def _ln_inputs(N, D, dtype, gen):
+    """x [N, D] (rows off centre) and dy in `dtype`; scale, bias [D] f32."""
+    import torch
+    x = (torch.randn(N, D, generator=gen, device="cuda")
+         + torch.randn(N, 1, generator=gen, device="cuda")).to(dtype)
+    scale = 1 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+    bias = 0.1 * torch.randn(D, generator=gen, device="cuda")
+    return x, scale, bias, _randn((N, D), gen, dtype)
+
+
+def _ln_plain(vln, x2d, scale, bias, dy):
+    """(y, dx, dscale, dbias) of the plain versions, the forward's own
+    statistics feeding the backward."""
+    y, mean, rstd = vln.ln_fwd_reference(x2d, scale, bias)
+    dx, dsc_p, dbi_p = vln.ln_bwd_reference(x2d, scale, mean, rstd, dy)
+    return y, dx, vln.sum_partials(dsc_p), vln.sum_partials(dbi_p)
+
+
+def _ln_errors(got, ref, dname):
+    """(max |err| of y, dx, dscale, dbias; those of dx, dscale, dbias over
+    the largest |value| of the plain version; whether all are within
+    LN_TOLERANCE)."""
+    names = ("y", "dx", "dscale", "dbias")
+    errs = {n: (a.float() - r.float()).abs().max().item()
+            for n, a, r in zip(names, got, ref)}
+    rel = {n: errs[n] / max(r.float().abs().max().item(), 1e-30)
+           for n, r in zip(names[1:], ref[1:])}
+    tol = LN_TOLERANCE[dname]
+    ok = (_o_within_tolerance(got[0], ref[0], dname)
+          and all(np.isfinite(e) for e in errs.values())
+          and rel["dx"] <= tol["dx"]
+          and max(rel["dscale"], rel["dbias"]) <= tol["dparams"])
+    return errs, rel, ok
+
+
+def phase_kernel_ln(peaks):
+    """ln_fwd and ln_bwd against their plain versions at ln_cases(), in f32
+    and bf16 with f32 scale and bias. The library yardstick is F.layer_norm
+    on the same x, scale and bias (in x's dtype where it refuses f32
+    parameters beside bf16 x; the row says which), its backward alone."""
+    import torch
+    import torch.nn.functional as F
+    from vit_project_torch.ops import layernorm as vln
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for label, B, S, D in ln_cases():
+            N = B * S
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            x, scale, bias, dy = _ln_inputs(N, D, dtype, gen)
+            y, mean, rstd = vln.ln_fwd(x, scale, bias)
+            # the backward's inputs are the kernel forward's statistics
+            dx, dsc, dbi = vln.ln_bwd(x, scale, mean, rstd, dy)
+            torch.cuda.synchronize()
+            ry, rmean, rrstd = vln.ln_fwd_reference(x, scale, bias)
+            rdx, rsc_p, rbi_p = vln.ln_bwd_reference(x, scale, mean, rstd, dy)
+            errs, rel, ok = _ln_errors(
+                (y, dx, dsc, dbi),
+                (ry, rdx, vln.sum_partials(rsc_p), vln.sum_partials(rbi_p)),
+                dname)
+            stats = {"mean": (mean - rmean).abs().max().item(),
+                     "rstd_relative": ((rstd - rrstd).abs()
+                                       / rrstd).max().item()}
+            if not ok or max(stats.values()) > 1e-5:
+                fail(f"ln_fwd/ln_bwd {label} {dname}: errors {errs}, "
+                     f"relative {rel}, statistics {stats}; tolerance "
+                     f"{LN_TOLERANCE[dname]} (y: {TOLERANCE[dname]['o']} "
+                     f"or one bf16 spacing; statistics 1e-5)")
+            del y, dx, dsc, dbi, ry, rmean, rrstd, rdx, rsc_p, rbi_p
+            w, b = scale, bias
+            try:
+                F.layer_norm(x[:8], (D,), w, b)
+            except RuntimeError:           # no f32 parameters beside bf16 x
+                w, b = scale.to(dtype), bias.to(dtype)
+            xl, wl, bl = (t.detach().clone().requires_grad_(True)
+                          for t in (x, w, b))
+            yl = F.layer_norm(xl, (D,), wl, bl)
+            it = 20
+            with torch.no_grad():
+                fwd_times = {
+                    "ms": cuda_ms(lambda: vln.ln_fwd(x, scale, bias), it),
+                    "plain_ms": cuda_ms(lambda: vln.ln_fwd_reference(
+                        x, scale, bias), 5),
+                    "library_ms": cuda_ms(lambda: F.layer_norm(
+                        x, (D,), w, b), it)}
+                bwd_times = {
+                    "ms": cuda_ms(lambda: vln.ln_bwd(x, scale, mean, rstd,
+                                                     dy), it),
+                    "plain_ms": cuda_ms(lambda: _ln_plain(
+                        vln, x, scale, bias, dy), 5)}
+            bwd_times["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                yl, (xl, wl, bl), dy, retain_graph=True), it)
+            # device time alone (torch.profiler): where a call's host work
+            # outlasts its kernels, the event times above measure the host
+            for times, fn in (
+                    (fwd_times, lambda: vln.ln_fwd(x, scale, bias)),
+                    (bwd_times, lambda: vln.ln_bwd(x, scale, mean, rstd, dy))):
+                prof = _profile(fn, steps=10)
+                times["device_ms"] = prof and prof["device_ms_per_call"]
+                times["wall_ms"] = prof and prof["wall_ms_per_call"]
+            isz = x.element_size()
+            n_b = -(-N // vln.BLOCK_ROWS)
+            for kernel, kerrs, times, nbytes, flops in (
+                    ("ln_fwd", {"y": errs["y"], **stats}, fwd_times,
+                     2 * N * D * isz + 8 * N + 8 * D, 8 * N * D),
+                    ("ln_bwd", {n: errs[n] for n in ("dx", "dscale", "dbias")},
+                     bwd_times, 3 * N * D * isz + 8 * N + 4 * D + 8 * n_b * D,
+                     12 * N * D)):
+                bound_ms, bound_by = _bound(nbytes, {"float32": flops}, peaks)
+                row = {"kernel": kernel, "case": label, "dtype": dname,
+                       "shape": [N, D], "max_abs_err": max(kerrs.values()),
+                       "errors": kerrs, **times, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "mbytes": nbytes / 1e6,
+                       "gflop": flops / 1e9,
+                       "library_params_dtype": str(w.dtype).replace(
+                           "torch.", "")}
+                if kernel == "ln_bwd":
+                    row.update(relative_errors=rel,
+                               tolerance_relative=LN_TOLERANCE[dname])
+                rows.append(row)
+                print(f"[kernel] {kernel} {label:9s} [{N}x{D}] {dname:8s} err "
+                      + " ".join(f"{n} {e:.2e}" for n, e in kerrs.items())
+                      + f" | kernel_ms {times['ms']:.4f} plain_ms "
+                      f"{times['plain_ms']:.4f} library_ms "
+                      f"{times['library_ms']:.4f} ({row['library_params_dtype']}"
+                      f" parameters) device_ms {times['device_ms']} "
+                      f"bound_ms {bound_ms:.4f} ({bound_by}: "
+                      f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)",
+                      flush=True)
+            del x, scale, bias, dy, mean, rstd, xl, wl, bl, yl, w, b
+            torch.cuda.empty_cache()
+    RESULTS["kernel_ln"] = rows
+    return rows
+
+
 def _ops_calls(vattn, entry, B, S, H, causal, dtype, gen):
     """Inputs of one user call of `entry` and its plain counterpart:
     (inputs, do, call, plain) where plain(inputs, do) -> (o, (dq, dk, dv))."""
@@ -442,8 +603,9 @@ def phase_ops():
     attention_core_bshd(use_kernel=True), at each strided case, in f32 and
     bf16: the forward and torch.autograd.grad on CUDA tensors, exactly one
     forward and one backward launch per call, and the output and the three
-    gradients against the same call's plain versions. Returns the launch
-    counts of the whole phase (counted from 0)."""
+    gradients against the same call's plain versions; then
+    layer_norm_fused (_ops_layer_norm). Returns the launch counts of the
+    whole phase (each module's counted from 0)."""
     import torch
     from vit_project_torch.ops import attention as vattn
     kernels = {"flash_mha_packed": ("flash_fwd", "flash_bwd"),
@@ -489,9 +651,56 @@ def phase_ops():
                 del xs, do, o, grads, ro, rgrads
             torch.cuda.empty_cache()
     launches = dict(vattn.LAUNCHES)
+    launches.update(_ops_layer_norm(results))
     print(f"[ops] launches over the phase: {launches}", flush=True)
     RESULTS["ops"] = {"calls": results, "launches": launches}
     return launches
+
+
+def _ops_layer_norm(results):
+    """layer_norm_fused as a user calls it, on [B, S, D] at each ln_cases()
+    shape in f32 and bf16 with f32 scale and bias: the forward and
+    torch.autograd.grad for x, scale and bias, exactly one ln_fwd and one
+    ln_bwd launch per call, and y and the three gradients against the same
+    call on the plain versions. Returns the launch counts (counted from 0)."""
+    import torch
+    from vit_project_torch.ops import layernorm as vln
+    # --- the main path: counts from 0, every entry-point call, counts read ---
+    vln.reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for label, B, S, D in ln_cases():
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+            x, scale, bias, dy = _ln_inputs(B * S, D, dtype, gen)
+            xs = [x.reshape(B, S, D).requires_grad_(True),
+                  scale.requires_grad_(True), bias.requires_grad_(True)]
+            before = dict(vln.LAUNCHES)
+            y = vln.layer_norm_fused(*xs)
+            grads = torch.autograd.grad(y, xs, dy.reshape(B, S, D))
+            torch.cuda.synchronize()
+            launched = {n: vln.LAUNCHES[n] - before[n] for n in before}
+            if launched != {"ln_fwd": 1, "ln_bwd": 1}:
+                fail(f"layer_norm_fused {label} {dname}: launches {launched},"
+                     f" expected one ln_fwd and one ln_bwd")
+            with torch.no_grad():
+                ref = _ln_plain(vln, x, scale, bias, dy)
+            errs, rel, ok = _ln_errors(
+                (y.reshape(-1, D), grads[0].reshape(-1, D), *grads[1:]), ref,
+                dname)
+            if not ok:
+                fail(f"layer_norm_fused {label} {dname}: errors {errs}, "
+                     f"relative {rel}, tolerance {LN_TOLERANCE[dname]} (y: "
+                     f"{TOLERANCE[dname]['o']} or one bf16 spacing)")
+            results.append({"entry": "layer_norm_fused", "case": label,
+                            "dtype": dname, "launches": launched,
+                            "errors": errs, "relative_errors": rel})
+            print(f"[ops] layer_norm_fused    {label:9s} {dname:8s} launches "
+                  f"ln_fwd 1, ln_bwd 1; |y err| {errs['y']:.2e}, gradients "
+                  + " ".join(f"{n} {r:.1e}" for n, r in rel.items())
+                  + " relative", flush=True)
+            del x, scale, bias, dy, xs, y, grads, ref
+        torch.cuda.empty_cache()
+    return dict(vln.LAUNCHES)
 
 
 def dwdb_cases():
@@ -1516,6 +1725,16 @@ def main(argv=None) -> int:
             row_of(name, "vit_b256"),
             f"ViT-B/16 width at batch 256, bfloat16, {shape}, H=12; "
             f"launches: the ops run"))
+    for name, line, shape in (("ln_fwd", 44, "x [50432, 768]"),
+                              ("ln_bwd", 63, "x, dy [50432, 768]")):
+        kernels.append(entry(
+            name, "vit_project_torch/csrc/layernorm.cu",
+            f"vit_project_tpu/ops/layernorm.py:{line}", ops(name),
+            {"ops": ops(name)},
+            [r["max_abs_err"] for r in rows if r["kernel"] == name],
+            row_of(name, "vit_b256"),
+            f"ViT-B/16 residual stream at batch 256, bfloat16, {shape}, f32 "
+            f"scale and bias; launches: the ops run"))
     RESULTS["kernels"] = kernels
     if opts.json:
         os.makedirs(os.path.dirname(os.path.abspath(opts.json)), exist_ok=True)

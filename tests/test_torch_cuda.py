@@ -320,3 +320,122 @@ def test_dw_db_kernel_rejects_what_it_does_not_take(cuda_device):
         tfdw.dw_db(x.t(), torch.zeros(16, 4, device=cuda_device))
     with pytest.raises(ValueError, match="expected x2d"):
         tfdw.dw_db(x, x[:4])
+
+
+# -- the LayerNorm kernels: ln_fwd / ln_bwd (layer_norm_fused) -----------------
+
+def _ln_inputs(N, D, dtype, device, seed):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(N, D) + rs.randn(N, 1)            # rows off centre
+    dy = rs.randn(N, D)
+    scale, bias = 1 + 0.1 * rs.randn(D), 0.1 * rs.randn(D)
+    return [torch.from_numpy(a.astype(np.float32)).to(device, t)
+            for a, t in ((x, dtype), (scale, torch.float32),
+                         (bias, torch.float32), (dy, dtype))]
+
+
+def _check_ln(x, scale, bias, dy):
+    """Both kernels against their plain versions, as chip_smoke.py states
+    the tolerances: y 1e-5 in f32 and one bf16 spacing at the element in
+    bf16; mean and rstd 1e-5 relative; dx 1e-5 (f32) or 2^-7 (bf16) of the
+    largest |dx|; dscale and dbias 1e-4 of their largest value. One launch
+    each, and repeat launches give equal bits (no atomics)."""
+    from vit_project_torch.ops import layernorm as tln
+    bf16 = x.dtype == torch.bfloat16
+    tln.reset_launch_counts()
+    y, mean, rstd = tln.ln_fwd(x, scale, bias)
+    dx, dsc, dbi = tln.ln_bwd(x, scale, mean, rstd, dy)
+    assert tln.LAUNCHES == {"ln_fwd": 1, "ln_bwd": 1}
+    ry, rmean, rrstd = tln.ln_fwd_reference(x, scale, bias)
+    rdx, rdsc_p, rdbi_p = tln.ln_bwd_reference(x, scale, mean, rstd, dy)
+    assert y.dtype == dx.dtype == x.dtype
+    diff = (y.float() - ry.float()).abs()
+    if bf16:
+        big = torch.maximum(y.float().abs(), ry.float().abs())
+        tol = torch.exp2(torch.floor(torch.log2(big.clamp_min(2.0 ** -126)))
+                         - 7).clamp_min(1e-5)
+    else:
+        tol = torch.full_like(diff, 1e-5)
+    assert bool((diff <= tol).all()), float(diff.max())
+    torch.testing.assert_close(mean, rmean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, atol=0, rtol=1e-5)
+    err = float((dx.float() - rdx.float()).abs().max())
+    assert err <= (2 ** -7 if bf16 else 1e-5) * float(rdx.float().abs().max())
+    for got, parts in ((dsc, rdsc_p), (dbi, rdbi_p)):
+        want = tln.sum_partials(parts)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+    y2, mean2, rstd2 = tln.ln_fwd(x, scale, bias)
+    again = tln.ln_bwd(x, scale, mean, rstd, dy)
+    assert torch.equal(y, y2) and torch.equal(mean, mean2)
+    assert torch.equal(rstd, rstd2)
+    assert all(torch.equal(a, b) for a, b in zip((dx, dsc, dbi), again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 768, 1024])
+@pytest.mark.parametrize("N", [1, 255, 256, 257, 5082, 50432, 67584])
+def test_ln_kernels_match_plain(cuda_device, N, D, dtype):
+    """Ragged last blocks (255, 257, 5,082 = 19 x 256 + 218 rows), a block
+    with one row, the ViT-B/16 step's 50,432 rows and 264 x 256 rows (the
+    backward's blocks of 32, 128 and 256 rows), and the widths of the tests
+    and the models."""
+    _check_ln(*_ln_inputs(N, D, dtype, cuda_device, seed=N + D))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 1032, 2048, 4096])
+def test_ln_kernels_match_plain_at_the_width_limits(cuda_device, D, dtype):
+    """The narrowest row, and rows read by two and four warps."""
+    _check_ln(*_ln_inputs(300, D, dtype, cuda_device, seed=D))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_fused_launches_once_each_way(cuda_device, dtype):
+    """A user's call with a gradient: one ln_fwd and one ln_bwd launch; the
+    zero-stride cotangent of .sum() and a sliced one give the gradients of
+    contiguous copies; the gradients equal the plain versions' on the CPU."""
+    from vit_project_torch.ops import layernorm as tln
+    x, scale, bias, _ = _ln_inputs(2 * 77, 768, dtype, cuda_device, seed=5)
+    x = x.reshape(2, 77, 768)
+    xs = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
+    tln.reset_launch_counts()
+    y = tln.layer_norm_fused(*xs)
+    got = torch.autograd.grad(y.sum(), xs)
+    assert tln.LAUNCHES == {"ln_fwd": 1, "ln_bwd": 1}
+    want = torch.autograd.grad(tln.layer_norm_fused(*xs), xs,
+                               torch.ones_like(y))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    big = _rand((2, 77, 1536), 6, dtype, cuda_device)
+    got = torch.autograd.grad(tln.layer_norm_fused(*xs), xs, big[..., ::2])
+    want = torch.autograd.grad(tln.layer_norm_fused(*xs), xs,
+                               big[..., ::2].contiguous())
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    ys = [t.detach().cpu().requires_grad_(True) for t in xs]
+    cpu = torch.autograd.grad(tln.layer_norm_fused(*ys), ys, big[..., ::2].cpu())
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for g, w in zip(got, cpu):
+        assert g.dtype == w.dtype
+        assert float((g.cpu().float() - w.float()).abs().max()) <= tol * max(
+            1.0, float(w.float().abs().max()))
+
+
+@pytest.mark.cuda
+def test_ln_kernels_reject_what_they_do_not_take(cuda_device):
+    from vit_project_torch.ops import layernorm as tln
+    v = torch.ones(64, device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tln.layer_norm_fused(torch.zeros(4, 64, device=cuda_device,
+                                         dtype=torch.float16), v, v)
+    for D in (100, 8192):
+        w = torch.ones(D, device=cuda_device)
+        with pytest.raises(ValueError, match="multiple of 8 from 8 to 4096"):
+            tln.layer_norm_fused(torch.zeros(4, D, device=cuda_device), w, w)
+    with pytest.raises(ValueError, match=r"expected \[D\]"):
+        tln.ln_fwd(torch.zeros(4, 64, device=cuda_device), v[:8], v)
+    tln.reset_launch_counts()
+    assert tln.LAUNCHES == {"ln_fwd": 0, "ln_bwd": 0}

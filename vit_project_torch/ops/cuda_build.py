@@ -26,7 +26,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 # library name -> its source under csrc/
 SOURCES = {"flash3_fwd": "flash3_fwd.cu", "flash3_bwd": "flash3_bwd.cu",
-           "dw_db": "dw_db.cu"}
+           "dw_db": "dw_db.cu", "layernorm": "layernorm.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
