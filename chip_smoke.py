@@ -16,7 +16,8 @@
    ln_fwd / ln_bwd at those three shapes' residual streams), in float32 and
    bfloat16, checks the largest errors against stated tolerances, and times
    the kernel, the plain version and one PyTorch library call for the same
-   function beside the card's bound for that work;
+   function beside the card's bound for that work (the attention
+   backward and LayerNorm rows also give torch.profiler's device time);
 3b. phase `ops`: calls the attention library's entry points,
    ``flash_mha_packed`` and ``attention_core`` / ``attention_core_bshd``
    with ``use_kernel=True``, and ``layer_norm_fused``, as a user would on
@@ -106,11 +107,13 @@ TOLERANCE = {"float32": {"o": 1e-5, "lse": 1e-5},
 # over the largest |value| of that gradient in the plain version, per dtype:
 #   float32: exact f32 arithmetic in another order of summation; the row
 #     sums c and the products run over up to 257 keys (measured on an H100
-#     SXM: 1.0e-6 relative at most).
+#     SXM: 1.4e-6 relative at most).
 #   bfloat16: both versions round p and ds to bf16 before the products and
-#     the gradients to bf16 at the end; f32 sums in another order move a
-#     value across a bf16 rounding boundary at most once, one bf16 spacing,
-#     which is at most 2^-7 of the largest |value| (measured: 2.4e-3).
+#     the gradients to bf16 at the end; f32 sums in another order (and the
+#     kernel's p from ex2.approx, ~2^-22 relative) move a value across a
+#     bf16 rounding boundary at most once, one bf16 spacing, which is at
+#     most 2^-7 of the largest |value| (measured: 2.3e-3 on flash3_bwd's dv
+#     at the ViT-B/16 and text shapes).
 BWD_TOLERANCE = {"float32": 1e-5, "bfloat16": 2 ** -7}
 
 # dW+db kernel-vs-plain tolerance: max abs error of dW and of db over the
@@ -283,8 +286,11 @@ def phase_kernel_strided(peaks):
         rows.append(row)
         print(f"[kernel] {kernel:9s} {label:9s} {dtype:8s} err "
               + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
-              + f" | kernel_ms {times['ms']:.4f} plain_ms "
-              f"{times['plain_ms']:.4f} library_ms {times['library_ms']:.4f} "
+              + f" | kernel_ms {times['ms']:.4f}"
+              + (f" device_ms {times['device_ms']}" if "device_ms" in times
+                 else "")
+              + f" plain_ms {times['plain_ms']:.4f} library_ms "
+              f"{times['library_ms']:.4f} "
               f"bound_ms {bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.1f} MB, "
               f"{row['gflop']:.2f} GFLOP)", flush=True)
 
@@ -351,6 +357,9 @@ def phase_kernel_strided(peaks):
                 # the SDPA backward alone, on q, k, v of the same values
                 "library_ms": cuda_ms(lambda: torch.autograd.grad(
                     ol, (qh, kh, vh), doh, retain_graph=True), 10)}
+            prof = _profile(lambda: vattn.flash_bwd(q, k, v, do, lse, H,
+                                                    causal), steps=10)
+            times["device_ms"] = prof and prof["device_ms_per_call"]
             record("flash_bwd", label, dname, [B, S, D], H, causal, errs,
                    {"relative_errors": rel, "tolerance_relative": btol},
                    times, 7 * B * S * D * isz + B * S * H * 4,
@@ -822,6 +831,9 @@ def phase_kernel_bwd(peaks):
             library_ms = cuda_ms(lambda: torch.autograd.grad(
                 o, (q, k, v), do_h, retain_graph=True), it)
             del q, k, v, o, do_h
+            # device time alone (torch.profiler), beside the event time
+            prof = _profile(lambda: vattn.flash3_bwd(qkv, do, lse, H, causal),
+                            steps=10)
             nbytes = (qkv.numel() * qkv.element_size()       # read qkv
                       + do.numel() * do.element_size()       # read do
                       + lse.numel() * 4                      # read lse
@@ -836,6 +848,7 @@ def phase_kernel_bwd(peaks):
                    "relative_errors": rel, "tolerance_relative": tol,
                    "ms": kernel_ms, "plain_ms": plain_ms,
                    "library_ms": library_ms,
+                   "device_ms": prof and prof["device_ms_per_call"],
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "mbytes": nbytes / 1e6, "gflop": flops / 1e9}
@@ -843,7 +856,8 @@ def phase_kernel_bwd(peaks):
             print(f"[kernel] flash3_bwd {label:10s} {dname:8s} err "
                   + " ".join(f"{n} {errs[n]:.2e} ({rel[n]:.1e} rel)"
                              for n in errs)
-                  + f" | kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
+                  + f" | kernel_ms {kernel_ms:.4f} device_ms "
+                  f"{row['device_ms']} plain_ms {plain_ms:.4f} "
                   f"library_ms {library_ms:.4f} bound_ms "
                   f"{row['bound_ms']:.4f} ({row['bound_by']}: "
                   f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)",

@@ -264,3 +264,26 @@ def test_strided_operand_checks():
     # size-1 dims may carry any stride: they are never stepped over
     one = torch.zeros(1, 1, 9, 64).as_strided((1, 1, 9, 64), (7, 3, 64, 1))
     assert tattn._check_views("mha_fwd", {"q": one}) == (1, 1, 9)
+
+
+@pytest.mark.parametrize("S,dtype,whole_head", [
+    (1, torch.bfloat16, True), (197, torch.bfloat16, True),
+    (257, torch.bfloat16, True), (432, torch.bfloat16, True),
+    (433, torch.bfloat16, False), (197, torch.float32, False),
+    (1, torch.float32, False)])
+def test_bwd_route_and_scratch_follow_the_kernel(S, dtype, whole_head):
+    """The wrappers' route choice for flash3_bwd / flash_bwd: bf16 up to the
+    kernel's whole-head limit takes one launch and no row-sum scratch (a
+    null pointer); f32, and bf16 past the limit, get a float32 [B, S, H]
+    scratch. The limit is the CUDA source's kWholeHeadMaxS."""
+    assert tattn.bwd_whole_head(S, dtype) is whole_head
+    scratch = tattn._row_sum_scratch(2, S, 3, dtype, torch.device("cpu"))
+    if whole_head:
+        assert scratch is None and tattn._address(scratch) == 0
+    else:
+        assert scratch.shape == (2, S, 3) and scratch.dtype == torch.float32
+        assert tattn._address(scratch) == scratch.data_ptr() != 0
+    from vit_project_torch.ops import cuda_build
+    source = (cuda_build.CSRC_DIR / "flash3_bwd.cu").read_text()
+    assert (f"constexpr int kWholeHeadMaxS = {tattn.BWD_WHOLE_HEAD_MAX_S};"
+            in source)

@@ -61,20 +61,41 @@ def test_flash3_kernel_rejects_what_it_has_no_template_for(cuda_device):
                               "flash_bwd": 0, "mha_fwd": 0, "mha_bwd": 0}
 
 
+# S of the backward's card tests: one row, ragged and whole 16- and 64-row
+# tiles, the ViT-B/16 (197) and CLIP image (257) lengths, and 433, the first
+# past the bf16 whole-head route's limit (the streamed route)
+BWD_LENGTHS = [1, 8, 63, 64, 65, 197, 200, 257,
+               tattn.BWD_WHOLE_HEAD_MAX_S + 1]
+
+
+def _assert_grads_close(got, ref, tol, S):
+    """Each of dq, dk, dv within tol of its largest |value| in the plain
+    version. At S = 1, p = 1 and ds = p (dp - c) = 0, so dq and dk are zero in
+    exact arithmetic and both versions give float32 cancellation noise there:
+    they are held to tol of the largest |value| of the three gradients."""
+    whole = max(float(r.float().abs().max()) for r in ref)
+    for a, r in zip(got, ref):
+        scale = whole if S == 1 else float(r.float().abs().max())
+        assert float((a.float() - r.float()).abs().max()) <= tol * scale
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2 ** -7)])
 @pytest.mark.parametrize("B,S,H,causal", [(64, 257, 16, False),
                                           (66, 77, 12, True),
                                           (3, 17, 4, True), (2, 64, 2, False),
-                                          (2, 65, 2, True), (1, 130, 2, True)])
+                                          (2, 65, 2, True), (1, 130, 2, True)]
+                         + [(2, S, 2, c) for S in BWD_LENGTHS
+                            for c in (False, True)])
 def test_flash3_bwd_kernel_matches_plain(cuda_device, dtype, tol, B, S, H,
                                          causal):
     """dq, dk, dv against the plain backward, max |err| over max |ref| per
     gradient, as chip_smoke.py states it: f32 1e-5 (another order of
     summation), bf16 2^-7 (one bf16 spacing of the largest value). The
-    shapes are the training step's image and text shapes and ragged tiles;
-    two launches give identical bits (no atomics)."""
+    shapes are the training step's image and text shapes, ragged tiles and
+    BWD_LENGTHS (both bf16 routes); two launches give identical bits (no
+    atomics)."""
     D = H * 64
     qkv = _qkv(B, S, H, 64, seed=S).to(cuda_device, dtype)
     do = torch.from_numpy(np.random.RandomState(S + 1).randn(B, S, D)
@@ -84,10 +105,7 @@ def test_flash3_bwd_kernel_matches_plain(cuda_device, dtype, tol, B, S, H,
     got = tattn.flash3_bwd(qkv, do, lse, H, causal)
     assert tattn.LAUNCHES["flash3_bwd"] == 1
     ref = tattn.flash_mha_packed_qkv_bwd_reference(qkv, do, lse, H, causal)
-    for i in range(3):
-        a, r = got[..., i * D:(i + 1) * D].float(), ref[..., i * D:(i + 1) * D]
-        r = r.float()
-        assert float((a - r).abs().max()) <= tol * float(r.abs().max())
+    _assert_grads_close(got.split(D, -1), ref.split(D, -1), tol, S)
     assert torch.equal(got, tattn.flash3_bwd(qkv, do, lse, H, causal))
 
 
@@ -211,6 +229,38 @@ def test_strided_kernels_read_views_as_copies(cuda_device, dtype):
     assert torch.equal(o, tattn.mha_fwd(*copies[:3]))
     assert all(torch.equal(a, b) for a, b in zip(tattn.mha_bwd(*views),
                                                  tattn.mha_bwd(*copies)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S", BWD_LENGTHS)
+def test_flash_bwd_reads_views_at_every_length(cuda_device, S, causal, dtype):
+    """flash_bwd with q, k, v as slices of one packed [B, S, 3D] tensor and
+    do as a [B, S, H, dh] tensor seen as [B, S, D]: within the backward's
+    tolerance of the plain version, the bits of contiguous copies and of
+    flash3_bwd on the packed tensor, and the same bits on a second launch."""
+    B, H = 2, 3
+    D = H * 64
+    qkv = _rand((B, S, 3 * D), S, dtype, cuda_device)
+    qkv[..., :D] *= 0.125
+    q, k, v = (qkv[..., i * D:(i + 1) * D] for i in range(3))
+    do = _rand((B, S, H, 64), S + 1, dtype, cuda_device).flatten(2)
+    _, lse = tattn.flash_mha_packed_reference(q, k, v, H, causal)
+    tattn.reset_launch_counts()
+    grads = tattn.flash_bwd(q, k, v, do, lse, H, causal)
+    assert tattn.LAUNCHES["flash_bwd"] == 1
+    ref = tattn.flash_mha_packed_bwd_reference(q, k, v, do, lse, H, causal)
+    assert all(a.dtype == dtype for a in grads)
+    _assert_grads_close(grads, ref, 2 ** -7 if dtype == torch.bfloat16
+                        else 1e-5, S)
+    again = tattn.flash_bwd(q, k, v, do, lse, H, causal)
+    copies = tattn.flash_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                             do.contiguous(), lse, H, causal)
+    packed = tattn.flash3_bwd(qkv, do.contiguous(), lse, H, causal)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    assert all(torch.equal(a, b) for a, b in zip(grads, copies))
+    assert torch.equal(torch.cat(grads, -1), packed)
 
 
 @pytest.mark.cuda

@@ -444,16 +444,16 @@ def test_cli_runs_on_the_gpu_unless_told_otherwise(things, monkeypatch):
                    "--inference_csv_file", "x", "--RDM48_triplet_dir", "x"])
 
 
-@pytest.mark.parametrize("over,slice_name", [
-    ({"perturb_type": "random_target"}, "slice 3"),
-    ({"frozen_cache": True}, "slice 3"),
-    ({"remat": True}, "slice 3"),
-    ({"dump_inference_embeddings": True}, "slice 3"),
-    ({"sp_devices": 2}, "slice 5"),
+@pytest.mark.parametrize("over,feature", [
+    ({"perturb_type": "random_target"}, "the paradigm drivers"),
+    ({"frozen_cache": True}, "the paradigm drivers"),
+    ({"remat": True}, "the paradigm drivers"),
+    ({"dump_inference_embeddings": True}, "the paradigm drivers"),
+    ({"sp_devices": 2}, "the parallel modes"),
 ])
 def test_unported_options_name_their_slice(things, weights, tmp_path, over,
-                                           slice_name):
+                                           feature):
     cfg = _config(things, weights, str(tmp_path), **over)
-    with pytest.raises(NotImplementedError, match=slice_name):
+    with pytest.raises(NotImplementedError, match=feature):
         tloop.run_behavioral_training(cfg, device="cpu")
     assert not os.path.exists(cfg["training_res_path"])

@@ -12,8 +12,11 @@ shape of ``chip_smoke.py``'s ``attention_cases()`` (forward) and
 ``bwd_cases()`` (backward), in float32 and bfloat16, on the same seeded
 inputs, and reports whether o, lse and dqkv have equal bits. It also times
 both builds in one process, in turns (other, checkout, checkout, other; CUDA
-events over 10 calls each). Exits 1 if any bits differ. Needs one CUDA card
-and nvcc.
+events over 10 calls each). Exits 1 if any bits differ, except in the
+(direction, dtype) runs named by ``--may-differ`` (e.g. ``bwd/bfloat16``
+where the other tree's bf16 backward sums in another order). The other
+build always gets a row-sum scratch, as a build without the whole-head
+route needs one. Needs one CUDA card and nvcc.
 """
 from __future__ import annotations
 
@@ -60,10 +63,13 @@ def build_other(src_dir: Path) -> dict[str, ctypes.CDLL]:
 def using(libs: dict[str, ctypes.CDLL]):
     """Make the wrappers load `libs` in place of the checkout's build."""
     saved = {n: cuda_build._loaded.get(n) for n in libs}
+    saved_max_s = vattn.BWD_WHOLE_HEAD_MAX_S
     cuda_build._loaded.update(libs)
+    vattn.BWD_WHOLE_HEAD_MAX_S = 0      # every call allocates the scratch
     try:
         yield
     finally:
+        vattn.BWD_WHOLE_HEAD_MAX_S = saved_max_s
         for n, lib in saved.items():
             if lib is None:
                 cuda_build._loaded.pop(n, None)
@@ -75,6 +81,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other_csrc", type=Path)
     ap.add_argument("--json", default=None, help="also write the results here")
+    ap.add_argument("--may-differ", action="append", default=[],
+                    metavar="DIRECTION/DTYPE",
+                    help="runs whose bits may differ, e.g. bwd/bfloat16")
     opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -111,6 +120,8 @@ def main(argv=None) -> int:
                 ms = {k: sum(v) / len(v) for k, v in ms.items()}
                 results.append({"direction": direction, "case": label,
                                 "dtype": dname, "bit_identical": equal,
+                                "may_differ": f"{direction}/{dname}"
+                                in opts.may_differ,
                                 "ms_checkout": ms["checkout"],
                                 "ms_other": ms["other"]})
                 print(f"[bits] flash3_{direction} {label:10s} {dname:8s} "
@@ -127,7 +138,10 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(opts.json)), exist_ok=True)
         with open(opts.json, "w") as f:
             json.dump(results, f, indent=1)
-    return 0 if same == len(results) else 1
+    held = [r for r in results if not r["may_differ"]]
+    print(f"[bits] {sum(r['bit_identical'] for r in held)} of {len(held)} "
+          f"runs held to equal bits are equal", flush=True)
+    return 0 if all(r["bit_identical"] for r in held) else 1
 
 
 if __name__ == "__main__":

@@ -42,6 +42,9 @@ from . import cuda_build
 
 NEG_INF = -1e30        # the TPU kernels' mask value (_NEG_INF)
 KERNEL_HEAD_DIM = 64   # the head width the CUDA kernels have a template for
+# bf16 flash3_bwd / flash_bwd up to this S run the whole-head route of
+# csrc/flash3_bwd.cu (kWholeHeadMaxS there): one launch, no row-sum scratch
+BWD_WHOLE_HEAD_MAX_S = 432
 
 # Launches of each kernel wrapper in this module. A wrapper adds one where it
 # launches its kernel and nowhere else; the CPU path adds nothing.
@@ -318,17 +321,36 @@ def _launch_bwd(qkv: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     dqkv = torch.empty_like(qkv)
-    delta = torch.empty(B, S, num_heads, dtype=torch.float32,
-                        device=qkv.device)               # row sums c, scratch
+    delta = _row_sum_scratch(B, S, num_heads, qkv.dtype, qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(qkv.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                 dqkv.data_ptr(), delta.data_ptr(), B, S, D, num_heads,
+                 dqkv.data_ptr(), _address(delta), B, S, D, num_heads,
                  int(causal), _DTYPE_CODES[qkv.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash3_bwd launch failed: CUDA error {err}")
     _count_launch("flash3_bwd")
     return dqkv
+
+
+def bwd_whole_head(S: int, dtype) -> bool:
+    """Whether flash3_bwd / flash_bwd at sequence length S and operand type
+    dtype take the kernel's whole-head route (one launch, the head in shared
+    memory): bf16 up to BWD_WHOLE_HEAD_MAX_S. The other routes take two
+    launches and a row-sum scratch."""
+    return dtype == torch.bfloat16 and S <= BWD_WHOLE_HEAD_MAX_S
+
+
+def _row_sum_scratch(B: int, S: int, H: int, dtype, device):
+    """A float32 [B, S, H] scratch for the row sums c where the backward's
+    route needs one, else None (the kernel gets a null pointer)."""
+    if bwd_whole_head(S, dtype):
+        return None
+    return torch.empty(B, S, H, dtype=torch.float32, device=device)
+
+
+def _address(x) -> int:
+    return 0 if x is None else x.data_ptr()
 
 
 def _strides_ok(x: torch.Tensor) -> bool:
@@ -410,9 +432,10 @@ def _launch_flash_bwd(q, k, v, do, lse, num_heads, causal):
     grads = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
     heads = [*views.values(), *(_heads(x, num_heads) for x in grads)]
-    delta = torch.empty(B, S, H, dtype=torch.float32, device=q.device)
+    delta = _row_sum_scratch(B, S, H, q.dtype, q.device)
     _launch_strided("flash3_bwd", "flash_bwd",
-                    [x.data_ptr() for x in (*heads, lse, delta)], heads,
+                    [*(x.data_ptr() for x in (*heads, lse)), _address(delta)],
+                    heads,
                     B, S, H, causal, q.dtype)
     return grads
 

@@ -3,8 +3,8 @@ perturb/injectors.py).
 
 Only ``perturb_distribution_stats`` is ported so far: the baseline run logs
 and carries the target distribution's mean and std. The four CLIP-side
-injectors come with slice 3 of the port (the paradigm drivers); the
-training loop refuses any other perturb_type until then.
+injectors come with the port of the paradigm drivers; the training loop
+refuses any other perturb_type until then.
 """
 from __future__ import annotations
 

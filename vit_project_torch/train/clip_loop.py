@@ -18,9 +18,10 @@ on: at the reference configuration one step runs the attention backward
 kernel once (image block 23).
 
 The port's AdamW updates the adapter tensors in place (the JAX loop returns
-new trees). Later slices bring the perturbation injectors, the frozen-prefix
-cache, remat and the embedding dumps (slice 3) and the data-parallel and
-sequence-parallel modes (slice 5); until then those options raise.
+new trees). The perturbation injectors, the frozen-prefix cache, remat and
+the embedding dumps come with the port of the paradigm drivers, and the
+data-parallel and sequence-parallel modes with the port of the parallel
+modes; until then those options raise.
 """
 from __future__ import annotations
 
@@ -52,8 +53,9 @@ from ..perturb import injectors, windows
 # tokens (512 ViT-L/14 images; the JAX loop's cap)
 EVAL_TOKEN_CAP = 132_000
 
-SLICE3 = "slice 3 of the port (the paradigm drivers)"
-SLICE5 = "slice 5 of the port (the parallel modes)"
+# what a refused option waits for, named by feature
+PARADIGM_DRIVERS = "the port of the paradigm drivers"
+PARALLEL_MODES = "the port of the parallel modes"
 
 
 def make_optimizer(params, lr: float) -> torch.optim.AdamW:
@@ -82,9 +84,9 @@ class ClipHBATrainer:
                  sp_ring: bool = False):
         if mesh is not None or sp or sp_ring:
             raise _unported("data-parallel and sequence-parallel training",
-                            SLICE5)
+                            PARALLEL_MODES)
         if remat:
-            raise _unported("remat", SLICE3)
+            raise _unported("remat", PARADIGM_DRIVERS)
         self.cfg = clip_cfg
         self.model = model.requires_grad_(False)
         self.device = next(model.parameters()).device
@@ -104,7 +106,7 @@ class ClipHBATrainer:
     def check_perturb_type(perturb_type: str) -> None:
         if perturb_type != "baseline":
             raise _unported(f"perturb_type={perturb_type!r} (the "
-                            f"perturbation injectors)", SLICE3)
+                            f"perturbation injectors)", PARADIGM_DRIVERS)
 
     def init_optimizer(self, trainable: dict) -> torch.optim.AdamW:
         return make_optimizer(
@@ -216,9 +218,9 @@ def train_model(trainer: ClipHBATrainer, trainable: dict,
     trainer.check_perturb_type(perturb_type)
     if frozen_cache:
         raise _unported("frozen_cache (the frozen-prefix activation cache)",
-                        SLICE3)
+                        PARADIGM_DRIVERS)
     if dump_dir is not None or nod_images is not None:
-        raise _unported("the per-epoch embedding dumps", SLICE3)
+        raise _unported("the per-epoch embedding dumps", PARADIGM_DRIVERS)
     log = logger.info if logger else print
     best_test_loss = 500000.0  # reference initializes to 500000 (ref :790)
     epochs_no_improve = 0
@@ -419,14 +421,15 @@ def build_run_assets(cfg: ClipRunConfig, logger, device):
 def _refuse_unported(cfg: ClipRunConfig) -> None:
     ClipHBATrainer.check_perturb_type(cfg.perturb_type)
     if cfg.sp_devices > 1 or cfg.sp_ring:
-        raise _unported("sequence parallelism (sp_devices, sp_ring)", SLICE5)
+        raise _unported("sequence parallelism (sp_devices, sp_ring)",
+                        PARALLEL_MODES)
     if cfg.remat:
-        raise _unported("remat", SLICE3)
+        raise _unported("remat", PARADIGM_DRIVERS)
     if cfg.frozen_cache:
-        raise _unported("frozen_cache", SLICE3)
+        raise _unported("frozen_cache", PARADIGM_DRIVERS)
     if cfg.dump_inference_embeddings or cfg.nod_csv_file:
         raise _unported("the embedding dumps (dump_inference_embeddings, "
-                        "nod_csv_file)", SLICE3)
+                        "nod_csv_file)", PARADIGM_DRIVERS)
 
 
 def run_behavioral_training(config, preempt_guard=None, device=None) -> dict:
