@@ -17,7 +17,9 @@
    bfloat16, checks the largest errors against stated tolerances, and times
    the kernel, the plain version and one PyTorch library call for the same
    function beside the card's bound for that work (the attention
-   backward and LayerNorm rows also give torch.profiler's device time);
+   backward, dW+db and LayerNorm rows also give torch.profiler's device
+   time; the dW+db rows also time the product alone, and the mha_bwd rows
+   SDPA's backward on float32 copies, the same function as the kernel's);
 3b. phase `ops`: calls the attention library's entry points,
    ``flash_mha_packed`` and ``attention_core`` / ``attention_core_bshd``
    with ``use_kernel=True``, and ``layer_norm_fused``, as a user would on
@@ -49,8 +51,9 @@
    the attention backward 12 times (the forward 12 per forward), that a run
    stopped after epoch 1 and resumed equals the uninterrupted run bit for
    bit, and that one step with the kernel agrees with the same step on the
-   plain dW+db; it times steps on a batch already on the card, training
-   images/s with host decode, validation and peak memory;
+   plain dW+db; it times steps on a batch already on the card (fused and
+   plain backward in turns, with their spread), training images/s with
+   host decode, validation and peak memory;
 7. prints one JSON line of kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -291,7 +294,9 @@ def phase_kernel_strided(peaks):
                  else "")
               + f" plain_ms {times['plain_ms']:.4f} library_ms "
               f"{times['library_ms']:.4f} "
-              f"bound_ms {bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.1f} MB, "
+              + (f"library_f32_ms {times['library_f32_ms']:.4f} "
+                 if "library_f32_ms" in times else "")
+              + f"bound_ms {bound_ms:.4f} ({bound_by}: {nbytes / 1e6:.1f} MB, "
               f"{row['gflop']:.2f} GFLOP)", flush=True)
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -409,6 +414,20 @@ def phase_kernel_strided(peaks):
             ol = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
             times["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
                 ol, (q, k, v), do, retain_graph=True), 10)
+            # the same function as the kernel's: SDPA's backward on float32
+            # copies of the inputs (the kernel forms p and ds in float32)
+            if dtype == torch.float32:
+                times["library_f32_ms"] = times["library_ms"]
+            else:
+                qf, kf, vf = (t.detach().float().requires_grad_(True)
+                              for t in (q, k, v))
+                dof = do.float()
+                of = F.scaled_dot_product_attention(qf, kf, vf,
+                                                    is_causal=causal,
+                                                    scale=64 ** -0.5)
+                times["library_f32_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                    of, (qf, kf, vf), dof, retain_graph=True), 10)
+                del qf, kf, vf, dof, of
             # the scores q k^T and dp = do v^T multiply the operands; dv,
             # dq and dk multiply float32 p or ds whatever the input type
             record("mha_bwd", label, dname, [B, H, S, 64], H, causal, errs,
@@ -722,13 +741,20 @@ def dwdb_cases():
             ("fc2", N, 3072, 768), ("head", 256, 768, 1000)]
 
 
-def _library_dwdb(x, g):
-    """One PyTorch product with a float32 result, and the row sum: the
-    yardstick beside the kernel (never called by the port)."""
+def _gemm_dwdb(x, g):
+    """The product alone, x^T g with a float32 result (never called by the
+    port)."""
     import torch
     if x.dtype == torch.float32:
-        return torch.mm(x.t(), g), g.sum(0)
-    return torch.mm(x.t(), g, out_dtype=torch.float32), g.float().sum(0)
+        return torch.mm(x.t(), g)
+    return torch.mm(x.t(), g, out_dtype=torch.float32)
+
+
+def _library_dwdb(x, g):
+    """The yardstick beside the kernel: the product and the row sum, taken in
+    float32 without a float32 copy of g (never called by the port)."""
+    import torch
+    return _gemm_dwdb(x, g), g.sum(0, dtype=torch.float32)
 
 
 def phase_kernel_dwdb(peaks):
@@ -758,6 +784,11 @@ def phase_kernel_dwdb(peaks):
             kernel_ms = cuda_ms(lambda: vfdw.dw_db(x, g), it)
             plain_ms = cuda_ms(lambda: vfdw.dw_db_reference(x, g), it)
             library_ms = cuda_ms(lambda: _library_dwdb(x, g), it)
+            gemm_ms = cuda_ms(lambda: _gemm_dwdb(x, g), it)
+            prof = _profile(lambda: vfdw.dw_db(x, g), steps=it)
+            device_ms = prof and prof["device_ms_per_call"]
+            route = vfdw.route(x, g)
+            sched = vfdw.schedule(N, Din, Dout, route)
             isz = x.element_size()
             nbytes = N * (Din + Dout) * isz + (Din * Dout + Dout) * 4
             flops = 2 * N * Din * Dout
@@ -767,17 +798,23 @@ def phase_kernel_dwdb(peaks):
                    "shape": [N, Din, Dout], "max_abs_err": max(errs.values()),
                    "errors": errs, "relative_errors": rel,
                    "tolerance_relative": DWDB_TOLERANCE,
-                   "splits": vfdw.row_splits(N, Din, Dout, dtype),
-                   "ms": kernel_ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
+                   "route": route, "splits": sched.splits,
+                   "items": sched.items, "blocks": sched.blocks,
+                   "ms": kernel_ms, "device_ms": device_ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "gemm_ms": gemm_ms, "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "mbytes": nbytes / 1e6, "gflop": flops / 1e9}
             rows.append(row)
             print(f"[kernel] dw_db {label:5s} [{N}x{Din}]^T[{N}x{Dout}] "
                   f"{dname:8s} err dW {errs['dw']:.2e} ({rel['dw']:.1e} rel) "
-                  f"db {errs['db']:.2e} ({rel['db']:.1e} rel) | kernel_ms "
-                  f"{kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-                  f"{library_ms:.4f} bound_ms {row['bound_ms']:.4f} "
+                  f"db {errs['db']:.2e} ({rel['db']:.1e} rel) | route {route}, "
+                  f"{sched.splits} splits, {sched.items} items on "
+                  f"{sched.blocks} blocks | kernel_ms {kernel_ms:.4f} device_ms "
+                  f"{'not measured' if device_ms is None else f'{device_ms:.4f}'}"
+                  f" plain_ms {plain_ms:.4f} library_ms "
+                  f"{library_ms:.4f} gemm_ms {gemm_ms:.4f} bound_ms "
+                  f"{row['bound_ms']:.4f} "
                   f"({row['bound_by']}: {nbytes / 1e6:.1f} MB, "
                   f"{flops / 1e9:.1f} GFLOP)", flush=True)
             del x, g
@@ -1575,16 +1612,39 @@ def phase_vit_train(tmp: str):
     del with_kernel, with_plain
 
     # device time of a step on a batch already on the card, with the fused
-    # kernel and with the plain autograd backward
+    # kernel and with the plain autograd backward, in turns (fused, plain,
+    # plain, fused; 10 steps a turn, CUDA events between steps), so a drift
+    # of the card's clock falls on both
     imgs_t, lbls_t = trainer.place(*next(iter(
         make_loader(os.path.join(data, "train"), 256, train=True,
                              size=224, workers=8, drop_last=True).epoch(0))))
-    step_ms = cuda_ms(lambda: trainer.step(momentum, imgs_t, lbls_t, 0.02),
-                      20)
-    trainer.fused_dw = False
-    plain_step_ms = cuda_ms(
-        lambda: trainer.step(momentum, imgs_t, lbls_t, 0.02), 20)
+    def turn(fused, steps=10):
+        trainer.fused_dw = fused
+        for _ in range(2):
+            trainer.step(momentum, imgs_t, lbls_t, 0.02)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+        ev[0].record()
+        for i in range(steps):
+            trainer.step(momentum, imgs_t, lbls_t, 0.02)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+    turns = {"fused": [], "plain": []}
+    for name in ("fused", "plain", "plain", "fused"):
+        turns[name].append(turn(name == "fused"))
     trainer.fused_dw = True
+    spread = {k: {"turn_means": [statistics.mean(t) for t in v],
+                  "min": min(min(t) for t in v), "max": max(max(t) for t in v),
+                  "stdev": statistics.stdev([x for t in v for x in t])}
+              for k, v in turns.items()}
+    step_ms = statistics.mean(x for t in turns["fused"] for x in t)
+    plain_step_ms = statistics.mean(x for t in turns["plain"] for x in t)
+    print("[vit_train] step in turns (fused, plain, plain, fused; 10 steps "
+          "each): " + "; ".join(
+              f"{k} {statistics.mean(v['turn_means']):.2f} ms (turns "
+              + ", ".join(f"{m:.2f}" for m in v["turn_means"])
+              + f"; steps {v['min']:.2f}-{v['max']:.2f}, stdev "
+              f"{v['stdev']:.2f})" for k, v in spread.items()), flush=True)
     with torch.no_grad():
         fwd_ms = cuda_ms(lambda: trainer.logits(imgs_t), 10)
     with warnings.catch_warnings():
@@ -1623,7 +1683,8 @@ def phase_vit_train(tmp: str):
         "steps": steps, "launches": launches, "run_s": run_s,
         "epochs": stats, "rows": rows[1:], "resume_bit_exact": resume_exact,
         "step_kernel_vs_plain": step_err, "step_ms": step_ms,
-        "plain_step_ms": plain_step_ms, "forward_ms": fwd_ms,
+        "plain_step_ms": plain_step_ms, "step_turns": turns,
+        "step_spread": spread, "forward_ms": fwd_ms,
         "train_images_per_s": ips, "val_ms": e2["val_s"] * 1e3,
         "profile": prof, "decode_images_per_s": decode_ips,
         "epoch_s": e2["epoch_s"], "peak_mem_gib": peak_gib}

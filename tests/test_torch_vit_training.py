@@ -14,6 +14,7 @@ port's kernel wrappers take their plain versions, and JAX's Pallas kernels
 run in interpret mode."""
 import dataclasses
 import os
+import pathlib
 import shutil
 
 import jax
@@ -120,15 +121,106 @@ def test_dw_db_matches_jax_kernel_and_numpy(N, Din, Dout):
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-4)
 
 
-def test_dw_db_row_splits_cover_the_rows():
-    """The kernel's row split: about two blocks per SM, never more splits
-    than row steps, one split when the tiles alone fill the card."""
-    bf = torch.bfloat16
-    assert tfdw.row_splits(50432, 768, 768, bf) == 8       # 36 tiles
-    assert tfdw.row_splits(50432, 768, 2304, bf) == 3      # 108 tiles
-    assert tfdw.row_splits(50432, 768, 3072, bf) == 2      # 144 tiles
-    assert tfdw.row_splits(20, 768, 768, bf) == 1          # one row step
-    assert tfdw.row_splits(50432, 768, 3072, torch.float32) == 1  # 576 tiles
+VIT_DENSE_SHAPES = {"qkv": (50432, 768, 2304), "proj": (50432, 768, 768),
+                    "fc1": (50432, 768, 3072), "fc2": (50432, 3072, 768),
+                    "head": (256, 768, 1000)}
+
+
+@pytest.mark.parametrize("route", ["tma", "mma", "fma"])
+@pytest.mark.parametrize("N,Din,Dout", [*VIT_DENSE_SHAPES.values(),
+                                        (33, 13, 7), (1000, 130, 250)])
+def test_dw_db_schedule_covers_every_tile_row_step_once(route, N, Din, Dout):
+    """The kernel's persistent schedule: every (tile, row step) lies in
+    exactly one item, each item is one contiguous, non-empty range of row
+    steps, a tile's items in fix-up order run from step 0 to the last in
+    split order, and every item belongs to exactly one block of the grid."""
+    sc = tfdw.schedule(N, Din, Dout, route)
+    r = tfdw.ROUTES[route]
+    assert sc.steps == -(-N // r.bk)
+    assert sc.items == sc.tiles * sc.splits
+    assert sc.blocks == min(r.blocks, sc.items)
+    covered = {}
+    for i in range(sc.items):
+        tm, tn, split, s0, s1 = sc.item(i)
+        assert 0 <= tm < sc.tiles_m and 0 <= tn < sc.tiles_n and s0 < s1
+        for step in range(s0, s1):
+            key = (tm * sc.tiles_n + tn, step)
+            assert key not in covered
+            covered[key] = i
+    assert len(covered) == sc.tiles * sc.steps
+    for tile in range(sc.tiles):
+        order = sc.fixup_order(tile)
+        ranges = [sc.item(i)[3:] for i in order]
+        assert [sc.item(i)[2] for i in order] == list(range(sc.splits))
+        assert ranges[0][0] == 0 and ranges[-1][1] == sc.steps
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    owners = sorted(i for b in range(sc.blocks) for i in sc.block_items(b))
+    assert owners == list(range(sc.items))
+    # db: the Din tiles' row groups cut each step's rows into contiguous
+    # pieces, and the fix-up sums, for each Dout tile, one partial of every
+    # (split, Din tile) item of that column, split-major
+    groups = [sc.db_rows(tm) for tm in range(sc.tiles_m)]
+    assert groups[0][0] == 0 and groups[-1][1] == r.bk
+    assert all(a[1] == b[0] and a[0] <= a[1] for a, b in zip(groups, groups[1:]))
+    for tn in range(sc.tiles_n):
+        order = sc.db_order(tn)
+        assert [sc.item(i)[1] for i in order] == [tn] * (sc.items // sc.tiles_n)
+        assert [sc.item(i)[2::-2] for i in order] == [
+            (j, tm) for j in range(sc.splits) for tm in range(sc.tiles_m)]
+    # the cuts are a function of the shape alone: the same on every call
+    assert tfdw.schedule(N, Din, Dout, route) == sc
+
+
+@pytest.mark.parametrize("label,tiles,splits", [
+    ("qkv", 54, 7), ("proj", 18, 7), ("fc1", 72, 5), ("fc2", 72, 5),
+    ("head", 24, 4)])
+def test_dw_db_schedule_at_the_vit_shapes(label, tiles, splits):
+    """128 x 256 tiles of the TMA route at every dense layer of the ViT-B/16
+    step, and the splits the cost model picks: fc1's 72 tiles x 5 splits are
+    360 items, 3 waves of 132 blocks; proj's 18 x 7 one wave of 126; the
+    head's 4 row steps give 4 items a tile."""
+    N, Din, Dout = VIT_DENSE_SHAPES[label]
+    sc = tfdw.schedule(N, Din, Dout, "tma")
+    assert (sc.tiles, sc.splits) == (tiles, splits)
+    assert sc.tiles == -(-Din // 128) * -(-Dout // 256)
+    assert sc.blocks == min(132, sc.items)
+
+
+@pytest.mark.parametrize("dtype,Din,Dout,x_off,g_off,want", [
+    (torch.bfloat16, 768, 2304, 0, 0, "tma"),     # qkv
+    (torch.bfloat16, 768, 768, 0, 0, "tma"),      # proj
+    (torch.bfloat16, 768, 3072, 0, 0, "tma"),     # fc1
+    (torch.bfloat16, 3072, 768, 0, 0, "tma"),     # fc2
+    (torch.bfloat16, 768, 1000, 0, 0, "tma"),     # the head
+    (torch.bfloat16, 130, 256, 0, 0, "mma"),      # Din not a multiple of 8
+    (torch.bfloat16, 768, 7, 0, 0, "mma"),        # Dout not a multiple of 8
+    (torch.bfloat16, 768, 768, 1, 0, "mma"),      # x's base off 16 bytes
+    (torch.bfloat16, 768, 768, 0, 1, "mma"),      # g's base off 16 bytes
+    (torch.float32, 768, 3072, 0, 0, "fma"),
+    (torch.float32, 130, 7, 1, 0, "fma"),
+])
+def test_dw_db_route_choice(dtype, Din, Dout, x_off, g_off, want):
+    """The route follows dtype, shape and alignment: TMA needs 16-byte
+    aligned bases and row strides, so every ViT-B/16 shape takes it and Din
+    130, Dout 7 or an unaligned base take mma.sync; float32 takes the FMA
+    route. The tensors' own addresses decide (an element offset into a
+    buffer moves the base by 2 bytes in bf16)."""
+    x = torch.zeros(4 * Din + 8, dtype=dtype)[x_off:x_off + 4 * Din].view(4, Din)
+    g = torch.zeros(4 * Dout + 8, dtype=dtype)[g_off:g_off + 4 * Dout].view(4, Dout)
+    assert x.is_contiguous() and g.is_contiguous()
+    assert tfdw.route(x, g) == want
+
+
+def test_dw_db_routes_match_the_kernel_source():
+    """ROUTES mirrors the CUDA source's kTile table (tile rows, columns, rows
+    a step, blocks of the grid) in route-code order."""
+    src = (pathlib.Path(tfdw.__file__).resolve().parents[1] / "csrc" / "dw_db.cu").read_text()
+    rows = ", ".join("{" + f"{r.bm}, {r.bn}, {r.bk}, {r.blocks}" + "}" for r in
+                     sorted(tfdw.ROUTES.values(), key=lambda r: r.code))
+    assert f"constexpr int kTile[3][4] = {{{rows}}};" in src
+    assert [tfdw.ROUTES[n].code for n in ("fma", "mma", "tma")] == [0, 1, 2]
+    assert "constexpr int kRouteFma = 0, kRouteMma = 1, kRouteTma = 2;" in src
+    assert "atomicAdd" not in src and ".red." not in src   # no float atomics
 
 
 def test_dense_dw_fused_grads_match_autograd_and_jax():
