@@ -17,7 +17,7 @@
    bfloat16, checks the largest errors against stated tolerances, and times
    the kernel, the plain version and one PyTorch library call for the same
    function beside the card's bound for that work (the attention
-   backward, dW+db and LayerNorm rows also give torch.profiler's device
+   backwards, dW+db and LayerNorm rows also give torch.profiler's device
    time; the dW+db rows also time the product alone, and the mha_bwd rows
    SDPA's backward on float32 copies, the same function as the kernel's);
 3b. phase `ops`: calls the attention library's entry points,
@@ -82,10 +82,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Published peaks of one H100 (NVIDIA data sheets, dense, at a 700 W limit on
 # the SXM part): bytes/s of device memory and operations/s by type. A PCIe
-# card has its own sheet.
+# card has its own sheet. "tfloat32" is the tensor cores' TF32 rate, which is
+# also the rate of a float32 operand split into two bf16 terms (two bf16
+# products for each one).
 PEAKS = {
-    "SXM": {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12},
-    "PCIe": {"bytes": 2.0e12, "bfloat16": 756e12, "float32": 51e12},
+    "SXM": {"bytes": 3.35e12, "bfloat16": 989e12, "tfloat32": 495e12,
+            "float32": 67e12},
+    "PCIe": {"bytes": 2.0e12, "bfloat16": 756e12, "tfloat32": 378e12,
+             "float32": 51e12},
 }
 
 # kernel-vs-plain tolerances on the card (max abs error), per dtype:
@@ -111,12 +115,13 @@ TOLERANCE = {"float32": {"o": 1e-5, "lse": 1e-5},
 #   float32: exact f32 arithmetic in another order of summation; the row
 #     sums c and the products run over up to 257 keys (measured on an H100
 #     SXM: 1.4e-6 relative at most).
-#   bfloat16: both versions round p and ds to bf16 before the products and
-#     the gradients to bf16 at the end; f32 sums in another order (and the
-#     kernel's p from ex2.approx, ~2^-22 relative) move a value across a
-#     bf16 rounding boundary at most once, one bf16 spacing, which is at
-#     most 2^-7 of the largest |value| (measured: 2.3e-3 on flash3_bwd's dv
-#     at the ViT-B/16 and text shapes).
+#   bfloat16: both versions round p and ds to bf16 before the products (the
+#     flash entries; mha_bwd keeps them in float32, its kernel to 2^-16 as
+#     two bf16 terms) and the gradients to bf16 at the end; f32 sums in
+#     another order (and the kernel's p from ex2.approx, ~2^-22 relative)
+#     move a value across a bf16 rounding boundary at most once, one bf16
+#     spacing, which is at most 2^-7 of the largest |value| (measured: 2.3e-3
+#     on flash3_bwd's dv at the ViT-B/16 and text shapes).
 BWD_TOLERANCE = {"float32": 1e-5, "bfloat16": 2 ** -7}
 
 # dW+db kernel-vs-plain tolerance: max abs error of dW and of db over the
@@ -182,7 +187,7 @@ def phase_build():
           f"(nvcc, sm_90a; cached builds take ~0 s)", flush=True)
     for name in paths:
         for line in cuda_build.build_log(name).splitlines():
-            if "ptxas info" in line:
+            if "ptxas info" in line or "spill" in line:  # registers, spills
                 print(f"[build] {name}: {line.strip()}")
     RESULTS["build_s"] = dt
 
@@ -241,6 +246,21 @@ def _bound(nbytes, flops_by_type, peaks):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _route(kernel, S, dtype) -> str:
+    """The CUDA route an attention kernel takes at sequence length S
+    (ops/attention.py's predicates, which CPU tests tie to the sources)."""
+    from vit_project_torch.ops import attention as vattn
+    import torch
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    if kernel.endswith("fwd"):
+        return "whole_head" if vattn.fwd_whole_head(S, dtype) else (
+            "streamed" if dtype == torch.bfloat16 else "fma")
+    if vattn.bwd_whole_head(S, dtype):
+        return "whole_head"
+    return "streamed" if dtype == torch.bfloat16 and kernel != "mha_bwd" \
+        else "fma"
+
+
 def _o_within_tolerance(got, ref, dname) -> bool:
     """Whether every element of a forward output is within TOLERANCE's
     absolute value of the plain version or, in bfloat16 where that is
@@ -281,13 +301,16 @@ def phase_kernel_strided(peaks):
                nbytes, flops):
         bound_ms, bound_by = _bound(nbytes, flops, peaks)
         row = {"kernel": kernel, "case": label, "dtype": dtype,
+               "route": _route(kernel, shape[-2] if kernel.startswith("mha")
+                               else shape[1], dtype),
                "shape": shape, "heads": H, "causal": causal,
                "max_abs_err": max(errs.values()), "errors": errs, **extra,
                **times, "bound_ms": bound_ms, "bound_by": bound_by,
                "mbytes": nbytes / 1e6,
                "gflop": sum(flops.values()) / 1e9}
         rows.append(row)
-        print(f"[kernel] {kernel:9s} {label:9s} {dtype:8s} err "
+        print(f"[kernel] {kernel:9s} {label:9s} {dtype:8s} "
+              f"{row['route']:10s} err "
               + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
               + f" | kernel_ms {times['ms']:.4f}"
               + (f" device_ms {times['device_ms']}" if "device_ms" in times
@@ -411,6 +434,9 @@ def phase_kernel_strided(peaks):
                                   10),
                     "plain_ms": cuda_ms(lambda: vattn.mha_bwd_reference(
                         q, k, v, do, causal), 3)}
+            prof = _profile(lambda: vattn.mha_bwd(q, k, v, do, causal),
+                            steps=10)
+            times["device_ms"] = prof and prof["device_ms_per_call"]
             ol = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
             times["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
                 ol, (q, k, v), do, retain_graph=True), 10)
@@ -429,12 +455,14 @@ def phase_kernel_strided(peaks):
                     of, (qf, kf, vf), dof, retain_graph=True), 10)
                 del qf, kf, vf, dof, of
             # the scores q k^T and dp = do v^T multiply the operands; dv,
-            # dq and dk multiply float32 p or ds whatever the input type
+            # dq and dk multiply float32 p or ds whatever the input type: in
+            # bf16 as two bf16 terms each, at the TF32 rate
+            flops = {dname: 4 * B * H * pairs * 64}
+            split = "tfloat32" if dtype == torch.bfloat16 else "float32"
+            flops[split] = flops.get(split, 0) + 6 * B * H * pairs * 64
             record("mha_bwd", label, dname, [B, H, S, 64], H, causal, errs,
                    {"relative_errors": rel, "tolerance_relative": btol},
-                   times, 7 * B * S * D * isz,
-                   {dname: 4 * B * H * pairs * 64,
-                    "float32": 6 * B * H * pairs * 64})
+                   times, 7 * B * S * D * isz, flops)
             del q, k, v, do, ol
             torch.cuda.empty_cache()
     RESULTS["kernel_strided"] = rows
@@ -880,6 +908,7 @@ def phase_kernel_bwd(peaks):
             t_bytes = nbytes / peaks["bytes"] * 1e3
             t_ops = flops / peaks[dname] * 1e3
             row = {"kernel": "flash3_bwd", "case": label, "dtype": dname,
+                   "route": _route("flash3_bwd", S, dtype),
                    "shape": [B, S, 3 * D], "heads": H, "causal": causal,
                    "max_abs_err": max(errs.values()), "errors": errs,
                    "relative_errors": rel, "tolerance_relative": tol,
@@ -890,7 +919,8 @@ def phase_kernel_bwd(peaks):
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "mbytes": nbytes / 1e6, "gflop": flops / 1e9}
             rows.append(row)
-            print(f"[kernel] flash3_bwd {label:10s} {dname:8s} err "
+            print(f"[kernel] flash3_bwd {label:10s} {dname:8s} "
+                  f"{row['route']:10s} err "
                   + " ".join(f"{n} {errs[n]:.2e} ({rel[n]:.1e} rel)"
                              for n in errs)
                   + f" | kernel_ms {kernel_ms:.4f} device_ms "
@@ -947,6 +977,7 @@ def phase_kernel_fwd(peaks):
             t_bytes = nbytes / peaks["bytes"] * 1e3
             t_ops = flops / peaks[dname] * 1e3
             row = {"kernel": "flash3_fwd", "case": label, "dtype": dname,
+                   "route": _route("flash3_fwd", S, dtype),
                    "shape": [B, S, 3 * D],
                    "heads": H, "causal": causal, "max_abs_err_o": err_o,
                    "max_abs_err_lse": err_l, "ms": kernel_ms,
@@ -956,7 +987,7 @@ def phase_kernel_fwd(peaks):
                    "mbytes": nbytes / 1e6, "gflop": flops / 1e9}
             rows.append(row)
             print(f"[kernel] flash3_fwd {label:10s} {dname:8s} "
-                  f"err o {err_o:.2e} lse {err_l:.2e} | kernel_ms "
+                  f"{row['route']:10s} err o {err_o:.2e} lse {err_l:.2e} | kernel_ms "
                   f"{kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
                   f"{library_ms:.4f} bound_ms {row['bound_ms']:.4f} "
                   f"({row['bound_by']}: {nbytes / 1e6:.1f} MB, "

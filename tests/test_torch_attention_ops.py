@@ -287,3 +287,81 @@ def test_bwd_route_and_scratch_follow_the_kernel(S, dtype, whole_head):
     source = (cuda_build.CSRC_DIR / "flash3_bwd.cu").read_text()
     assert (f"constexpr int kWholeHeadMaxS = {tattn.BWD_WHOLE_HEAD_MAX_S};"
             in source)
+
+
+@pytest.mark.parametrize("S,dtype,whole_head", [
+    (1, torch.bfloat16, True), (77, torch.bfloat16, True),
+    (197, torch.bfloat16, True), (257, torch.bfloat16, True),
+    (432, torch.bfloat16, True), (433, torch.bfloat16, False),
+    (197, torch.float32, False)])
+def test_mha_bwd_route_and_scratch_follow_the_kernel(S, dtype, whole_head,
+                                                     monkeypatch):
+    """mha_bwd takes the backward's whole-head route by the same predicate as
+    flash3_bwd / flash_bwd (bwd_whole_head, the source's kWholeHeadMaxS): its
+    wrapper then hands the kernel null lse and row-sum pointers, and
+    allocates the two float32 [B, S, H] scratch tensors only on the other
+    routes. The source selects the route for every entry by dtype and S
+    alone."""
+    calls = []
+    monkeypatch.setattr(tattn, "_launch_strided",
+                        lambda *a: calls.append(a))
+    q = torch.zeros(2, 3, S, 64, dtype=dtype)
+    grads = tattn._launch_mha_bwd(q, q, q, q, False)
+    assert [g.shape for g in grads] == [q.shape] * 3
+    (lib, entry, ptrs, views, B, S_, H, causal, dt), = calls
+    assert (lib, entry, (B, S_, H), dt) == ("flash3_bwd", "mha_bwd",
+                                             (2, S, 3), dtype)
+    assert len(ptrs) == 9 and all(p != 0 for p in ptrs[:7])
+    assert tattn.bwd_whole_head(S, dtype) is whole_head
+    if whole_head:
+        assert ptrs[7:] == [0, 0]
+    else:
+        assert 0 not in ptrs[7:] and ptrs[8] - ptrs[7] == 2 * S * 3 * 4
+    from vit_project_torch.ops import cuda_build
+    source = (cuda_build.CSRC_DIR / "flash3_bwd.cu").read_text()
+    assert "if (dtype == 1 && S <= kWholeHeadMaxS) {" in source
+
+
+@pytest.mark.parametrize("S,dtype,whole_head", [
+    (1, torch.bfloat16, True), (77, torch.bfloat16, True),
+    (257, torch.bfloat16, True), (288, torch.bfloat16, True),
+    (289, torch.bfloat16, False), (197, torch.float32, False)])
+def test_fwd_route_follows_the_kernel(S, dtype, whole_head):
+    """The forwards' whole-head route (one block per head, its q, k and v
+    read once) takes bf16 up to FWD_WHOLE_HEAD_MAX_S, the source's
+    kFwdWholeHeadMaxS, for all three entries (one launch function)."""
+    assert tattn.fwd_whole_head(S, dtype) is whole_head
+    from vit_project_torch.ops import cuda_build
+    source = (cuda_build.CSRC_DIR / "flash3_fwd.cu").read_text()
+    assert (f"constexpr int kFwdWholeHeadMaxS = "
+            f"{tattn.FWD_WHOLE_HEAD_MAX_S};" in source)
+    assert ("if (S <= kFwdWholeHeadMaxS) return launch_fwd_whole_head(a, B, H, "
+            "cs);" in source)
+
+
+@pytest.mark.parametrize("S", [197, 257])
+def test_two_term_split_keeps_float32_products(S):
+    """The bf16 mha_bwd kernel multiplies its float32 operands (p, ds) as two
+    bf16 terms, hi = bf16(x) and lo = bf16(x - hi), each product exact in
+    float32 and both summed in one float32 accumulator. On float32 softmax
+    rows p and bf16 do (dv = p^T do's operands, seeded numpy inputs at the
+    ViT-B/16 and CLIP image lengths), every element of the two-term product
+    lies within 2^-15 of sum |p| |do| of a float64 reference (2^-16 from the
+    split, the rest from float32 accumulation). Rounding p to bf16 once, the
+    flash entries' choice and another function, errs by more."""
+    rs = np.random.RandomState(S)
+    s = (rs.randn(S, S) * 2).astype(np.float32)
+    e = np.exp(s - s.max(-1, keepdims=True))
+    p = torch.from_numpy((e / e.sum(-1, keepdims=True)).astype(np.float32))
+    do = torch.from_numpy(rs.randn(S, 64).astype(np.float32)).bfloat16()
+    hi = p.bfloat16()
+    lo = (p - hi.float()).bfloat16()
+    assert torch.equal(p - hi.float(), (p.double() - hi.double()).float())
+    two = torch.cat([hi, lo], 1).float() @ torch.cat([do, do], 0).float()
+    one = hi.float() @ do.float()
+    ref = p.double() @ do.double()
+    scale = p.double().abs() @ do.double().abs()
+    worst = {name: float(((x.double() - ref).abs() / scale).max())
+             for name, x in (("two", two), ("one", one))}
+    assert worst["two"] <= 2.0 ** -15
+    assert worst["one"] > worst["two"] and worst["one"] > 2.0 ** -15

@@ -321,6 +321,96 @@ def test_entry_points_launch_one_forward_and_one_backward(cuda_device, entry):
         assert float((g.cpu() - w).abs().max()) <= 1e-5 * float(w.abs().max())
 
 
+# S of mha_bwd's card tests: ragged tiles, the text (77), ViT-B/16 (197) and
+# CLIP image (257) lengths, and both sides of the bf16 whole-head route's edge
+MHA_BWD_LENGTHS = [13, 77, 197, 257, tattn.BWD_WHOLE_HEAD_MAX_S,
+                   tattn.BWD_WHOLE_HEAD_MAX_S + 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S", MHA_BWD_LENGTHS)
+def test_mha_bwd_routes_match_plain(cuda_device, S, causal, dtype):
+    """mha_bwd on [B, S, H, dh] tensors seen as [B, H, S, dh] (the views of
+    attention_core_bshd) on both bf16 routes: the whole-head route (p and ds
+    enter the products as two bf16 terms) up to BWD_WHOLE_HEAD_MAX_S, the FMA
+    route past it, and float32 on the FMA route. Each gradient within 2^-7
+    (bf16; one bf16 spacing of the largest value) or 1e-5 (f32) of its
+    largest |value| in the plain float32 version; one launch; the bits of
+    contiguous copies; the same bits on a second launch."""
+    B, H = 2, 2
+    views = [_rand((B, S, H, 64), S + i, dtype, cuda_device).transpose(1, 2)
+             for i in range(4)]
+    tattn.reset_launch_counts()
+    got = tattn.mha_bwd(*views, causal)
+    assert tattn.LAUNCHES["mha_bwd"] == 1
+    ref = tattn.mha_bwd_reference(*views, causal)
+    assert all(a.dtype == dtype for a in got)
+    _assert_grads_close(got, ref, 2 ** -7 if dtype == torch.bfloat16
+                        else 1e-5, S)
+    again = tattn.mha_bwd(*views, causal)
+    copies = tattn.mha_bwd(*(x.contiguous() for x in views), causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, copies))
+
+
+# S of the forwards' card tests: one row, both sides of 16 and 64 rows, the
+# ViT-B/16 and CLIP image lengths, and both sides of the bf16 whole-head
+# route's edge
+FWD_LENGTHS = [1, 15, 16, 17, 63, 64, 65, 197, 257,
+               tattn.FWD_WHOLE_HEAD_MAX_S, tattn.FWD_WHOLE_HEAD_MAX_S + 1]
+
+
+def _assert_o_close(got, ref, dtype):
+    """Each element of o within 1e-5 (f32) or, in bf16, within the larger of
+    2e-2 and one bf16 spacing at its magnitude (chip_smoke.py's rule: both
+    versions round one float32 value to bf16 once)."""
+    diff = (got.float() - ref.float()).abs()
+    tol = torch.full_like(diff, 1e-5 if dtype == torch.float32 else 2e-2)
+    if dtype == torch.bfloat16:
+        big = torch.maximum(got.float().abs(), ref.float().abs())
+        tol = torch.maximum(tol, torch.exp2(torch.floor(torch.log2(
+            big.clamp_min(2.0 ** -126))) - 7))
+    assert bool(torch.isfinite(diff).all() and (diff <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S", FWD_LENGTHS)
+def test_forward_routes_match_plain(cuda_device, S, causal, dtype):
+    """The three forward entries on both bf16 routes (whole head up to
+    FWD_WHOLE_HEAD_MAX_S, streamed past it) and in float32: flash3_fwd on a
+    packed qkv, flash_fwd on its q, k, v slices (strided views) and mha_fwd
+    on [B, S, H, dh] tensors seen as [B, H, S, dh]. o as _assert_o_close
+    says, lse within 1e-4; the strided entries give the packed one's bits
+    and contiguous copies' bits; a second launch gives the same bits."""
+    B, H = 2, 3
+    D = H * 64
+    qkv = _rand((B, S, 3 * D), S, dtype, cuda_device)
+    qkv[..., :D] *= 0.125
+    tattn.reset_launch_counts()
+    o, lse = tattn.flash3_fwd(qkv, H, causal)
+    assert tattn.LAUNCHES["flash3_fwd"] == 1
+    ro, rl = tattn.flash_mha_packed_qkv_reference(qkv, H, causal)
+    _assert_o_close(o, ro, dtype)
+    torch.testing.assert_close(lse, rl, atol=1e-4, rtol=0)
+    again = tattn.flash3_fwd(qkv, H, causal)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    q, k, v = (qkv[..., i * D:(i + 1) * D] for i in range(3))
+    o2, lse2 = tattn.flash_fwd(q, k, v, H, causal)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+    views = [_rand((B, S, H, 64), S + 10 + i, dtype, cuda_device)
+             .transpose(1, 2) for i in range(3)]
+    om = tattn.mha_fwd(*views, causal)
+    _assert_o_close(om, tattn.mha_reference(*views, causal=causal), dtype)
+    assert torch.equal(om, tattn.mha_fwd(*views, causal))
+    assert torch.equal(om, tattn.mha_fwd(*(x.contiguous() for x in views),
+                                         causal))
+
+
 # -- the fused dW + db kernel --------------------------------------------------
 
 def _xg(N, Din, Dout, seed):

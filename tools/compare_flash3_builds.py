@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
-"""Compare the packed flash3 attention kernels of two source trees, bit for bit.
+"""Compare the attention kernels of two source trees, bit for bit, and time them.
 
     python3 tools/compare_flash3_builds.py OTHER_CSRC_DIR [--json PATH]
+        [--may-differ ENTRY/DTYPE ...] [--entries ENTRY,...]
 
-OTHER_CSRC_DIR holds another version of ``flash3_fwd.cu`` and
-``flash3_bwd.cu`` (for example a parent commit's, written out with
+OTHER_CSRC_DIR holds another version of ``flash3_fwd.cu``, ``flash3_bwd.cu``
+and ``attention.cuh`` (for example a parent commit's, written out with
 ``git show REV:vit_project_torch/csrc/flash3_fwd.cu``). The script builds them
-with the port's nvcc flags beside the checkout's own build, runs both through
-the same wrappers (``ops/attention.py flash3_fwd`` / ``flash3_bwd``) at every
-shape of ``chip_smoke.py``'s ``attention_cases()`` (forward) and
-``bwd_cases()`` (backward), in float32 and bfloat16, on the same seeded
-inputs, and reports whether o, lse and dqkv have equal bits. It also times
-both builds in one process, in turns (other, checkout, checkout, other; CUDA
-events over 10 calls each). Exits 1 if any bits differ, except in the
-(direction, dtype) runs named by ``--may-differ`` (e.g. ``bwd/bfloat16``
-where the other tree's bf16 backward sums in another order). The other
-build always gets a row-sum scratch, as a build without the whole-head
-route needs one. Needs one CUDA card and nvcc.
+with the port's nvcc flags beside the checkout's own build and runs both
+through the same wrappers (``ops/attention.py``) on the same seeded inputs:
+
+- ``flash3_fwd`` / ``flash3_bwd`` (packed qkv) at every shape of
+  ``chip_smoke.py``'s ``attention_cases()`` (forward) and ``bwd_cases()``
+  (backward);
+- ``flash_fwd`` / ``flash_bwd`` (q, k, v [B, S, D]) and ``mha_fwd`` /
+  ``mha_bwd`` ([B, H, S, 64]) at ``strided_cases()``;
+
+in float32 and bfloat16. Both backwards of a flash pair take the same lse
+(the checkout's forward). It reports whether the outputs have equal bits,
+and times both builds in one process, in turns (other, checkout, checkout,
+other; CUDA events over 10 calls each), with the ratio. Exits 1 if any bits
+differ, except in the (entry, dtype) runs named by ``--may-differ`` (e.g.
+``flash3_bwd/bfloat16`` where the other tree sums in another order).
+``--entries`` runs a subset. The other build always gets the backward's
+scratch, as a build without a whole-head route needs it. Needs one CUDA card
+and nvcc.
 """
 from __future__ import annotations
 
@@ -55,6 +63,9 @@ def build_other(src_dir: Path) -> dict[str, ctypes.CDLL]:
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for {src_dir / cuda_build.SOURCES[name]}"
                              f":\n{log}")
+        for line in log.splitlines():   # ptxas: registers and spills
+            if "Used" in line or "spill" in line:
+                print(f"[other build] {name}: {line.strip()}", flush=True)
         libs[name] = ctypes.CDLL(str(out))
     return libs
 
@@ -77,13 +88,52 @@ def using(libs: dict[str, ctypes.CDLL]):
                 cuda_build._loaded[n] = lib
 
 
+ENTRIES = ("flash3_fwd", "flash3_bwd", "flash_fwd", "flash_bwd", "mha_fwd",
+           "mha_bwd")
+
+
+def cases(entry):
+    return {"flash3_fwd": chip_smoke.attention_cases,
+            "flash3_bwd": chip_smoke.bwd_cases}.get(
+                entry, chip_smoke.strided_cases)()
+
+
+def make_run(entry, B, S, H, causal, dtype):
+    """A call of `entry` on seeded inputs at one shape, returning a tuple of
+    outputs."""
+    import torch
+    D = H * 64
+    if entry.startswith("flash3"):
+        qkv, gen = chip_smoke._random_qkv(B, S, H, dtype)
+        do = torch.randn(B, S, D, generator=gen, device="cuda").to(dtype)
+        if entry == "flash3_fwd":
+            return lambda: vattn.flash3_fwd(qkv, H, causal)
+        _, lse = vattn.flash3_fwd(qkv, H, causal)
+        return lambda: (vattn.flash3_bwd(qkv, do, lse, H, causal),)
+    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
+    if entry.startswith("flash"):
+        q = chip_smoke._randn((B, S, D), gen, dtype, 0.125)   # q prescaled
+        k, v, do = (chip_smoke._randn((B, S, D), gen, dtype) for _ in range(3))
+        if entry == "flash_fwd":
+            return lambda: vattn.flash_fwd(q, k, v, H, causal)
+        _, lse = vattn.flash_fwd(q, k, v, H, causal)
+        return lambda: vattn.flash_bwd(q, k, v, do, lse, H, causal)
+    q, k, v, do = (chip_smoke._randn((B, H, S, 64), gen, dtype)
+                   for _ in range(4))
+    if entry == "mha_fwd":
+        return lambda: (vattn.mha_fwd(q, k, v, causal),)
+    return lambda: vattn.mha_bwd(q, k, v, do, causal)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other_csrc", type=Path)
     ap.add_argument("--json", default=None, help="also write the results here")
     ap.add_argument("--may-differ", action="append", default=[],
-                    metavar="DIRECTION/DTYPE",
-                    help="runs whose bits may differ, e.g. bwd/bfloat16")
+                    metavar="ENTRY/DTYPE",
+                    help="runs whose bits may differ, e.g. mha_bwd/bfloat16")
+    ap.add_argument("--entries", default=",".join(ENTRIES),
+                    help="comma list of entries to compare (default: all)")
     opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -95,43 +145,39 @@ def main(argv=None) -> int:
     results = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        for direction, cases in (("fwd", chip_smoke.attention_cases()),
-                                 ("bwd", chip_smoke.bwd_cases())):
-            for label, B, S, H, causal in cases:
-                qkv, gen = chip_smoke._random_qkv(B, S, H, dtype)
-                do = torch.randn(B, S, H * 64, generator=gen,
-                                 device="cuda").to(dtype)
-                _, lse = vattn.flash3_fwd(qkv, H, causal)   # both backwards' input
-
-                def run():
-                    if direction == "fwd":
-                        return vattn.flash3_fwd(qkv, H, causal)
-                    return (vattn.flash3_bwd(qkv, do, lse, H, causal),)
+        for entry in opts.entries.split(","):
+            for label, B, S, H, causal in cases(entry):
+                run = make_run(entry, B, S, H, causal, dtype)
                 mine = run()
                 with using(other):
                     theirs = run()
                 torch.cuda.synchronize()
                 equal = all(torch.equal(a, b) for a, b in zip(mine, theirs))
+                err = max((a.float() - b.float()).abs().max().item()
+                          for a, b in zip(mine, theirs))
                 ms = {"other": [], "checkout": []}
                 for side in ("other", "checkout", "checkout", "other"):
                     with using(other) if side == "other" else \
                             contextlib.nullcontext():
                         ms[side].append(chip_smoke.cuda_ms(run, 10))
                 ms = {k: sum(v) / len(v) for k, v in ms.items()}
-                results.append({"direction": direction, "case": label,
+                results.append({"entry": entry, "case": label,
                                 "dtype": dname, "bit_identical": equal,
-                                "may_differ": f"{direction}/{dname}"
+                                "max_abs_diff": err,
+                                "may_differ": f"{entry}/{dname}"
                                 in opts.may_differ,
                                 "ms_checkout": ms["checkout"],
-                                "ms_other": ms["other"]})
-                print(f"[bits] flash3_{direction} {label:10s} {dname:8s} "
-                      f"{'equal bits' if equal else 'DIFFER'}; kernel_ms "
-                      f"checkout {ms['checkout']:.4f}, other "
-                      f"{ms['other']:.4f}", flush=True)
-                del qkv, do, lse, mine, theirs
+                                "ms_other": ms["other"],
+                                "speedup": ms["other"] / ms["checkout"]})
+                print(f"[bits] {entry:10s} {label:10s} {dname:8s} "
+                      f"{'equal bits' if equal else 'DIFFER'} (max |diff| "
+                      f"{err:.3e}); kernel_ms checkout {ms['checkout']:.4f}, "
+                      f"other {ms['other']:.4f}, "
+                      f"{ms['other'] / ms['checkout']:.2f}x", flush=True)
+                del run, mine, theirs
                 torch.cuda.empty_cache()
     same = sum(r["bit_identical"] for r in results)
-    print(f"[bits] {same} of {len(results)} (direction, shape, dtype) runs "
+    print(f"[bits] {same} of {len(results)} (entry, shape, dtype) runs "
           f"bit-identical between the checkout and {opts.other_csrc}",
           flush=True)
     if opts.json:

@@ -31,12 +31,12 @@
 // No route uses float atomics: gradients are bit-identical run to run, which the
 // bit-exact resume of the training loop relies on. dh is fixed at 64.
 //
-// 1. bf16 `flash3_bwd` / `flash_bwd` with S <= kWholeHeadMaxS, the "whole-head" route:
+// 1. bf16 with S <= kWholeHeadMaxS, all three entries, the "whole-head" route:
 //    ONE launch, one block per (head, batch), as the TPU kernel holds a whole head in
 //    VMEM. The block copies q, k, v and do of its head into shared
 //    memory with cp.async (rows padded to a multiple of 16 with zeros, 128-byte rows
 //    under an XOR swizzle of their 16-byte chunks, so every ldmatrix is free of bank
-//    conflicts) and the head's lse beside them, then
+//    conflicts; attention.cuh) and the head's lse beside them, then
 //      phase A, warps own 16-row blocks: a sweep over the key tiles forms s and dp
 //        and c (to shared memory, for phase B); a second sweep forms ds and
 //        accumulates dq = ds k in registers, written once;
@@ -53,6 +53,17 @@
 //    16 (not 64) leaves S = 197 at 208 rows and S = 257 at 272. Shared memory is 520
 //    bytes a row: two blocks of 8 warps fit an SM up to 216 rows (ViT-B/16), one block
 //    (of 12 warps) up to 432.
+//    `mha_bwd` (the template flag kMha) differs in three places. No lse comes in:
+//    phase A first sweeps its key tiles once more for s alone (scaled by 1/8, exact)
+//    and forms each row's max and sum online in float32; the row's lse, in the log2
+//    domain, goes to the same shared array the flash entries load theirs into. p and
+//    ds stay float32, and each of the three products that takes them (dv += p^T do,
+//    dq += ds k, dk += ds^T q) runs as two bf16 products on hi = bf16(x) and
+//    lo = bf16(x - hi), into one float32 accumulator: both are exact, as do, k and q
+//    are bf16 already, and hi + lo is x to 2^-16 of |x| (the tensor cores' TF32 rate,
+//    not a rounding of p or ds to bf16). dq and dk are scaled by 1/8 at the end.
+//    Thirteen products per tile pair. Two blocks of 8 warps at 128 registers and one
+//    of 12 at 157 build without a spill (ptxas), so mha_bwd takes the flash shapes.
 // 2. bf16 `flash3_bwd` / `flash_bwd` with S > kWholeHeadMaxS, the "streamed" route:
 //    two passes, 4 warps of 16 rows (or keys) each; tiles of 64 rows stream through
 //    two shared-memory stages with cp.async (tile i + 1 in flight while tile i is
@@ -63,13 +74,13 @@
 //      dk/dv pass, grid (64-key tile, head, batch), launched after the first on the
 //        same stream: a loop over the q tiles (reading their lse and c) accumulates
 //        dk and dv on the transposed scores s^T = k q^T.
-// 3. float32, and `mha_bwd` in both types (the "FMA route"): the two passes of route 2
+// 3. float32, and bf16 `mha_bwd` with S > kWholeHeadMaxS (the "FMA route"): the two
+//    passes of route 2
 //    (`mha_bwd` first forms the row max and sum over the 32-key tiles and writes lse
 //    to a float32 scratch [B, S, H]), with two threads sharing a row (or key), each
 //    holding 32 of its 64 lanes widened to float32, and every product computed with
-//    FMAs from shared memory (dot products joined with one shuffle). The tensor cores
-//    have no exact f32 product, and `mha_bwd` multiplies float32 p and ds, so the bf16
-//    mma route (which rounds them) is not used there.
+//    FMAs from shared memory (dot products joined with one shuffle): the tensor cores
+//    have no exact f32 product.
 // A causal block skips every tile that lies wholly above the diagonal. Rows and keys
 // past S read as zero and are never written.
 //
@@ -82,8 +93,10 @@
 // arithmetic (nine products, not five, over padded tiles) and the latency of one
 // block's load before its products start, which a second block on the SM hides where
 // two fit.
-// `mha_bwd` runs three of its five products on float32 p or ds, 26 GFLOP at 67
-// TFLOP/s at the CLIP image shape: 0.39 ms, bound by operations.
+// `mha_bwd` in bf16 reads q, k, v and do and writes dq, dk and dv, 7 B S D 2 bytes
+// (542 MB at ViT-B/16: 0.16 ms), against two bf16 products and three at the TF32 rate
+// that its split runs at (0.12 ms): it is bound by bytes, and the whole-head route
+// moves that many.
 
 #include <math.h>
 
@@ -97,7 +110,6 @@ constexpr int kTile = 64;     // streamed and FMA routes: rows of a dq block, ke
                               // dk/dv block, loop tiles
 constexpr int kF32Tile = 32;  // loop tile of the FMA route
 constexpr int kWholeHeadMaxS = 432;  // the whole-head route takes S up to this
-constexpr int kRowBytes = kDh * 2;   // one bf16 row of a head: eight 16-byte chunks
 
 template <typename T>
 struct BwdArgs {
@@ -124,14 +136,13 @@ __device__ __forceinline__ float replay_p(float s, int row, int col, float lse, 
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-// replay_p for the whole-head route: p = 2^(s log2 e - lse2), where lse2 = lse log2 e,
-// from the special function unit (ex2.approx: relative error ~2^-22, against the 2^-9
-// of the bf16 rounding that p and ds then take; expf's exact range reduction was the
-// route's largest single cost).
+// replay_p for the whole-head route: p = 2^(s s2 - lse2), where s2 = scale log2 e and
+// lse2 = lse log2 e, from the special function unit (ex2.approx: relative error
+// ~2^-22, against the 2^-9 of the bf16 rounding that p and ds then take in the flash
+// entries; expf's exact range reduction was the route's largest single cost).
 __device__ __forceinline__ float head_p(float s, int row, int col, float lse2, int S,
-                                        int causal) {
-  float e;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(fmaf(s, kLog2e, -lse2)));
+                                        int causal, float s2) {
+  const float e = ex2(fmaf(s, s2, -lse2));
   const bool ok = row < S && col < S && (!causal || col <= row);
   return ok ? e : 0.f;
 }
@@ -165,55 +176,6 @@ __device__ __forceinline__ void product_nt(float (*out)[4], uint32_t (*a)[4],
       mma_bf16_16816(out[nt], a[ks], b0, b1);
     }
   }
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 give the row addresses of
-// matrix i, and register i of lane l holds row l/4, columns 2(l%4), 2(l%4)+1 of it
-// (with .trans: column l/4, rows 2(l%4), 2(l%4)+1).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// 16 bytes from global to shared memory without passing through registers; zeros
-// where `valid` is false (the source is then not read).
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-// Lane offsets of the x4 loads of one 16x16 block (m16n8k16 fragments), with `tile`
-// rows of 8 16-byte chunks:
-//   A (16 rows x 16 k, k contiguous): row lane & 15, chunk lane >> 4;
-//   B stored n-major (16 n x 16 k): row ((lane >> 4) << 3) | (lane & 7), chunk
-//     (lane >> 3) & 1; registers 0-1 are b0, b1 of n 0-7, registers 2-3 of n 8-15;
-//   B stored k-major (16 k x 16 n), .trans: row (((lane >> 3) & 1) << 3) | (lane & 7),
-//     chunk lane >> 4; registers as above.
-struct LaneOffsets {
-  int a_row, a_chk, n_row, n_chk, k_row, k_chk;
-  __device__ __forceinline__ explicit LaneOffsets(int lane)
-      : a_row(lane & 15), a_chk(lane >> 4), n_row(((lane >> 4) << 3) | (lane & 7)),
-        n_chk((lane >> 3) & 1), k_row((((lane >> 3) & 1) << 3) | (lane & 7)),
-        k_chk(lane >> 4) {}
-};
-
-// The A fragment (16 x 16) of the f32 accumulators of two n-tiles, rounded to bf16.
-__device__ __forceinline__ void pack_a(uint32_t (&x)[4], const float (&f)[2][4]) {
-  x[0] = pack_bf16(f[0][0], f[0][1]);
-  x[1] = pack_bf16(f[0][2], f[0][3]);
-  x[2] = pack_bf16(f[1][0], f[1][1]);
-  x[3] = pack_bf16(f[1][2], f[1][3]);
 }
 
 // acc[16 rows x 64 dh] += X (16 rows x 64, the f32 accumulators `x`, rounded to
@@ -264,19 +226,6 @@ __device__ __forceinline__ void load_tile_async(bf16 (*dst)[kDh + kPad], const b
     const int c = (i % (kDh / 8)) * 8;
     const bool ok = row0 + r < S;
     cp_async_16(smem_addr(&dst[r][c]), ok ? src + (row0 + r) * stride + c : src, ok);
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most `pending` (0 or 1) committed groups are still in flight.
-__device__ __forceinline__ void cp_async_wait(bool one_pending) {
-  if (one_pending) {
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  } else {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   }
 }
 
@@ -479,31 +428,10 @@ __global__ void __launch_bounds__(128) attn_bwd_dkv_bf16_kernel(const BwdArgs<bf
 
 // ---- whole-head route ----------------------------------------------------------
 
-__host__ __device__ __forceinline__ int padded_rows(int S) { return (S + 15) / 16 * 16; }
-
 // Shared memory of the whole-head route for Sp padded rows: q, k, v, do (bf16) and
 // the row statistics lse and c (float32).
 __host__ __device__ __forceinline__ int head_smem_bytes(int Sp) {
   return Sp * (4 * kRowBytes + 2 * 4);
-}
-
-// Byte address of 16-byte chunk `c` of row `r` of a head tile at `base`: the chunks of
-// a row are permuted by r mod 8, so the eight row addresses of one ldmatrix matrix
-// (8 consecutive rows, one logical chunk) fall on eight different bank groups.
-__device__ __forceinline__ uint32_t swz(uint32_t base, int r, int c) {
-  return base + r * kRowBytes + ((c ^ (r & 7)) << 4);
-}
-
-// Rows [0, Sp) of one head into a swizzled tile with cp.async; rows past S are zero.
-template <int kThreads>
-__device__ __forceinline__ void load_head_async(uint32_t dst, const bf16* src, long long stride,
-                                                int S, int Sp) {
-  for (int i = threadIdx.x; i < Sp * (kDh / 8); i += kThreads) {
-    const int r = i >> 3;
-    const int c = i & 7;
-    const bool ok = r < S;
-    cp_async_16(swz(dst, r, c), ok ? src + r * stride + c * 8 : src, ok);
-  }
 }
 
 // s = X Y^T and d = Z W^T for one 16-row block, from the A fragments x, z (4 k-steps
@@ -530,34 +458,115 @@ __device__ __forceinline__ void scores_pair(float (&s)[2][4], float (&d)[2][4],
   }
 }
 
-// acc[16 x 64] += X (the A fragment of 16 x 16) * the 16 rows at `row0` of tile y
-// (contracting over those rows; fragments from ldmatrix.trans).
-__device__ __forceinline__ void product_rows(float (&acc)[8][4], const uint32_t (&x)[4],
-                                             uint32_t y, int row0, const LaneOffsets& lo) {
+// mha_bwd's row statistics for one 16-row block (rows `row`, this thread's g and
+// g + 8): a sweep over the key tiles [0, kt_end) forms s = q k^T on the tensor cores
+// and an online max and sum of 2^(s s2) in float32. Returns lse2 = max + log2(sum),
+// the same in every lane of a quad.
+__device__ __forceinline__ void row_stats(float (&lse2)[2], const uint32_t (&qa)[4][4],
+                                          uint32_t sk, int kt_end, const int (&row)[2], int S,
+                                          int causal, float s2, const LaneOffsets& lo, int t) {
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this thread's partial sums, reduced over the quad at the end
+  for (int kt = 0; kt < kt_end; ++kt) {
+    float s[2][4];
+    scores_16(s, qa, sk, kt * 16 + lo.n_row, lo);
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int np = 0; np < 4; ++np) {
-    uint32_t yb[4];
-    ldsm_x4_trans(yb, swz(y, row0 + lo.k_row, 2 * np + lo.k_chk));
-    mma_bf16_16816(acc[2 * np], x, yb[0], yb[1]);
-    mma_bf16_16816(acc[2 * np + 1], x, yb[2], yb[3]);
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = kt * 16 + j * 8 + t * 2 + (e & 1);
+        const bool ok = col < S && (!causal || col <= row[e >> 1]);
+        s[j][e] = ok ? s[j][e] * s2 : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    }
+    // every row sees key 0 in tile 0, so the max is finite from the first tile on
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      l[i] *= ex2(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) l[e >> 1] += ex2(s[j][e] - m[e >> 1]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    lse2[i] = m[i] + log2f(l[i]);
   }
 }
 
-// The A fragments (4 k-steps over dh) of the 16 rows at `row0` of a head tile.
-__device__ __forceinline__ void head_a_frags(uint32_t (&x)[4][4], uint32_t tile, int row0,
-                                             const LaneOffsets& lo) {
+// The two-term split of a float32 A fragment (16 x 16, two n-tiles of accumulators):
+// hi = bf16(x) and lo = bf16(x - hi), so hi + lo is x to 2^-16 of |x| and each of
+// hi * y and lo * y is exact in float32 for a bf16 y (x - hi is exact in float32).
+__device__ __forceinline__ void split_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                        const float (&f)[2][4]) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) ldsm_x4(x[ks], swz(tile, row0 + lo.a_row, 2 * ks + lo.a_chk));
+  for (int i = 0; i < 4; ++i) {
+    const float x0 = f[i >> 1][(i & 1) * 2];
+    const float x1 = f[i >> 1][(i & 1) * 2 + 1];
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[i] = pack_bf16(x0 - hf.x, x1 - hf.y);
+  }
 }
 
-__device__ __forceinline__ void zero_acc(float (&acc)[8][4]) {
+// acc[16 x 64] += (hi + lo) * the 16 rows at `row0` of tile y: product_rows on both
+// terms of a split fragment, hi then lo into the same float32 accumulators, one
+// ldmatrix.trans for both.
+__device__ __forceinline__ void product_rows_split(float (&acc)[8][4], const uint32_t (&hi)[4],
+                                                   const uint32_t (&lo)[4], uint32_t y,
+                                                   int row0, const LaneOffsets& lanes) {
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  for (int np = 0; np < 4; ++np) {
+    uint32_t yb[4];
+    ldsm_x4_trans(yb, swz(y, row0 + lanes.k_row, 2 * np + lanes.k_chk));
+    mma_bf16_16816(acc[2 * np], hi, yb[0], yb[1]);
+    mma_bf16_16816(acc[2 * np], lo, yb[0], yb[1]);
+    mma_bf16_16816(acc[2 * np + 1], hi, yb[2], yb[3]);
+    mma_bf16_16816(acc[2 * np + 1], lo, yb[2], yb[3]);
+  }
+}
+
+// acc += X * the 16 rows at `row0` of tile y, X the float32 fragment `x`: rounded to
+// bf16 once (flash entries, as the TPU kernel rounds p and ds to the working type) or
+// split in two terms (kMha: mha_bwd keeps p and ds in float32).
+template <bool kMha>
+__device__ __forceinline__ void product_rows_of(float (&acc)[8][4], const float (&x)[2][4],
+                                                uint32_t y, int row0, const LaneOffsets& lanes) {
+  if (kMha) {
+    uint32_t xh[4], xl[4];
+    split_a(xh, xl, x);
+    product_rows_split(acc, xh, xl, y, row0, lanes);
+  } else {
+    uint32_t xa[4];
+    pack_a(xa, x);
+    product_rows(acc, xa, y, row0, lanes);
+  }
+}
+
+__device__ __forceinline__ void scale_acc(float (&acc)[8][4], float f) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] *= f;
+  }
 }
 
 // One block of kWarps warps per (head, batch): grid (H, B), head_smem_bytes of dynamic
-// shared memory.
-template <int kWarps, int kMinBlocks>
+// shared memory. kMha: `mha_bwd` (no lse in: phase A forms each row's statistics
+// first; the scores scaled by a.scale; p and ds enter the products as two bf16 terms;
+// dq and dk scaled by a.scale at the end); otherwise `flash3_bwd` / `flash_bwd`.
+template <int kWarps, int kMinBlocks, bool kMha>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
     attn_bwd_head_bf16_kernel(const BwdArgs<bf16> a) {
   constexpr int kThreads = kWarps * 32;
@@ -574,14 +583,18 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
   const uint32_t sdo = sv + Sp * kRowBytes;
   float* lse_s = reinterpret_cast<float*>(smem + 4 * Sp * kRowBytes);  // lse log2 e
   float* c_s = lse_s + Sp;
+  // the exponent of p per unit of q k^T: log2 e, times 1/sqrt(dh) for mha_bwd (exact)
+  const float s2 = kMha ? a.scale * kLog2e : kLog2e;
 
   load_head_async<kThreads>(sq, head_base(a.q, a.sq, b, h), a.sq.s, S, Sp);
   load_head_async<kThreads>(sk, head_base(a.k, a.sk, b, h), a.sk.s, S, Sp);
   load_head_async<kThreads>(sv, head_base(a.v, a.sv, b, h), a.sv.s, S, Sp);
   load_head_async<kThreads>(sdo, head_base(a.dout, a.sdo, b, h), a.sdo.s, S, Sp);
   cp_async_commit();
-  for (int r = threadIdx.x; r < Sp; r += kThreads) {
-    lse_s[r] = r < S ? a.lse[((long long)b * S + r) * a.H + h] * kLog2e : 0.f;
+  if (!kMha) {
+    for (int r = threadIdx.x; r < Sp; r += kThreads) {
+      lse_s[r] = r < S ? a.lse[((long long)b * S + r) * a.H + h] * kLog2e : 0.f;
+    }
   }
   cp_async_wait(false);
   __syncthreads();
@@ -592,15 +605,25 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
   const int t = lane & 3;   // thread in group
   const LaneOffsets lo(lane);
 
-  // phase A: warps own 16-row blocks; c, then dq
+  // phase A: warps own 16-row blocks; (mha_bwd: the row statistics,) c, then dq
   for (int rb = warp; rb < n16; rb += kWarps) {
     const int r0 = rb * 16;
     uint32_t qa[4][4], da[4][4];
     head_a_frags(qa, sq, r0, lo);
     head_a_frags(da, sdo, r0, lo);
     const int row[2] = {r0 + g, r0 + g + 8};
-    const float lse_r[2] = {lse_s[row[0]], lse_s[row[1]]};
     const int kt_end = causal ? rb + 1 : n16;  // causal: key tiles past the block are empty
+    float lse_r[2];
+    if (kMha) {
+      row_stats(lse_r, qa, sk, kt_end, row, S, causal, s2, lo, t);
+      if (t == 0) {
+        lse_s[row[0]] = lse_r[0];
+        lse_s[row[1]] = lse_r[1];
+      }
+    } else {
+      lse_r[0] = lse_s[row[0]];
+      lse_r[1] = lse_s[row[1]];
+    }
     float c[2] = {0.f, 0.f};
     for (int kt = 0; kt < kt_end; ++kt) {
       float s[2][4], dp[2][4];
@@ -610,7 +633,7 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = kt * 16 + j * 8 + t * 2 + (e & 1);
-          const float p = head_p(s[j][e], row[e >> 1], col, lse_r[e >> 1], S, causal);
+          const float p = head_p(s[j][e], row[e >> 1], col, lse_r[e >> 1], S, causal, s2);
           c[e >> 1] += p * dp[j][e];
         }
       }
@@ -634,17 +657,16 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = kt * 16 + j * 8 + t * 2 + (e & 1);
-          const float p = head_p(s[j][e], row[e >> 1], col, lse_r[e >> 1], S, causal);
+          const float p = head_p(s[j][e], row[e >> 1], col, lse_r[e >> 1], S, causal, s2);
           s[j][e] = p * (dp[j][e] - c[e >> 1]);
         }
       }
-      uint32_t dsa[4];
-      pack_a(dsa, s);
-      product_rows(dq, dsa, sk, kt * 16, lo);  // dq += ds k
+      product_rows_of<kMha>(dq, s, sk, kt * 16, lo);  // dq += ds k
     }
+    if (kMha) scale_acc(dq, a.scale);
     store_rows_bf16(head_base(a.dq, a.sdq, b, h), a.sdq.s, dq, row[0], S, t);
   }
-  __syncthreads();  // c of every row is in shared memory
+  __syncthreads();  // c (and for mha_bwd lse) of every row is in shared memory
 
   // phase B: warps own 16-key blocks; dk and dv on the transposed scores
   for (int kb = warp; kb < n16; kb += kWarps) {
@@ -666,25 +688,31 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qi = q0 + j * 8 + t * 2 + (e & 1);
-          const float p = head_p(st[j][e], qi, key[e >> 1], lse_s[qi], S, causal);
+          const float p = head_p(st[j][e], qi, key[e >> 1], lse_s[qi], S, causal, s2);
           st[j][e] = p;
           dpt[j][e] = p * (dpt[j][e] - c_s[qi]);
         }
       }
-      uint32_t pa[4], dsa[4];
-      pack_a(pa, st);
-      pack_a(dsa, dpt);
-      product_rows(dv, pa, sdo, q0, lo);   // dv += p^T do
-      product_rows(dk, dsa, sq, q0, lo);   // dk += ds^T q
+      if (kMha) {
+        product_rows_of<true>(dv, st, sdo, q0, lo);   // dv += p^T do
+        product_rows_of<true>(dk, dpt, sq, q0, lo);   // dk += ds^T q
+      } else {
+        uint32_t pa[4], dsa[4];
+        pack_a(pa, st);
+        pack_a(dsa, dpt);
+        product_rows(dv, pa, sdo, q0, lo);   // dv += p^T do
+        product_rows(dk, dsa, sq, q0, lo);   // dk += ds^T q
+      }
     }
+    if (kMha) scale_acc(dk, a.scale);
     store_rows_bf16(head_base(a.dk, a.sdk, b, h), a.sdk.s, dk, key[0], S, t);
     store_rows_bf16(head_base(a.dv, a.sdv, b, h), a.sdv.s, dv, key[0], S, t);
   }
 }
 
-template <int kWarps, int kMinBlocks>
+template <int kWarps, int kMinBlocks, bool kMha>
 int launch_head_kernel(const BwdArgs<bf16>& a, int B, int H, cudaStream_t cs) {
-  auto kernel = attn_bwd_head_bf16_kernel<kWarps, kMinBlocks>;
+  auto kernel = attn_bwd_head_bf16_kernel<kWarps, kMinBlocks, kMha>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          head_smem_bytes(padded_rows(kWholeHeadMaxS)));
   if (err != cudaSuccess) return (int)err;
@@ -701,9 +729,14 @@ int launch_head_kernel(const BwdArgs<bf16>& a, int B, int H, cudaStream_t cs) {
 // CLIP's 272 rows, 17 row blocks, it beat 8 warps and 16, which spill).
 constexpr int kTwoBlockRows = 216;
 
-int launch_whole_head(const BwdArgs<bf16>& a, int B, int H, cudaStream_t cs) {
-  if (padded_rows(a.S) <= kTwoBlockRows) return launch_head_kernel<8, 2>(a, B, H, cs);
-  return launch_head_kernel<12, 1>(a, B, H, cs);
+int launch_whole_head(const BwdArgs<bf16>& a, int B, int H, bool mha, cudaStream_t cs) {
+  const bool two = padded_rows(a.S) <= kTwoBlockRows;
+  if (mha) {
+    return two ? launch_head_kernel<8, 2, true>(a, B, H, cs)
+               : launch_head_kernel<12, 1, true>(a, B, H, cs);
+  }
+  return two ? launch_head_kernel<8, 2, false>(a, B, H, cs)
+             : launch_head_kernel<12, 1, false>(a, B, H, cs);
 }
 
 // FMA route: two threads per row (or key). Thread `half` of a pair holds lanes
@@ -972,20 +1005,20 @@ int launch_bwd(const void* const* p, float* lse, float* delta, const Strides* st
   const dim3 grid((S + kTile - 1) / kTile, H, B);
   cudaStream_t cs = reinterpret_cast<cudaStream_t>(stream);
   const float scale = mha ? 1.f / sqrtf((float)kDh) : 1.f;
-  if (dtype == 1 && !mha) {
+  if (dtype == 1 && S <= kWholeHeadMaxS) {
+    if (!mha && lse == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_whole_head(bwd_args<bf16>(p, lse, delta, st, S, H, causal, scale), B, H,
+                             mha, cs);
+  }
+  if (lse == nullptr || delta == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
     const BwdArgs<bf16> a = bwd_args<bf16>(p, lse, delta, st, S, H, causal, scale);
-    if (S <= kWholeHeadMaxS) return launch_whole_head(a, B, H, cs);
-    if (delta == nullptr) return (int)cudaErrorInvalidValue;
+    if (mha) return launch_fma<bf16, true>(a, grid, cs);
     attn_bwd_dq_bf16_kernel<<<grid, 128, 0, cs>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     attn_bwd_dkv_bf16_kernel<<<grid, 128, 0, cs>>>(a);
     return (int)cudaGetLastError();
-  }
-  if (delta == nullptr) return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {
-    return launch_fma<bf16, true>(bwd_args<bf16>(p, lse, delta, st, S, H, causal, scale),
-                                  grid, cs);
   }
   if (dtype == 0) {
     const BwdArgs<float> a = bwd_args<float>(p, lse, delta, st, S, H, causal, scale);
@@ -1009,11 +1042,11 @@ int launch_strided(const void* const* ptrs, const long long* strides, int B, int
 }  // namespace
 
 // C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16. `delta` (and for
-// mha_bwd `lse`) is float32 scratch [B, S, H] allocated by the caller; bf16
-// `flash3_bwd` and `flash_bwd` with S <= kWholeHeadMaxS (432) run the whole-head route
-// in one launch and take a null `delta`. Otherwise an entry launches the dq pass and then
-// the dk/dv pass on `stream`. Each returns the first launch error (cudaError_t, 0 on
-// success).
+// mha_bwd `lse`) is float32 scratch [B, S, H] allocated by the caller; bf16 with
+// S <= kWholeHeadMaxS (432) runs the whole-head route in one launch and takes a null
+// `delta` (and, for mha_bwd, a null `lse`). Otherwise an entry launches the dq pass and
+// then the dk/dv pass on `stream`. Each returns the first launch error (cudaError_t, 0
+// on success).
 
 // Packed qkv [B, S, 3D], do [B, S, D], lse [B, S, H] -> packed dqkv [B, S, 3D].
 extern "C" int flash3_bwd(const void* qkv, const void* dout, const void* lse, void* dqkv,
@@ -1039,8 +1072,9 @@ extern "C" int flash_bwd(const void* const* ptrs, const long long* strides, int 
   return launch_strided(ptrs, strides, B, S, H, causal, dtype, false, stream);
 }
 
-// ptrs: q, k, v, do, dq, dk, dv, lse (scratch, written here), delta; strides as
-// flash_bwd's. The scores are scaled by 1/sqrt(dh); every product after them is float32.
+// ptrs: q, k, v, do, dq, dk, dv, lse and delta (scratch of the FMA route, else null);
+// strides as flash_bwd's. The scores are scaled by 1/sqrt(dh); p and ds stay float32
+// (in bf16 on the whole-head route, as two exact bf16 terms).
 extern "C" int mha_bwd(const void* const* ptrs, const long long* strides, int B, int S,
                        int H, int causal, int dtype, void* stream) {
   return launch_strided(ptrs, strides, B, S, H, causal, dtype, true, stream);

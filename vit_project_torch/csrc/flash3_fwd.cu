@@ -21,28 +21,48 @@
 //   - softmax statistics are float32; in bf16, p is rounded to bf16 before the PV
 //     product (as the TPU kernels round p to v's type).
 //
-// Design: one block per (64-row q tile, head, batch element), a loop over 64-key k/v
-// tiles staged in shared memory, and an online softmax in float32 registers. dh is
-// fixed at 64 (a template for another dh raises in the wrapper).
-//   - bf16: 4 warps, each owning 16 q rows, run the two products on the tensor cores
-//     with mma.sync m16n8k16 (bf16 in, f32 accumulate). The S accumulator fragment is
-//     re-packed in registers as the A operand of the PV product. The TPU's
-//     whole-sequence kernel rounds the normalized p to bf16 where this one rounds the
-//     running exp; the two differ by at most one bf16 spacing of o.
-//   - f32: the tensor cores have no exact f32 product, so 64 threads each own one q row
-//     and compute both products with FMAs from shared memory.
+// Routes. dh is fixed at 64 (a template for another dh raises in the wrapper). Both
+// bf16 routes run the two products on the tensor cores as mma.sync m16n8k16 (bf16 in,
+// f32 accumulate), a warp owning 16 q rows, the S accumulator fragment re-packed in
+// registers as the A operand of the PV product. The TPU's whole-sequence kernel rounds
+// the normalized p to bf16 where these round the running exp; the two differ by at
+// most one bf16 spacing of o.
+// 1. bf16 with S <= kFwdWholeHeadMaxS (288), the "whole-head" route: one block per
+//    (head, batch element), so each head's q, k and v are read from device memory
+//    once (the streamed route read k and v once per 64-row q tile: 4 times at S = 197,
+//    5 at S = 257). The block copies them with cp.async into shared memory, rows
+//    padded to 16 with zeros, 128-byte rows under the backward's XOR swizzle
+//    (attention.cuh), in groups of 64 keys: the first round's products start while
+//    later keys are in flight. min(8, Sp / 16) warps own 16-row blocks round robin; each sweeps the key
+//    tiles of 16 in steps of 64 keys with an online softmax in float32, k's fragments
+//    from ldmatrix and v's from ldmatrix.trans. Only the tile that holds key S - 1 and
+//    (causal) the diagonal tile are masked element by element; causal rows skip the
+//    tiles past their diagonal. The score scale and log2 e are one FMA, and
+//    p = 2^(s c - m c) comes from ex2.approx. Two blocks of 8 warps an SM (127
+//    registers, no spill; 3 Sp 128 bytes of shared memory: 78 KB at S = 197, 102 KB at
+//    257).
+//    Measured on an H100 SXM (tools/compare_flash3_builds.py): warps that each own two
+//    16-row tiles sharing every k and v fragment (FlashAttention-2's layout) were
+//    14-115% slower at every block shape tried; a wgmma version (q and k by descriptor
+//    from the same tiles, p from registers, o += p v in flight under the next step's
+//    softmax) gave the same bits and the same time, as ptxas serialized its wgmma for
+//    want of registers at the 128 a thread that 16 warps an SM leave.
+// 2. bf16 with longer S, the "streamed" route: one block per (64-row q tile, head,
+//    batch element), 4 warps, a loop over 64-key k/v tiles staged in shared memory.
+// 3. f32: the tensor cores have no exact f32 product, so 64 threads each own one q row
+//    and compute both products with FMAs from shared memory, a loop over 32-key tiles.
 // A scale of 1 (the packed entry points) multiplies exactly, so `flash3_fwd` gives the
-// bits it gave before `flash_fwd` and `mha_fwd` shared its body.
+// bits of `flash_fwd` on the same q, k and v.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s dense bf16; NVIDIA's data sheet): for
 // the image tower at serving bucket 256, qkv [256, 257, 3072] bf16, the kernel must
 // read 404 MB and write 139 MB (o and lse): 543 MB, 0.16 ms, against 4*B*H*S*S*dh =
 // 69 GFLOP, 0.07 ms. It is memory-bound, as are the other entry points at the repo's
-// shapes. chip_smoke.py recomputes each bound for the card that nvidia-smi names.
-//
-// Speed is left to later work: TMA loads into a ring of shared-memory tiles, wgmma in
-// place of mma.sync, and a q tile that skips the ragged last k/v tile (S = 257 leaves
-// one valid key in the fifth tile of 64).
+// shapes. chip_smoke.py recomputes each bound for the card that nvidia-smi names. The
+// whole-head route moves the bound's bytes; what holds it at 2.4-2.9 times the bound
+// is instruction issue: in the build's SASS (cuobjdump -sass) a step of 64 keys is
+// ~570 instructions a warp, ~100 of them mma.sync and ldmatrix, the rest the softmax
+// and its indexing.
 
 #include <math.h>
 
@@ -215,6 +235,198 @@ __global__ void __launch_bounds__(128) attn_fwd_bf16_kernel(const FwdArgs<bf16> 
   }
 }
 
+// ---- whole-head route (bf16, S <= kFwdWholeHeadMaxS) ---------------------------
+
+constexpr int kFwdWholeHeadMaxS = 288;  // the whole-head route takes S up to this
+constexpr int kFwdMaxWarps = 8;         // warps of a whole-head block (fewer for short S)
+constexpr int kChunk = 64;              // keys of one cp.async group and softmax step
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of the whole-head route for Sp padded rows: q, k and v of one head.
+__host__ __device__ __forceinline__ int fwd_smem_bytes(int Sp) { return 3 * Sp * kRowBytes; }
+
+// Wait until at most `n` (0 to 4) committed cp.async groups are still in flight.
+__device__ __forceinline__ void cp_async_wait_at_most(int n) {
+  switch (n) {
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+  }
+}
+
+// One block per (head, batch): grid (H, B), min(8, Sp / 16) warps, fwd_smem_bytes of
+// dynamic shared memory. The block copies its head's q, k and v into swizzled shared
+// memory with cp.async, in groups of 64 keys (group 0 also carries the q rows of the
+// first round, group 1 the rest), so the first round's products start while later
+// keys are in flight. Warps own 16-row blocks, round robin; each sweeps the key tiles
+// of 16 in steps of 64 keys with an online softmax in float32.
+__global__ void __launch_bounds__(kFwdMaxWarps * 32, 2)
+    attn_fwd_head_bf16_kernel(const FwdArgs<bf16> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int S = a.S;
+  const int Sp = padded_rows(S);
+  const int n16 = Sp / 16;
+  const int n_chunks = (Sp + kChunk - 1) / kChunk;
+  const int causal = a.causal;
+  const int n_warps = blockDim.x >> 5;
+  const uint32_t sq = smem_addr(smem);
+  const uint32_t sk = sq + Sp * kRowBytes;
+  const uint32_t sv = sk + Sp * kRowBytes;
+  const bf16* qh = head_base(a.q, a.sq, b, h);
+  const bf16* kh = head_base(a.k, a.sk, b, h);
+  const bf16* vh = head_base(a.v, a.sv, b, h);
+
+  const int q_first = min(Sp, n_warps * 16);  // q rows of the first round
+  for (int j = 0; j < n_chunks; ++j) {
+    const int r0 = j * kChunk;
+    const int r1 = min(Sp, r0 + kChunk);
+    if (j == 0) load_rows_async(sq, qh, a.sq.s, 0, q_first, S, blockDim.x);
+    if (j == 1) load_rows_async(sq, qh, a.sq.s, q_first, Sp, S, blockDim.x);
+    load_rows_async(sk, kh, a.sk.s, r0, r1, S, blockDim.x);
+    load_rows_async(sv, vh, a.sv.s, r0, r1, S, blockDim.x);
+    cp_async_commit();
+  }
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // fragment row group
+  const int t = lane & 3;   // thread in group
+  const LaneOffsets lo(lane);
+  const float c2 = a.scale * kLog2e;  // the exponent of p per unit of q k^T
+  bf16* oh = head_base(a.o, a.so, b, h);
+
+  const int n_rounds = (n16 + n_warps - 1) / n_warps;
+  for (int round = 0; round < n_rounds; ++round) {
+    const int rb = round * n_warps + warp;
+    const bool active = rb < n16;
+    const int r0 = rb * 16;
+    const int row[2] = {r0 + g, r0 + g + 8};
+    const int kt_end = causal ? rb + 1 : n16;  // causal: key tiles past the block are empty
+    uint32_t qa[4][4];
+    float m[2] = {-INFINITY, -INFINITY};  // row max of the raw scores q k^T
+    float l[2] = {0.f, 0.f};  // this thread's partial row sums, reduced over the quad at the end
+    float acc[8][4];
+    zero_acc(acc);
+    for (int j = 0; j < n_chunks; ++j) {
+      if (round == 0) {  // keys [0, 64 (j + 1)) have landed, for every warp to read
+        cp_async_wait_at_most(n_chunks - 1 - j);
+        __syncthreads();
+      }
+      if (!active || 4 * j >= kt_end) continue;
+      if (j == 0) head_a_frags(qa, sq, r0, lo);
+
+      float s[4][2][4];
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int tt = 0; tt < 4; ++tt) {
+        const int kt = 4 * j + tt;
+        if (kt < kt_end) {
+          scores_16(s[tt], qa, sk, kt * 16 + lo.n_row, lo);
+          if (kt * 16 + 16 > S || (causal && kt == rb)) {
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int col = kt * 16 + jj * 8 + t * 2 + (e & 1);
+                if (col >= S || (causal && col > row[e >> 1])) s[tt][jj][e] = -INFINITY;
+              }
+            }
+          }
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            s[tt][jj][0] = s[tt][jj][1] = s[tt][jj][2] = s[tt][jj][3] = -INFINITY;
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[tt][jj][e]);
+        }
+      }
+      // Every row sees key 0 in step 0, so the max is finite from the first step on.
+      float corr[2], mc[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        corr[i] = ex2((m[i] - m_new) * c2);
+        m[i] = m_new;
+        mc[i] = m_new * c2;
+        l[i] *= corr[i];
+      }
+      if (j > 0)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        acc[nt][0] *= corr[0];
+        acc[nt][1] *= corr[0];
+        acc[nt][2] *= corr[1];
+        acc[nt][3] *= corr[1];
+      }
+#pragma unroll
+      for (int tt = 0; tt < 4; ++tt) {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = ex2(fmaf(s[tt][jj][e], c2, -mc[e >> 1]));  // scale folded in
+            s[tt][jj][e] = p;
+            l[e >> 1] += p;
+          }
+        }
+      }
+      // o += p v: p rounded to bf16 (the A fragment), v's fragments by ldmatrix.trans
+#pragma unroll
+      for (int tt = 0; tt < 4; ++tt) {
+        const int kt = 4 * j + tt;
+        if (kt >= kt_end) break;
+        uint32_t pa[4];
+        pack_a(pa, s[tt]);
+        product_rows(acc, pa, sv, kt * 16, lo);
+      }
+    }
+    if (!active) continue;
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      if (row[i] >= S) continue;
+      const float inv = 1.f / l[i];
+      bf16* orow = oh + row[i] * a.so.s;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        *reinterpret_cast<uint32_t*>(orow + nt * 8 + t * 2) =
+            pack_bf16(acc[nt][2 * i] * inv, acc[nt][2 * i + 1] * inv);
+      }
+      // lse in natural log: l sums 2^((s - m) c2) = e^((s - m) scale)
+      if (a.lse != nullptr && t == 0) {
+        a.lse[((long long)b * S + row[i]) * a.H + h] = m[i] * a.scale + logf(l[i]);
+      }
+    }
+  }
+}
+
+int launch_fwd_whole_head(const FwdArgs<bf16>& a, int B, int H, cudaStream_t cs) {
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_head_bf16_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         fwd_smem_bytes(padded_rows(kFwdWholeHeadMaxS)));
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(attn_fwd_head_bf16_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  const int Sp = padded_rows(a.S);
+  const int warps = min(kFwdMaxWarps, Sp / 16);
+  attn_fwd_head_bf16_kernel<<<dim3(H, B), warps * 32, fwd_smem_bytes(Sp), cs>>>(a);
+  return (int)cudaGetLastError();
+}
+
 constexpr int kF32Keys = 32;  // keys per k/v tile in the f32 kernel
 
 __global__ void __launch_bounds__(kBlockQ) attn_fwd_f32_kernel(const FwdArgs<float> a) {
@@ -325,6 +537,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
     const FwdArgs<bf16> a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                           static_cast<const bf16*>(v), static_cast<bf16*>(o), lse,
                           st[0], st[1], st[2], st[3], S, H, causal, scale};
+    if (S <= kFwdWholeHeadMaxS) return launch_fwd_whole_head(a, B, H, cs);
     attn_fwd_bf16_kernel<<<grid, 128, 0, cs>>>(a);
   } else if (dtype == 0) {
     const FwdArgs<float> a{static_cast<const float*>(q), static_cast<const float*>(k),

@@ -42,9 +42,12 @@ from . import cuda_build
 
 NEG_INF = -1e30        # the TPU kernels' mask value (_NEG_INF)
 KERNEL_HEAD_DIM = 64   # the head width the CUDA kernels have a template for
-# bf16 flash3_bwd / flash_bwd up to this S run the whole-head route of
-# csrc/flash3_bwd.cu (kWholeHeadMaxS there): one launch, no row-sum scratch
+# bf16 flash3_bwd / flash_bwd / mha_bwd up to this S run the whole-head route
+# of csrc/flash3_bwd.cu (kWholeHeadMaxS there): one launch, no scratch
 BWD_WHOLE_HEAD_MAX_S = 432
+# bf16 forwards up to this S run the whole-head route of csrc/flash3_fwd.cu
+# (kFwdWholeHeadMaxS there): one block per head, its q, k, v read once
+FWD_WHOLE_HEAD_MAX_S = 288
 
 # Launches of each kernel wrapper in this module. A wrapper adds one where it
 # launches its kernel and nowhere else; the CPU path adds nothing.
@@ -333,11 +336,21 @@ def _launch_bwd(qkv: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
     return dqkv
 
 
+def fwd_whole_head(S: int, dtype) -> bool:
+    """Whether the forward kernels (flash3_fwd, flash_fwd, mha_fwd) at
+    sequence length S and operand type dtype take the whole-head route (one
+    block per head holding its q, k and v): bf16 up to FWD_WHOLE_HEAD_MAX_S.
+    The others stream 64-key tiles. Both routes take one launch and no
+    scratch."""
+    return dtype == torch.bfloat16 and S <= FWD_WHOLE_HEAD_MAX_S
+
+
 def bwd_whole_head(S: int, dtype) -> bool:
-    """Whether flash3_bwd / flash_bwd at sequence length S and operand type
-    dtype take the kernel's whole-head route (one launch, the head in shared
-    memory): bf16 up to BWD_WHOLE_HEAD_MAX_S. The other routes take two
-    launches and a row-sum scratch."""
+    """Whether the backward kernels (flash3_bwd, flash_bwd, mha_bwd) at
+    sequence length S and operand type dtype take the whole-head route (one
+    launch, the head in shared memory): bf16 up to BWD_WHOLE_HEAD_MAX_S. The
+    other routes take two launches and float32 [B, S, H] scratch: the row
+    sums c, and for mha_bwd the row statistics lse."""
     return dtype == torch.bfloat16 and S <= BWD_WHOLE_HEAD_MAX_S
 
 
@@ -452,12 +465,15 @@ def _launch_mha_fwd(q, k, v, causal):
 def _launch_mha_bwd(q, k, v, do, causal):
     B, H, S = _check_views("mha_bwd", {"q": q, "k": k, "v": v, "do": do})
     grads = tuple(torch.empty_like(x) for x in (q, k, v))
-    lse, delta = torch.empty(2, B, S, H, dtype=torch.float32,
-                             device=q.device)        # row statistics, scratch
+    if bwd_whole_head(S, q.dtype):
+        lse = delta = None        # the kernel forms both in shared memory
+    else:                         # row statistics and row sums, scratch
+        lse, delta = torch.empty(2, B, S, H, dtype=torch.float32,
+                                 device=q.device)
     views = [q, k, v, do, *grads]
     _launch_strided("flash3_bwd", "mha_bwd",
-                    [x.data_ptr() for x in (*views, lse, delta)], views,
-                    B, S, H, causal, q.dtype)
+                    [*(x.data_ptr() for x in views), _address(lse),
+                     _address(delta)], views, B, S, H, causal, q.dtype)
     return grads
 
 
