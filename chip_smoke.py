@@ -54,7 +54,21 @@
    plain dW+db; it times steps on a batch already on the card (fused and
    plain backward in turns, with their spread), training images/s with
    host decode, validation and peak memory;
-7. prints one JSON line of kernel numbers, the nvidia-smi line, and last
+7. phase `sweep`: writes THINGS at its real size to disk (1,806 training
+   and 48 inference JPEGs at 224^2, whose targets are the initial model's
+   own predictions) and seeded random ViT-L/14 weights, and drives the
+   paradigm CLIs through their ``main``: a 3-epoch ``cli.baseline``,
+   ``cli.sweep`` runs 2 and 3 for each of the four perturbation kinds with
+   ``--frozen_cache`` and for random_target without it, a repeated fork,
+   and ``cli.lengths`` e2_l1 then e2_l2 (which resumes from e2_l1). It
+   checks the CSV rows and window flags, that the target kinds raise the
+   perturbed epoch's train loss above the baseline's, that the repeated
+   fork writes equal rows and the cached fork the full-tower fork's rows
+   within a bf16 tolerance, one attention backward launch per step over the
+   runs, and the attention launches of one step on each path (full tower,
+   cache, each with remat); it times cached and full-tower steps in turns,
+   the prefix build, and reads the runs' epoch times from their logs;
+8. prints one JSON line of kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA device,
@@ -67,6 +81,7 @@ import argparse
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -148,7 +163,7 @@ LN_TOLERANCE = {"float32": {"dx": 1e-5, "dparams": 1e-4},
 
 SEED = 0
 RESULTS: dict = {}
-ALL_PHASES = ("kernel", "ops", "serve", "train", "vit_train")
+ALL_PHASES = ("kernel", "ops", "serve", "train", "vit_train", "sweep")
 
 
 def fail(msg: str) -> None:
@@ -1723,6 +1738,355 @@ def phase_vit_train(tmp: str):
     torch.cuda.empty_cache()
     return launches
 
+# the sweep phase: the perturbation kinds, and the target kinds (they change
+# only the targets, so their forks train from the frozen-prefix cache in
+# every epoch)
+SWEEP_KINDS = ("random_target", "label_shuffle", "uniform_images",
+               "image_noise")
+TARGET_KINDS = ("random_target", "label_shuffle")
+SWEEP_SEED = 1        # the CLIs' --random_seed (split, adapter init, dropout)
+# cached vs full-tower CSV rows of one fork, bf16: the prefix comes from
+# 256-image chunks and the full tower from 64-image batches, so a GEMM may
+# round a value differently (one bf16 spacing, 2^-8 relative) before the
+# adapted blocks; the clean epochs' losses are small (the targets are the
+# initial model's own predictions), hence the absolute floor
+SWEEP_LOSS_TOL = (2e-2, 1e-3)     # relative, absolute floor
+SWEEP_RHO_TOL = 2e-2
+_EPOCH_LINE = re.compile(r"Epoch (\d+): Training Loss: \S+, Validation "
+                         r"Loss: \S+ \[epoch_time=\S+s images_per_sec="
+                         r"([\d.]+)\]")
+_CACHE_LINE = re.compile(r"Frozen-prefix cache built in ([\d.]+)s")
+
+
+def _write_things(root: str, rs: np.random.RandomState):
+    """THINGS's images on disk at their real count and size: 1,806 training
+    and 48 inference JPEGs at 224^2, each a tint over smooth random
+    structure plus fine noise (as _write_image_folder draws them). Returns
+    (image dir, names, the decoded uint8 pixels)."""
+    from PIL import Image
+    from vit_project_torch.data import things as dthings
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir)
+    names = [f"thing_{i:04d}.jpg" for i in range(1806 + 48)]
+    tints = rs.randint(20, 236, (len(names), 3))
+    for i, name in enumerate(names):
+        low = Image.fromarray(rs.randint(0, 256, (8, 8, 3)).astype(np.uint8))
+        arr = np.asarray(low.resize((224, 224), Image.BILINEAR), np.float32)
+        arr = 0.5 * arr + 0.5 * tints[i] + rs.randn(224, 224, 3) * 8
+        Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+            os.path.join(img_dir, name), quality=90)
+    return img_dir, names, dthings.decode_images(img_dir, names, 224)
+
+
+def _write_things_csvs(root: str, names, preds: np.ndarray) -> dict:
+    """The annotation CSVs (a leading index column, image_name, 66 targets)
+    and the RDM .mat: the targets are `preds`, the initial model's own
+    predictions, and the RDM is 1 - corrcoef of its inference predictions.
+    A baseline then starts near zero loss, and a perturbation of the targets
+    shows as a higher loss."""
+    import csv
+    import scipy.io
+    paths = {"csv_file": os.path.join(root, "train.csv"),
+             "inference_csv_file": os.path.join(root, "val.csv"),
+             "RDM48_triplet_dir": os.path.join(root, "rdm.mat")}
+    for key, rows in (("csv_file", range(1806)),
+                      ("inference_csv_file", range(1806, 1854))):
+        with open(paths[key], "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["", "image_name"] + [f"d{j}" for j in range(66)])
+            for k, i in enumerate(rows):
+                w.writerow([k, names[i]] + [repr(float(v)) for v in preds[i]])
+    rdm = 1.0 - np.corrcoef(preds[1806:].astype(np.float64))
+    np.fill_diagonal(rdm, 0.0)
+    scipy.io.savemat(paths["RDM48_triplet_dir"], {"RDM48_triplet": rdm})
+    return paths
+
+
+def _cli(main_fn, argv, log_path):
+    """One CLI invocation with its log captured (the per-run loggers write
+    to stdout): returns (main's result, the log text, seconds). When main
+    raises or exits, prints the log's tail and re-raises."""
+    import contextlib
+    buf = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            result = main_fn(argv)
+    except BaseException:  # SystemExit included: the phase fails
+        print(buf.getvalue()[-6000:], flush=True)
+        raise
+    with open(log_path, "w") as f:
+        f.write(buf.getvalue())
+    return result, buf.getvalue(), time.time() - t0
+
+
+def phase_sweep(tmp: str):
+    import torch
+    from vit_project_torch.adapters import dora as adora
+    from vit_project_torch.cli import baseline as baseline_cli
+    from vit_project_torch.cli import lengths as lengths_cli
+    from vit_project_torch.cli import sweep as sweep_cli
+    from vit_project_torch.core.prng import Key
+    from vit_project_torch.data import things as dthings
+    from vit_project_torch.data.spose66 import classnames66
+    from vit_project_torch.models import clip as vclip
+    from vit_project_torch.models import convert as vconvert
+    from vit_project_torch.models import tokenizer as vtok
+    from vit_project_torch.ops import attention as vattn
+    from vit_project_torch.train import clip_loop
+
+    t_phase = time.time()
+    root = os.path.join(tmp, "sweep")
+    logs = os.path.join(root, "logs")
+    os.makedirs(logs)
+    # seeded random ViT-L/14 weights in OpenAI's layout, as phase serve
+    # writes them, loaded back the way the CLIs load them
+    cfg = vclip.CLIP_VIT_L14
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = vclip.init_clip_weights_(vclip.empty_clip(cfg, "cuda"), gen)
+    wpath = os.path.join(root, "ViT-L-14-random.pt")
+    torch.save({k: v.half().cpu() for k, v in model.state_dict().items()},
+               wpath)
+    model = vconvert.clip_from_state_dict(
+        vconvert.load_torch_state_dict(wpath), "cuda")
+    spec = adora.dora_spec(cfg.visual.layers, cfg.text.layers, 2, 1)
+    init_tr, static, acfg = adora.apply_dora(
+        model, spec, r=32, alpha=16, dropout=0.1,
+        generator=torch.Generator(device="cuda").manual_seed(
+            SWEEP_SEED + 123))
+    prompts = np.minimum(vtok.tokenize(classnames66, context_length=77,
+                                       truncate=True),
+                         cfg.text.vocab_size - 1)
+    trainer = clip_loop.ClipHBATrainer(cfg, model, acfg, static, prompts,
+                                       lr=3e-4, compute_dtype=torch.bfloat16)
+    img_dir, names, pixels = _write_things(root, np.random.RandomState(SEED))
+    all_dev, _ = trainer.upload_dataset(pixels)
+    preds = trainer.infer_in_chunks(adora.make_trainable(init_tr, "cuda"),
+                                    all_dev, len(names))
+    del all_dev
+    data = _write_things_csvs(root, names, preds)
+    spread = float(preds.std(axis=0).mean())
+    print(f"[sweep] THINGS-sized fixture on disk (1,806 train / 48 inference "
+          f"JPEGs at 224^2; targets = the initial model's predictions, mean "
+          f"across-image std {spread:.3f}) and ViT-L/14 weights written in "
+          f"{time.time() - t_phase:.1f} s", flush=True)
+
+    common = ["--csv_file", data["csv_file"], "--img_dir", img_dir,
+              "--inference_csv_file", data["inference_csv_file"],
+              "--RDM48_triplet_dir", data["RDM48_triplet_dir"],
+              "--clip_weights", wpath, "--allow_hash_tokenizer",
+              "--epochs", "3", "--batch_size", "64",
+              "--random_seed", str(SWEEP_SEED)]
+    runs = []   # (label, log text, seconds)
+
+    def launches():
+        return {k: vattn.LAUNCHES[k] for k in ("flash3_fwd", "flash3_bwd")}
+
+    # --- the main path: counts from 0, the CLIs, counts read ---
+    torch.cuda.reset_peak_memory_stats()
+    vattn.reset_launch_counts()
+    base_out = os.path.join(root, "baseline")
+    _, text, sec = _cli(baseline_cli.main, common + [
+        "--output_dir", base_out], os.path.join(logs, "baseline.log"))
+    runs.append(("baseline", text, sec))
+    stamp = sorted(n for n in os.listdir(base_out)
+                   if n.startswith("dora_params_"))[0][len("dora_params_"):]
+    base_rows = _read_rows(os.path.join(base_out,
+                                        f"training_res_{stamp}.csv"))
+    rs_dir = os.path.join(base_out, f"random_states_{stamp}")
+    fork = common + [
+        "--baseline_dora_directory",
+        os.path.join(base_out, f"dora_params_{stamp}"),
+        "--baseline_random_state_path", rs_dir,
+        "--baseline_split_indices_path",
+        os.path.join(rs_dir, "dataset_split_indices.pth"),
+        "--perturb_seed", "42"]
+
+    def sweep(label, kind, order, *extra):
+        out = os.path.join(root, label)
+        failed, text, sec = _cli(sweep_cli.main, fork + [
+            "--perturb_type", kind, "--training_order", order,
+            "--output_base_directory", out, *extra],
+            os.path.join(logs, f"{label}.log"))
+        if failed:
+            print(text[-6000:], flush=True)
+            fail(f"sweep {label}: runs {failed} failed")
+        runs.append((label, text, sec))
+        return {int(r): _read_rows(os.path.join(
+            out, f"training_run{r}", f"training_res_run{r}.csv"))
+            for r in order.split(",")}
+
+    rows = {k: sweep(f"sweep_{k}", k, "2,3", "--frozen_cache")
+            for k in SWEEP_KINDS}
+    full_rows = sweep("sweep_random_target_full", "random_target", "2,3")
+    again = sweep("sweep_random_target_again", "random_target", "2",
+                  "--frozen_cache")
+
+    def lengths(length):
+        out = os.path.join(root, "lengths")
+        cond = f"random_target_e2_l{length}"
+        _, text, sec = _cli(lengths_cli.main, fork + [
+            "--perturb_type", "random_target", "--perturb_epoch", "2",
+            "--perturb_length", str(length), "--output_dir", cond,
+            "--output_base_directory", out, "--frozen_cache"],
+            os.path.join(logs, f"{cond}.log"))
+        runs.append((cond, text, sec))
+        return (_read_rows(os.path.join(out, cond, "training_res.csv")),
+                sorted(os.listdir(os.path.join(out, cond, "dora_params_2"))))
+    l1, _ = lengths(1)
+    l2, l2_ckpts = lengths(2)
+    torch.cuda.synchronize()
+    path_launches = launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    path_s = sum(sec for _, _, sec in runs)
+
+    # --- the CSVs ---
+    flags = {k: 5 + i for i, k in enumerate(SWEEP_KINDS)}
+    if [r[0] for r in base_rows[1:]] != ["1", "2", "3"] or any(
+            r[5:] != ["False"] * 4 for r in base_rows[1:]):
+        fail(f"baseline rows {base_rows}")
+    for kind, by_run in list(rows.items()) + [("random_target", full_rows)]:
+        f = flags[kind]
+        got = ([(r[0], r[f]) for r in by_run[2][1:]],
+               [(r[0], r[f]) for r in by_run[3][1:]])
+        if got != ([("2", "True"), ("3", "False")], [("3", "True")]):
+            fail(f"{kind} fork rows/flags {got}")
+        for r in by_run[2][1:] + by_run[3][1:]:
+            v = [float(x) for x in r[1:5]]
+            if not all(np.isfinite(v)) or abs(v[2]) > 1:
+                fail(f"bad {kind} row {r}")
+    raised = {k: (float(rows[k][2][1][1]), float(base_rows[2][1]))
+              for k in SWEEP_KINDS}
+    print("[sweep] epoch-2 train loss, perturbed fork vs baseline: "
+          + "; ".join(f"{k} {a:.4f} vs {b:.4f}"
+                      for k, (a, b) in raised.items()), flush=True)
+    for k in TARGET_KINDS:
+        if not raised[k][0] > raised[k][1]:
+            fail(f"{k} did not raise the perturbed epoch's train loss: "
+                 f"{raised[k]}")
+    if again[2] != rows["random_target"][2]:
+        fail(f"a repeated fork wrote other rows: {again[2]} vs "
+             f"{rows['random_target'][2]}")
+    worst = {"loss": 0.0, "rho": 0.0}
+    for run in (2, 3):
+        for a, b in zip(rows["random_target"][run][1:], full_rows[run][1:]):
+            for i in (1, 2):
+                d = abs(float(a[i]) - float(b[i]))
+                worst["loss"] = max(worst["loss"], d / abs(float(b[i])))
+                if d > SWEEP_LOSS_TOL[0] * abs(float(b[i])) + \
+                        SWEEP_LOSS_TOL[1]:
+                    fail(f"cached vs full-tower row differs: {a} vs {b}")
+            d = abs(float(a[3]) - float(b[3]))
+            worst["rho"] = max(worst["rho"], d)
+            if d > SWEEP_RHO_TOL:
+                fail(f"cached vs full-tower rho differs: {a} vs {b}")
+    if [r[0] for r in l1[1:]] != ["2", "3"] or l2[1] != l1[1] or \
+            [r[0] for r in l2[1:]] != ["2", "3"] or l2[2][5] != "True" or \
+            l2_ckpts != ["epoch3_dora_params.pth"]:
+        fail(f"lengths e2_l2 did not resume from e2_l1: {l1} / {l2} / "
+             f"{l2_ckpts}")
+    print(f"[sweep] rows and flags right for the baseline, 5 sweeps x runs "
+          f"2,3 and lengths e2_l1 -> e2_l2 (cross-resumed at epoch 2); a "
+          f"repeated fork wrote equal rows; cached vs full tower "
+          f"(random_target): max relative loss difference "
+          f"{worst['loss']:.2e}, rho {worst['rho']:.2e} (tolerance "
+          f"{SWEEP_LOSS_TOL[0]} relative + {SWEEP_LOSS_TOL[1]}, rho "
+          f"{SWEEP_RHO_TOL})", flush=True)
+
+    # --- the CLIs' own logs: epochs, training seconds, cache builds ---
+    train_idx, _ = dthings.random_split_indices(1806, 0.8, SWEEP_SEED)
+    n_train = len(train_idx)
+    steps_per_epoch = -(-n_train // 64)
+    epochs = {label: [n_train / float(m.group(2))
+                      for m in _EPOCH_LINE.finditer(text)]
+              for label, text, _ in runs}
+    steps = steps_per_epoch * sum(len(v) for v in epochs.values())
+    cache_s = [float(m.group(1)) for _, text, _ in runs
+               for m in _CACHE_LINE.finditer(text)]
+    if path_launches["flash3_bwd"] != steps:
+        fail(f"flash3_bwd launched {path_launches['flash3_bwd']} times over "
+             f"{steps} steps, expected once per step")
+    if path_launches["flash3_fwd"] == 0:
+        fail("flash3_fwd was not launched by the sweep path")
+    train_s = {"full": statistics.median(epochs["sweep_random_target_full"]),
+               "cached": statistics.median(epochs["sweep_random_target"])}
+    print(f"[sweep] {len(runs)} CLI invocations, {steps} steps in "
+          f"{path_s:.1f} s; launches flash3_bwd {path_launches['flash3_bwd']}"
+          f" (one per step), flash3_fwd {path_launches['flash3_fwd']}; "
+          f"training seconds an epoch (the CLI's images_per_sec): full tower "
+          f"{train_s['full']:.3f}, cached {train_s['cached']:.3f}; prefix "
+          f"cache builds {statistics.median(cache_s):.2f} s (median of "
+          f"{len(cache_s)}); invocations "
+          + ", ".join(f"{label} {sec:.1f} s" for label, _, sec in runs)
+          + f"; peak device memory {peak_gib:.2f} GiB", flush=True)
+
+    # --- a step on each path, outside the counted run: launches and time ---
+    tr = adora.make_trainable(init_tr, "cuda")
+    opt = trainer.init_optimizer(tr)
+    imgs_dev, tgts_dev = trainer.upload_dataset(pixels[train_idx],
+                                                preds[train_idx])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = trainer.build_prefix_cache(imgs_dev)
+    trainer.text_prefix_cache  # noqa: B018  (built once, timed here)
+    torch.cuda.synchronize()
+    prefix_s = time.perf_counter() - t0
+
+    def step(k, cached):
+        idx = np.arange(64) + (k % steps_per_epoch) * 64
+        idx = idx[idx < n_train]
+        return trainer.train_step(tr, opt, cache if cached else imgs_dev,
+                                  tgts_dev, idx, Key((SWEEP_SEED, 0, k)),
+                                  cached=cached)
+
+    per_step = {}
+    for label, cached, remat in (("full", False, False),
+                                 ("cached", True, False),
+                                 ("full_remat", False, True),
+                                 ("cached_remat", True, True)):
+        trainer.remat = remat
+        step(0, cached)
+        torch.cuda.synchronize()
+        vattn.reset_launch_counts()
+        step(1, cached)
+        per_step[label] = launches()
+    trainer.remat = False
+    want = {"full": {"flash3_fwd": 36, "flash3_bwd": 1},
+            "cached": {"flash3_fwd": 3, "flash3_bwd": 1},
+            "full_remat": {"flash3_fwd": 39, "flash3_bwd": 1},
+            "cached_remat": {"flash3_fwd": 6, "flash3_bwd": 1}}
+    if per_step != want:
+        fail(f"launches a step {per_step}, expected {want}")
+    times = {"full": [], "cached": []}
+    for label in ("full", "cached", "cached", "full"):   # in turns
+        for k in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(k, label == "cached")
+            times[label].append((time.perf_counter() - t0) * 1e3)
+    step_ms = {k: statistics.median(v) for k, v in times.items()}
+    print(f"[sweep] launches a step (flash3_fwd, flash3_bwd): full tower "
+          f"36, 1; cached 3, 1; with remat 39, 1 and 6, 1 (one more forward "
+          f"for each of the 3 adapted blocks)", flush=True)
+    print(f"[sweep] a step, median of 20 in turns: full tower "
+          f"{step_ms['full']:.2f} ms, cached {step_ms['cached']:.2f} ms "
+          f"({step_ms['full'] / step_ms['cached']:.2f}x); prefix cache of "
+          f"{n_train} images + the text prefix built in {prefix_s:.2f} s "
+          f"({cache.numel() * cache.element_size() / 2**30:.2f} GiB bf16); "
+          f"phase {time.time() - t_phase:.1f} s; {smi_line()}", flush=True)
+    RESULTS["sweep"] = {
+        "launches": path_launches, "steps": steps,
+        "launches_per_step": per_step, "step_ms": step_ms,
+        "step_ms_all": times, "prefix_build_s": prefix_s,
+        "cli_prefix_build_s": cache_s, "epoch_train_s": epochs,
+        "invocations_s": {label: sec for label, _, sec in runs},
+        "peak_mem_gib": peak_gib, "cached_vs_full": worst,
+        "perturbed_vs_baseline_train_loss": raised,
+        "teacher_spread": spread, "phase_s": time.time() - t_phase}
+    del model, trainer, cache, imgs_dev, tr, opt
+    torch.cuda.empty_cache()
+    return path_launches
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1755,7 +2119,7 @@ def main(argv=None) -> int:
     phase_build()
     rows = phase_kernel(peaks) if "kernel" in phases else []
     ops_launches = phase_ops() if "ops" in phases else None
-    serve_launches = train_launches = vit_launches = None
+    serve_launches = train_launches = vit_launches = sweep_launches = None
     tmp = os.path.join(ROOT, "vit_project_torch", "_build",
                        f"smoke-{os.getpid()}")
     os.makedirs(tmp, exist_ok=True)
@@ -1766,6 +2130,8 @@ def main(argv=None) -> int:
             train_launches = phase_train(tmp)
         if "vit_train" in phases:
             vit_launches = phase_vit_train(tmp)
+        if "sweep" in phases:
+            sweep_launches = phase_sweep(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1778,6 +2144,9 @@ def main(argv=None) -> int:
 
     def ops(name):
         return ops_launches and ops_launches[name]
+
+    def sweep(name):
+        return sweep_launches and sweep_launches[name]
 
     def entry(name, source, replaces, launches, by_path, errors, main_row,
               at):
@@ -1793,7 +2162,7 @@ def main(argv=None) -> int:
               "vit_project_tpu/ops/attention.py:465", serve_launches,
               {"serve": serve_launches,
                "train": train_launches and train_launches["flash3_fwd"],
-               "vit_train": vit("flash3_fwd")},
+               "vit_train": vit("flash3_fwd"), "sweep": sweep("flash3_fwd")},
               [r["max_abs_err_o"] for r in rows
                if r["kernel"] == "flash3_fwd"],
               row_of("flash3_fwd", "image_b256"),
@@ -1803,7 +2172,7 @@ def main(argv=None) -> int:
               "vit_project_tpu/ops/attention.py:480",
               train_launches and train_launches["flash3_bwd"],
               {"train": train_launches and train_launches["flash3_bwd"],
-               "vit_train": vit("flash3_bwd")},
+               "vit_train": vit("flash3_bwd"), "sweep": sweep("flash3_bwd")},
               [r["max_abs_err"] for r in rows
                if r["kernel"] == "flash3_bwd"],
               row_of("flash3_bwd", "image_b64"),

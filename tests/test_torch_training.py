@@ -445,10 +445,6 @@ def test_cli_runs_on_the_gpu_unless_told_otherwise(things, monkeypatch):
 
 
 @pytest.mark.parametrize("over,feature", [
-    ({"perturb_type": "random_target"}, "the paradigm drivers"),
-    ({"frozen_cache": True}, "the paradigm drivers"),
-    ({"remat": True}, "the paradigm drivers"),
-    ({"dump_inference_embeddings": True}, "the paradigm drivers"),
     ({"sp_devices": 2}, "the parallel modes"),
 ])
 def test_unported_options_name_their_slice(things, weights, tmp_path, over,

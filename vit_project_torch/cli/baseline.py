@@ -54,24 +54,31 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["bfloat16", "float32"])
     p.add_argument("--device", default="cuda",
                    help="torch device to train on ('cpu' for tests)")
-    # flags of the JAX CLI whose features later slices of the port bring:
-    # accepted with their defaults, refused by the training loop otherwise
+    # flags of the JAX CLI whose features the port of the parallel modes
+    # brings: accepted with their defaults, refused by the loop otherwise
     p.add_argument("--sp_devices", type=int, default=1,
                    help="sequence parallelism (not ported yet)")
     p.add_argument("--sp_ring", action="store_true",
                    help="ring attention with --sp_devices (not ported yet)")
     p.add_argument("--remat", action="store_true",
-                   help="per-block recompute (not ported yet)")
+                   help="recompute each block in the backward "
+                        "(torch.utils.checkpoint): memory for ~1/3 more "
+                        "forward work")
     p.add_argument("--host_prefetch", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="accepted for the JAX CLI's sake; the port copies "
                         "the checkpoint trees synchronously")
     p.add_argument("--frozen_cache", action="store_true",
-                   help="frozen-prefix activation cache (not ported yet)")
+                   help="cache the frozen tower prefixes once and train only "
+                        "the adapted suffix blocks (costs [N, S, width] of "
+                        "device memory in the compute dtype)")
     p.add_argument("--dump_inference_embeddings", action="store_true",
-                   help="per-epoch embedding dumps (not ported yet)")
+                   help="write the 48 inference embeddings of every epoch "
+                        "(things_48_embeddings_epochN.csv)")
     p.add_argument("--nod_csv_file", default=None,
-                   help="second inference set (not ported yet)")
+                   help="optional second inference set (per-epoch "
+                        "nod_embeddings_epochN.csv dumps and the category-RDM "
+                        "archive)")
     p.add_argument("--nod_img_dir", default=None)
     return p
 

@@ -4,10 +4,9 @@ THINGS and ImageNet statistics).
 
 ``ClipRunConfig`` mirrors the reference's plain-dict config contract
 (reference clip_train_behavior_baseline.py:11-33) so drivers are written the
-same way in both packages. Fields for features that later slices of the port
-bring (remat, sequence parallelism, the frozen-prefix cache, NOD dumps) are
-kept so a config dict means the same thing to both packages; the training
-loop refuses them by name until they are ported. ``ViTTrainConfig`` keeps
+same way in both packages. The sequence-parallel fields are kept so a
+config dict means the same thing to both packages; the training loop
+refuses them by name until the parallel modes are ported. ``ViTTrainConfig`` keeps
 every field of the JAX package's, with its defaults, for the same reason:
 the ViT loop refuses the parallel modes, MoE, the native loader, the
 asynchronous checkpoint copy and the profiler by name.
@@ -51,8 +50,8 @@ class ClipRunConfig:
     early_stopping_patience: int = 20
     random_seed: int = 1
     compute_dtype: str = "bfloat16"        # frozen-tower compute dtype
-    remat: bool = False                    # recompute each visual block in
-                                           # the backward (not ported yet)
+    remat: bool = False                    # recompute each block in the
+                                           # backward
     sp_devices: int = 1                    # >1: visual-tower sequence
                                            # parallelism (not ported yet)
     sp_ring: bool = False                  # with sp_devices: ring attention
@@ -66,7 +65,7 @@ class ClipRunConfig:
                                            # exactly resumable in place)
     frozen_cache: bool = False             # cache the frozen tower prefixes
                                            # once and train only the adapted
-                                           # suffix blocks (not ported yet)
+                                           # suffix blocks
 
     # perturbation
     perturb_type: str = "baseline"         # random_target | label_shuffle |

@@ -1,6 +1,8 @@
 """Dual file+console logging, format-compatible with the reference logs
-(copy of the per-run logger of the JAX package's core/logs.py; reference
-setup_logger, new_cvpr_train_behavior_things_pipeline.py:51-85).
+(copy of the JAX package's core/logs.py; reference setup_logger,
+new_cvpr_train_behavior_things_pipeline.py:51-85, and setup_main_logger,
+clip_train_behavior_sweep.py:81-109): a per-run logger and an orchestrator
+("main") logger.
 
 The port runs one process, so the file handler needs no primary-process
 gate; it still opens its file at the first record, as the JAX package's
@@ -41,9 +43,8 @@ class _LazyFileHandler(logging.Handler):
         super().close()
 
 
-def setup_logger(log_file_path: str) -> logging.Logger:
-    """Per-run training logger: the run's log file and stdout."""
-    logger = logging.getLogger("training_logger")
+def _build(name: str, log_file_path: str) -> logging.Logger:
+    logger = logging.getLogger(name)
     logger.setLevel(logging.INFO)
     for h in logger.handlers:
         h.close()
@@ -55,3 +56,14 @@ def setup_logger(log_file_path: str) -> logging.Logger:
     ch.setFormatter(formatter)
     logger.addHandler(ch)
     return logger
+
+
+def setup_logger(log_file_path: str) -> logging.Logger:
+    """Per-run training logger: the run's log file and stdout."""
+    return _build("training_logger", log_file_path)
+
+
+def setup_main_logger(log_file_path: str) -> logging.Logger:
+    """Orchestrator logger of the multi-run drivers (sweep, lengths;
+    reference setup_main_logger, clip_train_behavior_sweep.py:81-109)."""
+    return _build("main_training_loop", log_file_path)

@@ -8,7 +8,9 @@ OpenAI checkpoint (or one converted from the JAX package by
 [B, n_prompts] logit-scaled cosine similarities between each image and each
 prompt, re-encoding the prompts on every call as the JAX forward does.
 With DoRA adapters (training) the adapted blocks' out_proj is the DoRA
-layer, as in the JAX forward.
+layer, as in the JAX forward. ``encode_text_prefix`` / ``encode_text_suffix``
+and ``clip_hba_suffix_forward`` split both towers at their first adapted
+block, for the trainer's frozen-prefix cache.
 """
 from __future__ import annotations
 
@@ -139,38 +141,91 @@ def init_clip_weights_(model: CLIP, generator: torch.Generator) -> CLIP:
     return model
 
 
+def _text_stem(model: CLIP, tokens: torch.Tensor,
+               compute_dtype) -> torch.Tensor:
+    x = model.token_embedding.weight[tokens].to(compute_dtype)
+    return x + model.positional_embedding.to(x.dtype)
+
+
+def _text_out(model: CLIP, x: torch.Tensor, eot: torch.Tensor) -> torch.Tensor:
+    """ln_final, the features at each prompt's EOT position, the projection
+    in f32."""
+    x = vnn.layer_norm(x, model.ln_final.weight, model.ln_final.bias)
+    feats = x[torch.arange(x.shape[0], device=x.device), eot]
+    return torch.matmul(feats.float(),
+                        model.text_projection.to(feats.dtype).float())
+
+
 def encode_text(model: CLIP, tokens: torch.Tensor, *,
                 compute_dtype=torch.float32, adapters: dict | None = None,
                 adapter_cfg: dict | None = None,
                 dropout_key: vdora.DropoutKey | None = None,
-                deterministic: bool = True) -> torch.Tensor:
+                deterministic: bool = True,
+                remat: bool = False) -> torch.Tensor:
     """tokens [N, context] -> [N, embed_dim] f32.
 
     Causal transformer; features at the EOT position (the argmax of the
     token ids, since EOT is the largest id), then projected in f32."""
-    x = model.token_embedding.weight[tokens].to(compute_dtype)
-    x = x + model.positional_embedding.to(x.dtype)
-    x = vvit.run_blocks(model.transformer, x, adapters=adapters,
+    x = vvit.run_blocks(model.transformer,
+                        _text_stem(model, tokens, compute_dtype),
+                        adapters=adapters, adapter_cfg=adapter_cfg,
+                        dropout_key=dropout_key,
+                        deterministic=deterministic, remat=remat)
+    return _text_out(model, x, torch.argmax(tokens, dim=-1))
+
+
+def encode_text_prefix(model: CLIP, tokens: torch.Tensor, *, n_suffix: int,
+                       compute_dtype=torch.float32):
+    """The frozen prefix of the text tower: the embeddings and the first
+    `layers - n_suffix` blocks -> (hidden [N, context, width], eot [N]).
+    The prompts are fixed for a whole run, so this is computed once."""
+    layers = model.cfg.text.layers
+    vvit.check_suffix(None, 0, layers, n_suffix, "text")
+    x = vvit.run_blocks(model.transformer,
+                        _text_stem(model, tokens, compute_dtype),
+                        stop=layers - n_suffix)
+    return x, torch.argmax(tokens, dim=-1)
+
+
+def encode_text_suffix(model: CLIP, hidden: torch.Tensor, eot: torch.Tensor,
+                       *, n_suffix: int, adapters: dict | None = None,
+                       adapter_cfg: dict | None = None,
+                       dropout_key: vdora.DropoutKey | None = None,
+                       deterministic: bool = True,
+                       remat: bool = False) -> torch.Tensor:
+    """The trainable text suffix: blocks [layers - n_suffix, layers), then
+    ln_final, the EOT gather and the projection. Absolute block indices keep
+    encode_text's adapter lookup and dropout streams."""
+    layers = model.cfg.text.layers
+    start = layers - n_suffix
+    vvit.check_suffix(adapters, start, layers, n_suffix, "text")
+    x = vvit.run_blocks(model.transformer, hidden, adapters=adapters,
                         adapter_cfg=adapter_cfg, dropout_key=dropout_key,
-                        deterministic=deterministic)
-    x = vnn.layer_norm(x, model.ln_final.weight, model.ln_final.bias)
-    eot = torch.argmax(tokens, dim=-1)
-    feats = x[torch.arange(x.shape[0], device=x.device), eot]
-    return torch.matmul(feats.float(),
-                        model.text_projection.to(feats.dtype).float())
+                        deterministic=deterministic, start=start, remat=remat)
+    return _text_out(model, x, eot)
 
 
 def encode_image(model: CLIP, images: torch.Tensor, *,
                  compute_dtype=torch.float32, adapters: dict | None = None,
                  adapter_cfg: dict | None = None,
                  dropout_key: vdora.DropoutKey | None = None,
-                 deterministic: bool = True) -> torch.Tensor:
+                 deterministic: bool = True,
+                 remat: bool = False) -> torch.Tensor:
     """images [B, H, W, 3] (normalized, NHWC) -> [B, embed_dim] f32."""
     return vvit.clip_visual_encode(model.visual, images,
                                    compute_dtype=compute_dtype,
                                    adapters=adapters, adapter_cfg=adapter_cfg,
                                    dropout_key=dropout_key,
-                                   deterministic=deterministic)
+                                   deterministic=deterministic, remat=remat)
+
+
+def _scores(model: CLIP, img: torch.Tensor, txt: torch.Tensor) -> torch.Tensor:
+    """The logit scale times the cosine similarity of each image and prompt
+    embedding: [B, n_prompts]."""
+    img = img / torch.linalg.vector_norm(img, dim=-1, keepdim=True)
+    txt = txt / torch.linalg.vector_norm(txt, dim=-1, keepdim=True)
+    scale = torch.exp(model.logit_scale)
+    return scale * torch.matmul(img, txt.t())
 
 
 def clip_hba_forward(model: CLIP, images: torch.Tensor,
@@ -178,13 +233,15 @@ def clip_hba_forward(model: CLIP, images: torch.Tensor,
                      compute_dtype=torch.float32, adapters: dict | None = None,
                      adapter_cfg: dict | None = None,
                      dropout_key: vdora.DropoutKey | None = None,
-                     deterministic: bool = True) -> torch.Tensor:
+                     deterministic: bool = True,
+                     remat: bool = False) -> torch.Tensor:
     """images -> [B, n_prompts] scores (the CLIPHBA contract): the logit
     scale times the cosine similarity of each image and prompt embedding.
 
     adapters = {"visual": {idx: dora}, "text": {idx: dora}}
     (adapters/dora.py assemble); `dropout_key` splits into a vision and a
-    text stream, as the JAX forward splits its key."""
+    text stream, as the JAX forward splits its key. `remat` recomputes every
+    block of both towers in the backward."""
     adapters = adapters or {}
     kv = kt = None
     if dropout_key is not None:
@@ -192,11 +249,38 @@ def clip_hba_forward(model: CLIP, images: torch.Tensor,
     img = encode_image(model, images, compute_dtype=compute_dtype,
                        adapters=adapters.get("visual"),
                        adapter_cfg=adapter_cfg, dropout_key=kv,
-                       deterministic=deterministic)
+                       deterministic=deterministic, remat=remat)
     txt = encode_text(model, prompt_tokens, compute_dtype=compute_dtype,
                       adapters=adapters.get("text"), adapter_cfg=adapter_cfg,
-                      dropout_key=kt, deterministic=deterministic)
-    img = img / torch.linalg.vector_norm(img, dim=-1, keepdim=True)
-    txt = txt / torch.linalg.vector_norm(txt, dim=-1, keepdim=True)
-    scale = torch.exp(model.logit_scale)
-    return scale * torch.matmul(img, txt.t())
+                      dropout_key=kt, deterministic=deterministic,
+                      remat=remat)
+    return _scores(model, img, txt)
+
+
+def clip_hba_suffix_forward(model: CLIP, vis_hidden: torch.Tensor,
+                            txt_hidden: torch.Tensor, txt_eot: torch.Tensor,
+                            *, n_vis_suffix: int, n_txt_suffix: int,
+                            adapters: dict | None = None,
+                            adapter_cfg: dict | None = None,
+                            dropout_key: vdora.DropoutKey | None = None,
+                            deterministic: bool = True,
+                            remat: bool = False) -> torch.Tensor:
+    """clip_hba_forward from cached frozen-prefix activations:
+    `vis_hidden` = clip_visual_prefix(images), (`txt_hidden`, `txt_eot`) =
+    encode_text_prefix(prompt_tokens). Only the adapted suffix blocks and
+    the heads run. The dropout key splits into (vision, text) and folds the
+    absolute block index as clip_hba_forward does, so a cached step draws
+    the full-tower step's masks."""
+    adapters = adapters or {}
+    kv = kt = None
+    if dropout_key is not None:
+        kv, kt = dropout_key.split()
+    img = vvit.clip_visual_suffix(
+        model.visual, vis_hidden, n_suffix=n_vis_suffix,
+        adapters=adapters.get("visual"), adapter_cfg=adapter_cfg,
+        dropout_key=kv, deterministic=deterministic, remat=remat)
+    txt = encode_text_suffix(
+        model, txt_hidden, txt_eot, n_suffix=n_txt_suffix,
+        adapters=adapters.get("text"), adapter_cfg=adapter_cfg,
+        dropout_key=kt, deterministic=deterministic, remat=remat)
+    return _scores(model, img, txt)

@@ -13,10 +13,14 @@ The CLIP visual tower (``conv1.weight``,
   q rows of the packed [3D, D] projection (weight and bias), ONE matmul
   emits [B, S, 3D], and that goes whole to the flash attention op. A DoRA
   adapter, when given, replaces the attention out_proj.
-- ``run_blocks``: a tower's blocks with their adapters and per-block
-  dropout streams (shared by the image and text towers).
+- ``run_blocks``: a range of a tower's blocks with their adapters and
+  per-block dropout streams, each optionally recomputed in the backward
+  (shared by the image and text towers).
 - ``clip_visual_encode``: stem (patch embed + CLS + positions + ln_pre),
-  blocks, then ln_post over the CLS token and the projection, in f32.
+  blocks, then ln_post over the CLS token and the projection, in f32;
+  ``clip_visual_prefix`` / ``clip_visual_suffix`` split it at the first
+  adapted block (the frozen-prefix cache) on the same stem, blocks and
+  tail.
 
 The classifier (``VisionTransformerClassifier``: ``patch_embed.proj``,
 ``cls_token``, ``pos_embed``, ``blocks.{i}.norm1/attn.qkv/attn.proj/norm2/
@@ -206,18 +210,43 @@ def block_forward(blk: ResidualAttentionBlock, x: torch.Tensor, *,
 def run_blocks(transformer: Transformer, x: torch.Tensor, *,
                adapters: dict | None = None, adapter_cfg: dict | None = None,
                dropout_key: vdora.DropoutKey | None = None,
-               deterministic: bool = True) -> torch.Tensor:
-    """Every block of `transformer` on x; block i takes adapters[i] (if
-    any) and the dropout stream dropout_key.fold_in(i)."""
+               deterministic: bool = True, start: int = 0,
+               stop: int | None = None, remat: bool = False) -> torch.Tensor:
+    """Blocks [start, stop) of `transformer` on x; block i takes adapters[i]
+    (if any) and the dropout stream dropout_key.fold_in(i), with i the
+    absolute index, so a split tower draws the masks of the whole one.
+
+    `remat=True` recomputes each block's forward in the backward
+    (torch.utils.checkpoint) instead of holding its activations. The
+    recompute rebuilds the dropout generator from its key, so it draws the
+    same mask and the gradients are the same numbers."""
     adapters = adapters or {}
-    for i, blk in enumerate(transformer.resblocks):
+    blocks = transformer.resblocks
+    for i in range(start, len(blocks) if stop is None else stop):
         ad = adapters.get(i)
         dk = None
         if ad is not None and dropout_key is not None:
             dk = dropout_key.fold_in(i)
-        x = block_forward(blk, x, adapter=ad, adapter_cfg=adapter_cfg,
-                          dropout_key=dk, deterministic=deterministic)
+        kw = dict(adapter=ad, adapter_cfg=adapter_cfg, dropout_key=dk,
+                  deterministic=deterministic)
+        if remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(
+                block_forward, blocks[i], x, use_reentrant=False, **kw)
+        else:
+            x = block_forward(blocks[i], x, **kw)
     return x
+
+
+def check_suffix(adapters: dict | None, start: int, layers: int,
+                 n_suffix: int, tower: str) -> None:
+    """Refuse a split whose frozen prefix would hold an adapted block."""
+    if not 0 <= n_suffix <= layers:
+        raise ValueError(f"n_suffix={n_suffix} outside [0, {layers}]")
+    below = sorted(i for i in (adapters or {}) if i < start)
+    if below:
+        raise ValueError(
+            f"{tower} adapters at blocks {below} live below the prefix/suffix "
+            f"split ({start}): the cached prefix would silently exclude them")
 
 
 def _clip_visual_stem(visual: VisionTransformer, images: torch.Tensor, *,
@@ -246,13 +275,50 @@ def clip_visual_encode(visual: VisionTransformer, images: torch.Tensor, *,
                        adapters: dict | None = None,
                        adapter_cfg: dict | None = None,
                        dropout_key: vdora.DropoutKey | None = None,
-                       deterministic: bool = True) -> torch.Tensor:
+                       deterministic: bool = True,
+                       remat: bool = False) -> torch.Tensor:
     """CLIP visual tower: images [B, H, W, 3] (normalized, NHWC) ->
     [B, out_dim] f32. `adapters` maps block index -> {trainable, buffers}."""
     x = _clip_visual_stem(visual, images, compute_dtype=compute_dtype)
     x = run_blocks(visual.transformer, x, adapters=adapters,
                    adapter_cfg=adapter_cfg, dropout_key=dropout_key,
-                   deterministic=deterministic)
+                   deterministic=deterministic, remat=remat)
+    return _clip_visual_out(visual, x)
+
+
+def clip_visual_prefix(visual: VisionTransformer, images: torch.Tensor, *,
+                       n_suffix: int,
+                       compute_dtype=torch.float32) -> torch.Tensor:
+    """The frozen prefix of the CLIP visual tower: the stem and the first
+    `layers - n_suffix` blocks -> hidden tokens [B, S, width] in the compute
+    dtype.
+
+    The CLIP-HBA fine-tune adapts only the last `vision_layers` blocks and
+    THINGS has no random augmentation, so these activations are a pure
+    function of the image: computed once per run and reused every epoch
+    (train/clip_loop.py build_prefix_cache)."""
+    layers = visual.cfg.layers
+    check_suffix(None, 0, layers, n_suffix, "visual")
+    x = _clip_visual_stem(visual, images, compute_dtype=compute_dtype)
+    return run_blocks(visual.transformer, x, stop=layers - n_suffix)
+
+
+def clip_visual_suffix(visual: VisionTransformer, hidden: torch.Tensor, *,
+                       n_suffix: int, adapters: dict | None = None,
+                       adapter_cfg: dict | None = None,
+                       dropout_key: vdora.DropoutKey | None = None,
+                       deterministic: bool = True,
+                       remat: bool = False) -> torch.Tensor:
+    """The trainable suffix: blocks [layers - n_suffix, layers), ln_post and
+    the projection, from cached prefix activations -> [B, out_dim] f32.
+    Block indices stay absolute, so the adapter lookup and the per-block
+    dropout streams are clip_visual_encode's."""
+    layers = visual.cfg.layers
+    start = layers - n_suffix
+    check_suffix(adapters, start, layers, n_suffix, "visual")
+    x = run_blocks(visual.transformer, hidden, adapters=adapters,
+                   adapter_cfg=adapter_cfg, dropout_key=dropout_key,
+                   deterministic=deterministic, start=start, remat=remat)
     return _clip_visual_out(visual, x)
 
 

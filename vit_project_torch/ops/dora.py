@@ -8,45 +8,21 @@ step 0 is not the pretrained weight. Dropout acts on the low-rank weight
 update ΔD, not on the activations (the reference's deliberate choice,
 ref :467-468).
 
-Dropout draws from a ``torch.Generator`` seeded by a ``DropoutKey``: a path
-of integers (dropout_seed, epoch, batch, tower, block) folded in the order
-of the JAX package's ``fold_in`` chain (train/clip_loop.py:724,809,441,
-models/clip.py:295-304, models/vit.py:494-496). A resume replays the same
-masks; the bits differ from JAX's, so tests use p=0 or pass the keep-mask.
+Dropout draws from a ``torch.Generator`` seeded by a ``DropoutKey``
+(``core.prng.Key``): a path of integers (dropout_seed, epoch, batch, tower,
+block) folded in the order of the JAX package's ``fold_in`` chain
+(train/clip_loop.py:724,809,441, models/clip.py:295-304,
+models/vit.py:494-496). A resume replays the same masks; the bits differ
+from JAX's, so tests use p=0 or pass the keep-mask.
 """
 from __future__ import annotations
 
-import hashlib
-from dataclasses import dataclass
-
 import torch
 
+from ..core.prng import Key as DropoutKey  # noqa: F401  (re-export)
 from . import nn as vnn
 
 EPS = 1e-8
-
-
-@dataclass(frozen=True)
-class DropoutKey:
-    """A pure, replayable dropout stream: the integers folded in so far."""
-    path: tuple[int, ...]
-
-    @classmethod
-    def root(cls, seed: int) -> "DropoutKey":
-        return cls((int(seed),))
-
-    def fold_in(self, i: int) -> "DropoutKey":
-        return DropoutKey(self.path + (int(i),))
-
-    def split(self) -> tuple["DropoutKey", "DropoutKey"]:
-        """Two independent children (the vision and text streams)."""
-        return self.fold_in(0), self.fold_in(1)
-
-    def generator(self, device) -> torch.Generator:
-        """A generator on `device` seeded by a hash of the path."""
-        digest = hashlib.blake2b(repr(self.path).encode(), digest_size=8)
-        seed = int.from_bytes(digest.digest(), "little") & ((1 << 63) - 1)
-        return torch.Generator(device=device).manual_seed(seed)
 
 
 def _kaiming_uniform(shape: tuple[int, int], generator: torch.Generator,

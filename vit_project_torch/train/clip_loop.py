@@ -3,13 +3,17 @@ train/clip_loop.py; reference train_model + run_behavioral_training,
 new_cvpr_train_behavior_things_pipeline.py:782-1227).
 
 - per epoch: train over shuffled batches -> eval on the test split ->
-  behavioral RSA on the 48 inference images -> DoRA checkpoint ->
-  random-state checkpoint -> CSV row -> early stopping;
+  behavioral RSA on the 48 inference images -> embedding dumps -> DoRA
+  checkpoint -> random-state checkpoint -> CSV row -> early stopping
+  (patience paused inside the perturbation window, ref :1043-1056);
+- perturbation window [training_run-1, training_run-1+perturb_length-1]
+  0-indexed, per-batch injector keys from perturb_seed + training_run*1000
+  + batch_idx (core/prng.py, perturb/injectors.py);
 - NaN guard: a batch whose loss, targets or predictions are non-finite is
   skipped without an optimizer update, and AdamW's step count stays where
   it was (reference :929-998 `continue`);
 - resume: CSV pre-population, DoRA + optimizer-state restore, replayable
-  data order (PCG64) and dropout streams (ops/dora.py DropoutKey).
+  data order (PCG64) and dropout streams (core/prng.py Key).
 
 The datasets are uploaded to the device once and each batch is gathered
 there by index and normalized on the device. The frozen CLIP weights need
@@ -17,16 +21,25 @@ no gradient, so autograd differentiates only from the first adapted block
 on: at the reference configuration one step runs the attention backward
 kernel once (image block 23).
 
+``frozen_cache`` computes each image set's activations below the first
+adapted block once (``build_prefix_cache``) and the prompts' text prefix
+once per trainer (``text_prefix_cache``); every train, eval and RSA step
+then runs only the adapted suffix blocks. Epochs in which an image kind
+(uniform_images, image_noise) is active run the full tower: those kinds
+change the tower's input. ``remat`` recomputes every block in the backward
+(torch.utils.checkpoint).
+
 The port's AdamW updates the adapter tensors in place (the JAX loop returns
-new trees). The perturbation injectors, the frozen-prefix cache, remat and
-the embedding dumps come with the port of the paradigm drivers, and the
-data-parallel and sequence-parallel modes with the port of the parallel
-modes; until then those options raise.
+new trees). The data-parallel and sequence-parallel modes come with the
+port of the parallel modes; until then those options raise.
 """
 from __future__ import annotations
 
 import contextlib
+import csv
+import functools
 import os
+import time
 from datetime import datetime
 from types import SimpleNamespace
 
@@ -39,13 +52,14 @@ from ..core import csvio
 from ..core.configs import ClipRunConfig
 from ..core.device import resolve_device
 from ..core.logs import setup_logger
+from ..core.prng import Key, batch_perturb_key, perturb_base_key
 from ..core.profiling import EpochTimer
 from ..data import things as dthings
 from ..data.spose66 import classnames66
 from ..models import clip as vclip
 from ..models import convert as vconvert
 from ..models import tokenizer as vtok
-from ..ops import dora as vdora
+from ..models import vit as vvit
 from ..ops import rsa as vrsa
 from ..perturb import injectors, windows
 
@@ -53,8 +67,11 @@ from ..perturb import injectors, windows
 # tokens (512 ViT-L/14 images; the JAX loop's cap)
 EVAL_TOKEN_CAP = 132_000
 
+# the frozen-prefix cache is built, and large sets are embedded, in chunks
+# of this many images (the JAX loop's chunk)
+PREFIX_CHUNK = 256
+
 # what a refused option waits for, named by feature
-PARADIGM_DRIVERS = "the port of the paradigm drivers"
 PARALLEL_MODES = "the port of the parallel modes"
 
 
@@ -73,7 +90,8 @@ def _unported(what: str, where: str) -> NotImplementedError:
 
 class ClipHBATrainer:
     """The frozen CLIP, the adapters' static half, the prompts, and the
-    train / eval / RSA steps."""
+    train / eval / RSA steps, on the full tower or from the frozen-prefix
+    cache."""
 
     def __init__(self, clip_cfg: vclip.CLIPConfig, model: vclip.CLIP,
                  adapter_cfg: dict, static: dict, prompt_tokens, lr: float,
@@ -85,8 +103,6 @@ class ClipHBATrainer:
         if mesh is not None or sp or sp_ring:
             raise _unported("data-parallel and sequence-parallel training",
                             PARALLEL_MODES)
-        if remat:
-            raise _unported("remat", PARADIGM_DRIVERS)
         self.cfg = clip_cfg
         self.model = model.requires_grad_(False)
         self.device = next(model.parameters()).device
@@ -101,12 +117,7 @@ class ClipHBATrainer:
         self.perturb_distribution = perturb_distribution
         self.dist_mean = dist_mean
         self.dist_std = dist_std
-
-    @staticmethod
-    def check_perturb_type(perturb_type: str) -> None:
-        if perturb_type != "baseline":
-            raise _unported(f"perturb_type={perturb_type!r} (the "
-                            f"perturbation injectors)", PARADIGM_DRIVERS)
+        self.remat = remat
 
     def init_optimizer(self, trainable: dict) -> torch.optim.AdamW:
         return make_optimizer(
@@ -123,30 +134,103 @@ class ClipHBATrainer:
                 self.device)
         return img, tgt
 
+    # -- frozen-prefix activation cache -----------------------------------
+
+    def suffix_sizes(self) -> tuple[int, int]:
+        """(n_visual_suffix, n_text_suffix): how many trailing blocks of each
+        tower carry adapters, from the static tree, so any vision_layers /
+        transformer_layers configuration splits correctly."""
+        vis = [int(i) for i in self.static.get("visual", {})]
+        txt = [int(i) for i in self.static.get("text", {})]
+        return (self.cfg.visual.layers - min(vis) if vis else 0,
+                self.cfg.text.layers - min(txt) if txt else 0)
+
+    @torch.no_grad()
+    def build_prefix_cache(self, imgs_dev: torch.Tensor,
+                           chunk: int = PREFIX_CHUNK) -> torch.Tensor:
+        """Frozen-prefix activations [N, S, width] in the compute dtype for a
+        resident uint8 image set, built in chunks (bounds the build's
+        activation memory)."""
+        n_vis, _ = self.suffix_sizes()
+        cache = None
+        for s in range(0, imgs_dev.shape[0], chunk):
+            h = vvit.clip_visual_prefix(
+                self.model.visual,
+                dthings.normalize_uint8(imgs_dev[s:s + chunk]),
+                n_suffix=n_vis, compute_dtype=self.compute_dtype)
+            if cache is None:
+                cache = h.new_empty((imgs_dev.shape[0], *h.shape[1:]))
+            cache[s:s + chunk] = h
+        return cache
+
+    @functools.cached_property
+    def text_prefix_cache(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(hidden [n_prompts, context, width], eot [n_prompts]): the
+        prompts' frozen text prefix, computed once per trainer."""
+        _, n_txt = self.suffix_sizes()
+        with torch.no_grad():
+            return vclip.encode_text_prefix(self.model, self.prompts,
+                                            n_suffix=n_txt,
+                                            compute_dtype=self.compute_dtype)
+
+    # -- steps ------------------------------------------------------------
+
     def forward(self, trainable: dict, images: torch.Tensor,
-                dropout_key: vdora.DropoutKey | None = None,
-                deterministic: bool = True) -> torch.Tensor:
-        """[B, n_prompts] predictions from normalized images."""
+                dropout_key: Key | None = None, deterministic: bool = True,
+                cached: bool = False) -> torch.Tensor:
+        """[B, n_prompts] predictions from normalized images, or, with
+        `cached`, from their frozen-prefix activations."""
+        adapters = adora.assemble(trainable, self.static)
+        if cached:
+            n_vis, n_txt = self.suffix_sizes()
+            hidden, eot = self.text_prefix_cache
+            return vclip.clip_hba_suffix_forward(
+                self.model, images, hidden, eot, n_vis_suffix=n_vis,
+                n_txt_suffix=n_txt, adapters=adapters, adapter_cfg=self.acfg,
+                dropout_key=dropout_key, deterministic=deterministic,
+                remat=self.remat)
         return vclip.clip_hba_forward(
             self.model, images, self.prompts,
-            compute_dtype=self.compute_dtype,
-            adapters=adora.assemble(trainable, self.static),
+            compute_dtype=self.compute_dtype, adapters=adapters,
             adapter_cfg=self.acfg, dropout_key=dropout_key,
-            deterministic=deterministic)
+            deterministic=deterministic, remat=self.remat)
+
+    def perturb(self, perturb_type: str, key: Key | None,
+                images: torch.Tensor, targets: torch.Tensor,
+                rows: int | None = None):
+        """One batch's (images, targets) after the injector, drawn at
+        [rows, ...] (the configured batch size; JAX's padded width)."""
+        return injectors.apply_clip_perturbation(
+            perturb_type, key, images, targets,
+            distribution=self.perturb_distribution, mean=self.dist_mean,
+            std=self.dist_std, rows=rows)
 
     def train_step(self, trainable: dict, optimizer: torch.optim.Optimizer,
-                   all_images_u8: torch.Tensor, all_targets: torch.Tensor,
-                   idx, dropout_key: vdora.DropoutKey):
-        """One masked-MSE step on the rows `idx` of the resident dataset.
-        Returns (loss, ok); when not ok (non-finite loss, targets or
-        predictions) the parameters and the optimizer are left as they
-        were."""
+                   all_images: torch.Tensor, all_targets: torch.Tensor,
+                   idx, dropout_key: Key, *, perturb_type: str = "none",
+                   perturb_key: Key | None = None,
+                   batch_size: int | None = None, cached: bool = False):
+        """One masked-MSE step on the rows `idx` of the resident dataset
+        (uint8 images, or with `cached` their prefix activations), after
+        `perturb_type`'s injector. Returns (loss, ok); when not ok
+        (non-finite loss, targets or predictions) the parameters and the
+        optimizer are left as they were."""
+        if cached and perturb_type in injectors.IMAGE_KINDS:
+            raise ValueError(
+                f"perturb_type={perturb_type!r} replaces the input images; "
+                "the frozen-prefix cache is stale under it - use the "
+                "full-tower step for in-window epochs of image kinds")
         rows = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
-        images = dthings.normalize_uint8(all_images_u8[rows])
+        images = all_images[rows]
+        if not cached:
+            images = dthings.normalize_uint8(images)
         targets = all_targets[rows]
+        if perturb_type != "none":
+            images, targets = self.perturb(perturb_type, perturb_key, images,
+                                           targets, batch_size)
         optimizer.zero_grad(set_to_none=True)
         preds = self.forward(trainable, images, dropout_key,
-                             deterministic=False)
+                             deterministic=False, cached=cached)
         row_mse = torch.mean((preds - targets) ** 2, dim=-1)
         loss = torch.sum(row_mse) / row_mse.shape[0]
         loss.backward()
@@ -158,32 +242,57 @@ class ClipHBATrainer:
         optimizer.zero_grad(set_to_none=True)
         return loss_f, bool(ok_f)
 
+    def _inputs(self, src: torch.Tensor, cached: bool) -> torch.Tensor:
+        return src if cached else dthings.normalize_uint8(src)
+
     @torch.no_grad()
     def evaluate_resident(self, trainable: dict, imgs_dev: torch.Tensor,
-                          tgts_dev: torch.Tensor, n: int,
-                          batch_size: int) -> float:
+                          tgts_dev: torch.Tensor, n: int, batch_size: int,
+                          cache: torch.Tensor | None = None) -> float:
         """Dataset-weighted MSE (reference evaluate_model :584-602 sums
         loss * batch and divides by len(dataset)). The whole set runs as
         one batch under the token cap, else in batches of `batch_size`
-        (eval has no cross-batch dependence)."""
+        (eval has no cross-batch dependence). With `cache` (the set's
+        frozen-prefix activations) only the adapted suffix runs."""
+        cached = cache is not None
+        src = cache if cached else imgs_dev
         bs = n if n * self.cfg.visual.seq_len <= EVAL_TOKEN_CAP else batch_size
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for s in range(0, n, bs):
-            preds = self.forward(
-                trainable, dthings.normalize_uint8(imgs_dev[s:s + bs]))
+            preds = self.forward(trainable, self._inputs(src[s:s + bs], cached),
+                                 cached=cached)
             total += torch.sum(torch.mean((preds - tgts_dev[s:s + bs]) ** 2,
                                           dim=-1))
         return float(total) / n
 
     @torch.no_grad()
+    def infer_in_chunks(self, trainable: dict, imgs_dev: torch.Tensor,
+                        n_real: int, chunk: int = PREFIX_CHUNK,
+                        cache: torch.Tensor | None = None) -> np.ndarray:
+        """[n_real, n_prompts] predictions for a possibly large resident
+        image set, in chunks (bounds activation memory, as the eval cap
+        does); with `cache` only the adapted suffix runs per chunk."""
+        cached = cache is not None
+        src = cache if cached else imgs_dev
+        outs = [self.forward(trainable, self._inputs(src[s:s + chunk], cached),
+                             cached=cached).cpu()
+                for s in range(0, n_real, chunk)]
+        return torch.cat(outs).numpy()
+
+    @torch.no_grad()
     def behavioral_rsa(self, trainable: dict, inference_images_u8,
-                       reference_rdm):
+                       reference_rdm, cache: torch.Tensor | None = None):
         """48-image inference + RDM + Spearman (reference behavioral_RSA
-        :605-654). Returns (rho, p, model_rdm, embeddings) on the host."""
-        imgs = inference_images_u8
-        if not isinstance(imgs, torch.Tensor):
-            imgs, _ = self.upload_dataset(imgs)
-        emb = self.forward(trainable, dthings.normalize_uint8(imgs))
+        :605-654). Returns (rho, p, model_rdm, embeddings) on the host.
+        With `cache` (the set's frozen-prefix activations) only the adapted
+        suffix runs."""
+        if cache is not None:
+            emb = self.forward(trainable, cache, cached=True)
+        else:
+            imgs = inference_images_u8
+            if not isinstance(imgs, torch.Tensor):
+                imgs, _ = self.upload_dataset(imgs)
+            emb = self.forward(trainable, dthings.normalize_uint8(imgs))
         rho, p, model_rdm = vrsa.behavioral_rsa(emb, reference_rdm)
         return rho, p, model_rdm.cpu().numpy(), emb.cpu().numpy()
 
@@ -213,14 +322,9 @@ def train_model(trainer: ClipHBATrainer, trainable: dict,
     host-copy module is ported. `preempt_guard` is polled at epoch
     boundaries, after the epoch's checkpoints are written, and gets
     `stopped_at_epoch` when it stops the run. `on_epoch`, if given, is
-    called after each epoch with {epoch, steps, train_s, epoch_s}: the
-    seconds of its training steps and of the whole epoch."""
-    trainer.check_perturb_type(perturb_type)
-    if frozen_cache:
-        raise _unported("frozen_cache (the frozen-prefix activation cache)",
-                        PARADIGM_DRIVERS)
-    if dump_dir is not None or nod_images is not None:
-        raise _unported("the per-epoch embedding dumps", PARADIGM_DRIVERS)
+    called after each epoch with {epoch, steps, train_s, epoch_s, cached}:
+    the seconds of its training steps and of the whole epoch, and whether
+    its steps ran from the frozen-prefix cache."""
     log = logger.info if logger else print
     best_test_loss = 500000.0  # reference initializes to 500000 (ref :790)
     epochs_no_improve = 0
@@ -229,7 +333,7 @@ def train_model(trainer: ClipHBATrainer, trainable: dict,
     csvio.init_clip_csv(training_res_path, resume_from_epoch,
                         previous_training_res_path, logger)
 
-    dropout_root = vdora.DropoutKey.root(dropout_seed)
+    dropout_root = Key.root(dropout_seed)
     n_train = len(train_images)
     n_test = len(test_images)
     last_epoch0 = resume_from_epoch - 1
@@ -239,29 +343,73 @@ def train_model(trainer: ClipHBATrainer, trainable: dict,
     test_imgs_dev, test_tgts_dev = trainer.upload_dataset(test_images,
                                                           test_targets)
     inf_imgs_dev, _ = trainer.upload_dataset(inference_images)
+    nod_imgs_dev = None
+    if nod_images is not None:
+        nod_imgs_dev, _ = trainer.upload_dataset(nod_images)
+
+    # the towers below the adapter split are frozen and THINGS has no random
+    # augmentation, so each set's prefix activations are computed once here
+    train_cache = test_cache = inf_cache = nod_cache = None
+    if frozen_cache:
+        t0 = time.perf_counter()
+        train_cache = trainer.build_prefix_cache(train_imgs_dev)
+        test_cache = trainer.build_prefix_cache(test_imgs_dev)
+        inf_cache = trainer.build_prefix_cache(inf_imgs_dev)
+        if nod_imgs_dev is not None:
+            nod_cache = trainer.build_prefix_cache(nod_imgs_dev)
+        trainer.text_prefix_cache  # noqa: B018  (built once, timed here)
+        if train_cache.is_cuda:
+            torch.cuda.synchronize(train_cache.device)
+        caches = [c for c in (train_cache, test_cache, inf_cache, nod_cache)
+                  if c is not None]
+        nbytes = sum(c.numel() * c.element_size() for c in caches)
+        log(f"Frozen-prefix cache built in {time.perf_counter() - t0:.2f}s "
+            f"({nbytes / 2**20:.0f} MB on the device); train/eval/RSA steps "
+            f"run only the adapted suffix blocks")
 
     if resume_from_epoch == 0:
         # initial (pre-training) eval + RSA, logged but not written to the CSV
         # (reference baseline pipeline cvpr...baseline.py:623-624)
         init_loss = trainer.evaluate_resident(trainable, test_imgs_dev,
                                               test_tgts_dev, n_test,
-                                              batch_size)
+                                              batch_size, cache=test_cache)
         init_rho, init_p, _, _ = trainer.behavioral_rsa(
-            trainable, inf_imgs_dev, reference_rdm)
+            trainable, inf_imgs_dev, reference_rdm, cache=inf_cache)
         log(f"Initial (epoch 0) Validation Loss: {init_loss:.4f}, "
             f"Behavioral RSA: {init_rho:.4f} (p={init_p:.4f})")
 
+    base_pkey = perturb_base_key(perturb_seed, training_run)
     for epoch in range(resume_from_epoch, epochs):
         flags = windows.epoch_flags(epoch, training_run, perturb_length,
                                     perturb_type)
+        active = any(flags.values())
+        kind = perturb_type if active else "none"
+        if active:
+            ws, we = windows.window_bounds(training_run, perturb_length)
+            log("=" * 80)
+            log(f"*** PERTURBATION '{perturb_type}' ACTIVE FOR EPOCH "
+                f"{epoch + 1} (window: epochs {ws + 1}-{we + 1}) ***")
+            log(f"Perturbation seed: {perturb_seed}")
+            log("=" * 80)
+            _log_first_batch(trainer, log, kind, shuffler, epoch,
+                             train_imgs_dev, train_tgts_dev, batch_size,
+                             batch_perturb_key(perturb_seed, training_run, 0))
+
         timer = EpochTimer()
         batch_list = list(shuffler.batches(epoch))
         dropout_epoch_key = dropout_root.fold_in(epoch)
+        # image kinds replace the tower's input while active, so those
+        # epochs run the full tower; target-only kinds (and clean epochs)
+        # train from the prefix cache
+        use_cache = frozen_cache and kind not in injectors.IMAGE_KINDS
+        imgs = train_cache if use_cache else train_imgs_dev
         losses, oks = [], []
         for bi, idx in enumerate(batch_list):
-            loss, ok = trainer.train_step(trainable, optimizer,
-                                          train_imgs_dev, train_tgts_dev,
-                                          idx, dropout_epoch_key.fold_in(bi))
+            loss, ok = trainer.train_step(
+                trainable, optimizer, imgs, train_tgts_dev, idx,
+                dropout_epoch_key.fold_in(bi), perturb_type=kind,
+                perturb_key=base_pkey.fold_in(bi), batch_size=batch_size,
+                cached=use_cache)
             losses.append(loss)
             oks.append(ok)
         train_s = timer.seconds()
@@ -276,13 +424,26 @@ def train_model(trainer: ClipHBATrainer, trainable: dict,
 
         train_timing = timer.finish(images=n_train)
         avg_test_loss = trainer.evaluate_resident(
-            trainable, test_imgs_dev, test_tgts_dev, n_test, batch_size)
+            trainable, test_imgs_dev, test_tgts_dev, n_test, batch_size,
+            cache=test_cache)
         log(f"Epoch {epoch + 1}: Training Loss: {avg_train_loss:.4f}, "
             f"Validation Loss: {avg_test_loss:.4f} [{train_timing}]")
 
-        rho, p_value, _, _ = trainer.behavioral_rsa(
-            trainable, inf_imgs_dev, reference_rdm)
+        rho, p_value, _, emb = trainer.behavioral_rsa(
+            trainable, inf_imgs_dev, reference_rdm, cache=inf_cache)
         log(f"Behavioral RSA Correlation & p-value: {rho:.4f}, {p_value:.4f}")
+
+        if dump_dir is not None:
+            dump_embeddings(dump_dir, epoch + 1, emb, inference_names,
+                            prefix="things_48")
+        if nod_imgs_dev is not None and nod_dump_dir is not None:
+            # the second per-epoch inference set (the reference runs
+            # produced nod_embeddings_epochN.csv dumps; SURVEY.md section 0)
+            dump_embeddings(nod_dump_dir, epoch + 1,
+                            trainer.infer_in_chunks(trainable, nod_imgs_dev,
+                                                    len(nod_images),
+                                                    cache=nod_cache),
+                            nod_names, prefix="nod")
 
         # checkpoints BEFORE the CSV row: a crash between the two leaves
         # "checkpoint without row" (the epoch is retrained on resume), never
@@ -298,7 +459,8 @@ def train_model(trainer: ClipHBATrainer, trainable: dict,
                               avg_test_loss, rho, p_value, **flags)
         if on_epoch is not None:
             on_epoch({"epoch": epoch + 1, "steps": len(batch_list),
-                      "train_s": train_s, "epoch_s": timer.seconds()})
+                      "train_s": train_s, "epoch_s": timer.seconds(),
+                      "cached": use_cache})
 
         # patience freezes on pure window arithmetic (reference :1044-1056)
         in_win = windows.in_window(epoch, training_run, perturb_length)
@@ -322,6 +484,54 @@ def train_model(trainer: ClipHBATrainer, trainable: dict,
                 break
 
     return trainable, optimizer, last_epoch0
+
+
+@torch.no_grad()
+def _log_first_batch(trainer: ClipHBATrainer, log, kind: str, shuffler,
+                     epoch: int, imgs_dev, tgts_dev, batch_size: int,
+                     key: Key) -> None:
+    """The first batch after injection: stats that show the injector acted
+    (the reference's debug-print verification, ref :886-982)."""
+    rows = torch.as_tensor(np.asarray(next(iter(shuffler.batches(epoch))),
+                                      np.int64), device=trainer.device)
+    img0 = dthings.normalize_uint8(imgs_dev[rows])
+    tgt0 = tgts_dev[rows]
+    pi, pt = trainer.perturb(kind, key, img0, tgt0, batch_size)
+    log(f"Batch 0 after injection - images: min={float(pi.min()):.3f} "
+        f"max={float(pi.max()):.3f} mean={float(pi.mean()):.3f}; "
+        f"targets: min={float(pt.min()):.3f} "
+        f"max={float(pt.max()):.3f} mean={float(pt.mean()):.3f}; "
+        f"targets changed: {not torch.equal(pt, tgt0)}, "
+        f"images changed: {not torch.equal(pi, img0)}")
+
+
+def dump_embeddings(dump_dir: str, epoch1: int, emb: np.ndarray, names,
+                    prefix: str = "things_48") -> str:
+    """One epoch's inference embeddings as
+    {dump_dir}/{prefix}_embeddings_epoch{epoch1}.csv: an image_name column
+    (when names are given) and one column per dimension named 0..D-1,
+    values as float32 text (the JAX package's pandas layout; SURVEY.md
+    section 0). Returns the path."""
+    os.makedirs(dump_dir, exist_ok=True)
+    path = os.path.join(dump_dir, f"{prefix}_embeddings_epoch{epoch1}.csv")
+    emb = np.asarray(emb, np.float32)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        lead = ["image_name"] if names is not None else []
+        w.writerow(lead + [str(j) for j in range(emb.shape[1])])
+        for i, row in enumerate(emb):
+            w.writerow(([names[i]] if names is not None else [])
+                       + [str(v) for v in row])
+    return path
+
+
+def read_image_names(csv_file: str) -> list[str]:
+    """The image names of an annotation CSV: its `image_name` column, else
+    its first column (the JAX loop's reading of the NOD CSV)."""
+    with open(csv_file, newline="") as f:
+        rows = [r for r in csv.reader(f) if r]
+    col = rows[0].index("image_name") if "image_name" in rows[0] else 0
+    return [r[col] for r in rows[1:]]
 
 
 def build_run_assets(cfg: ClipRunConfig, logger, device):
@@ -419,17 +629,9 @@ def build_run_assets(cfg: ClipRunConfig, logger, device):
 
 
 def _refuse_unported(cfg: ClipRunConfig) -> None:
-    ClipHBATrainer.check_perturb_type(cfg.perturb_type)
     if cfg.sp_devices > 1 or cfg.sp_ring:
         raise _unported("sequence parallelism (sp_devices, sp_ring)",
                         PARALLEL_MODES)
-    if cfg.remat:
-        raise _unported("remat", PARADIGM_DRIVERS)
-    if cfg.frozen_cache:
-        raise _unported("frozen_cache", PARADIGM_DRIVERS)
-    if cfg.dump_inference_embeddings or cfg.nod_csv_file:
-        raise _unported("the embedding dumps (dump_inference_embeddings, "
-                        "nod_csv_file)", PARADIGM_DRIVERS)
 
 
 def run_behavioral_training(config, preempt_guard=None, device=None) -> dict:
@@ -488,7 +690,7 @@ def run_behavioral_training(config, preempt_guard=None, device=None) -> dict:
         compute_dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16"
         else torch.float32,
         perturb_distribution=cfg.perturb_distribution,
-        dist_mean=a.mean, dist_std=a.std)
+        dist_mean=a.mean, dist_std=a.std, remat=cfg.remat)
     optimizer = trainer.init_optimizer(trainable)
 
     # random-state restore (ref :1184-1201)
@@ -529,6 +731,16 @@ def run_behavioral_training(config, preempt_guard=None, device=None) -> dict:
     dataset = a.dataset
     shuffler = dthings.EpochShuffler(len(a.train_idx), cfg.batch_size,
                                      data_seed)
+    dump_dir = cfg.inference_dump_dir if cfg.dump_inference_embeddings \
+        else None
+    nod_images = nod_names = None
+    if cfg.nod_csv_file and os.path.exists(cfg.nod_csv_file):
+        nod_names = read_image_names(cfg.nod_csv_file)
+        nod_images = dthings.decode_images(cfg.nod_img_dir or cfg.img_dir,
+                                           nod_names,
+                                           a.clip_cfg.visual.image_size)
+        logger.info(f"Loaded NOD inference set: {len(nod_names)} images")
+
     guard = preempt_guard
     own_guard = False
     if guard is None and cfg.preempt_save:
@@ -555,7 +767,22 @@ def run_behavioral_training(config, preempt_guard=None, device=None) -> dict:
             dropout_seed=cfg.random_seed, data_seed=data_seed,
             resume_from_epoch=cfg.resume_from_epoch,
             previous_training_res_path=cfg.previous_training_res_path,
-            host_prefetch=cfg.host_prefetch)
+            dump_dir=dump_dir, inference_names=a.inference.names,
+            nod_images=nod_images, nod_names=nod_names,
+            nod_dump_dir=cfg.nod_dump_dir, host_prefetch=cfg.host_prefetch,
+            frozen_cache=cfg.frozen_cache)
+
+    if cfg.nod_dump_dir and nod_names is not None:
+        # per-epoch category-RDM archive (the reference runs shipped
+        # hba_nod_category_rdms_dict.npz with no producing script; SURVEY.md
+        # section 0; schema in analysis/category_rdms.py)
+        from ..analysis import category_rdms
+        arc = category_rdms.save_category_rdms(
+            cfg.nod_dump_dir,
+            os.path.join(os.path.dirname(cfg.nod_dump_dir.rstrip("/")) or ".",
+                         "hba_nod_category_rdms_dict.npz"))
+        if arc:
+            logger.info(f"Wrote NOD category-RDM archive: {arc}")
 
     return {"last_epoch0": last_epoch0,
             "training_res_path": cfg.training_res_path,
