@@ -58,8 +58,8 @@
    and 48 inference JPEGs at 224^2, whose targets are the initial model's
    own predictions) and seeded random ViT-L/14 weights, and drives the
    paradigm CLIs through their ``main``: a 3-epoch ``cli.baseline``,
-   ``cli.sweep`` runs 2 and 3 for each of the four perturbation kinds with
-   ``--frozen_cache`` and for random_target without it, a repeated fork,
+   ``cli.sweep`` runs 1, 2 and 3 for each of the four perturbation kinds
+   with ``--frozen_cache`` and for random_target without it, a repeated fork,
    and ``cli.lengths`` e2_l1 then e2_l2 (which resumes from e2_l1). It
    checks the CSV rows and window flags, that the target kinds raise the
    perturbed epoch's train loss above the baseline's, that the repeated
@@ -68,6 +68,20 @@
    runs, and the attention launches of one step on each path (full tower,
    cache, each with remat); it times cached and full-tower steps in turns,
    the prefix build, and reads the runs' epoch times from their logs;
+7b. phase `forks`: on phase sweep's fixture, batched forks
+   (train/multi_fork.py) through the CLIs' ``main``: ``cli.sweep
+   --batched_forks 3`` of runs 1, 2, 3 for each kind with
+   ``--frozen_cache`` (image kinds fall back to the full tower), for
+   random_target on the full tower and once with ``--no-host_prefetch``,
+   and ``cli.lengths --onsets 1,2`` at length 1, then 2 (cross-resumed),
+   then 2 again (resumed in place, no row). It holds each fork's rows
+   against phase sweep's solo rows (the cached-vs-full tolerance), the
+   checkpoints written without the copy-out byte for byte against those
+   written with it, one flash3_bwd per lock-step batch over each
+   invocation, and a lock-step's launches at R = 1, 2, 3 (36/1 full, 3/1
+   cached); it times a lock-step batch at R = 1, 2, 4, 8, cached and full
+   in turns, with peak memory at R = 8, and the batched invocations
+   against the sequential ones;
 8. prints one JSON line of kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -163,7 +177,8 @@ LN_TOLERANCE = {"float32": {"dx": 1e-5, "dparams": 1e-4},
 
 SEED = 0
 RESULTS: dict = {}
-ALL_PHASES = ("kernel", "ops", "serve", "train", "vit_train", "sweep")
+ALL_PHASES = ("kernel", "ops", "serve", "train", "vit_train", "sweep",
+              "forks")
 
 
 def fail(msg: str) -> None:
@@ -209,19 +224,24 @@ def phase_build():
 
 def attention_cases():
     """(label, B, S, H, causal) at the serving path's shapes: the image
-    tower at buckets 8, 32 and 256, and the 66 causal text prompts."""
+    tower at buckets 8, 32 and 256, and the 66 causal text prompts; the
+    ViT-B/16 step; and the image tower of a lock-step of 8 batched forks
+    (8 x 64 rows)."""
     return [("image_b8", 8, 257, 16, False), ("image_b32", 32, 257, 16, False),
             ("image_b256", 256, 257, 16, False), ("text_66", 66, 77, 12, True),
-            ("vit_b256", 256, 197, 12, False)]
+            ("vit_b256", 256, 197, 12, False),
+            ("image_b512", 512, 257, 16, False)]
 
 
 def bwd_cases():
     """(label, B, S, H, causal) of the attention backward on the training
     path: the image tower at the training batch of 64, and the 66 causal
-    text prompts (reached when a text block below the last is adapted), and
-    the ViT-B/16 training step (batch 256, S=197, 12 heads)."""
+    text prompts (reached when a text block below the last is adapted), the
+    ViT-B/16 training step (batch 256, S=197, 12 heads), and the image
+    tower of a lock-step of 8 batched forks (8 x 64 rows)."""
     return [("image_b64", 64, 257, 16, False), ("text_66", 66, 77, 12, True),
-            ("vit_b256", 256, 197, 12, False)]
+            ("vit_b256", 256, 197, 12, False),
+            ("image_b512", 512, 257, 16, False)]
 
 
 def _random_qkv(B, S, H, dtype, seed=SEED):
@@ -1820,6 +1840,52 @@ def _cli(main_fn, argv, log_path):
     return result, buf.getvalue(), time.time() - t0
 
 
+# (epoch, window flag) rows of sweep runs 1, 2 and 3 at 3 epochs
+_FORK_FLAGS = ([("1", "True"), ("2", "False"), ("3", "False")],
+               [("2", "True"), ("3", "False")], [("3", "True")])
+
+
+def _rows_within(got: dict, want: dict, what: str) -> dict:
+    """Hold CSV rows {key: rows} against others: the same epochs and flags,
+    losses within SWEEP_LOSS_TOL and rho within SWEEP_RHO_TOL. Returns the
+    largest relative loss and absolute rho differences."""
+    worst = {"loss": 0.0, "rho": 0.0}
+    for key in want:
+        if len(got[key]) != len(want[key]):
+            fail(f"{what} {key}: {len(got[key])} rows, want "
+                 f"{len(want[key])}")
+        for a, b in zip(got[key][1:], want[key][1:]):
+            if a[0] != b[0] or a[5:] != b[5:]:
+                fail(f"{what} {key}: epochs or flags differ: {a} vs {b}")
+            for i in (1, 2):
+                d = abs(float(a[i]) - float(b[i]))
+                worst["loss"] = max(worst["loss"], d / abs(float(b[i])))
+                if d > SWEEP_LOSS_TOL[0] * abs(float(b[i])) + \
+                        SWEEP_LOSS_TOL[1]:
+                    fail(f"{what} {key}: row differs: {a} vs {b}")
+            d = abs(float(a[3]) - float(b[3]))
+            worst["rho"] = max(worst["rho"], d)
+            if d > SWEEP_RHO_TOL:
+                fail(f"{what} {key}: rho differs: {a} vs {b}")
+    return worst
+
+
+def _solo_lengths(lengths_cli, fork, root, logs, onset, length):
+    """One solo `cli.lengths` condition random_target_e{onset}_l{length}
+    from the cache: (rows, its DoRA files, log text, seconds)."""
+    out = os.path.join(root, "lengths")
+    cond = f"random_target_e{onset}_l{length}"
+    _, text, sec = _cli(lengths_cli.main, fork + [
+        "--perturb_type", "random_target", "--perturb_epoch", str(onset),
+        "--perturb_length", str(length), "--output_dir", cond,
+        "--output_base_directory", out, "--frozen_cache"],
+        os.path.join(logs, f"{cond}.log"))
+    return (_read_rows(os.path.join(out, cond, "training_res.csv")),
+            sorted(os.listdir(os.path.join(out, cond,
+                                           f"dora_params_{onset}"))),
+            text, sec)
+
+
 def phase_sweep(tmp: str):
     import torch
     from vit_project_torch.adapters import dora as adora
@@ -1916,23 +1982,17 @@ def phase_sweep(tmp: str):
             out, f"training_run{r}", f"training_res_run{r}.csv"))
             for r in order.split(",")}
 
-    rows = {k: sweep(f"sweep_{k}", k, "2,3", "--frozen_cache")
+    rows = {k: sweep(f"sweep_{k}", k, "1,2,3", "--frozen_cache")
             for k in SWEEP_KINDS}
-    full_rows = sweep("sweep_random_target_full", "random_target", "2,3")
+    full_rows = sweep("sweep_random_target_full", "random_target", "1,2,3")
     again = sweep("sweep_random_target_again", "random_target", "2",
                   "--frozen_cache")
 
     def lengths(length):
-        out = os.path.join(root, "lengths")
-        cond = f"random_target_e2_l{length}"
-        _, text, sec = _cli(lengths_cli.main, fork + [
-            "--perturb_type", "random_target", "--perturb_epoch", "2",
-            "--perturb_length", str(length), "--output_dir", cond,
-            "--output_base_directory", out, "--frozen_cache"],
-            os.path.join(logs, f"{cond}.log"))
-        runs.append((cond, text, sec))
-        return (_read_rows(os.path.join(out, cond, "training_res.csv")),
-                sorted(os.listdir(os.path.join(out, cond, "dora_params_2"))))
+        rows, ckpts, text, sec = _solo_lengths(lengths_cli, fork, root,
+                                               logs, 2, length)
+        runs.append((f"random_target_e2_l{length}", text, sec))
+        return rows, ckpts
     l1, _ = lengths(1)
     l2, l2_ckpts = lengths(2)
     torch.cuda.synchronize()
@@ -1947,11 +2007,11 @@ def phase_sweep(tmp: str):
         fail(f"baseline rows {base_rows}")
     for kind, by_run in list(rows.items()) + [("random_target", full_rows)]:
         f = flags[kind]
-        got = ([(r[0], r[f]) for r in by_run[2][1:]],
-               [(r[0], r[f]) for r in by_run[3][1:]])
-        if got != ([("2", "True"), ("3", "False")], [("3", "True")]):
+        got = tuple([(r[0], r[f]) for r in by_run[run][1:]]
+                    for run in (1, 2, 3))
+        if got != _FORK_FLAGS:
             fail(f"{kind} fork rows/flags {got}")
-        for r in by_run[2][1:] + by_run[3][1:]:
+        for r in by_run[1][1:] + by_run[2][1:] + by_run[3][1:]:
             v = [float(x) for x in r[1:5]]
             if not all(np.isfinite(v)) or abs(v[2]) > 1:
                 fail(f"bad {kind} row {r}")
@@ -1967,26 +2027,15 @@ def phase_sweep(tmp: str):
     if again[2] != rows["random_target"][2]:
         fail(f"a repeated fork wrote other rows: {again[2]} vs "
              f"{rows['random_target'][2]}")
-    worst = {"loss": 0.0, "rho": 0.0}
-    for run in (2, 3):
-        for a, b in zip(rows["random_target"][run][1:], full_rows[run][1:]):
-            for i in (1, 2):
-                d = abs(float(a[i]) - float(b[i]))
-                worst["loss"] = max(worst["loss"], d / abs(float(b[i])))
-                if d > SWEEP_LOSS_TOL[0] * abs(float(b[i])) + \
-                        SWEEP_LOSS_TOL[1]:
-                    fail(f"cached vs full-tower row differs: {a} vs {b}")
-            d = abs(float(a[3]) - float(b[3]))
-            worst["rho"] = max(worst["rho"], d)
-            if d > SWEEP_RHO_TOL:
-                fail(f"cached vs full-tower rho differs: {a} vs {b}")
+    worst = _rows_within(rows["random_target"], full_rows,
+                         "cached vs full-tower")
     if [r[0] for r in l1[1:]] != ["2", "3"] or l2[1] != l1[1] or \
             [r[0] for r in l2[1:]] != ["2", "3"] or l2[2][5] != "True" or \
             l2_ckpts != ["epoch3_dora_params.pth"]:
         fail(f"lengths e2_l2 did not resume from e2_l1: {l1} / {l2} / "
              f"{l2_ckpts}")
     print(f"[sweep] rows and flags right for the baseline, 5 sweeps x runs "
-          f"2,3 and lengths e2_l1 -> e2_l2 (cross-resumed at epoch 2); a "
+          f"1,2,3 and lengths e2_l1 -> e2_l2 (cross-resumed at epoch 2); a "
           f"repeated fork wrote equal rows; cached vs full tower "
           f"(random_target): max relative loss difference "
           f"{worst['loss']:.2e}, rho {worst['rho']:.2e} (tolerance "
@@ -2083,8 +2132,259 @@ def phase_sweep(tmp: str):
         "peak_mem_gib": peak_gib, "cached_vs_full": worst,
         "perturbed_vs_baseline_train_loss": raised,
         "teacher_spread": spread, "phase_s": time.time() - t_phase}
-    del model, trainer, cache, imgs_dev, tr, opt
-    torch.cuda.empty_cache()
+    # what phase `forks` reuses: the fixture, the solo rows it is held
+    # against, the trainer and the resident training set
+    ctx = {"root": root, "logs": logs, "fork": fork, "rows": rows,
+           "full_rows": full_rows, "l1": l1, "l2": l2, "runs": runs,
+           "trainer": trainer, "init_tr": init_tr, "imgs_dev": imgs_dev,
+           "tgts_dev": tgts_dev, "cache": cache, "n_train": n_train,
+           "steps_per_epoch": steps_per_epoch}
+    del model, tr, opt
+    return path_launches, ctx
+
+
+_GROUP_LINE = re.compile(r"Group \d+/\d+ .* completed \((\d+) lock-steps")
+_CACHES_LINE = re.compile(r"Frozen-prefix caches built in ([\d.]+)s")
+FORK_GROUP = 3            # --batched_forks of the phase's sweeps
+FORK_TIMING_R = (1, 2, 4, 8)
+
+
+def phase_forks(ctx):
+    """Batched forks (train/multi_fork.py) through the CLIs' main on phase
+    sweep's fixture, held against that phase's solo rows."""
+    import torch
+    from vit_project_torch.adapters import dora as adora
+    from vit_project_torch.cli import lengths as lengths_cli
+    from vit_project_torch.cli import sweep as sweep_cli
+    from vit_project_torch.core.prng import Key
+    from vit_project_torch.ops import attention as vattn
+
+    t_phase = time.time()
+    root, logs, fork = ctx["root"], ctx["logs"], ctx["fork"]
+    trainer, n_train = ctx["trainer"], ctx["n_train"]
+    steps_per_epoch = ctx["steps_per_epoch"]
+    runs = []   # (label, log text, seconds, flash3_bwd launches)
+
+    def launches():
+        return {k: vattn.LAUNCHES[k] for k in ("flash3_fwd", "flash3_bwd")}
+
+    def batched_sweep(label, kind, *extra):
+        out = os.path.join(root, label)
+        bwd0 = vattn.LAUNCHES["flash3_bwd"]
+        failed, text, sec = _cli(sweep_cli.main, fork + [
+            "--perturb_type", kind, "--training_order", "1,2,3",
+            "--batched_forks", str(FORK_GROUP),
+            "--output_base_directory", out, *extra],
+            os.path.join(logs, f"{label}.log"))
+        if failed:
+            print(text[-6000:], flush=True)
+            fail(f"batched sweep {label}: runs {failed} failed")
+        runs.append((label, text, sec, vattn.LAUNCHES["flash3_bwd"] - bwd0))
+        return out, {r: _read_rows(os.path.join(
+            out, f"training_run{r}", f"training_res_run{r}.csv"))
+            for r in (1, 2, 3)}
+
+    def batched_lengths(length, label):
+        out = os.path.join(root, "lengths_batched")
+        bwd0 = vattn.LAUNCHES["flash3_bwd"]
+        failed, text, sec = _cli(lengths_cli.main, fork + [
+            "--perturb_type", "random_target", "--onsets", "1,2",
+            "--perturb_length", str(length), "--output_base_directory", out,
+            "--frozen_cache"], os.path.join(logs, f"{label}.log"))
+        if failed:
+            print(text[-6000:], flush=True)
+            fail(f"batched lengths {label}: {failed} failed")
+        runs.append((label, text, sec, vattn.LAUNCHES["flash3_bwd"] - bwd0))
+        return {e: _read_rows(os.path.join(
+            out, f"random_target_e{e}_l{length}", "training_res.csv"))
+            for e in (1, 2)}
+
+    # the solo references at onset 1 (phase sweep ran onset 2)
+    solo_len = {1: {2: ctx["l1"]}, 2: {2: ctx["l2"]}}
+    for length in (1, 2):
+        solo_len[length][1], *_ = _solo_lengths(lengths_cli, fork, root,
+                                                logs, 1, length)
+
+    # --- the main path: counts from 0, the CLIs, counts read ---
+    vattn.reset_launch_counts()
+    rows, outs = {}, {}
+    for k in SWEEP_KINDS:
+        outs[k], rows[k] = batched_sweep(f"forks_{k}", k, "--frozen_cache")
+    _, full_rows = batched_sweep("forks_random_target_full", "random_target")
+    outs["plain"], _ = batched_sweep("forks_random_target_no_prefetch",
+                                     "random_target", "--frozen_cache",
+                                     "--no-host_prefetch")
+    b_len = {length: batched_lengths(length, f"lengths_l{length}")
+             for length in (1, 2)}
+    again = batched_lengths(2, "lengths_l2_again")
+    torch.cuda.synchronize()
+    path_launches = launches()
+    path_s = sum(r[2] for r in runs)
+
+    # --- rows against the solo rows ---
+    worst = {k: _rows_within(rows[k], ctx["rows"][k], f"batched {k}")
+             for k in SWEEP_KINDS}
+    worst["random_target_full"] = _rows_within(
+        full_rows, ctx["full_rows"], "batched random_target full tower")
+    for length in (1, 2):
+        worst[f"lengths_l{length}"] = _rows_within(
+            b_len[length], solo_len[length], f"batched lengths l{length}")
+    if b_len[2][2][1] != b_len[1][2][1] or again != b_len[2]:
+        fail(f"batched lengths l2 did not cross-resume from l1, or a repeat "
+             f"added rows: {b_len} / {again}")
+    for k in SWEEP_KINDS:
+        f = 5 + SWEEP_KINDS.index(k)
+        got = tuple([(r[0], r[f]) for r in rows[k][run][1:]]
+                    for run in (1, 2, 3))
+        if got != _FORK_FLAGS:
+            fail(f"batched {k} rows/flags {got}")
+    fallback = [label for label, text, *_ in runs
+                if "batched groups run the full tower" in text]
+    if fallback != [f"forks_{k}" for k in SWEEP_KINDS
+                    if k not in TARGET_KINDS]:
+        fail(f"image kinds under --frozen_cache did not fall back to the "
+             f"full tower: {fallback}")
+    ckpt_equal = 0
+    for d, _, names in os.walk(outs["random_target"]):
+        for n in names:
+            if not n.endswith(".pth"):
+                continue
+            rel = os.path.relpath(os.path.join(d, n), outs["random_target"])
+            with open(os.path.join(d, n), "rb") as a, \
+                    open(os.path.join(outs["plain"], rel), "rb") as b:
+                if a.read() != b.read():
+                    fail(f"{rel} differs with --no-host_prefetch")
+            ckpt_equal += 1
+    print(f"[forks] batched sweeps of runs 1,2,3 in groups of {FORK_GROUP} "
+          f"(4 kinds from the cache, image kinds falling back to the full "
+          f"tower; random_target on the full tower) and batched lengths "
+          f"onsets 1,2 l1 -> l2 (cross-resumed; a repeat added no row) "
+          f"against the solo rows: max relative loss difference "
+          f"{max(w['loss'] for w in worst.values()):.2e}, rho "
+          f"{max(w['rho'] for w in worst.values()):.2e} (tolerance "
+          f"{SWEEP_LOSS_TOL[0]} relative + {SWEEP_LOSS_TOL[1]}, rho "
+          f"{SWEEP_RHO_TOL}); {ckpt_equal} checkpoint files byte-equal with "
+          f"--no-host_prefetch", flush=True)
+
+    # --- launches over each invocation: one flash3_bwd a lock-step batch ---
+    lock_steps = {}
+    for label, text, _, bwd in runs:
+        n = sum(int(m.group(1)) for m in _GROUP_LINE.finditer(text))
+        lock_steps[label] = n
+        if bwd != n * steps_per_epoch:
+            fail(f"{label}: flash3_bwd launched {bwd} times over {n} "
+                 f"lock-steps of {steps_per_epoch} batches")
+    print(f"[forks] flash3_bwd over each invocation = its lock-steps x "
+          f"{steps_per_epoch} batches (" + ", ".join(
+              f"{label} {bwd} = {lock_steps[label]} x {steps_per_epoch}"
+              for label, _, _, bwd in runs) + f"); main path flash3_fwd "
+          f"{path_launches['flash3_fwd']}, flash3_bwd "
+          f"{path_launches['flash3_bwd']}", flush=True)
+
+    # --- one lock-step batch at R forks, outside the counted run ---
+    src = {"full": ctx["imgs_dev"], "cached": ctx["cache"]}
+    rs = np.random.RandomState(SEED)
+    order = rs.permutation(n_train)
+
+    def lock_step(R, label, k=0):
+        trs = forks_state[R]
+        idxs = [order[(64 * (f + k)) % (n_train - 64):][:64]
+                for f in range(R)]
+        return trainer.train_step_forks(
+            trs[0], trs[1], src[label], ctx["tgts_dev"], idxs,
+            [Key((SWEEP_SEED, 0, k, f)) for f in range(R)],
+            cached=label == "cached")
+
+    forks_state = {}
+    for R in sorted(set(FORK_TIMING_R) | {1, 2, 3}):
+        trs = [adora.make_trainable(ctx["init_tr"], "cuda") for _ in range(R)]
+        forks_state[R] = (trs, [trainer.init_optimizer(t) for t in trs])
+    per_r = {}
+    for R in (1, 2, 3):
+        for label in ("full", "cached"):
+            lock_step(R, label)
+            torch.cuda.synchronize()
+            vattn.reset_launch_counts()
+            losses, oks = lock_step(R, label, 1)
+            per_r[f"{label}_R{R}"] = launches()
+            if not all(oks) or not all(np.isfinite(losses)):
+                fail(f"lock-step at R={R} {label}: {losses} {oks}")
+    want = {f"{label}_R{R}": {"flash3_fwd": 36 if label == "full" else 3,
+                              "flash3_bwd": 1}
+            for R in (1, 2, 3) for label in ("full", "cached")}
+    if per_r != want:
+        fail(f"launches a lock-step {per_r}, expected {want}")
+    print(f"[forks] launches a lock-step batch (flash3_fwd, flash3_bwd) at "
+          f"R = 1, 2, 3: full tower 36, 1; cached 3, 1", flush=True)
+
+    # the solo step (R = "solo") in the same turns, as the yardstick
+    solo_tr = adora.make_trainable(ctx["init_tr"], "cuda")
+    solo_opt = trainer.init_optimizer(solo_tr)
+
+    def solo_step(label, k):
+        return trainer.train_step(solo_tr, solo_opt, src[label],
+                                  ctx["tgts_dev"], order[64 * k:][:64],
+                                  Key((SWEEP_SEED, 0, k)),
+                                  cached=label == "cached")
+
+    sizes = ("solo",) + FORK_TIMING_R
+    times = {(label, R): [] for label in ("full", "cached") for R in sizes}
+    peak = {}
+    for turn in ("full", "cached", "cached", "full"):   # in turns
+        for R in sizes:
+            if R == max(FORK_TIMING_R):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            for k in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if R == "solo":
+                    solo_step(turn, k)
+                else:
+                    lock_step(R, turn, k)
+                times[(turn, R)].append((time.perf_counter() - t0) * 1e3)
+            if R == max(FORK_TIMING_R):
+                peak[turn] = max(peak.get(turn, 0.0),
+                                 torch.cuda.max_memory_allocated() / 2**30)
+    step_ms = {f"{label}_R{R}": statistics.median(v)
+               for (label, R), v in times.items()}
+    for label in ("full", "cached"):
+        solo = times[(label, "solo")]
+        print(f"[forks] a lock-step batch, {label}, median of 10 in turns "
+              f"(ms a lock-step; ms a fork-step; min-max): solo step "
+              f"{step_ms[f'{label}_Rsolo']:.2f}; {min(solo):.2f}-"
+              f"{max(solo):.2f}; " + "; ".join(
+                  f"R={R} {step_ms[f'{label}_R{R}']:.2f}; "
+                  f"{step_ms[f'{label}_R{R}'] / R:.2f}; "
+                  f"{min(times[(label, R)]):.2f}-{max(times[(label, R)]):.2f}"
+                  for R in FORK_TIMING_R)
+              + f"; peak device memory at R={max(FORK_TIMING_R)} "
+              f"{peak[label]:.2f} GiB", flush=True)
+    seq = {k: next(sec for label, _, sec in ctx["runs"]
+                   if label == f"sweep_{k}") for k in SWEEP_KINDS}
+    seq["random_target_full"] = next(
+        sec for label, _, sec in ctx["runs"]
+        if label == "sweep_random_target_full")
+    bat = {label[len("forks_"):]: sec for label, _, sec, _ in runs
+           if label.startswith("forks_")}
+    caches = [float(m.group(1)) for _, text, *_ in runs
+              for m in _CACHES_LINE.finditer(text)]
+    print(f"[forks] invocation seconds, runs 1,2,3 batched vs sequential: "
+          + "; ".join(f"{k} {bat[k]:.1f} vs {seq[k]:.1f}" for k in seq)
+          + f"; prefix caches built in {statistics.median(caches):.2f} s "
+          f"(median of {len(caches)}); lengths l1 {runs[-3][2]:.1f} s, l2 "
+          f"{runs[-2][2]:.1f} s, repeat {runs[-1][2]:.1f} s; phase "
+          f"{time.time() - t_phase:.1f} s; {smi_line()}", flush=True)
+    RESULTS["forks"] = {
+        "launches": path_launches, "lock_steps": lock_steps,
+        "launches_per_lock_step": per_r, "lock_step_ms": step_ms,
+        "lock_step_ms_all": {f"{a}_R{b}": v for (a, b), v in times.items()},
+        "peak_mem_gib_R8": peak, "invocation_s_batched": bat,
+        "invocation_s_sequential": seq, "prefix_build_s": caches,
+        "invocations_s": {r[0]: r[2] for r in runs},
+        "batched_vs_solo": worst, "ckpt_files_equal": ckpt_equal,
+        "path_s": path_s, "phase_s": time.time() - t_phase}
+    del forks_state
     return path_launches
 
 
@@ -2120,6 +2420,7 @@ def main(argv=None) -> int:
     rows = phase_kernel(peaks) if "kernel" in phases else []
     ops_launches = phase_ops() if "ops" in phases else None
     serve_launches = train_launches = vit_launches = sweep_launches = None
+    forks_launches = None
     tmp = os.path.join(ROOT, "vit_project_torch", "_build",
                        f"smoke-{os.getpid()}")
     os.makedirs(tmp, exist_ok=True)
@@ -2130,8 +2431,12 @@ def main(argv=None) -> int:
             train_launches = phase_train(tmp)
         if "vit_train" in phases:
             vit_launches = phase_vit_train(tmp)
-        if "sweep" in phases:
-            sweep_launches = phase_sweep(tmp)
+        if "sweep" in phases or "forks" in phases:
+            sweep_launches, ctx = phase_sweep(tmp)
+            if "forks" in phases:
+                forks_launches = phase_forks(ctx)
+            del ctx
+            torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2148,6 +2453,9 @@ def main(argv=None) -> int:
     def sweep(name):
         return sweep_launches and sweep_launches[name]
 
+    def forks(name):
+        return forks_launches and forks_launches[name]
+
     def entry(name, source, replaces, launches, by_path, errors, main_row,
               at):
         return {"name": name, "route": "cuda", "source": source,
@@ -2162,7 +2470,8 @@ def main(argv=None) -> int:
               "vit_project_tpu/ops/attention.py:465", serve_launches,
               {"serve": serve_launches,
                "train": train_launches and train_launches["flash3_fwd"],
-               "vit_train": vit("flash3_fwd"), "sweep": sweep("flash3_fwd")},
+               "vit_train": vit("flash3_fwd"), "sweep": sweep("flash3_fwd"),
+               "forks": forks("flash3_fwd")},
               [r["max_abs_err_o"] for r in rows
                if r["kernel"] == "flash3_fwd"],
               row_of("flash3_fwd", "image_b256"),
@@ -2172,7 +2481,8 @@ def main(argv=None) -> int:
               "vit_project_tpu/ops/attention.py:480",
               train_launches and train_launches["flash3_bwd"],
               {"train": train_launches and train_launches["flash3_bwd"],
-               "vit_train": vit("flash3_bwd"), "sweep": sweep("flash3_bwd")},
+               "vit_train": vit("flash3_bwd"), "sweep": sweep("flash3_bwd"),
+               "forks": forks("flash3_bwd")},
               [r["max_abs_err"] for r in rows
                if r["kernel"] == "flash3_bwd"],
               row_of("flash3_bwd", "image_b64"),

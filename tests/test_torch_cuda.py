@@ -594,3 +594,77 @@ def test_ln_kernels_reject_what_they_do_not_take(cuda_device):
         tln.ln_fwd(torch.zeros(4, 64, device=cuda_device), v[:8], v)
     tln.reset_launch_counts()
     assert tln.LAUNCHES == {"ln_fwd": 0, "ln_bwd": 0}
+
+
+# -- the checkpoint copy-out and the fork axis on the card ---------------------
+
+@pytest.mark.cuda
+def test_hostcopy_pinned_copy_equals_the_tensors(cuda_device):
+    """prefetch_to_host copies CUDA leaves into pinned host memory on a side
+    stream that waits for the work queued before it: the values and dtypes
+    of a tensor still being computed, with later work queued behind."""
+    from vit_project_torch.core import hostcopy
+    a = torch.randn(2048, 2048, device=cuda_device)
+    x = a
+    for _ in range(8):
+        x = x @ a / 45.0
+    tree = {"x": x, "i": torch.arange(7, device=cuda_device),
+            "h": x[:3, :3].to(torch.float16), "cpu": torch.ones(2),
+            "n": None}
+    (copy,) = hostcopy.prefetch_to_host(tree)
+    assert copy._tree["x"].is_pinned()
+    later = a @ a    # queued behind the copy's wait, not waited for by it
+    got = copy.get()
+    want = {k: v.cpu().numpy() for k, v in tree.items() if v is not None}
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype
+        np.testing.assert_array_equal(got[k], v)
+    assert got["n"] is None and later.shape == (2048, 2048)
+
+
+@pytest.mark.cuda
+def test_fork_axis_launches_the_solo_step_kernels(cuda_device):
+    """R = 8 forks of 64 rows (R*B = 512) in one lock-step batch: the solo
+    step's flash3_fwd count and one flash3_bwd, on the full tower and from
+    the cache; each fork's loss within bf16 rounding of its solo step's."""
+    from vit_project_torch.adapters import dora as tadora
+    from vit_project_torch.core.prng import Key
+    from vit_project_torch.models import clip as tclip
+    from vit_project_torch.train import clip_loop as tloop
+    cfg = tclip.tiny_clip_config(width=128, layers=3, heads=2, patch=16,
+                                 image_size=64, embed_dim=32, vocab=49408,
+                                 context=16)
+    model = tclip.init_clip_weights_(
+        tclip.empty_clip(cfg, cuda_device),
+        torch.Generator(device=cuda_device).manual_seed(0))
+    init, static, acfg = tadora.apply_dora(
+        model, tadora.dora_spec(3, 3, 2, 1), r=4, alpha=16, dropout=0.1,
+        generator=torch.Generator(device=cuda_device).manual_seed(1))
+    prompts = np.random.RandomState(0).randint(1, 400, (66, 16))
+    tr = tloop.ClipHBATrainer(cfg, model, acfg, static, prompts, lr=1e-3,
+                              compute_dtype=torch.bfloat16)
+    rs = np.random.RandomState(2)
+    imgs, tgts = tr.upload_dataset(
+        rs.randint(0, 255, (512, 64, 64, 3)).astype(np.uint8),
+        rs.rand(512, 66).astype(np.float32))
+    idxs = [np.arange(64) + 64 * f for f in range(8)]
+    tr.text_prefix_cache  # noqa: B018  (built before the counted steps)
+    for cached in (False, True):
+        src = tr.build_prefix_cache(imgs) if cached else imgs
+        counts, solo = [], []
+        for f in range(8):
+            t = tadora.make_trainable(init, cuda_device)
+            tattn.reset_launch_counts()
+            solo.append(tr.train_step(t, tr.init_optimizer(t), src, tgts,
+                                      idxs[f], Key((5, 0, 0)),
+                                      cached=cached)[0])
+            counts.append(dict(tattn.LAUNCHES))
+        trs = [tadora.make_trainable(init, cuda_device) for _ in range(8)]
+        tattn.reset_launch_counts()
+        losses, oks = tr.train_step_forks(
+            trs, [tr.init_optimizer(t) for t in trs], src, tgts, idxs,
+            [Key((5, 0, 0))] * 8, cached=cached)
+        assert tattn.LAUNCHES == counts[0]
+        assert counts[0]["flash3_fwd"] == (3 if cached else 6)
+        assert counts[0]["flash3_bwd"] == 1 and all(oks)
+        np.testing.assert_allclose(losses, solo, rtol=2e-2, atol=1e-3)

@@ -2,7 +2,7 @@
 the JAX package's, the parser's propagation to workers, the done and failed
 ledgers, failure aggregation across worker processes, the lengths
 directory scan and checkpoint anchor, and the refusals (no GPU without
---device cpu; batched forks). Mirrors the host-only cases of the JAX
+--device cpu; the fork axis over several devices). Mirrors the host-only cases of the JAX
 package's sweep tests."""
 import json
 import os
@@ -251,22 +251,23 @@ def test_preempted_run_exits_143(tmp_path, monkeypatch):
 
 # -- refusals -----------------------------------------------------------------
 
-@pytest.mark.parametrize("flag", [["--batched_forks", "2"],
-                                  ["--fork_devices", "2"]])
+@pytest.mark.parametrize("flag", [["--fork_devices", "2"]])
 def test_sweep_refuses_batched_forks_before_writing(tmp_path, flag):
+    """The fork axis over several devices waits for the parallel modes."""
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match="batched forks"):
+    with pytest.raises(NotImplementedError, match="parallel modes"):
         tsweep.main(REQUIRED + ["--output_base_directory", str(out),
-                                "--device", "cpu", *flag])
+                                "--device", "cpu", "--batched_forks", "2",
+                                *flag])
     assert not out.exists()
 
 
-def test_lengths_refuses_onsets_before_writing(tmp_path):
+def test_lengths_refuses_fork_devices_before_writing(tmp_path):
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match="batched forks"):
+    with pytest.raises(NotImplementedError, match="parallel modes"):
         tlengths.main(["--perturb_type", "random_target", "--perturb_length",
-                       "2", "--onsets", "3,8", "--device", "cpu",
-                       "--baseline_dora_directory", "d",
+                       "2", "--onsets", "3,8", "--fork_devices", "2",
+                       "--device", "cpu", "--baseline_dora_directory", "d",
                        "--baseline_random_state_path", "s",
                        "--baseline_split_indices_path", "x",
                        "--output_base_directory", str(out)])

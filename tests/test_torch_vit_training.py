@@ -582,8 +582,7 @@ def test_cli_trains_on_the_cpu_and_defaults_to_the_card(imagenet, tmp_path):
 @pytest.mark.parametrize("field,value", [
     ("pp_stages", 2), ("sp_devices", 2), ("sp_ring", True), ("ep_devices", 2),
     ("tp_devices", 2), ("zero1", True), ("fsdp", True), ("moe_experts", 4),
-    ("host_prefetch", True), ("use_native_loader", True),
-    ("profile_dir", "trace")])
+    ("use_native_loader", True), ("profile_dir", "trace")])
 def test_unported_modes_are_refused_by_name(imagenet, tmp_path, field, value):
     cfg = dataclasses.replace(_tiny(TTrainConfig, imagenet,
                                     str(tmp_path / "x")), **{field: value})

@@ -66,6 +66,18 @@ def assemble(trainable: dict, static: dict) -> dict:
             for tower in trainable}
 
 
+def assemble_forks(trainables: list, static: dict) -> dict:
+    """`assemble` for R forks: each adapted block carries the list of the
+    forks' trainable trees beside the one static tree, for the fork-axis
+    forward (models/clip.py clip_hba_forward_forks), which stacks the
+    forks' adapted weights."""
+    first = trainables[0]
+    return {tower: {idx: {"trainable": [t[tower][idx] for t in trainables],
+                          "buffers": static[tower][idx]}
+                    for idx in first[tower]}
+            for tower in first}
+
+
 def make_trainable(trainable: dict, device=None) -> dict:
     """A copy of the tree whose leaves are f32 leaf tensors on `device`
     that require grad: what the optimizer updates (in place)."""

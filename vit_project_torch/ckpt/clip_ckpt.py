@@ -74,11 +74,11 @@ def load_random_states(random_state_path: str, epoch1: int, logger=None):
 
 # -- AdamW state <-> optax layout --------------------------------------------
 
-def optax_state_from_adamw(optimizer: torch.optim.Optimizer,
-                           trainable: dict) -> tuple:
-    """The optimizer's state as optax.adamw's (count, mu, nu) tuple of numpy
-    arrays. `trainable` is the tree whose leaves the optimizer updates; a
-    leaf the optimizer has not stepped yet has zero moments and count 0."""
+def adamw_moments(optimizer: torch.optim.Optimizer, trainable: dict):
+    """(count, mu, nu): the optimizer's step count and its moments as trees
+    keyed like `trainable`, the tensors where the optimizer keeps them (the
+    device). A leaf the optimizer has not stepped yet has zero moments and
+    count 0."""
     count = 0
     mu, nu = {}, {}
     for tower, idx, name, leaf in adora.trainable_leaves(trainable):
@@ -88,15 +88,33 @@ def optax_state_from_adamw(optimizer: torch.optim.Optimizer,
             m, v = st["exp_avg"], st["exp_avg_sq"]
         else:
             m = v = torch.zeros_like(leaf)
-        mu.setdefault(tower, {}).setdefault(idx, {})[name] = \
-            m.detach().cpu().numpy().copy()
-        nu.setdefault(tower, {}).setdefault(idx, {})[name] = \
-            v.detach().cpu().numpy().copy()
+        mu.setdefault(tower, {}).setdefault(idx, {})[name] = m.detach()
+        nu.setdefault(tower, {}).setdefault(idx, {})[name] = v.detach()
     for tower in trainable:   # optax keeps empty towers in the tree
         mu.setdefault(tower, {})
         nu.setdefault(tower, {})
-    return (ser.ScaleByAdamState(np.asarray(count, np.int32), mu, nu),
+    return count, mu, nu
+
+
+def optax_state_from_moments(count: int, mu: dict, nu: dict) -> tuple:
+    """optax.adamw's (count, mu, nu) state tuple of numpy arrays from
+    `adamw_moments`' trees, their leaves tensors or host arrays (a
+    core/hostcopy.py copy-out)."""
+    def host(tree):
+        return {k: host(v) if isinstance(v, dict) else (
+                    v.cpu().numpy().copy() if isinstance(v, torch.Tensor)
+                    else np.asarray(v))
+                for k, v in tree.items()}
+    return (ser.ScaleByAdamState(np.asarray(count, np.int32), host(mu),
+                                 host(nu)),
             ser.EmptyState(), ser.EmptyState())
+
+
+def optax_state_from_adamw(optimizer: torch.optim.Optimizer,
+                           trainable: dict) -> tuple:
+    """The optimizer's state as optax.adamw's (count, mu, nu) tuple of numpy
+    arrays. `trainable` is the tree whose leaves the optimizer updates."""
+    return optax_state_from_moments(*adamw_moments(optimizer, trainable))
 
 
 def _leaf_keys(tree: dict) -> set:

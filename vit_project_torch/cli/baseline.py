@@ -66,8 +66,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "forward work")
     p.add_argument("--host_prefetch", action=argparse.BooleanOptionalAction,
                    default=True,
-                   help="accepted for the JAX CLI's sake; the port copies "
-                        "the checkpoint trees synchronously")
+                   help="copy the per-epoch checkpoint trees to the host "
+                        "asynchronously, beside the eval and RSA work "
+                        "(core/hostcopy.py); --no-host_prefetch copies "
+                        "them synchronously before the write")
     p.add_argument("--frozen_cache", action="store_true",
                    help="cache the frozen tower prefixes once and train only "
                         "the adapted suffix blocks (costs [N, S, width] of "

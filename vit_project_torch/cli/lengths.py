@@ -18,8 +18,11 @@ by the fig4 recovery analysis. The resume ladder:
       --baseline_random_state_path ... --baseline_split_indices_path ...
 
 Exits 143 when a SIGTERM stopped the run at an epoch boundary (re-invoke to
-resume in place). `--onsets` (several onsets batched as forks) comes with
-the port of batched forks and raises until then.
+resume in place). `--onsets 3,8,15` trains every (onset x --perturb_length)
+condition of one length in lock-step groups of `--batched_forks` on one
+card (train/multi_fork.run_batched_lengths), each condition keeping its
+`{type}_e{E}_l{L}/` layout and the resume ladder above; `--fork_devices > 1`
+comes with the port of the parallel modes.
 """
 from __future__ import annotations
 
@@ -33,8 +36,9 @@ from pathlib import Path
 from ..core import csvio
 from ..core.device import resolve_device
 from ..core.logs import setup_main_logger
+from ..core.preempt import (PARALLEL_MODES, PreemptionGuard,
+                            exit_if_undispatched)
 from ..train.clip_loop import run_behavioral_training
-from .sweep import BATCHED_FORKS
 
 # the `{type}_e{E}_l{L}` condition-directory naming shared with the fig4
 # recovery analysis (reference layout: clip_train_behavior_lengths.py:128-134)
@@ -112,7 +116,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["random_target", "label_shuffle", "uniform_images",
                             "image_noise", "baseline"])
     p.add_argument("--perturb_epoch", type=int, default=None,
-                   help="Epoch to perturb (0 for baseline)")
+                   help="Epoch to perturb (0 for baseline); required unless "
+                        "--onsets is given")
     p.add_argument("--perturb_length", type=int, required=True,
                    help="Length of perturbation (0 for baseline)")
     p.add_argument("--perturb_distribution", default="target",
@@ -152,8 +157,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(torch.utils.checkpoint)")
     p.add_argument("--host_prefetch", action=argparse.BooleanOptionalAction,
                    default=True,
-                   help="accepted for the JAX CLI's sake; the port copies "
-                        "the checkpoint trees synchronously")
+                   help="copy the per-epoch checkpoint trees to the host "
+                        "asynchronously, beside the eval and RSA work "
+                        "(core/hostcopy.py); --no-host_prefetch copies "
+                        "them synchronously before the write")
     p.add_argument("--frozen_cache", action="store_true",
                    help="cache the frozen tower prefixes once per run and "
                         "train only the adapted suffix blocks (costs "
@@ -164,14 +171,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--transformer_layers", type=int, default=1)
     p.add_argument("--rank", type=int, default=32)
     p.add_argument("--onsets", default=None,
-                   help="comma-separated onsets trained as batched forks "
-                        "(not ported yet: comes with the port of batched "
-                        "forks)")
+                   help="comma-separated perturb onsets, e.g. '3,8,15': "
+                        "train all (onset x perturb_length) conditions of "
+                        "this length as lock-step fork groups on one GPU "
+                        "(train/multi_fork.run_batched_lengths) instead of "
+                        "one condition per invocation; --perturb_epoch and "
+                        "--output_dir are ignored, each condition keeps "
+                        "the {type}_e{E}_l{L}/ layout and the resume ladder")
     p.add_argument("--batched_forks", type=int, default=8,
-                   help="group size for --onsets batching (not ported yet)")
+                   help="group size for --onsets batching")
     p.add_argument("--fork_devices", type=int, default=1,
                    help="shard the batched fork axis over N devices (not "
-                        "ported yet)")
+                        "ported yet: comes with the port of the parallel "
+                        "modes)")
     return p
 
 
@@ -224,17 +236,47 @@ def _resume_in_place(config: dict, resume_epoch: int, last_completed: int,
                     f"tree)")
 
 
+def _main_batched(args, parser, device, timestamp: str) -> list[str]:
+    """--onsets mode: every (onset, perturb_length) condition of one length
+    in lock-step fork groups. Returns the failed condition names."""
+    if args.perturb_type == "baseline":
+        parser.error("--onsets batching is for perturbed conditions; run "
+                     "the baseline mode per condition")
+    onsets = [int(x) for x in args.onsets.split(",") if x.strip()]
+    config = {**_base_config(args), "perturb_length": args.perturb_length}
+    from ..train.multi_fork import run_batched_lengths
+    os.makedirs(args.output_base_directory, exist_ok=True)
+    logger = setup_main_logger(os.path.join(
+        args.output_base_directory, f"lengths_batched_log_{timestamp}.txt"))
+    logger.info(f"Batched lengths mode: type={args.perturb_type} "
+                f"length={args.perturb_length} onsets={onsets}")
+    guard = PreemptionGuard()
+    with guard:
+        failed = run_batched_lengths(
+            config, onsets, args.perturb_length,
+            group_size=args.batched_forks, logger=logger,
+            preempt_guard=guard, device=device)
+    if failed:
+        logger.info(f"Failed conditions: {failed}")
+    exit_if_undispatched(guard)  # 143: the rest resume in place
+    return failed
+
+
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.onsets is not None:
+    if args.fork_devices > 1:
         raise NotImplementedError(
-            f"--onsets {args.onsets} is not ported yet: it comes with "
-            f"{BATCHED_FORKS}")
-    if args.perturb_epoch is None or args.output_dir is None:
-        parser.error("--perturb_epoch and --output_dir are required")
+            f"--fork_devices {args.fork_devices} is not ported yet: it comes "
+            f"with {PARALLEL_MODES}")
+    if args.onsets is None and (args.perturb_epoch is None
+                                or args.output_dir is None):
+        parser.error("--perturb_epoch and --output_dir are required (or "
+                     "pass --onsets for the batched multi-condition mode)")
     device = resolve_device(args.device)
     timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+    if args.onsets is not None:
+        return _main_batched(args, parser, device, timestamp)
 
     config = {
         **_base_config(args),
@@ -323,4 +365,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    # --onsets returns the failed conditions (the solo mode raises): exit
+    # nonzero so grid automation retries them
+    sys.exit(1 if main() else 0)

@@ -19,9 +19,11 @@ when a run failed and 143 when a SIGTERM stopped a run at an epoch boundary
       --output_base_directory runs/sweep --frozen_cache
 
 `--workers N` runs N single-GPU worker processes over round-robin slices of
-the order, each pinned to one card through `--worker_device_env`. Batched
-forks (`--batched_forks`, `--fork_devices`) come with the port of batched
-forks and raise until then.
+the order, each pinned to one card through `--worker_device_env`.
+`--batched_forks R` trains the forks in lock-step groups of R on one card
+(train/multi_fork.py): one setup for every group, one step on R*64 rows.
+`--fork_devices > 1` (the fork axis over several cards) comes with the port
+of the parallel modes and raises until then.
 """
 from __future__ import annotations
 
@@ -34,9 +36,9 @@ from datetime import datetime
 
 from ..core.device import resolve_device
 from ..core.logs import setup_main_logger
+from ..core.preempt import (PARALLEL_MODES, PreemptionGuard,
+                            exit_if_undispatched)
 from ..train.clip_loop import run_behavioral_training
-
-BATCHED_FORKS = "the port of batched forks"
 
 
 def generate_midpoint_order(start: int = 1, end: int = 98) -> list[int]:
@@ -129,8 +131,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(torch.utils.checkpoint)")
     p.add_argument("--host_prefetch", action=argparse.BooleanOptionalAction,
                    default=True,
-                   help="accepted for the JAX CLI's sake; the port copies "
-                        "the checkpoint trees synchronously")
+                   help="copy the per-epoch checkpoint trees to the host "
+                        "asynchronously, beside the eval and RSA work "
+                        "(core/hostcopy.py); --no-host_prefetch copies "
+                        "them synchronously before the write")
     p.add_argument("--frozen_cache", action="store_true",
                    help="cache the frozen tower prefixes once per run and "
                         "train only the adapted suffix blocks (costs "
@@ -145,11 +149,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "(worker i gets '<i>'); set to 'none' to skip "
                         "pinning (CPU tests)")
     p.add_argument("--batched_forks", type=int, default=1,
-                   help="train forks in batched groups of N (not ported "
-                        "yet: comes with the port of batched forks)")
+                   help="train the forks in lock-step groups of N on one "
+                        "GPU, the fork axis folded into the batch "
+                        "(train/multi_fork.py); 1 = one fork at a time")
     p.add_argument("--fork_devices", type=int, default=1,
                    help="shard the batched fork axis over N devices (not "
-                        "ported yet: comes with the port of batched forks)")
+                        "ported yet: comes with the port of the parallel "
+                        "modes)")
     return p
 
 
@@ -289,11 +295,10 @@ def _run_workers(args, training_order: list[int], logger) -> list[int]:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.batched_forks > 1 or args.fork_devices > 1:
+    if args.fork_devices > 1:
         raise NotImplementedError(
-            f"--batched_forks {args.batched_forks} / --fork_devices "
-            f"{args.fork_devices} is not ported yet: it comes with "
-            f"{BATCHED_FORKS}")
+            f"--fork_devices {args.fork_devices} is not ported yet: it comes "
+            f"with {PARALLEL_MODES}")
     device = resolve_device(args.device)
     timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
     # dispatched workers share the dispatcher's output dir and start within
@@ -350,6 +355,25 @@ def main(argv=None):
         "perturb_seed": args.perturb_seed,
         "output_base_directory": args.output_base_directory,
     }
+
+    if args.batched_forks > 1:
+        from ..train.multi_fork import run_batched_sweep
+        logger.info(f"Batched-fork mode: {len(training_order)} runs in "
+                    f"lock-step groups of {args.batched_forks}")
+        guard = PreemptionGuard()
+        with guard:
+            failed_run_list = run_batched_sweep(
+                config, training_order, group_size=args.batched_forks,
+                logger=logger, done_report=_report_done,
+                preempt_guard=guard, device=device)
+        if failed_run_list:
+            logger.info(f"Failed runs: {failed_run_list}")
+        # exit 143 before the failed report: a parent --workers dispatcher
+        # takes a written report as authoritative, and without one it
+        # rebuilds the undispatched runs from the done ledger
+        exit_if_undispatched(guard)
+        _report_failed(failed_run_list)
+        return failed_run_list
 
     logger.info("=" * 80)
     logger.info("STARTING MAIN TRAINING LOOP")

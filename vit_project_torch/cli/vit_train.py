@@ -71,7 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "inside one step: peak activation memory = one "
                         "microbatch, same numbers as the unsplit step")
     p.add_argument("--host_prefetch", action="store_true",
-                   help="asynchronous copy-out of the checkpoint trees (not ported yet)")
+                   help="copy the per-epoch checkpoint trees to the host "
+                        "asynchronously, beside validation "
+                        "(core/hostcopy.py)")
     p.add_argument("--sp_devices", type=int, default=1,
                    help="sequence parallelism (not ported yet)")
     p.add_argument("--sp_ring", action="store_true",

@@ -57,8 +57,8 @@ class ClipRunConfig:
     sp_ring: bool = False                  # with sp_devices: ring attention
                                            # (not ported yet)
     host_prefetch: bool = True             # asynchronous copy-out of the
-                                           # per-epoch checkpoint trees; the
-                                           # port copies synchronously
+                                           # per-epoch checkpoint trees
+                                           # (core/hostcopy.py)
     preempt_save: bool = True              # stop cleanly at the next epoch
                                            # boundary on SIGTERM (per-epoch
                                            # checkpoints make the stop
@@ -171,7 +171,7 @@ class ViTTrainConfig:
     moe_capacity: float = 1.25  # per-expert capacity factor
     moe_aux_weight: float = 0.01  # weight of the MoE load-balance loss
     host_prefetch: bool = False  # asynchronous copy-out of the per-epoch
-                                 # checkpoint trees (not ported yet)
+                                 # checkpoint trees (core/hostcopy.py)
     preempt_save: bool = True  # catch SIGTERM mid-epoch, write
                                # checkpoint_preempt.pth, exit resumable
                                # (core/preempt.py)

@@ -2,14 +2,28 @@
 resumable (copy of the JAX package's core/preempt.py ``PreemptionGuard``).
 
 The CLIP-HBA loop polls the guard at epoch boundaries, right after the
-epoch's checkpoints are written, so a stop is exactly resumable in place.
-The port trains in one process (``torch.distributed`` is not initialised);
-the JAX package's collective poll comes with the parallel modes.
+epoch's checkpoints are written, so a stop is exactly resumable in place;
+the batched sweep and lengths poll ``should_stop_collective`` at each lock-step
+and group boundary. The port trains in one process: with a multi-process
+``torch.distributed`` group the collective poll raises until the port of
+the parallel modes brings its all-gather.
 """
 from __future__ import annotations
 
 import signal
+import sys
 import threading
+
+PARALLEL_MODES = "the port of the parallel modes"
+
+
+def exit_if_undispatched(guard) -> None:
+    """Shared epilogue of the batched sweep and lengths CLIs: exit 143 when a
+    preemption left runs or conditions undispatched, so orchestration
+    re-queues them. The caller must not have reported those items as failed
+    first (a worker dispatcher reads a written report as authoritative)."""
+    if getattr(guard, "undispatched", None):
+        sys.exit(143)
 
 
 class PreemptionGuard:
@@ -39,6 +53,20 @@ class PreemptionGuard:
     def should_stop(self) -> bool:
         """True when a stop was requested (by a signal or `request()`)."""
         return self._event.is_set()
+
+    def should_stop_collective(self) -> bool:
+        """The poll every process makes at the same loop point (JAX's
+        collective one). One process, or no process group: the local flag.
+        A multi-process group needs an all-gather of the flags, which comes
+        with the parallel modes."""
+        import torch.distributed as tdist
+        if (not tdist.is_available() or not tdist.is_initialized()
+                or tdist.get_world_size() == 1):
+            return self._event.is_set()
+        raise NotImplementedError(
+            "PreemptionGuard.should_stop_collective over "
+            f"{tdist.get_world_size()} processes is not ported yet: it comes "
+            f"with {PARALLEL_MODES}")
 
     def _handler(self, signum, frame):
         self.signaled_by = signum

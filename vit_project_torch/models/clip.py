@@ -10,7 +10,9 @@ prompt, re-encoding the prompts on every call as the JAX forward does.
 With DoRA adapters (training) the adapted blocks' out_proj is the DoRA
 layer, as in the JAX forward. ``encode_text_prefix`` / ``encode_text_suffix``
 and ``clip_hba_suffix_forward`` split both towers at their first adapted
-block, for the trainer's frozen-prefix cache.
+block, for the trainer's frozen-prefix cache. ``clip_hba_forward_forks``
+and ``clip_hba_suffix_forward_forks`` run R forks' adapters on one forward
+(train/multi_fork.py) -> [R, B, n_prompts].
 """
 from __future__ import annotations
 
@@ -284,3 +286,104 @@ def clip_hba_suffix_forward(model: CLIP, vis_hidden: torch.Tensor,
         adapters=adapters.get("text"), adapter_cfg=adapter_cfg,
         dropout_key=kt, deterministic=deterministic, remat=remat)
     return _scores(model, img, txt)
+
+
+# -- a fork axis: R adapter sets on one forward -------------------------------
+
+def _split_keys(dropout_keys):
+    """Each fork's (vision, text) dropout streams, as clip_hba_forward
+    splits its key."""
+    if dropout_keys is None:
+        return None, None
+    pairs = [k.split() for k in dropout_keys]
+    return [v for v, _ in pairs], [t for _, t in pairs]
+
+
+def _text_suffix_forks(model: CLIP, hidden: torch.Tensor, eot: torch.Tensor,
+                       n_forks: int, start: int, *, adapters, adapter_cfg,
+                       dropout_keys, deterministic: bool,
+                       remat: bool) -> torch.Tensor:
+    """Text blocks [start, layers) for R forks from the prompts' hidden
+    states [N, context, width] (shared: the prompts are every fork's), then
+    the heads: [R*N, embed_dim] f32, fork-major."""
+    x, forked = vvit.run_blocks_forks(
+        model.transformer, hidden, n_forks, False, adapters=adapters,
+        adapter_cfg=adapter_cfg, dropout_keys=dropout_keys,
+        deterministic=deterministic, start=start, remat=remat)
+    if not forked:
+        x = x.unsqueeze(0).expand(n_forks, *x.shape).flatten(0, 1)
+    return _text_out(model, x, eot.repeat(n_forks))
+
+
+def _scores_forks(model: CLIP, img: torch.Tensor, img_forked: bool,
+                  txt: torch.Tensor, n_forks: int) -> torch.Tensor:
+    """`_scores` for each fork: img [R*B or B, E], txt [R*N, E] ->
+    [R, B, N]."""
+    imgs = img.unflatten(0, (n_forks, -1)) if img_forked else [img] * n_forks
+    return torch.stack([_scores(model, i, t) for i, t in
+                        zip(imgs, txt.unflatten(0, (n_forks, -1)))])
+
+
+def clip_hba_forward_forks(model: CLIP, images: torch.Tensor,
+                           prompt_tokens: torch.Tensor, n_forks: int, *,
+                           forked: bool = True, compute_dtype=torch.float32,
+                           adapters: dict | None = None,
+                           adapter_cfg: dict | None = None,
+                           dropout_keys=None, deterministic: bool = True,
+                           remat: bool = False) -> torch.Tensor:
+    """clip_hba_forward for R forks that share the frozen CLIP and differ in
+    their adapters (adapters/dora.py assemble_forks: the forks' trees per
+    adapted block) -> [R, B, n_prompts].
+
+    `images` is [R*B, H, W, 3], each fork's own rows (training: every fork
+    has its own data order), or with `forked=False` [B, H, W, 3] seen by
+    every fork (eval, RSA). The fork axis is folded into the batch: every
+    layer that reads only shared weights runs once on the whole batch (the
+    attention is one launch a block), blocks before a tower's first adapter
+    run once for shared inputs (the prompts always), and only the adapted
+    out_proj (one product a fork) and the scores are per fork.
+    `dropout_keys` holds each fork's batch key; fork f draws the masks of
+    its solo step."""
+    adapters = adapters or {}
+    kv, kt = _split_keys(dropout_keys)
+    img, img_forked = vvit.clip_visual_encode_forks(
+        model.visual, images, n_forks, forked, compute_dtype=compute_dtype,
+        adapters=adapters.get("visual"), adapter_cfg=adapter_cfg,
+        dropout_keys=kv, deterministic=deterministic, remat=remat)
+    txt = _text_suffix_forks(
+        model, _text_stem(model, prompt_tokens, compute_dtype),
+        torch.argmax(prompt_tokens, dim=-1), n_forks, 0,
+        adapters=adapters.get("text"), adapter_cfg=adapter_cfg,
+        dropout_keys=kt, deterministic=deterministic, remat=remat)
+    return _scores_forks(model, img, img_forked, txt, n_forks)
+
+
+def clip_hba_suffix_forward_forks(model: CLIP, vis_hidden: torch.Tensor,
+                                  txt_hidden: torch.Tensor,
+                                  txt_eot: torch.Tensor, n_forks: int, *,
+                                  n_vis_suffix: int, n_txt_suffix: int,
+                                  forked: bool = True,
+                                  adapters: dict | None = None,
+                                  adapter_cfg: dict | None = None,
+                                  dropout_keys=None,
+                                  deterministic: bool = True,
+                                  remat: bool = False) -> torch.Tensor:
+    """clip_hba_forward_forks from the frozen-prefix caches: `vis_hidden`
+    [R*B, S, width] (each fork's rows) or, with `forked=False`, [B, S,
+    width] shared; the text prefix (`txt_hidden`, `txt_eot`) is every
+    fork's. -> [R, B, n_prompts]."""
+    adapters = adapters or {}
+    kv, kt = _split_keys(dropout_keys)
+    img, img_forked = vvit.clip_visual_suffix_forks(
+        model.visual, vis_hidden, n_forks, forked, n_suffix=n_vis_suffix,
+        adapters=adapters.get("visual"), adapter_cfg=adapter_cfg,
+        dropout_keys=kv, deterministic=deterministic, remat=remat)
+    layers = model.cfg.text.layers
+    start = layers - n_txt_suffix
+    vvit.check_suffix(adapters.get("text"), start, layers, n_txt_suffix,
+                      "text")
+    txt = _text_suffix_forks(
+        model, txt_hidden, txt_eot, n_forks, start,
+        adapters=adapters.get("text"), adapter_cfg=adapter_cfg,
+        dropout_keys=kt, deterministic=deterministic, remat=remat)
+    return _scores_forks(model, img, img_forked, txt, n_forks)

@@ -20,7 +20,12 @@ The CLIP visual tower (``conv1.weight``,
   blocks, then ln_post over the CLS token and the projection, in f32;
   ``clip_visual_prefix`` / ``clip_visual_suffix`` split it at the first
   adapted block (the frozen-prefix cache) on the same stem, blocks and
-  tail.
+  tail;
+- ``block_forward_forks`` / ``run_blocks_forks`` (and the
+  ``clip_visual_*_forks`` encoders): R forks' adapters on one forward, the
+  fork axis folded into the batch. Shared layers and the attention run
+  once on [R*B, S, D] (or once on [B, S, D] while the input is shared);
+  each adapted out_proj is the fork's own solo product on its rows.
 
 The classifier (``VisionTransformerClassifier``: ``patch_embed.proj``,
 ``cls_token``, ``pos_embed``, ``blocks.{i}.norm1/attn.qkv/attn.proj/norm2/
@@ -237,6 +242,100 @@ def run_blocks(transformer: Transformer, x: torch.Tensor, *,
     return x
 
 
+def _fork_out_proj(o: torch.Tensor, n_forks: int, forked: bool,
+                   adapter: dict, adapter_cfg: dict,
+                   dropout_keys, deterministic: bool) -> torch.Tensor:
+    """The adapted out_proj of R forks on the attention output o: [R*B, S, D]
+    (each fork's rows, in fork order) or, when `forked` is False, [B, S, D]
+    shared by the forks. `adapter["trainable"]` lists the forks' adapter
+    leaves; each fork's weight is its own `dora_weight` in f32 (its
+    keep-mask drawn from its own key in `dropout_keys`), and each fork's
+    product is the solo layer's (`ops.nn.dense` in o's dtype on that fork's
+    rows), so a fork's forward and gradients are its solo step's, bit for
+    bit in f32 on the CPU. (One bmm over the stacked [R, in, out] weights
+    sums the weight gradient in another order, which is enough to flip
+    near-tied ranks of the RSA.) Returns [R*B, S, out]."""
+    p = adapter_cfg.get("dropout", 0.0)
+    D = adapter["buffers"]["D"]
+    drop = not deterministic and p > 0.0
+    if drop and dropout_keys is None:
+        raise ValueError("the forks' dropout needs their dropout_keys")
+    ws = [vdora.dora_weight(
+        tr, D, alpha=adapter_cfg["alpha"], r=adapter_cfg["r"], dropout_p=p,
+        deterministic=deterministic,
+        keep=vdora.dropout_keep_mask(D.shape, p, dropout_keys[f], o.device)
+        if drop else None) for f, tr in enumerate(adapter["trainable"])]
+    bias = adapter["buffers"]["bias"]
+    # chunk, not indexing: its backward is one cat, where R selects would
+    # each fill a zero tensor of all R forks' rows
+    rows = o.chunk(n_forks) if forked else [o] * n_forks
+    return torch.cat([vnn.dense(x, w, bias) for x, w in zip(rows, ws)])
+
+
+def block_forward_forks(blk: ResidualAttentionBlock, x: torch.Tensor,
+                        n_forks: int, forked: bool, *,
+                        adapter: dict | None = None,
+                        adapter_cfg: dict | None = None,
+                        dropout_keys=None,
+                        deterministic: bool = True) -> torch.Tensor:
+    """`block_forward` over a fork axis folded into the batch. x is
+    [R*B, S, D] when `forked` (R forks' rows, fork-major), else [B, S, D]
+    shared by the R forks. The LayerNorms, the packed projection, the
+    attention (one launch on x's whole batch) and the MLP use the shared
+    frozen weights; with `adapter` (the forks' trainable trees, a list) the
+    out_proj is each fork's own, and the block's output is forked from
+    there on. Returns x, [R*B, S, D] if forked or adapted."""
+    h = vnn.layer_norm(x, blk.ln_1.weight, blk.ln_1.bias)
+    D = h.shape[-1]
+    w, b = _prescaled_in_proj(blk.attn, D // blk.heads, h.dtype)
+    qkv = vnn.dense(h, w.t(), b)
+    o = vattn.flash_mha_packed_qkv(qkv, num_heads=blk.heads,
+                                   causal=blk.causal)
+    if adapter is not None:
+        o = _fork_out_proj(o, n_forks, forked, adapter, adapter_cfg,
+                           dropout_keys, deterministic)
+        if not forked:
+            x = x.unsqueeze(0).expand(n_forks, *x.shape).reshape(o.shape)
+    else:
+        o = vnn.dense(o, blk.attn.out_proj.weight.t(), blk.attn.out_proj.bias)
+    x = x + o
+    h = vnn.layer_norm(x, blk.ln_2.weight, blk.ln_2.bias)
+    h = vnn.mlp(h, blk.mlp.c_fc.weight.t(), blk.mlp.c_fc.bias,
+                blk.mlp.c_proj.weight.t(), blk.mlp.c_proj.bias)
+    return x + h
+
+
+def run_blocks_forks(transformer: Transformer, x: torch.Tensor,
+                     n_forks: int, forked: bool, *,
+                     adapters: dict | None = None,
+                     adapter_cfg: dict | None = None, dropout_keys=None,
+                     deterministic: bool = True, start: int = 0,
+                     stop: int | None = None, remat: bool = False):
+    """`run_blocks` over a fork axis: blocks [start, stop) on x ([R*B, S, D]
+    if `forked`, else [B, S, D] shared by the R forks). Block i takes
+    adapters[i] (the forks' trainable trees) and fork f's dropout stream
+    dropout_keys[f].fold_in(i), the solo run's key path. Blocks before the
+    first adapter run once for all forks when x is shared. Returns
+    (x, forked)."""
+    adapters = adapters or {}
+    blocks = transformer.resblocks
+    for i in range(start, len(blocks) if stop is None else stop):
+        ad = adapters.get(i)
+        dks = None
+        if ad is not None and dropout_keys is not None:
+            dks = [k.fold_in(i) for k in dropout_keys]
+        kw = dict(adapter=ad, adapter_cfg=adapter_cfg, dropout_keys=dks,
+                  deterministic=deterministic)
+        if remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(
+                block_forward_forks, blocks[i], x, n_forks, forked,
+                use_reentrant=False, **kw)
+        else:
+            x = block_forward_forks(blocks[i], x, n_forks, forked, **kw)
+        forked = forked or ad is not None
+    return x, forked
+
+
 def check_suffix(adapters: dict | None, start: int, layers: int,
                  n_suffix: int, tower: str) -> None:
     """Refuse a split whose frozen prefix would hold an adapted block."""
@@ -320,6 +419,44 @@ def clip_visual_suffix(visual: VisionTransformer, hidden: torch.Tensor, *,
                    adapter_cfg=adapter_cfg, dropout_key=dropout_key,
                    deterministic=deterministic, start=start, remat=remat)
     return _clip_visual_out(visual, x)
+
+
+def clip_visual_encode_forks(visual: VisionTransformer,
+                             images: torch.Tensor, n_forks: int,
+                             forked: bool, *, compute_dtype=torch.float32,
+                             adapters: dict | None = None,
+                             adapter_cfg: dict | None = None,
+                             dropout_keys=None, deterministic: bool = True,
+                             remat: bool = False):
+    """`clip_visual_encode` for R forks: images [R*B, H, W, 3] (each fork's
+    rows) when `forked`, else [B, H, W, 3] shared. Returns
+    ([R*B or B, out_dim] f32, forked)."""
+    x = _clip_visual_stem(visual, images, compute_dtype=compute_dtype)
+    x, forked = run_blocks_forks(visual.transformer, x, n_forks, forked,
+                                 adapters=adapters, adapter_cfg=adapter_cfg,
+                                 dropout_keys=dropout_keys,
+                                 deterministic=deterministic, remat=remat)
+    return _clip_visual_out(visual, x), forked
+
+
+def clip_visual_suffix_forks(visual: VisionTransformer, hidden: torch.Tensor,
+                             n_forks: int, forked: bool, *, n_suffix: int,
+                             adapters: dict | None = None,
+                             adapter_cfg: dict | None = None,
+                             dropout_keys=None, deterministic: bool = True,
+                             remat: bool = False):
+    """`clip_visual_suffix` for R forks, from cached prefix activations
+    ([R*B, S, width] when `forked`, else [B, S, width] shared). Returns
+    ([R*B or B, out_dim] f32, forked)."""
+    layers = visual.cfg.layers
+    start = layers - n_suffix
+    check_suffix(adapters, start, layers, n_suffix, "visual")
+    x, forked = run_blocks_forks(visual.transformer, hidden, n_forks, forked,
+                                 adapters=adapters, adapter_cfg=adapter_cfg,
+                                 dropout_keys=dropout_keys,
+                                 deterministic=deterministic, start=start,
+                                 remat=remat)
+    return _clip_visual_out(visual, x), forked
 
 
 # -- the timm-style classifier -------------------------------------------------

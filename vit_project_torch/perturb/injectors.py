@@ -17,12 +17,14 @@ new_cvpr_train_behavior_things_pipeline.py:843-982).
 - `image_noise`: images replaced by N(mean, std) noise with the same
   distribution stats (ref :895-897, stats from :1100-1105).
 
-Each random kind is a draw from the key's generator (``draw_clip``) and a
-transform of that draw, so a test can hand the transform JAX's draws. The
-JAX loop pads every batch to the configured batch size and draws at that
-padded shape; the port does not pad, so it draws at [batch_size, ...] and
-keeps the first n rows. For `label_shuffle` the argsort of the valid rows'
-uniforms is JAX's masked argsort (invalid rows sort last there).
+A batched group of forks gates each fork by its own window
+(``apply_clip_perturbation_forks``). Each random kind is a draw from the
+key's generator (``draw_clip``) and a transform of that draw, so a test can
+hand the transform JAX's draws. The JAX loop pads every batch to the
+configured batch size and draws at that padded shape; the port does not
+pad, so it draws at [batch_size, ...] and keeps the first n rows. For
+`label_shuffle` the argsort of the valid rows' uniforms is JAX's masked
+argsort (invalid rows sort last there).
 
 The ViT-side variants (measure_single_epoch_perturbation_effect.py:36-93)
 are dataset/transform-level: batch transforms and index tables.
@@ -110,6 +112,32 @@ def apply_clip_perturbation(perturb_type: str, key: Key | None,
     if perturb_type == "image_noise":
         return image_noise(drawn[:n], mean, std), targets
     return images, targets
+
+
+def apply_clip_perturbation_forks(perturb_type: str, keys: list,
+                                  in_win: list, images: torch.Tensor,
+                                  targets: torch.Tensor, *,
+                                  distribution: str = "target",
+                                  mean: float = 0.0, std: float = 1.0,
+                                  rows: int | None = None):
+    """The per-fork gate of a batched group (JAX's `in_win`): `images`
+    [R*n, ...] holds each fork's rows in fork order and `targets` is
+    [R, n, ...]. Fork f inside its window (in_win[f]) gets its own draw from
+    keys[f], as its solo step would; a fork outside it keeps its clean
+    batch. Target kinds replace that fork's targets, image kinds that
+    fork's rows of the images."""
+    if perturb_type == "none" or not any(in_win):
+        return images, targets
+    R, n = targets.shape[:2]
+    imgs, tgts = list(images.unflatten(0, (R, n))), list(targets)
+    for f in range(R):
+        if in_win[f]:
+            imgs[f], tgts[f] = apply_clip_perturbation(
+                perturb_type, keys[f], imgs[f], tgts[f],
+                distribution=distribution, mean=mean, std=std, rows=rows)
+    if perturb_type in IMAGE_KINDS:
+        images = torch.cat(imgs)
+    return images, torch.stack(tgts)
 
 
 def perturb_distribution_stats(target_embeddings: np.ndarray,

@@ -21,6 +21,10 @@ no gradient, so autograd differentiates only from the first adapted block
 on: at the reference configuration one step runs the attention backward
 kernel once (image block 23).
 
+``train_step_forks``, ``evaluate_forks`` and ``behavioral_rsa_forks``
+run R forks of one configuration in each call, for batched forks
+(train/multi_fork.py); ``train_step`` is the solo step.
+
 ``frozen_cache`` computes each image set's activations below the first
 adapted block once (``build_prefix_cache``) and the prompts' text prefix
 once per trainer (``text_prefix_cache``); every train, eval and RSA step
@@ -48,10 +52,11 @@ import torch
 
 from ..adapters import dora as adora
 from ..ckpt import clip_ckpt
-from ..core import csvio
+from ..core import csvio, hostcopy
 from ..core.configs import ClipRunConfig
 from ..core.device import resolve_device
 from ..core.logs import setup_logger
+from ..core.preempt import PARALLEL_MODES
 from ..core.prng import Key, batch_perturb_key, perturb_base_key
 from ..core.profiling import EpochTimer
 from ..data import things as dthings
@@ -70,9 +75,6 @@ EVAL_TOKEN_CAP = 132_000
 # the frozen-prefix cache is built, and large sets are embedded, in chunks
 # of this many images (the JAX loop's chunk)
 PREFIX_CHUNK = 256
-
-# what a refused option waits for, named by feature
-PARALLEL_MODES = "the port of the parallel modes"
 
 
 def make_optimizer(params, lr: float) -> torch.optim.AdamW:
@@ -245,18 +247,45 @@ class ClipHBATrainer:
     def _inputs(self, src: torch.Tensor, cached: bool) -> torch.Tensor:
         return src if cached else dthings.normalize_uint8(src)
 
+    def eval_batch_size(self, n: int, batch_size: int, whole_set: bool = True,
+                        vmap_factor: int = 1) -> int:
+        """The eval batch: the whole set of n while its tokens, times the
+        `vmap_factor` forward passes one call runs (the forks of a batched
+        group), stay under EVAL_TOKEN_CAP, else `batch_size`. whole_set=False
+        keeps `batch_size` as a hard memory bound."""
+        if whole_set and n * self.cfg.visual.seq_len * vmap_factor \
+                <= EVAL_TOKEN_CAP:
+            return n
+        return batch_size
+
+    def eval_idx_mats(self, n: int, batch_size: int, whole_set: bool = True,
+                      vmap_factor: int = 1):
+        """The deterministic eval batches as JAX's (idx [n_batches, width]
+        int32, valid [n_batches, width] float32) matrices, width the
+        eval_batch_size."""
+        bs = self.eval_batch_size(n, batch_size, whole_set, vmap_factor)
+        starts = range(0, n, bs)
+        idx = np.zeros((len(starts), bs), np.int32)
+        valid = np.zeros((len(starts), bs), np.float32)
+        for i, s in enumerate(starts):
+            rows = np.arange(s, min(s + bs, n))
+            idx[i, :len(rows)] = rows
+            valid[i, :len(rows)] = 1.0
+        return idx, valid
+
     @torch.no_grad()
     def evaluate_resident(self, trainable: dict, imgs_dev: torch.Tensor,
                           tgts_dev: torch.Tensor, n: int, batch_size: int,
+                          whole_set: bool = True,
                           cache: torch.Tensor | None = None) -> float:
         """Dataset-weighted MSE (reference evaluate_model :584-602 sums
-        loss * batch and divides by len(dataset)). The whole set runs as
-        one batch under the token cap, else in batches of `batch_size`
-        (eval has no cross-batch dependence). With `cache` (the set's
-        frozen-prefix activations) only the adapted suffix runs."""
+        loss * batch and divides by len(dataset)), in the batches of
+        `eval_batch_size` (eval has no cross-batch dependence). With
+        `cache` (the set's frozen-prefix activations) only the adapted
+        suffix runs."""
         cached = cache is not None
         src = cache if cached else imgs_dev
-        bs = n if n * self.cfg.visual.seq_len <= EVAL_TOKEN_CAP else batch_size
+        bs = self.eval_batch_size(n, batch_size, whole_set)
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for s in range(0, n, bs):
             preds = self.forward(trainable, self._inputs(src[s:s + bs], cached),
@@ -296,6 +325,114 @@ class ClipHBATrainer:
         rho, p, model_rdm = vrsa.behavioral_rsa(emb, reference_rdm)
         return rho, p, model_rdm.cpu().numpy(), emb.cpu().numpy()
 
+    # -- a fork axis: R forks of one configuration in each step ------------
+
+    def forward_forks(self, trainables: list, images: torch.Tensor, *,
+                      forked: bool = True, dropout_keys=None,
+                      deterministic: bool = True,
+                      cached: bool = False) -> torch.Tensor:
+        """[R, B, n_prompts] predictions of R forks (`trainables`, one
+        adapter tree each) from normalized images or, with `cached`, their
+        frozen-prefix activations: [R*B, ...] (each fork's rows) when
+        `forked`, else [B, ...] seen by every fork. `dropout_keys` holds
+        each fork's batch key."""
+        adapters = adora.assemble_forks(trainables, self.static)
+        R = len(trainables)
+        if cached:
+            n_vis, n_txt = self.suffix_sizes()
+            hidden, eot = self.text_prefix_cache
+            return vclip.clip_hba_suffix_forward_forks(
+                self.model, images, hidden, eot, R, n_vis_suffix=n_vis,
+                n_txt_suffix=n_txt, forked=forked, adapters=adapters,
+                adapter_cfg=self.acfg, dropout_keys=dropout_keys,
+                deterministic=deterministic, remat=self.remat)
+        return vclip.clip_hba_forward_forks(
+            self.model, images, self.prompts, R, forked=forked,
+            compute_dtype=self.compute_dtype, adapters=adapters,
+            adapter_cfg=self.acfg, dropout_keys=dropout_keys,
+            deterministic=deterministic, remat=self.remat)
+
+    def train_step_forks(self, trainables: list, optimizers: list,
+                         all_images: torch.Tensor, all_targets: torch.Tensor,
+                         idxs: list, dropout_keys: list, *,
+                         perturb_type: str = "none",
+                         perturb_keys: list | None = None,
+                         in_win: list | None = None,
+                         batch_size: int | None = None,
+                         cached: bool = False):
+        """One lock-step batch of R forks: fork f takes the rows idxs[f]
+        (every fork the same count), its own adapters, optimizer and
+        dropout key, and, when in_win[f], `perturb_type`'s injector drawn
+        from perturb_keys[f] (a fork outside its window trains on the clean
+        batch). The backpropagated loss is the sum of the forks' own masked
+        means, so each fork's gradients are its solo step's. Returns (losses,
+        oks); a fork whose loss, targets or predictions are non-finite skips
+        its own update, the others step."""
+        if cached and perturb_type in injectors.IMAGE_KINDS:
+            raise ValueError(
+                f"perturb_type={perturb_type!r} replaces the input images; "
+                "the frozen-prefix cache is stale under it - batched image "
+                "kinds run the full tower")
+        R, n = len(trainables), len(idxs[0])
+        rows = torch.as_tensor(np.concatenate(
+            [np.asarray(i, np.int64) for i in idxs]), device=self.device)
+        images = self._inputs(all_images[rows], cached)
+        targets = all_targets[rows].unflatten(0, (R, n))
+        if perturb_type != "none":
+            images, targets = injectors.apply_clip_perturbation_forks(
+                perturb_type, perturb_keys, in_win, images, targets,
+                distribution=self.perturb_distribution, mean=self.dist_mean,
+                std=self.dist_std, rows=batch_size)
+        for opt in optimizers:
+            opt.zero_grad(set_to_none=True)
+        preds = self.forward_forks(trainables, images, forked=True,
+                                   dropout_keys=dropout_keys,
+                                   deterministic=False, cached=cached)
+        row_mse = torch.mean((preds - targets) ** 2, dim=-1)      # [R, n]
+        losses = torch.sum(row_mse, dim=1) / n
+        losses.sum().backward()
+        ok = (torch.isfinite(losses)
+              & torch.isfinite(targets).flatten(1).all(dim=1)
+              & torch.isfinite(preds).flatten(1).all(dim=1))
+        loss_f, ok_f = torch.stack([losses.detach(), ok.float()]).tolist()
+        for opt, good in zip(optimizers, ok_f):
+            if good:
+                opt.step()
+            opt.zero_grad(set_to_none=True)
+        return loss_f, [bool(v) for v in ok_f]
+
+    @torch.no_grad()
+    def evaluate_forks(self, trainables: list, imgs_dev: torch.Tensor,
+                       tgts_dev: torch.Tensor, n: int, batch_size: int, *,
+                       vmap_factor: int = 1, whole_set: bool = True,
+                       cache: torch.Tensor | None = None) -> list:
+        """`evaluate_resident` for R forks on one shared eval set: each
+        fork's dataset-weighted MSE. The whole-set batch's token cap counts
+        the `vmap_factor` forward passes a call runs."""
+        cached = cache is not None
+        src = cache if cached else imgs_dev
+        bs = self.eval_batch_size(n, batch_size, whole_set, vmap_factor)
+        total = torch.zeros(len(trainables), dtype=torch.float32,
+                            device=self.device)
+        for s in range(0, n, bs):
+            preds = self.forward_forks(
+                trainables, self._inputs(src[s:s + bs], cached),
+                forked=False, cached=cached)
+            total += torch.sum(torch.mean((preds - tgts_dev[s:s + bs]) ** 2,
+                                          dim=-1), dim=1)
+        return [t / n for t in total.tolist()]
+
+    @torch.no_grad()
+    def behavioral_rsa_forks(self, trainables: list, inf_imgs_dev,
+                             reference_rdm,
+                             cache: torch.Tensor | None = None) -> list:
+        """`behavioral_rsa` for R forks on the shared inference set:
+        [(rho, p)] a fork."""
+        cached = cache is not None
+        src = cache if cached else dthings.normalize_uint8(inf_imgs_dev)
+        emb = self.forward_forks(trainables, src, forked=False, cached=cached)
+        return [vrsa.behavioral_rsa(e, reference_rdm)[:2] for e in emb]
+
 
 def train_model(trainer: ClipHBATrainer, trainable: dict,
                 optimizer: torch.optim.Optimizer, *, train_images,
@@ -317,9 +454,10 @@ def train_model(trainer: ClipHBATrainer, trainable: dict,
     (trainable, optimizer, last_epoch0); the adapters and the optimizer are
     updated in place.
 
-    `host_prefetch` is accepted and changes nothing but timing in the JAX
-    package; the port copies the checkpoint trees synchronously until its
-    host-copy module is ported. `preempt_guard` is polled at epoch
+    `host_prefetch` starts the copy of the checkpoint trees (adapters and
+    AdamW moments) to the host right after the epoch's training steps, so
+    it runs beside the eval and RSA work (core/hostcopy.py); it changes no
+    value. `preempt_guard` is polled at epoch
     boundaries, after the epoch's checkpoints are written, and gets
     `stopped_at_epoch` when it stops the run. `on_epoch`, if given, is
     called after each epoch with {epoch, steps, train_s, epoch_s, cached}:
@@ -413,6 +551,9 @@ def train_model(trainer: ClipHBATrainer, trainable: dict,
             losses.append(loss)
             oks.append(ok)
         train_s = timer.seconds()
+        trees = (trainable, clip_ckpt.adamw_moments(optimizer, trainable))
+        copies = (hostcopy.prefetch_to_host(*trees) if host_prefetch
+                  else [hostcopy.HostCopy(tree) for tree in trees])
         for bi in np.nonzero(~np.asarray(oks))[0]:
             log(f"WARNING: non-finite batch {bi} skipped "
                 f"(epoch {epoch + 1})")
@@ -448,13 +589,14 @@ def train_model(trainer: ClipHBATrainer, trainable: dict,
         # checkpoints BEFORE the CSV row: a crash between the two leaves
         # "checkpoint without row" (the epoch is retrained on resume), never
         # "row without checkpoint"
-        clip_ckpt.save_dora_parameters(trainable, dora_parameters_path,
+        host_tr = copies[0].get()
+        opt_state = clip_ckpt.optax_state_from_moments(*copies[1].get())
+        clip_ckpt.save_dora_parameters(host_tr, dora_parameters_path,
                                        epoch, logger=logger)
         log(f"DoRA parameters saved for epoch {epoch + 1}")
         clip_ckpt.save_random_states(
-            clip_ckpt.optax_state_from_adamw(optimizer, trainable), epoch,
-            random_state_path, data_seed, {"dropout_seed": dropout_seed},
-            logger=logger)
+            opt_state, epoch, random_state_path, data_seed,
+            {"dropout_seed": dropout_seed}, logger=logger)
         csvio.append_clip_row(training_res_path, epoch + 1, avg_train_loss,
                               avg_test_loss, rho, p_value, **flags)
         if on_epoch is not None:

@@ -20,12 +20,14 @@ mid-epoch preemption with a bit-exact resume.
   batch k trains (``device_prefetch``);
 - ``fused_dw`` routes every dense layer with a bias (the qkv, output, fc1
   and fc2 projections of each block and the head) through the fused dW+db
-  kernel, ``ops/fused_dw.py``: 49 launches per ViT-B/16 step.
+  kernel, ``ops/fused_dw.py``: 49 launches per ViT-B/16 step;
+- ``host_prefetch`` copies the epoch's checkpoint trees to the host beside
+  validation (``core/hostcopy.py``).
 
 One process, one card. The parallel modes (pipeline, sequence, tensor and
-expert parallelism, ZeRO-1, FSDP), MoE, the native loader, the asynchronous
-checkpoint copy, the profiler trace and the perturbation injectors are not
-ported yet and are refused by name.
+expert parallelism, ZeRO-1, FSDP), MoE, the native loader, the profiler
+trace and the perturbation injectors are not ported yet and are refused by
+name.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import time
 import numpy as np
 import torch
 
+from ..core import hostcopy
 from ..core.configs import IMAGENET_MEAN, IMAGENET_STD, ViTTrainConfig
 from ..core.device import resolve_device
 from ..models import convert as vconvert
@@ -45,7 +48,7 @@ from ..models import vit as vvit
 # that leaves them off
 _UNPORTED = (("pp_stages", 1), ("sp_devices", 1), ("sp_ring", False),
              ("ep_devices", 1), ("tp_devices", 1), ("zero1", False),
-             ("fsdp", False), ("moe_experts", 0), ("host_prefetch", False),
+             ("fsdp", False), ("moe_experts", 0),
              ("use_native_loader", False), ("profile_dir", None))
 
 
@@ -383,10 +386,16 @@ def run_vit_training(cfg: ViTTrainConfig, logger=None,
                 return {"preempted": True, "model": model,
                         "momentum_buf": momentum, "scheduler": scheduler}
             scheduler.step()
+            # with host_prefetch the copy of the checkpoint trees runs
+            # beside validation (core/hostcopy.py)
+            trees = (dict(model.named_parameters()), momentum)
+            copies = (hostcopy.prefetch_to_host(*trees) if cfg.host_prefetch
+                      else [hostcopy.HostCopy(tree) for tree in trees])
             t_val = time.time()
             val_loss, val_acc = trainer.validate(val_loader, logger=logger)
             val_s = time.time() - t_val
-            save_p, save_m = _jax_trees(model, momentum)
+            save_p, save_m = (vconvert.vit_jax_from_state_dict(c.get())
+                              for c in copies)
             vit_ckpt.save_checkpoint(
                 epoch, save_p, save_m, scheduler.state_dict(), train_loss,
                 val_loss, val_acc, cfg.output_dir, logger=logger)
