@@ -54,6 +54,20 @@
    plain dW+db; it times steps on a batch already on the card (fused and
    plain backward in turns, with their spread), training images/s with
    host decode, validation and peak memory;
+6b. phase `vit_grid`: the measurement grid through the CLIs' ``main``, at
+   ViT-B/16's full width and depth (bf16, batch 256, SGD, fused_dw off as
+   the grid's CLIs run it): writes the seeded ImageFolder and 48 THINGS
+   JPEGs with an RDM, packs the ImageFolder with ``cli.pack``, trains a
+   2-epoch baseline with ``cli.vit_train --use_native_loader`` (and once
+   with PIL decode, for its images/s), writes ``rsa_results.csv`` with
+   ``cli.vit_rsa_eval`` and runs ``cli.vit_measure`` at perturb epoch 1
+   for the four perturbation types. It checks the CSVs' columns, rows and
+   deltas, the launches of each CLI against the prediction (a cell: 132
+   flash3_fwd, 48 flash3_bwd), the unperturbed replay of epoch 1 against
+   the baseline's row, a gaussian cell measured twice, and rho on the
+   kernel path against the plain attention; it times each cell's
+   checkpoint load, perturbed epoch, validation and RSA, a step, and the
+   native decoder against PIL on this host;
 7. phase `sweep`: writes THINGS at its real size to disk (1,806 training
    and 48 inference JPEGs at 224^2, whose targets are the initial model's
    own predictions) and seeded random ViT-L/14 weights, and drives the
@@ -177,8 +191,8 @@ LN_TOLERANCE = {"float32": {"dx": 1e-5, "dparams": 1e-4},
 
 SEED = 0
 RESULTS: dict = {}
-ALL_PHASES = ("kernel", "ops", "serve", "train", "vit_train", "sweep",
-              "forks")
+ALL_PHASES = ("kernel", "ops", "serve", "train", "vit_train", "vit_grid",
+              "sweep", "forks")
 
 
 def fail(msg: str) -> None:
@@ -225,11 +239,12 @@ def phase_build():
 def attention_cases():
     """(label, B, S, H, causal) at the serving path's shapes: the image
     tower at buckets 8, 32 and 256, and the 66 causal text prompts; the
-    ViT-B/16 step; and the image tower of a lock-step of 8 batched forks
-    (8 x 64 rows)."""
+    ViT-B/16 step; a ViT-B/16 RSA chunk (compute_rsa_score's batch of 8,
+    72 of a grid cell's 132 forward launches); and the image tower of a
+    lock-step of 8 batched forks (8 x 64 rows)."""
     return [("image_b8", 8, 257, 16, False), ("image_b32", 32, 257, 16, False),
             ("image_b256", 256, 257, 16, False), ("text_66", 66, 77, 12, True),
-            ("vit_b256", 256, 197, 12, False),
+            ("vit_b256", 256, 197, 12, False), ("vit_b8", 8, 197, 12, False),
             ("image_b512", 512, 257, 16, False)]
 
 
@@ -1778,16 +1793,16 @@ _EPOCH_LINE = re.compile(r"Epoch (\d+): Training Loss: \S+, Validation "
 _CACHE_LINE = re.compile(r"Frozen-prefix cache built in ([\d.]+)s")
 
 
-def _write_things(root: str, rs: np.random.RandomState):
-    """THINGS's images on disk at their real count and size: 1,806 training
-    and 48 inference JPEGs at 224^2, each a tint over smooth random
-    structure plus fine noise (as _write_image_folder draws them). Returns
-    (image dir, names, the decoded uint8 pixels)."""
+def _write_things(root: str, rs: np.random.RandomState, n_train=1806):
+    """THINGS's images on disk at their real size: `n_train` training (1,806
+    in THINGS) and 48 inference JPEGs at 224^2, each a tint over smooth
+    random structure plus fine noise (as _write_image_folder draws them).
+    Returns (image dir, names, the decoded uint8 pixels)."""
     from PIL import Image
     from vit_project_torch.data import things as dthings
     img_dir = os.path.join(root, "images")
     os.makedirs(img_dir)
-    names = [f"thing_{i:04d}.jpg" for i in range(1806 + 48)]
+    names = [f"thing_{i:04d}.jpg" for i in range(n_train + 48)]
     tints = rs.randint(20, 236, (len(names), 3))
     for i, name in enumerate(names):
         low = Image.fromarray(rs.randint(0, 256, (8, 8, 3)).astype(np.uint8))
@@ -1798,7 +1813,8 @@ def _write_things(root: str, rs: np.random.RandomState):
     return img_dir, names, dthings.decode_images(img_dir, names, 224)
 
 
-def _write_things_csvs(root: str, names, preds: np.ndarray) -> dict:
+def _write_things_csvs(root: str, names, preds: np.ndarray,
+                       n_train=1806) -> dict:
     """The annotation CSVs (a leading index column, image_name, 66 targets)
     and the RDM .mat: the targets are `preds`, the initial model's own
     predictions, and the RDM is 1 - corrcoef of its inference predictions.
@@ -1809,14 +1825,14 @@ def _write_things_csvs(root: str, names, preds: np.ndarray) -> dict:
     paths = {"csv_file": os.path.join(root, "train.csv"),
              "inference_csv_file": os.path.join(root, "val.csv"),
              "RDM48_triplet_dir": os.path.join(root, "rdm.mat")}
-    for key, rows in (("csv_file", range(1806)),
-                      ("inference_csv_file", range(1806, 1854))):
+    for key, rows in (("csv_file", range(n_train)),
+                      ("inference_csv_file", range(n_train, n_train + 48))):
         with open(paths[key], "w", newline="") as f:
             w = csv.writer(f)
             w.writerow(["", "image_name"] + [f"d{j}" for j in range(66)])
             for k, i in enumerate(rows):
                 w.writerow([k, names[i]] + [repr(float(v)) for v in preds[i]])
-    rdm = 1.0 - np.corrcoef(preds[1806:].astype(np.float64))
+    rdm = 1.0 - np.corrcoef(preds[n_train:].astype(np.float64))
     np.fill_diagonal(rdm, 0.0)
     scipy.io.savemat(paths["RDM48_triplet_dir"], {"RDM48_triplet": rdm})
     return paths
@@ -2388,6 +2404,377 @@ def phase_forks(ctx):
     return path_launches
 
 
+# the vit_grid phase: the grid's CSV columns (the JAX package's
+# core/csvio.MEASURE_HEADERS, which tests/test_torch_vit_grid.py ties to
+# the port's), its perturbation types, and the launches of one cell
+MEASURE_COLUMNS = ["perturb_epoch", "perturbation_type", "baseline_loss",
+                   "baseline_rsa", "perturbed_loss", "perturbed_rsa",
+                   "delta_loss", "delta_rsa"]
+GRID_TYPES = ("gaussian", "uniform_gray", "label_shuffle", "target_noise")
+GRID_BATCH = 256
+# one cell at the smoke's ImageFolder (1,024 train, 256 val, drop_last): 4
+# steps of 12 blocks forward and backward, 1 validation batch, 48 THINGS
+# images in 6 chunks of 8
+GRID_STEPS, GRID_VAL_BATCHES, GRID_RSA_CHUNKS = 4, 1, 6
+GRID_CELL_LAUNCHES = {
+    "flash3_fwd": 12 * (GRID_STEPS + GRID_VAL_BATCHES + GRID_RSA_CHUNKS),
+    "flash3_bwd": 12 * GRID_STEPS}
+# the replay of epoch 1 against the baseline's row: bf16 on the card, the
+# same arithmetic as the baseline's epoch when the decode and every kernel
+# repeat their bits (then both differences are 0)
+REPLAY_LOSS_RTOL = 1e-4
+REPLAY_RHO_ATOL = 1e-3
+# compute_rsa_score's CLS embeddings on the kernel path against the plain
+# attention path, on the card in bf16: max |difference| over the largest
+# |value| of the plain embeddings. The two attentions round o to bf16 from
+# f32 sums in another order, one bf16 spacing (2^-8 relative) at most per
+# element and block; through 12 blocks that stays a few spacings
+GRID_EMB_KERNEL_RTOL = 2e-2
+# and their rho, absolute: embeddings a few bf16 spacings apart reorder
+# only near-tied pairs of the 1,128 in the RDM, which moves a Spearman rho
+# by far less than this (a wrong kernel gives unrelated embeddings)
+GRID_RHO_KERNEL_TOL = 1e-3
+_CELL_LINE = re.compile(r"Cell seconds: load=([\d.]+) epoch=([\d.]+) "
+                        r"validation=([\d.]+) rsa=([\d.]+)")
+_IPS_LINE = re.compile(r"Epoch (\d+) training completed .*images_per_sec="
+                       r"([\d.]+)\]")
+
+
+def _loaded_jpeg_lib() -> str:
+    """The libjpeg this process mapped (the native decoder's)."""
+    with open("/proc/self/maps") as f:
+        libs = {line.split()[-1] for line in f if "libjpeg" in line}
+    return ", ".join(sorted(libs)) or "none"
+
+
+def phase_vit_grid(tmp: str):
+    """The measurement grid through the CLIs' main: a packed ImageFolder,
+    a 2-epoch ViT-B/16 baseline with the native decoder, the per-epoch RSA
+    and one perturb epoch of the four types; then the replay, determinism
+    and kernel-vs-plain checks and the grid's numbers."""
+    import logging
+    import pandas as pd
+    import scipy.io
+    import torch
+    from vit_project_torch.cli import vit_measure as measure_cli
+    from vit_project_torch.cli import vit_rsa_eval as rsa_cli
+    from vit_project_torch.cli import vit_train as train_cli
+    from vit_project_torch.ckpt import vit_ckpt
+    from vit_project_torch.core.configs import ViTTrainConfig
+    from vit_project_torch.data import fastimage
+    from vit_project_torch.data.packed import make_loader
+    from vit_project_torch.models import vit as vvit
+    from vit_project_torch.ops import attention as vattn
+    from vit_project_torch.ops import fused_dw as vfdw
+    from vit_project_torch.perturb import injectors
+    from vit_project_torch.train import vit_loop
+
+    t_phase = time.time()
+    root = os.path.join(tmp, "vit_grid")
+    logs = os.path.join(root, "logs")
+    os.makedirs(logs)
+    if not fastimage.available() or not fastimage.mem_available():
+        fail("the native decoder (native/libfastimage.so) does not load")
+    print(f"[vit_grid] native decoder loaded; libjpeg: {_loaded_jpeg_lib()}",
+          flush=True)
+    folder = os.path.join(root, "imagenet")
+    _write_image_folder(folder, np.random.RandomState(SEED))
+    rs = np.random.RandomState(SEED + 1)
+    img_dir, names, _ = _write_things(root, rs, n_train=0)
+    things = _write_things_csvs(root, names, rs.randn(len(names), 66),
+                                n_train=0)
+    packed = os.path.join(root, "packed")
+    t0 = time.time()
+    subprocess.run([sys.executable, "-m", "vit_project_torch.cli.pack",
+                    "--src", folder, "--out", packed], cwd=ROOT, check=True,
+                   capture_output=True, text=True)
+    pack_s = time.time() - t0
+    print(f"[vit_grid] fixture written in {t0 - t_phase:.1f} s (8 classes, "
+          f"1,024 train / 256 val JPEGs at 256^2; 48 THINGS JPEGs and an "
+          f"RDM); `cli.pack` {pack_s:.2f} s for both splits", flush=True)
+    things_args = ["--things_csv", things["inference_csv_file"],
+                   "--things_img_dir", img_dir,
+                   "--things_rdm_path", things["RDM48_triplet_dir"]]
+
+    def counts():
+        return {**vattn.LAUNCHES, **vfdw.LAUNCHES}
+
+    def reset():
+        vattn.reset_launch_counts()
+        vfdw.reset_launch_counts()
+
+    # --- the main path: cli.vit_train, cli.vit_rsa_eval, cli.vit_measure,
+    # each with the counts set to 0 just before it and read just after ---
+    base = os.path.join(root, "baseline")
+    train_argv = ["--data_path", packed, "--batch_size", str(GRID_BATCH),
+                  "--epochs", "2", "--num_workers", "8"]
+    reset()
+    _, train_log, train_s = _cli(
+        train_cli.main, train_argv + ["--output_dir", base,
+                                      "--use_native_loader"],
+        os.path.join(logs, "vit_train.log"))
+    train_launches = counts()
+    steps = 2 * GRID_STEPS
+    want = {"flash3_fwd": 12 * (steps + 2 * GRID_VAL_BATCHES),
+            "flash3_bwd": 12 * steps, "dw_db": 0}
+    if any(train_launches[k] != v for k, v in want.items()):
+        fail(f"cli.vit_train launched {train_launches}, expected {want}")
+    ips = {"native": float(_IPS_LINE.findall(train_log)[-1][1])}
+    _, pil_log, pil_s = _cli(
+        train_cli.main, train_argv + ["--output_dir",
+                                      os.path.join(root, "baseline_pil")],
+        os.path.join(logs, "vit_train_pil.log"))
+    ips["pil"] = float(_IPS_LINE.findall(pil_log)[-1][1])
+    print(f"[vit_grid] cli.vit_train 2 epochs, packed tree, "
+          f"--use_native_loader: {train_s:.1f} s, launches flash3_fwd "
+          f"{train_launches['flash3_fwd']}, flash3_bwd "
+          f"{train_launches['flash3_bwd']}, dw_db {train_launches['dw_db']}; "
+          f"epoch-2 training images/s: native decode {ips['native']:.1f}, "
+          f"PIL decode {ips['pil']:.1f} (the same run with PIL: "
+          f"{pil_s:.1f} s)", flush=True)
+
+    rsa_csv = os.path.join(root, "rsa_results.csv")
+    reset()
+    rsa_df, _, rsa_s = _cli(
+        rsa_cli.main, ["--checkpoint_dir", base, "--output_csv", rsa_csv,
+                       *things_args], os.path.join(logs, "vit_rsa_eval.log"))
+    rsa_launches = counts()
+    want = {"flash3_fwd": 2 * 12 * GRID_RSA_CHUNKS, "flash3_bwd": 0,
+            "dw_db": 0}
+    if any(rsa_launches[k] != v for k, v in want.items()):
+        fail(f"cli.vit_rsa_eval launched {rsa_launches}, expected {want}")
+    if list(pd.read_csv(rsa_csv).columns) != [
+            "checkpoint", "epoch", "train_loss", "val_loss", "val_acc",
+            "rsa_score"] or list(rsa_df["epoch"]) != [0, 1] \
+            or not np.isfinite(rsa_df[["train_loss", "val_loss", "val_acc",
+                                       "rsa_score"]].to_numpy()).all():
+        fail(f"bad rsa_results.csv:\n{rsa_df}")
+    print(f"[vit_grid] cli.vit_rsa_eval over 2 checkpoints: {rsa_s:.1f} s, "
+          f"flash3_fwd {rsa_launches['flash3_fwd']}; rsa_score "
+          + ", ".join(f"{r:.4f}" for r in rsa_df["rsa_score"]), flush=True)
+
+    effects = os.path.join(root, "perturbation_effects.csv")
+    measure_argv = ["--baseline_checkpoint_dir", base,
+                    "--baseline_metrics_csv", rsa_csv, "--data_path", packed,
+                    "--output_csv", effects, *things_args,
+                    "--perturb_epochs", "1", "--batch_size", str(GRID_BATCH),
+                    "--use_native_loader"]
+    reset()
+    results, measure_log, measure_s = _cli(
+        measure_cli.main, measure_argv, os.path.join(logs, "vit_measure.log"))
+    grid_launches = counts()
+    want = {k: len(GRID_TYPES) * v for k, v in GRID_CELL_LAUNCHES.items()}
+    want["dw_db"] = 0
+    print(f"[vit_grid] cli.vit_measure, perturb epoch 1 x "
+          f"{len(GRID_TYPES)} types: {measure_s:.1f} s; launches flash3_fwd "
+          f"{grid_launches['flash3_fwd']}, flash3_bwd "
+          f"{grid_launches['flash3_bwd']} (predicted "
+          f"{want['flash3_fwd']} and {want['flash3_bwd']}: "
+          f"{GRID_CELL_LAUNCHES['flash3_fwd']} and "
+          f"{GRID_CELL_LAUNCHES['flash3_bwd']} a cell)", flush=True)
+    if any(grid_launches[k] != v for k, v in want.items()):
+        fail(f"cli.vit_measure launched {grid_launches}, expected {want}")
+
+    # --- the grid's CSVs ---
+    df = pd.read_csv(effects, float_precision="round_trip")
+    if list(df.columns) != MEASURE_COLUMNS:
+        fail(f"perturbation_effects.csv columns {list(df.columns)}")
+    if list(df["perturbation_type"]) != list(GRID_TYPES) \
+            or list(df["perturb_epoch"]) != [1] * len(GRID_TYPES):
+        fail(f"grid rows:\n{df}")
+    if not np.isfinite(df.drop(columns="perturbation_type")
+                       .to_numpy()).all():
+        fail(f"non-finite grid values:\n{df}")
+    for r in results:
+        if r["delta_loss"] != r["perturbed_loss"] - r["baseline_loss"] or \
+                r["delta_rsa"] != r["perturbed_rsa"] - r["baseline_rsa"]:
+            fail(f"delta is not perturbed - baseline: {r}")
+    summary = pd.read_csv(os.path.join(root,
+                                       "perturbation_summary_table.csv"))
+    if list(summary.columns) != ["perturb_epoch", "perturbation_type",
+                                 "delta_loss", "delta_rsa", "baseline_loss",
+                                 "baseline_rsa"] or len(summary) != len(df):
+        fail(f"bad summary table:\n{summary}")
+    cells = [dict(zip(("load_s", "epoch_s", "val_s", "rsa_s"),
+                      map(float, m)))
+             for m in _CELL_LINE.findall(measure_log)]
+    if len(cells) != len(GRID_TYPES):
+        fail(f"{len(cells)} cell timing lines in the vit_measure log")
+    print("[vit_grid] rows: " + "; ".join(
+        f"{r['perturbation_type']} loss {r['perturbed_loss']:.4f} "
+        f"(delta {r['delta_loss']:+.4f}) rsa {r['perturbed_rsa']:.4f} "
+        f"(delta {r['delta_rsa']:+.4f})" for r in results), flush=True)
+    print("[vit_grid] seconds a cell (checkpoint load / perturbed epoch / "
+          "validation / RSA): " + "; ".join(
+              f"{t} {c['load_s']:.3f} / {c['epoch_s']:.3f} / "
+              f"{c['val_s']:.3f} / {c['rsa_s']:.3f}"
+              for t, c in zip(GRID_TYPES, cells)) + f"; {smi_line()}",
+          flush=True)
+
+    # --- one cell called directly: the replay, determinism, kernel vs
+    # plain (the trainer and loaders as cli.vit_measure builds them) ---
+    vit_cfg = vvit.VIT_CONFIGS["vit_base_patch16_224"]
+    cfg = ViTTrainConfig(data_path=packed, batch_size=GRID_BATCH,
+                         num_workers=8, compute_dtype="bfloat16",
+                         image_size=224, num_classes=1000)
+    trainer = vit_loop.ViTTrainer(vit_cfg, cfg,
+                                  vvit.empty_vit(vit_cfg, "cuda"), "cuda")
+    train_loader = make_loader(os.path.join(packed, "train"), GRID_BATCH,
+                               train=True, seed=0, size=224, workers=8,
+                               drop_last=True, use_native=True)
+    val_loader = make_loader(os.path.join(packed, "val"), GRID_BATCH,
+                             train=False, size=224, workers=8,
+                             use_native=True)
+    _, things_u8 = measure_cli.load_things_for_vit(
+        things["inference_csv_file"], img_dir, size=224)
+    rdm = np.asarray(scipy.io.loadmat(things["RDM48_triplet_dir"])
+                     ["RDM48_triplet"], np.float32)
+    sched = dict(base_lr=0.1, warmup_epochs=5, max_epochs=2, eta_min=0.0)
+    cache: dict = {}
+    quiet = logging.getLogger("chip_smoke.vit_grid")
+    quiet.setLevel(logging.WARNING)
+
+    def cell(ptype):
+        return measure_cli.measure_perturbation_effect(
+            1, ptype, trainer, base, rsa_df, train_loader, val_loader,
+            things_u8, rdm, sched, 0.1, logger=quiet, ckpt_cache=cache)
+    reset()
+    replay = cell(None)
+    one_cell = counts()
+    if {k: one_cell[k] for k in GRID_CELL_LAUNCHES} != GRID_CELL_LAUNCHES:
+        fail(f"one cell launched {one_cell}, predicted {GRID_CELL_LAUNCHES}")
+    row = rsa_df[rsa_df["epoch"] == 1].iloc[0]
+    loss_rel = abs(replay["perturbed_loss"] - row["val_loss"]) / abs(
+        row["val_loss"])
+    rho_diff = abs(replay["perturbed_rsa"] - row["rsa_score"])
+    loss_bits = replay["perturbed_loss"] == row["val_loss"]
+    rho_bits = replay["perturbed_rsa"] == row["rsa_score"]
+    print(f"[vit_grid] unperturbed replay of epoch 1 from checkpoint 0: "
+          f"val_loss {replay['perturbed_loss']!r} vs the baseline's "
+          f"{float(row['val_loss'])!r} "
+          f"({'bit-equal' if loss_bits else 'differs'}; "
+          f"relative {loss_rel:.3e}, tolerance {REPLAY_LOSS_RTOL}); rsa "
+          f"{replay['perturbed_rsa']!r} vs {float(row['rsa_score'])!r} "
+          f"({'bit-equal' if rho_bits else 'differs'}; {rho_diff:.3e}, "
+          f"tolerance {REPLAY_RHO_ATOL}); one cell launched flash3_fwd "
+          f"{one_cell['flash3_fwd']}, flash3_bwd {one_cell['flash3_bwd']}",
+          flush=True)
+    if not (loss_rel <= REPLAY_LOSS_RTOL and rho_diff <= REPLAY_RHO_ATOL):
+        fail(f"the replay differs from the baseline's epoch-1 row: {replay} "
+             f"vs {dict(row)}")
+    g1, g2 = cell("gaussian"), cell("gaussian")
+    print(f"[vit_grid] a gaussian cell twice: "
+          f"{'equal bits' if g1 == g2 else 'DIFFERS'} (loss "
+          f"{g1['perturbed_loss']!r}, rsa {g1['perturbed_rsa']!r})",
+          flush=True)
+    if g1 != g2:
+        fail(f"a repeated gaussian cell differs: {g1} vs {g2}")
+
+    # checkpoint 1's CLS embeddings and rho with the attention kernels and
+    # with the plain attention swapped in, on the card, in
+    # compute_rsa_score's chunks of 8 ([8, 197, 2304] a launch)
+    vit_loop.load_trees(trainer.model, vit_ckpt.load_checkpoint(
+        vit_ckpt.epoch_checkpoint(base, 1))["params"])
+
+    def embeddings():
+        return torch.cat([trainer._feature_step(torch.from_numpy(
+            np.ascontiguousarray(things_u8[s:s + 8])).cuda()).float()
+            for s in range(0, len(things_u8), 8)])
+    reset()
+    rho_kernel, _ = trainer.compute_rsa_score(things_u8, rdm)
+    if counts()["flash3_fwd"] != 12 * GRID_RSA_CHUNKS:
+        fail(f"compute_rsa_score launched {counts()}")
+    emb_kernel = embeddings()
+    swapped = vattn.flash_mha_packed_qkv
+    vattn.flash_mha_packed_qkv = (
+        lambda qkv, *, num_heads, causal=False:
+        vattn.flash_mha_packed_qkv_reference(qkv, num_heads, causal)[0])
+    try:
+        rho_plain, _ = trainer.compute_rsa_score(things_u8, rdm)
+        emb_plain = embeddings()
+    finally:
+        vattn.flash_mha_packed_qkv = swapped
+    if not (torch.isfinite(emb_kernel).all() and emb_kernel.shape == (
+            len(things_u8), vit_cfg.width)):
+        fail(f"CLS embeddings: shape {tuple(emb_kernel.shape)} or "
+             f"non-finite values")
+    emb_rel = ((emb_kernel - emb_plain).abs().max()
+               / emb_plain.abs().max()).item()
+    print(f"[vit_grid] checkpoint 1, kernel vs plain attention (bf16): CLS "
+          f"embeddings [{len(things_u8)}, {vit_cfg.width}] max relative "
+          f"difference {emb_rel:.3e} (tolerance {GRID_EMB_KERNEL_RTOL}); rho "
+          f"{rho_kernel:.6f} vs {rho_plain:.6f}, difference "
+          f"{abs(rho_kernel - rho_plain):.3e} (tolerance "
+          f"{GRID_RHO_KERNEL_TOL}); rsa_results.csv {row['rsa_score']:.6f}",
+          flush=True)
+    if not emb_rel <= GRID_EMB_KERNEL_RTOL:
+        fail(f"CLS embeddings with the kernels differ from plain by "
+             f"{emb_rel:.3e} relative")
+    if not abs(rho_kernel - rho_plain) <= GRID_RHO_KERNEL_TOL:
+        fail(f"rho with the kernels {rho_kernel} vs plain {rho_plain}")
+
+    # --- numbers: a step, the decoders alone ---
+    imgs_t, lbls_t = trainer.place(*next(iter(train_loader.epoch(1))))
+    momentum = vit_loop.sgd_init(dict(trainer.model.named_parameters()))
+    key = injectors.batch_perturb_key(42, 1, 0)
+
+    def turn(perturb, steps=10):
+        p = ("gaussian", key, 0.1) if perturb else None
+        for _ in range(2):
+            trainer.step(momentum, imgs_t, lbls_t, 0.02, p)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+        ev[0].record()
+        for i in range(steps):
+            trainer.step(momentum, imgs_t, lbls_t, 0.02, p)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+    step_turns = {"clean": [], "gaussian": []}
+    for name in ("clean", "gaussian", "gaussian", "clean"):
+        step_turns[name].append(turn(name == "gaussian"))
+    step_ms = {k: statistics.mean(x for t in v for x in t)
+               for k, v in step_turns.items()}
+    decode = {}
+    for label, split_root, native in (
+            ("packed native", packed, True), ("packed PIL", packed, False),
+            ("folder PIL", folder, False), ("folder native", folder, True)):
+        loader = make_loader(os.path.join(split_root, "train"), GRID_BATCH,
+                             train=True, seed=0, size=224, workers=8,
+                             drop_last=True, use_native=native)
+        t0 = time.time()
+        n = sum(len(b[1]) for b in loader.epoch(1))
+        decode[label] = n / (time.time() - t0)
+    print(f"[vit_grid] a step on a batch on the card (fused_dw off, as the "
+          f"grid's CLIs run it; turns clean, gaussian, gaussian, clean, 10 "
+          f"steps each): clean {step_ms['clean']:.2f} ms, gaussian "
+          f"{step_ms['gaussian']:.2f} ms; host decode alone (8 threads, "
+          f"RandomResizedCrop of 256^2 JPEGs, images/s): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in decode.items())
+          + f"; phase {time.time() - t_phase:.1f} s; {smi_line()}",
+          flush=True)
+    RESULTS["vit_grid"] = {
+        "launches": {"vit_train": train_launches, "vit_rsa_eval": rsa_launches,
+                     "vit_measure": grid_launches, "one_cell": one_cell},
+        "predicted_cell_launches": GRID_CELL_LAUNCHES,
+        "rows": results, "cell_seconds": dict(zip(GRID_TYPES, cells)),
+        "rsa_results": rsa_df.to_dict("records"),
+        "replay": {"row": replay, "loss_bit_equal": bool(loss_bits),
+                   "rsa_bit_equal": bool(rho_bits),
+                   "loss_rel": float(loss_rel), "rho_diff": float(rho_diff)},
+        "gaussian_repeat_equal": g1 == g2,
+        "rho_kernel": rho_kernel, "rho_plain": rho_plain,
+        "step_ms": step_ms, "step_turns": step_turns,
+        "decode_images_per_s": decode,
+        "vit_train_epoch2_images_per_s": ips,
+        "seconds": {"pack": pack_s, "vit_train": train_s,
+                    "vit_train_pil": pil_s, "vit_rsa_eval": rsa_s,
+                    "vit_measure": measure_s},
+        "libjpeg": _loaded_jpeg_lib(), "phase_s": time.time() - t_phase}
+    del trainer, momentum, imgs_t, lbls_t, cache
+    torch.cuda.empty_cache()
+    return grid_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -2420,7 +2807,7 @@ def main(argv=None) -> int:
     rows = phase_kernel(peaks) if "kernel" in phases else []
     ops_launches = phase_ops() if "ops" in phases else None
     serve_launches = train_launches = vit_launches = sweep_launches = None
-    forks_launches = None
+    forks_launches = grid_launches = None
     tmp = os.path.join(ROOT, "vit_project_torch", "_build",
                        f"smoke-{os.getpid()}")
     os.makedirs(tmp, exist_ok=True)
@@ -2431,6 +2818,8 @@ def main(argv=None) -> int:
             train_launches = phase_train(tmp)
         if "vit_train" in phases:
             vit_launches = phase_vit_train(tmp)
+        if "vit_grid" in phases:
+            grid_launches = phase_vit_grid(tmp)
         if "sweep" in phases or "forks" in phases:
             sweep_launches, ctx = phase_sweep(tmp)
             if "forks" in phases:
@@ -2456,6 +2845,9 @@ def main(argv=None) -> int:
     def forks(name):
         return forks_launches and forks_launches[name]
 
+    def grid(name):
+        return grid_launches and grid_launches[name]
+
     def entry(name, source, replaces, launches, by_path, errors, main_row,
               at):
         return {"name": name, "route": "cuda", "source": source,
@@ -2470,7 +2862,8 @@ def main(argv=None) -> int:
               "vit_project_tpu/ops/attention.py:465", serve_launches,
               {"serve": serve_launches,
                "train": train_launches and train_launches["flash3_fwd"],
-               "vit_train": vit("flash3_fwd"), "sweep": sweep("flash3_fwd"),
+               "vit_train": vit("flash3_fwd"),
+               "vit_grid": grid("flash3_fwd"), "sweep": sweep("flash3_fwd"),
                "forks": forks("flash3_fwd")},
               [r["max_abs_err_o"] for r in rows
                if r["kernel"] == "flash3_fwd"],
@@ -2481,7 +2874,8 @@ def main(argv=None) -> int:
               "vit_project_tpu/ops/attention.py:480",
               train_launches and train_launches["flash3_bwd"],
               {"train": train_launches and train_launches["flash3_bwd"],
-               "vit_train": vit("flash3_bwd"), "sweep": sweep("flash3_bwd"),
+               "vit_train": vit("flash3_bwd"),
+               "vit_grid": grid("flash3_bwd"), "sweep": sweep("flash3_bwd"),
                "forks": forks("flash3_bwd")},
               [r["max_abs_err"] for r in rows
                if r["kernel"] == "flash3_bwd"],

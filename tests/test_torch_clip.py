@@ -248,6 +248,37 @@ class TestConvert:
         sd = tconvert.clip_state_dict_from_jax_params(_tree_np(params), tcfg)
         assert tconvert.clip_config_from_state_dict(sd) == tcfg
 
+    @pytest.mark.parametrize("name", [
+        n for n, c in jclip.CLIP_CONFIGS.items()
+        if isinstance(c.visual, jclip.ViTConfig)])
+    def test_vit_backbone_presets_match_jax(self, name, monkeypatch):
+        """Every ViT backbone the JAX package names resolves in the port
+        with JAX's widths, heads and embed_dim, and the port's model (built
+        on the meta device) has the parameter shapes of JAX's
+        init_clip_params (jax.eval_shape) under the converter's names. No
+        weights are allocated: the converter reads zero-stride arrays and
+        returns meta tensors."""
+        jcfg, tcfg = jclip.CLIP_CONFIGS[name], tclip.CLIP_CONFIGS[name]
+        for j, t in ((jcfg.visual, tcfg.visual), (jcfg.text, tcfg.text)):
+            common = ({f.name for f in dataclasses.fields(j)} &
+                      {f.name for f in dataclasses.fields(t)})
+            assert {f: getattr(t, f) for f in common} == \
+                {f: getattr(j, f) for f in common}
+        assert tcfg.embed_dim == jcfg.embed_dim
+        shapes = jax.eval_shape(lambda k: jclip.init_clip_params(k, jcfg),
+                                jax.random.PRNGKey(0))
+        tree = jax.tree_util.tree_map(
+            lambda s: np.broadcast_to(np.zeros((), np.float32), s.shape),
+            shapes)
+        monkeypatch.setattr(tconvert, "_t", lambda x: torch.empty(
+            np.shape(np.asarray(x)), device="meta"))
+        want = {k: tuple(v.shape) for k, v in
+                tconvert.clip_state_dict_from_jax_params(tree, tcfg).items()}
+        with torch.device("meta"):
+            model = tclip.CLIP(tcfg)
+        assert {k: tuple(v.shape) for k, v in model.state_dict().items()} \
+            == want
+
     def test_strict_load_refuses_missing_keys(self):
         cfg, params = _tiny_jax_clip()
         sd = tconvert.clip_state_dict_from_jax_params(
@@ -348,7 +379,10 @@ def _port_modules():
 def test_port_source_imports_neither_jax_nor_the_jax_package():
     banned = ("jax", "jaxlib", "vit_project_tpu")
     names = {p.relative_to(PORT).as_posix() for p in _port_modules()}
-    assert {"train/multi_fork.py", "core/hostcopy.py"} <= names
+    assert {"train/multi_fork.py", "core/hostcopy.py", "data/fastimage.py",
+            "cli/pack.py", "cli/vit_rsa_eval.py", "cli/vit_measure.py",
+            "analysis/figs.py", "analysis/parity.py",
+            "analysis/manifest.py"} <= names
     for path in _port_modules() + [REPO / "chip_smoke.py"]:
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):

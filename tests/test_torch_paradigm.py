@@ -395,3 +395,61 @@ def test_worker_processes_aggregate_failures(data, baseline, tmp_path,
     assert json.loads((out / "worker0_done.json").read_text()) == [2]
     assert json.loads((out / "worker1_failed.json").read_text()) == [9]
     assert os.path.exists(out / "worker1.log")
+
+
+def test_analysis_tools_read_a_port_tree(data, baseline, tmp_path,
+                                         monkeypatch):
+    """A clip_results tree in the reference layout whose sweep, per-type and
+    lengths CSVs the port wrote (forks at run 2, lengths e2_l1 and e2_l2;
+    the JAX baseline's CSV as its baseline): the port's copies of figs,
+    parity and manifest give the JAX package's results on it."""
+    import shutil
+    import pandas as pd
+    from vit_project_tpu.analysis import figs as jfigs
+    from vit_project_tpu.analysis import manifest as jmanifest
+    from vit_project_tpu.analysis import parity as jparity
+    from vit_project_torch.analysis import figs as tfigs
+    from vit_project_torch.analysis import manifest as tmanifest
+    from vit_project_torch.analysis import parity as tparity
+    root = tmp_path / "clip_results"
+    sweep_dir = root / jparity.SWEEP_DIRNAME
+    lengths_dir = root / jparity.LENGTHS_DIRNAME
+    os.makedirs(sweep_dir)
+    shutil.copyfile(baseline["training_res_path"],
+                    root / jparity.BASELINE_NAME)
+    for kind, type_dir in (("random_target", "target_noise"),
+                           ("label_shuffle", "label_shuffle")):
+        out = tmp_path / kind
+        assert tsweep.main(_sweep_argv(data, baseline, str(out), kind,
+                                       "--device", "cpu",
+                                       "--frozen_cache")) == []
+        os.makedirs(root / type_dir)
+        shutil.copyfile(out / "training_run2" / "training_res_run2.csv",
+                        root / type_dir / "training_res_run2.csv")
+        if kind == "random_target":
+            shutil.copytree(out / "training_run2",
+                            sweep_dir / "training_run2")
+    for length in (1, 2):
+        _lengths(data, baseline, str(lengths_dir), length, 3)
+    for mod in (jparity, tparity):
+        monkeypatch.setattr(mod, "FIG2_EPOCHS", [2])
+    base = str(root / jparity.BASELINE_NAME)
+    type_dirs = {t: str(root / t) for t in ("target_noise", "label_shuffle")}
+    for name, args in (("clip_trajectory", (base,)),
+                       ("sweep_deltas", (base, str(sweep_dir))),
+                       ("perturbation_type_deltas", (base, type_dirs, [2])),
+                       ("recovery_table", (base, str(lengths_dir)))):
+        want = getattr(jfigs, name)(*args)
+        assert len(want) > 0, name
+        pd.testing.assert_frame_equal(getattr(tfigs, name)(*args), want)
+    reports = {}
+    for label, mod in (("jax", jparity), ("port", tparity)):
+        out = tmp_path / f"report_{label}"
+        rep = mod.build_report(str(root), None, str(out))
+        rep["artifacts"] = [os.path.relpath(a, out) if os.path.isabs(a)
+                            else a for a in rep["artifacts"]]
+        reports[label] = rep
+    assert reports["port"] == reports["jax"]
+    assert reports["jax"]["stats"]["recovery"]["conditions_ours"] == 2
+    trees = {"sweep": str(sweep_dir), "lengths": str(lengths_dir)}
+    assert tmanifest.tree_manifest(trees) == jmanifest.tree_manifest(trees)

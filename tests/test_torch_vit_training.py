@@ -582,7 +582,7 @@ def test_cli_trains_on_the_cpu_and_defaults_to_the_card(imagenet, tmp_path):
 @pytest.mark.parametrize("field,value", [
     ("pp_stages", 2), ("sp_devices", 2), ("sp_ring", True), ("ep_devices", 2),
     ("tp_devices", 2), ("zero1", True), ("fsdp", True), ("moe_experts", 4),
-    ("use_native_loader", True), ("profile_dir", "trace")])
+    ("profile_dir", "trace")])
 def test_unported_modes_are_refused_by_name(imagenet, tmp_path, field, value):
     cfg = dataclasses.replace(_tiny(TTrainConfig, imagenet,
                                     str(tmp_path / "x")), **{field: value})
@@ -600,7 +600,6 @@ def test_cli_refuses_unported_flags(imagenet, tmp_path, flag):
 
 
 def test_other_unported_paths_are_refused_by_name(imagenet, tmp_path):
-    from vit_project_torch.data import imagenet as timg
     model = tvit.empty_vit(TTINY, "cpu")
     imgs = torch.zeros(1, 32, 32, 3)
     for kw, name in ((dict(seq_shard=object()), "seq_shard"),
@@ -611,12 +610,6 @@ def test_other_unported_paths_are_refused_by_name(imagenet, tmp_path):
             tvit.vit_classify(model, imgs, **kw)
     with pytest.raises(NotImplementedError, match="MoE"):
         tvit.empty_vit(dataclasses.replace(TTINY, moe_experts=2), "cpu")
-    with pytest.raises(NotImplementedError, match="use_native"):
-        timg.ImageFolderLoader(os.path.join(imagenet, "train"), 8,
-                               train=True, use_native=True)
-    tr = tloop.ViTTrainer(TTINY, TTrainConfig(num_classes=3), model, "cpu")
-    with pytest.raises(NotImplementedError, match="perturbation_type"):
-        tr.train_one_epoch({}, None, 0, 0.1, perturbation_type="gaussian")
     os.makedirs(tmp_path / "pod" / "checkpoint_latest.orbax")
     with pytest.raises(NotImplementedError, match="orbax"):
         tckpt.latest_checkpoint(str(tmp_path / "pod"))

@@ -3,10 +3,10 @@ cli/vit_train.py, with the same flags plus --device).
 
 Reference: Training/vit_training/baseline/train_vit_sgd.py (torchrun/DDP). One
 process trains on one card unless --device says otherwise. Flags of the JAX
-CLI whose features are not ported yet (the parallel modes, MoE, the native
-loader, the profiler, the asynchronous checkpoint copy) are accepted and
-refused by the training loop at any value but their default. Exits 143 when a
-SIGTERM stopped the run mid-epoch (run it again to resume inside the epoch).
+CLI whose features are not ported yet (the parallel modes, MoE, the
+profiler) are accepted and refused by the training loop at any value but
+their default. Exits 143 when a SIGTERM stopped the run mid-epoch (run it
+again to resume inside the epoch).
 
   python -m vit_project_torch.cli.vit_train --data_path imagenet/ \\
       --output_dir runs/vit_b16
@@ -43,8 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile_dir", default=None,
                    help="profiler trace of the first epoch (not ported yet)")
     p.add_argument("--use_native_loader", action="store_true",
-                   help="decode/augment through the C++ core (not ported "
-                        "yet)")
+                   help="decode/augment through the C++ core "
+                        "(native/libfastimage.so; build with: make -C native)")
     p.add_argument("--data_echo", type=int, default=1,
                    help="repeat each decoded train batch N times — mitigation "
                         "when host decode cannot feed the device step rate")

@@ -1,12 +1,17 @@
-"""CSV output contracts of the CLIP per-epoch run and of the ViT training
-run (copies of those parts of the JAX package's core/csvio.py).
+"""CSV output contracts of the CLIP per-epoch run, the ViT training run and
+the ViT measurement grid (a copy of the JAX package's core/csvio.py).
 
-The analysis notebooks of the reference parse this byte-exact schema:
-epoch,train_loss,test_loss,behavioral_rsa_rho,behavioral_rsa_p_value,
-used_random_targets,used_shuffled_targets,used_uniform_images,used_image_noise
-(reference new_cvpr_train_behavior_things_pipeline.py:795,1026-1031).
-The ViT run writes training_metrics.csv: epoch,train_loss,val_loss,val_acc
-with 0-indexed epochs and fixed float formats.
+The analysis notebooks of the reference parse these byte-exact schemas:
+
+- CLIP per-epoch:  epoch,train_loss,test_loss,behavioral_rsa_rho,
+  behavioral_rsa_p_value,used_random_targets,used_shuffled_targets,
+  used_uniform_images,used_image_noise
+  (reference new_cvpr_train_behavior_things_pipeline.py:795,1026-1031)
+- ViT per-epoch:   epoch,train_loss,val_loss,val_acc   (train_vit_sgd.py:116-123),
+  0-indexed epochs and fixed float formats
+- Measurement:     perturb_epoch,perturbation_type,baseline_loss,baseline_rsa,
+  perturbed_loss,perturbed_rsa,delta_loss,delta_rsa
+  (measure_single_epoch_perturbation_effect.py:544-553)
 """
 from __future__ import annotations
 
@@ -20,6 +25,10 @@ CLIP_HEADERS = [
     "used_uniform_images", "used_image_noise",
 ]
 VIT_HEADER_LINE = "epoch,train_loss,val_loss,val_acc\n"
+MEASURE_HEADERS = [
+    "perturb_epoch", "perturbation_type", "baseline_loss", "baseline_rsa",
+    "perturbed_loss", "perturbed_rsa", "delta_loss", "delta_rsa",
+]
 
 
 def init_clip_csv(
@@ -143,3 +152,15 @@ def append_vit_row(csv_path: str, epoch: int, train_loss: float,
             f.write(VIT_HEADER_LINE)
     with open(csv_path, "a") as f:
         f.write(f"{epoch},{train_loss:.6f},{val_loss:.6f},{val_acc:.4f}\n")
+
+
+def write_measure_csv(csv_path: str, results: list[dict]) -> None:
+    """Write the perturbation-effect measurement CSV."""
+    d = os.path.dirname(csv_path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(csv_path, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=MEASURE_HEADERS)
+        writer.writeheader()
+        for r in results:
+            writer.writerow({k: r[k] for k in MEASURE_HEADERS})

@@ -1,5 +1,5 @@
 """ImageNet-style ImageFolder pipeline (counterpart of the JAX package's
-data/imagenet.py; PIL for decoding).
+data/imagenet.py).
 
 Reference contract (get_dataloaders, train_vit_sgd.py:29-90): ImageFolder train/val
 with RandomResizedCrop(224)+HFlip train augs, Resize(256)+CenterCrop(224) val,
@@ -9,8 +9,8 @@ A thread-pool loader decodes + augments into uint8 host batches while the card
 trains (the normalization is folded into the patch embedding of the step).
 Augmentations are derived from numpy Generators seeded per (seed, epoch, index), so
 the stream is exactly replayable from a checkpointed seed, and the batches equal
-the JAX package's byte for byte. The C++ decode core (``use_native=True``) is not
-ported yet and is refused by name.
+the JAX package's byte for byte. ``use_native=True`` decodes through the C++
+core instead (``data/fastimage.py``).
 """
 from __future__ import annotations
 
@@ -176,12 +176,12 @@ class ImageFolderLoader:
         # label_table: index-table label perturbation (ShuffledLabelsDataset /
         # TargetNoiseDataset semantics — measure...effect.py:57-93)
         self.label_table = label_table
-        # use_native: the C++ decode core (the JAX package's data/fastimage.py)
-        # is not ported yet
+        # use_native: decode+augment through the C++ core (native/fastimage.cpp)
+        # instead of PIL. Same (seed, epoch, index) determinism contract, but a
+        # different filter implementation: a run must not mix decoders.
         if use_native:
-            raise NotImplementedError(
-                "use_native=True (the C++ decode core, data/fastimage.py) is "
-                "not ported to vit_project_torch yet; decode with PIL")
+            self._check_native()
+        self.use_native = use_native
         # data echo: yield each decoded batch `echo` times, the standard
         # mitigation when host decode cannot feed the device step rate
         # (the step consumes echo x the decode throughput; gradient noise
@@ -189,6 +189,26 @@ class ImageFolderLoader:
         if echo < 1:
             raise ValueError(f"data echo must be >= 1, got {echo}")
         self.echo = echo
+
+    def _check_native(self):
+        """Fail at construction, not at the first batch after the model is
+        built. Subclasses with extra native requirements override."""
+        from . import fastimage
+        if not fastimage.available():
+            raise RuntimeError("use_native=True but libfastimage.so does not "
+                               "load (build it: make -C native)")
+
+    def _native_args(self, epoch: int, idx):
+        """(mode, resize_to, per-image seeds) of a native batch."""
+        from . import fastimage as fim
+        mode = fim.MODE_RRC_FLIP if self.train else fim.MODE_CENTER_CROP
+        # val center crop: scale the shorter-side resize with the crop like
+        # resize_center_crop (256 would black-pad a crop above 256)
+        resize_to = (256 if self.size <= 256
+                     else int(round(self.size * 256 / 224)))
+        seeds = [hash((self.seed, epoch, int(i))) & 0xFFFFFFFFFFFFFFFF
+                 for i in idx]
+        return mode, resize_to, seeds
 
     def _shard_len(self):
         n = len(self.paths)
@@ -234,6 +254,32 @@ class ImageFolderLoader:
 
     def _batch_iter(self, order, end: int, epoch: int):
         """Decode one epoch's batches in order (runs on the feeder thread)."""
+        if self.use_native:
+            from . import fastimage as fim
+            for s in range(0, end, self.batch_size):
+                idx = order[s:s + self.batch_size]
+                mode, resize_to, seeds = self._native_args(epoch, idx)
+                try:
+                    imgs = fim.transform_batch(
+                        [self.paths[i] for i in idx], mode, self.size,
+                        self.size, seeds, resize_to=resize_to,
+                        threads=self.workers)
+                except IOError:
+                    # the C++ core decodes baseline JPEG/PNG only; ImageNet
+                    # holds a few CMYK JPEGs that PIL reads: this batch
+                    # decodes with PIL (the pixels the PIL path gives)
+                    if self.train:
+                        imgs = np.stack([
+                            _load_train(self.paths[i],
+                                        (self.seed, epoch, int(i)),
+                                        self.size) for i in idx])
+                    else:
+                        imgs = np.stack([_load_val(self.paths[i], self.size)
+                                         for i in idx])
+                lbls = np.asarray([self._label(int(i)) for i in idx],
+                                  np.int32)
+                yield imgs, lbls
+            return
         with ThreadPoolExecutor(self.workers) as ex:
             for s in range(0, end, self.batch_size):
                 idx = order[s:s + self.batch_size]

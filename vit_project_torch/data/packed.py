@@ -1,6 +1,5 @@
 """Packed record dataset: ImageFolder contents in a few large shard files
-(counterpart of the JAX package's data/packed.py: the reader side; packing
-waits for the port of cli/pack.py).
+(counterpart of the JAX package's data/packed.py; ``cli/pack.py`` writes it).
 
 Production ImageNet-scale training pays a real IO tax for the ImageFolder
 layout the reference uses (train_vit_sgd.py:48-56): ~1.3M tiny files mean
@@ -19,11 +18,13 @@ with a sidecar index:
       pack-*.bin     concatenated encoded images, `shard_mb` each
 
 Shards are mmapped once; a record read is a pointer offset (the page cache
-does the rest). Sample order, labels, shuffle permutation, and the
+does the rest), and the native decode path consumes the bytes in place
+(fastimage.transform_mem_batch -> fi_transform_mem_batch) with no
+per-image syscall. Sample order, labels, shuffle permutation, and the
 per-(seed, epoch, index) augmentation seeds are IDENTICAL to
 ImageFolderLoader's, so a packed run reproduces an ImageFolder run
-bit-exactly (PIL decodes the same bytes). The native decode path is not
-ported yet and is refused by name.
+bit-exactly on the PIL path (PIL decodes the same bytes) and decoder-exactly
+on the native path.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ import os
 
 import numpy as np
 
-from .imagenet import ImageFolderLoader, _load_train_bytes, _load_val_bytes
+from .imagenet import (ImageFolderLoader, _load_train_bytes, _load_val_bytes,
+                       scan_image_folder)
 
 META_NAME = "meta.json"
 INDEX_NAME = "index.npz"
@@ -49,6 +51,59 @@ def is_packed(root: str) -> bool:
             return json.load(f).get("format") == "fipack"
     except (OSError, ValueError):
         return False
+
+
+def pack_image_folder(root: str, out_dir: str, *,
+                      shard_mb: int = 512, logger=None) -> dict:
+    """Pack an ImageFolder tree into shards + index under `out_dir`.
+
+    Keeps scan_image_folder's deterministic sample order (sorted classes ->
+    contiguous ids, sorted files), so loaders over the packed copy see the
+    SAME (index -> image, label) mapping as over the original tree."""
+    log = logger.info if logger else print
+    paths, labels, classes = scan_image_folder(root)
+    os.makedirs(out_dir, exist_ok=True)
+    shard_bytes = shard_mb * (1 << 20)
+    shards: list[str] = []
+    shard_ids = np.empty(len(paths), np.uint32)
+    offsets = np.empty(len(paths), np.uint64)
+    lengths = np.empty(len(paths), np.uint64)
+    cur = None
+    cur_off = 0
+    try:
+        for i, p in enumerate(paths):
+            with open(p, "rb") as f:
+                blob = f.read()
+            if cur is None or (cur_off and cur_off + len(blob) > shard_bytes):
+                if cur is not None:
+                    cur.close()
+                name = f"pack-{len(shards):05d}.bin"
+                # plain open (not atomic temps): the writer is an offline
+                # one-shot tool; a partial pack fails loudly at meta.json
+                # load (written LAST, below) rather than half-working
+                cur = open(os.path.join(out_dir, name), "wb")
+                shards.append(name)
+                cur_off = 0
+            shard_ids[i] = len(shards) - 1
+            offsets[i] = cur_off
+            lengths[i] = len(blob)
+            cur.write(blob)
+            cur_off += len(blob)
+    finally:
+        if cur is not None:
+            cur.close()
+    np.savez(os.path.join(out_dir, INDEX_NAME), shard=shard_ids,
+             offset=offsets, length=lengths, labels=labels)
+    meta = {"format": "fipack", "version": 1, "num_samples": len(paths),
+            "classes": classes, "shards": shards}
+    tmp = os.path.join(out_dir, f"{META_NAME}.tmp.{os.getpid()}")
+    with open(tmp, "w") as f:
+        json.dump(meta, f)
+    os.replace(tmp, os.path.join(out_dir, META_NAME))
+    total = int(lengths.sum())
+    log(f"packed {len(paths)} images ({total / 1e6:.1f} MB) into "
+        f"{len(shards)} shard(s) under {out_dir}")
+    return meta
 
 
 class PackedDataset:
@@ -84,8 +139,10 @@ class PackedLoader(ImageFolderLoader):
     sharding, shuffle, seeds, labels and echo semantics — only the byte
     source changes (mmapped records instead of per-image file opens).
 
-    PIL decodes the same encoded bytes it would read from disk, so batches
-    are BIT-IDENTICAL to ImageFolderLoader's over the original tree."""
+    The PIL path decodes the same encoded bytes PIL would read from disk,
+    so batches are BIT-IDENTICAL to ImageFolderLoader's over the original
+    tree; use_native=True routes through fi_transform_mem_batch (the native
+    file path's pixels, no per-image syscall)."""
 
     def __init__(self, root: str, batch_size: int, *, train: bool,
                  seed: int = 0, size: int = 224, workers: int = 16,
@@ -105,8 +162,34 @@ class PackedLoader(ImageFolderLoader):
                           use_native=use_native, num_shards=num_shards,
                           shard_id=shard_id, echo=echo)
 
+    def _check_native(self):
+        # the packed path needs the memory-decode API (fi_version >= 2): a
+        # stale v1 library fails here, not at the first batch after the
+        # model is built
+        from . import fastimage
+        if not fastimage.mem_available():
+            raise RuntimeError(
+                "use_native=True over a packed dataset needs the memory-"
+                "decode API; rebuild the library (make -C native)")
+
     def _batch_iter(self, order, end: int, epoch: int):
         from concurrent.futures import ThreadPoolExecutor
+        if self.use_native:
+            from . import fastimage as fim
+            for s in range(0, end, self.batch_size):
+                idx = order[s:s + self.batch_size]
+                mode, resize_to, seeds = self._native_args(epoch, idx)
+                bufs = [self.ds.record(int(i)) for i in idx]
+                try:
+                    imgs = fim.transform_mem_batch(
+                        bufs, mode, self.size, self.size, seeds,
+                        resize_to=resize_to, threads=self.workers)
+                except IOError:
+                    # encodings the core does not read (CMYK JPEG) decode
+                    # with PIL for this batch, like the ImageFolder path
+                    imgs = self._pil_batch(idx, epoch)
+                yield imgs, self._label_batch(idx)
+            return
         with ThreadPoolExecutor(self.workers) as ex:
             for s in range(0, end, self.batch_size):
                 idx = order[s:s + self.batch_size]
@@ -121,6 +204,14 @@ class PackedLoader(ImageFolderLoader):
                 yield np.stack([f.result() for f in futs]), \
                     self._label_batch(idx)
 
+    def _pil_batch(self, idx, epoch: int) -> np.ndarray:
+        if self.train:
+            return np.stack([_load_train_bytes(
+                self.ds.record(int(i)), (self.seed, epoch, int(i)),
+                self.size) for i in idx])
+        return np.stack([_load_val_bytes(self.ds.record(int(i)), self.size)
+                         for i in idx])
+
     def _label_batch(self, idx) -> np.ndarray:
         return np.asarray([self._label(int(i)) for i in idx], np.int32)
 
@@ -128,6 +219,6 @@ class PackedLoader(ImageFolderLoader):
 def make_loader(root: str, batch_size: int, **kw):
     """Route to PackedLoader when `root` is a packed directory, else the
     plain ImageFolderLoader — training code stays source-agnostic (the
-    vit_train CLI accepts either layout for --data_path)."""
+    vit_train / vit_measure CLIs accept either layout for --data_path)."""
     cls = PackedLoader if is_packed(root) else ImageFolderLoader
     return cls(root, batch_size, **kw)

@@ -17,7 +17,7 @@ and ``clip_hba_suffix_forward_forks`` run R forks' adapters on one forward
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 from torch import nn
@@ -47,12 +47,26 @@ class CLIPConfig:
 CLIP_VIT_L14 = CLIPConfig(visual=vvit.CLIP_VIT_L14_VISUAL,
                           text=TextConfig(width=768, layers=12, heads=12),
                           embed_dim=768)
+CLIP_VIT_B32 = CLIPConfig(visual=vvit.CLIP_VIT_B32_VISUAL,
+                          text=TextConfig(width=512, layers=12, heads=8),
+                          embed_dim=512)
+CLIP_VIT_B16 = CLIPConfig(visual=vvit.CLIP_VIT_B16_VISUAL,
+                          text=TextConfig(width=512, layers=12, heads=8),
+                          embed_dim=512)
+# the same towers as ViT-L/14 on a 24x24 patch grid (S = 577)
+CLIP_VIT_L14_336 = CLIPConfig(
+    visual=replace(vvit.CLIP_VIT_L14_VISUAL, image_size=336),
+    text=TextConfig(width=768, layers=12, heads=12),
+    embed_dim=768)
 
 
-# random-init backbones by name (the ViT entries of the JAX package's
-# CLIP_CONFIGS that the port runs)
+# random-init backbones by name: every ViT entry of the JAX package's
+# CLIP_CONFIGS, test-tiny included (its RN50 family is not ported)
 CLIP_CONFIGS = {
     "ViT-L/14": CLIP_VIT_L14,
+    "ViT-B/32": CLIP_VIT_B32,
+    "ViT-B/16": CLIP_VIT_B16,
+    "ViT-L/14@336px": CLIP_VIT_L14_336,
     "test-tiny": CLIPConfig(
         visual=ViTConfig(patch=32, width=32, layers=2, heads=2,
                          image_size=224, out_dim=16, **CLIP_VISUAL_FLAGS),

@@ -83,6 +83,10 @@ class ViTConfig:
 CLIP_VISUAL_FLAGS = dict(pre_norm=True, patch_bias=False, quick_gelu=True)
 CLIP_VIT_L14_VISUAL = ViTConfig(patch=14, width=1024, layers=24, heads=16,
                                 out_dim=768, **CLIP_VISUAL_FLAGS)
+CLIP_VIT_B32_VISUAL = ViTConfig(patch=32, width=768, layers=12, heads=12,
+                                out_dim=512, **CLIP_VISUAL_FLAGS)
+CLIP_VIT_B16_VISUAL = ViTConfig(patch=16, width=768, layers=12, heads=12,
+                                out_dim=512, **CLIP_VISUAL_FLAGS)
 
 VIT_B16 = ViTConfig(patch=16, width=768, layers=12, heads=12, num_classes=1000)
 

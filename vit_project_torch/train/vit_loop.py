@@ -22,12 +22,18 @@ mid-epoch preemption with a bit-exact resume.
   and fc2 projections of each block and the head) through the fused dW+db
   kernel, ``ops/fused_dw.py``: 49 launches per ViT-B/16 step;
 - ``host_prefetch`` copies the epoch's checkpoint trees to the host beside
-  validation (``core/hostcopy.py``).
+  validation (``core/hostcopy.py``);
+- a perturbed epoch (the measurement grid, cli/vit_measure.py): "gaussian"
+  and "uniform_gray" replace the normalized images of every batch, each
+  batch drawing from its own key (seed, epoch, batch index), so a mid-epoch
+  resume draws the same noise; "label_shuffle" and "target_noise" go
+  through the loader's ``label_table``, which the caller sets;
+- ``compute_rsa_score``: the CLS embeddings of the THINGS-48 images in
+  dataset order against the human RDM (Spearman rho).
 
 One process, one card. The parallel modes (pipeline, sequence, tensor and
-expert parallelism, ZeRO-1, FSDP), MoE, the native loader, the profiler
-trace and the perturbation injectors are not ported yet and are refused by
-name.
+expert parallelism, ZeRO-1, FSDP), MoE and the profiler trace are not
+ported yet and are refused by name.
 """
 from __future__ import annotations
 
@@ -41,15 +47,22 @@ import torch
 from ..core import hostcopy
 from ..core.configs import IMAGENET_MEAN, IMAGENET_STD, ViTTrainConfig
 from ..core.device import resolve_device
+from ..data.imagenet import normalize_imagenet
 from ..models import convert as vconvert
 from ..models import vit as vvit
+from ..ops import rsa as vrsa
+from ..perturb import injectors
+
+IMAGENET_NORM = (IMAGENET_MEAN, IMAGENET_STD)
+# image perturbations, applied in the step; the label kinds go through the
+# loader's label_table
+IMAGE_PERTURBATIONS = ("gaussian", "uniform_gray")
 
 # ViTTrainConfig fields whose features are not ported yet, with the value
 # that leaves them off
 _UNPORTED = (("pp_stages", 1), ("sp_devices", 1), ("sp_ring", False),
              ("ep_devices", 1), ("tp_devices", 1), ("zero1", False),
-             ("fsdp", False), ("moe_experts", 0),
-             ("use_native_loader", False), ("profile_dir", None))
+             ("fsdp", False), ("moe_experts", 0), ("profile_dir", None))
 
 
 def refuse_unported(cfg: ViTTrainConfig) -> None:
@@ -94,50 +107,69 @@ class ViTTrainer:
         # per trainer, never process-wide: another trainer in the same
         # process keeps its own choice
         self.fused_dw = bool(train_cfg.fused_dw)
-        self.input_norm = (IMAGENET_MEAN, IMAGENET_STD)
 
     # -- steps ----------------------------------------------------------------
 
-    def logits(self, images_u8: torch.Tensor, remat: bool = False):
-        return vvit.vit_classify(self.model, images_u8,
-                                 input_norm=self.input_norm,
+    def logits(self, images: torch.Tensor, remat: bool = False,
+               input_norm: tuple | None = IMAGENET_NORM):
+        """f32 logits of raw 0..255 images (the normalization folded into
+        the patch matrix), or of normalized images with input_norm=None."""
+        return vvit.vit_classify(self.model, images, input_norm=input_norm,
                                  compute_dtype=self.compute_dtype,
                                  remat=remat, fused_dw=self.fused_dw)
 
-    def loss(self, images_u8: torch.Tensor, labels: torch.Tensor):
+    def loss(self, images: torch.Tensor, labels: torch.Tensor,
+             input_norm: tuple | None = IMAGENET_NORM):
         """Mean cross-entropy on f32 logits."""
-        logp = torch.log_softmax(self.logits(images_u8, self.cfg.remat), -1)
+        logp = torch.log_softmax(
+            self.logits(images, self.cfg.remat, input_norm), -1)
         return -logp.gather(1, labels[:, None].long())[:, 0].mean()
 
-    def batch_grads(self, params: list, images_u8, labels):
+    def batch_grads(self, params: list, images, labels,
+                    input_norm: tuple | None = IMAGENET_NORM):
         """(loss, grads) of the batch; with grad_accum = G > 1 the batch is
         split into G microbatches whose gradients are summed in order and
         divided by G (peak activation memory of one microbatch; CE is a mean
         over equal microbatches, so the numbers are the unsplit step's)."""
         G = self.cfg.grad_accum
         if G == 1:
-            loss = self.loss(images_u8, labels)
+            loss = self.loss(images, labels, input_norm)
             return loss.detach(), torch.autograd.grad(loss, params)
-        B = images_u8.shape[0]
+        B = images.shape[0]
         if B % G != 0:
             raise ValueError(f"grad_accum ({G}) must divide the global batch "
                              f"({B})")
-        total = torch.zeros((), dtype=torch.float32, device=images_u8.device)
+        total = torch.zeros((), dtype=torch.float32, device=images.device)
         acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
-        for img_g, lbl_g in zip(images_u8.chunk(G), labels.chunk(G)):
-            loss = self.loss(img_g, lbl_g)
+        for img_g, lbl_g in zip(images.chunk(G), labels.chunk(G)):
+            loss = self.loss(img_g, lbl_g, input_norm)
             grads = torch.autograd.grad(loss, params)
             total = total + loss.detach()
             acc = [a + g for a, g in zip(acc, grads)]
         return total / G, [a / G for a in acc]
 
-    def step(self, momentum: dict, images_u8, labels, lr: float):
+    def step(self, momentum: dict, images_u8, labels, lr: float,
+             perturb: tuple | None = None):
         """One SGD step in place: buf = m * buf + (g + wd * p);
-        p = p - lr * buf. Returns the batch loss (a device scalar)."""
+        p = p - lr * buf. Returns the batch loss (a device scalar).
+
+        `perturb` = (perturbation_type, key, epsilon) of an image
+        perturbation: the whole batch is normalized explicitly and the
+        injector replaces it in normalized space (the reference's
+        GaussianNoiseTransform / UniformGrayTransform,
+        measure...effect.py:36-60) before any grad_accum split."""
         names = [n for n, _ in self.model.named_parameters()]
         params = [p for _, p in self.model.named_parameters()]
         bufs = [momentum[n] for n in names]
-        loss, grads = self.batch_grads(params, images_u8, labels)
+        if perturb is None:
+            loss, grads = self.batch_grads(params, images_u8, labels)
+        else:
+            ptype, key, epsilon = perturb
+            images, labels = injectors.apply_vit_perturbation(
+                ptype, key, normalize_imagenet(images_u8), labels,
+                epsilon=epsilon)
+            loss, grads = self.batch_grads(params, images, labels,
+                                           input_norm=None)
         with torch.no_grad():
             upd = torch._foreach_mul(params, self.cfg.weight_decay)
             torch._foreach_add_(upd, grads)                 # g + wd * p
@@ -155,6 +187,14 @@ class ViTTrainer:
         correct = (logits.argmax(-1) == labels.long()).sum()
         return ce.sum(), correct.float(), float(len(labels))
 
+    @torch.no_grad()
+    def _feature_step(self, images_u8: torch.Tensor) -> torch.Tensor:
+        """CLS embeddings (forward_features, pool='token') of raw 0..255
+        images, in the compute dtype."""
+        return vvit.forward_features(self.model, images_u8, pool="token",
+                                     input_norm=IMAGENET_NORM,
+                                     compute_dtype=self.compute_dtype)
+
     # -- epochs ---------------------------------------------------------------
 
     def place(self, images_u8: np.ndarray, labels: np.ndarray):
@@ -169,6 +209,7 @@ class ViTTrainer:
 
     def train_one_epoch(self, momentum: dict, loader, epoch: int, lr: float,
                         *, perturbation_type: str | None = None,
+                        epsilon: float = 0.1, perturb_seed: int = 42,
                         log_every: int = 100, logger=None, guard=None,
                         start_batch: int = 0,
                         loss_carry: tuple | None = None) -> float:
@@ -178,13 +219,10 @@ class ViTTrainer:
         `guard.mid_state` set to the batch to resume at and the running
         loss. A later call with `start_batch` / `loss_carry` from that state
         skips the trained prefix of the deterministic loader and continues
-        the epoch bit-exactly."""
-        if perturbation_type is not None:
-            raise NotImplementedError(
-                f"perturbation_type={perturbation_type!r}: the ViT "
-                f"perturbation injectors are not ported to vit_project_torch "
-                f"yet")
+        the epoch bit-exactly (an image perturbation's key depends only on
+        (perturb_seed, epoch, batch index))."""
         log = logger.info if logger else print
+        image_perturb = perturbation_type in IMAGE_PERTURBATIONS
         carry_l, carry_n = loss_carry if loss_carry else (0.0, 0)
         # the loss sums on the device; the host reads it every log_every
         # steps and at the end of the epoch
@@ -204,7 +242,11 @@ class ViTTrainer:
         preempted = False
         for off, (images_u8, labels) in enumerate(batches):
             batch_idx = start_batch + off
-            loss = self.step(momentum, images_u8, labels, lr)
+            perturb = None
+            if image_perturb:
+                perturb = (perturbation_type, injectors.batch_perturb_key(
+                    perturb_seed, epoch, batch_idx), epsilon)
+            loss = self.step(momentum, images_u8, labels, lr, perturb)
             total_loss = total_loss + loss
             num_batches += 1
             if batch_idx % log_every == 0:
@@ -246,6 +288,22 @@ class ViTTrainer:
         log(f"Validation - Loss: {val_loss:.4f}, Accuracy: {val_acc:.2f}%")
         return val_loss, val_acc
 
+    def compute_rsa_score(self, things_images_u8: np.ndarray,
+                          reference_rdm: np.ndarray,
+                          batch_size: int = 8) -> tuple[float, float]:
+        """(rho, p): forward_features CLS embeddings of the THINGS images
+        in dataset order, chunks of `batch_size`, -> RDM -> Spearman
+        against `reference_rdm` (reference compute_rsa_score,
+        measure...effect.py:298-355, without its rank-order concatenation
+        across processes)."""
+        embs = []
+        for s in range(0, len(things_images_u8), batch_size):
+            chunk = np.ascontiguousarray(things_images_u8[s:s + batch_size])
+            embs.append(self._feature_step(
+                torch.from_numpy(chunk).to(self.device)))
+        rho, p, _ = vrsa.behavioral_rsa(torch.cat(embs), reference_rdm)
+        return float(rho), float(p)
+
 
 def _jax_trees(model, momentum: dict):
     """The parameters and the momentum as JAX-layout numpy trees."""
@@ -254,13 +312,17 @@ def _jax_trees(model, momentum: dict):
 
 
 @torch.no_grad()
-def _load_trees(model, momentum: dict, params_tree, opt_tree) -> None:
-    """Copy JAX-layout trees into the model's parameters and the momentum."""
+def load_trees(model, params_tree, momentum: dict | None = None,
+               opt_tree=None) -> None:
+    """Copy JAX-layout checkpoint trees into the model's parameters and, when
+    given, the SGD momentum."""
     patch = model.cfg.patch
     model.load_state_dict(vconvert.vit_state_dict_from_jax(params_tree, patch),
                           strict=True)
-    for name, t in vconvert.vit_state_dict_from_jax(opt_tree, patch).items():
-        momentum[name].copy_(t)
+    if momentum is not None:
+        for name, t in vconvert.vit_state_dict_from_jax(opt_tree,
+                                                        patch).items():
+            momentum[name].copy_(t)
 
 
 def run_vit_training(cfg: ViTTrainConfig, logger=None,
@@ -314,10 +376,11 @@ def run_vit_training(cfg: ViTTrainConfig, logger=None,
     train_loader = make_loader(
         f"{cfg.data_path}/train", cfg.batch_size, train=True,
         seed=cfg.random_seed, size=cfg.image_size, workers=cfg.num_workers,
-        drop_last=True, echo=cfg.data_echo)
+        drop_last=True, use_native=cfg.use_native_loader, echo=cfg.data_echo)
     val_loader = make_loader(
         f"{cfg.data_path}/val", cfg.batch_size, train=False,
-        size=cfg.image_size, workers=cfg.num_workers)
+        size=cfg.image_size, workers=cfg.num_workers,
+        use_native=cfg.use_native_loader)
     log(f"Data loaded. Train batches: {len(train_loader)}, "
         f"Val batches: {len(val_loader)}")
 
@@ -325,7 +388,7 @@ def run_vit_training(cfg: ViTTrainConfig, logger=None,
     latest = vit_ckpt.latest_checkpoint(cfg.output_dir)
     if latest:
         ckpt = vit_ckpt.load_checkpoint(latest)
-        _load_trees(model, momentum, ckpt["params"], ckpt["opt_state"])
+        load_trees(model, ckpt["params"], momentum, ckpt["opt_state"])
         scheduler.load_state_dict(ckpt["scheduler_state"])
         start_epoch = ckpt["epoch"] + 1
         log(f"Resumed from epoch {ckpt['epoch']}")
@@ -338,7 +401,7 @@ def run_vit_training(cfg: ViTTrainConfig, logger=None,
     if os.path.exists(preempt_path):
         pc = ser.load(preempt_path)
         if pc["epoch"] == start_epoch:
-            _load_trees(model, momentum, pc["params"], pc["opt_state"])
+            load_trees(model, pc["params"], momentum, pc["opt_state"])
             scheduler.load_state_dict(pc["scheduler_state"])
             mid_resume = {k: pc[k] for k in (
                 "epoch", "batch_idx", "total_loss", "num_batches")}
