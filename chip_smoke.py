@@ -68,6 +68,20 @@
    kernel path against the plain attention; it times each cell's
    checkpoint load, perturbed epoch, validation and RSA, a step, and the
    native decoder against PIL on this host;
+6c. phase `serve_vit`: serves ViT-B/16 at full width and depth from a
+   seeded random checkpoint in the JAX layout through the serving CLI's
+   builders (bf16, buckets 8 and 256, host requests): 12 flash3_fwd
+   launches a chunk, the logits against the same engine on the plain
+   attention, images/s and the forward ms at bucket 256; `--mode features`
+   (its CLS token equals the classifier's bit for bit); `--quantize int8`
+   for ViT-B/16 and for the CLIP ViT-L/14 engine with baked adapters
+   against bf16 (stated tolerances, 12 and 36 launches a chunk, images/s
+   in turns, torch.profiler's device time by group); the registered
+   flash3_fwd op against a direct kernel call in turns; an AOT artifact
+   written by `cli.serve --export_dir` and served in a fresh process, whose
+   outputs must equal the live engine's bit for bit with 12 launches a
+   chunk there; and one ViT-B/16 training epoch (fused_dw) with
+   `profile_dir`, whose trace must name the flash3 and dw_db kernels;
 7. phase `sweep`: writes THINGS at its real size to disk (1,806 training
    and 48 inference JPEGs at 224^2, whose targets are the initial model's
    own predictions) and seeded random ViT-L/14 weights, and drives the
@@ -192,7 +206,7 @@ LN_TOLERANCE = {"float32": {"dx": 1e-5, "dparams": 1e-4},
 SEED = 0
 RESULTS: dict = {}
 ALL_PHASES = ("kernel", "ops", "serve", "train", "vit_train", "vit_grid",
-              "sweep", "forks")
+              "serve_vit", "sweep", "forks")
 
 
 def fail(msg: str) -> None:
@@ -1206,15 +1220,10 @@ def phase_serve(tmp: str):
     ips = {}
     for b, reps in ((8, 20), (256, 5)):
         x = pre(rs.randint(0, 256, (b, size, size, 3)).astype(np.uint8))
-        eng(x)
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            eng(x)
-            times.append(time.perf_counter() - t0)
-        ips[b] = b / statistics.median(times)
-        print(f"[serve] bucket {b}: median {statistics.median(times) * 1e3:.2f}"
-              f" ms per call, {ips[b]:.1f} images/s", flush=True)
+        call_s = _call_s(eng, x, reps)
+        ips[b] = b / call_s
+        print(f"[serve] bucket {b}: median {call_s * 1e3:.2f} ms per call, "
+              f"{ips[b]:.1f} images/s", flush=True)
     batches = [pre(rs.randint(0, 256, (256, size, size, 3)).astype(np.uint8))
                for _ in range(4)]
     t0 = time.perf_counter()
@@ -1228,24 +1237,13 @@ def phase_serve(tmp: str):
     # a synchronize: the forward from inputs already on the card, the text
     # tower alone, and the rest of a call (host preparation, pinned copy in,
     # scores out)
-    def wall_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
-
     breakdown = {}
     with torch.inference_mode():
         for b, reps in ((8, 20), (256, 5)):
             x = eng._place(pre(rs.randint(0, 256, (b, size, size, 3))
                                .astype(np.uint8)))
-            breakdown[b] = wall_ms(lambda: eng._fn(eng.model, x), reps)
-        text_ms = wall_ms(lambda: vclip.encode_text(
+            breakdown[b] = _wall_ms(lambda: eng._fn(eng.model, x), reps)
+        text_ms = _wall_ms(lambda: vclip.encode_text(
             eng.model, eng.prompt_tokens, compute_dtype=torch.bfloat16), 20)
     for b in (8, 256):
         call_ms = b / ips[b] * 1e3
@@ -1262,6 +1260,447 @@ def phase_serve(tmp: str):
         "forward_ms": {str(k): v for k, v in breakdown.items()},
         "text_tower_ms": text_ms,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return launches
+
+
+# the serve_vit phase: ViT-B/16 served through the CLI's builders at buckets
+# 8 and 256 (12 flash3_fwd launches a chunk), its features mode, int8 engines
+# against bf16 ones (ViT-B/16 and CLIP ViT-L/14), an AOT artifact served
+# from a fresh process, and the profiler trace of one training epoch
+SERVE_VIT_BUCKETS = "8,256"
+SERVE_VIT_REQUESTS = (3, 8, 200, 256)      # one chunk each: buckets 8, 8,
+SERVE_VIT_CHUNKS = 4                       # 256, 256
+# the ViT-B/16 logits with the kernel against the plain attention, bf16 on
+# the card: max |difference| over the largest |plain logit|, the grid's rule
+# for its CLS embeddings (GRID_EMB_KERNEL_RTOL): the two attentions round o
+# to bf16 from f32 sums in another order, a few bf16 spacings through 12
+# blocks
+SERVE_VIT_KERNEL_RTOL = 2e-2
+# int8 against bf16 serving: |int8 - bf16| / |bf16| over a batch's outputs
+# (Frobenius norms), the JAX package's bounds for its int8 engines against
+# their float ones (tests/test_quant.py: 0.05 for the ViT engine, 0.08 for
+# CLIP-HBA after the bake)
+INT8_VIT_RTOL = 0.05
+INT8_CLIP_RTOL = 0.08
+
+# run in a fresh process: load an artifact through the CLI's builder, serve
+# the requests in argv[3] (.npz), write the outputs to argv[4], print counts
+_FROM_EXPORT = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import numpy as np
+import torch
+sys.path.insert(0, sys.argv[1])
+from vit_project_torch.cli import serve as cli
+from vit_project_torch.ops import attention as vattn
+torch.cuda.init()
+import_s = time.perf_counter() - t0
+args = cli.parse_args(["--from_export", sys.argv[2], "--http_port", "0"])
+eng, size, norm = cli.build_engine(args)
+load_s = time.perf_counter() - t0
+reqs = np.load(sys.argv[3])
+vattn.reset_launch_counts()
+t1 = time.perf_counter()
+outs = {k: eng(reqs[k]) for k in reqs.files}
+first_s = time.perf_counter() - t1
+launches = vattn.LAUNCHES["flash3_fwd"]
+x = reqs[reqs.files[-1]]
+times = []
+for _ in range(5):
+    t2 = time.perf_counter()
+    eng(x)
+    times.append(time.perf_counter() - t2)
+np.savez(sys.argv[4], **outs)
+print(json.dumps({"import_s": import_s, "load_s": load_s,
+                  "first_requests_s": first_s,
+                  "launches": launches, "buckets": list(eng.buckets),
+                  "mode": args.mode, "warm_call_s": sorted(times)[2],
+                  "warm_call_rows": len(x),
+                  "device": torch.cuda.get_device_name(0)}))
+"""
+
+
+def _wall_ms(fn, reps: int) -> float:
+    """Median host-clock ms of `fn` over `reps` calls, each ending in a
+    synchronize (one warm call first)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _call_s(eng, x, reps: int = 5) -> float:
+    """Median seconds of one synchronous engine call on host array x."""
+    eng(x)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        eng(x)
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def _in_turns(a, b, reps: int = 5):
+    """(a's, b's) median call time, measured a, b, b, a; each the mean of
+    its two medians."""
+    ta1, tb1, tb2, ta2 = a(reps), b(reps), b(reps), a(reps)
+    return (ta1 + ta2) / 2, (tb1 + tb2) / 2
+
+
+def _fwd_ms(eng, xd, reps: int, op: bool) -> float:
+    """_wall_ms of the engine's forward on xd (on the card), its attention
+    as served (a direct launch in eager mode) or, with op, forced through
+    the registered op, as a program loaded from an artifact runs it."""
+    import torch
+    from vit_project_torch.ops import attention as vattn
+    served = vattn.flash3_fwd
+    if op:
+        vattn.flash3_fwd = (lambda qkv, num_heads, causal=False:
+                            torch.ops.vit_project_torch.flash3_fwd(
+                                qkv, num_heads, causal))
+    try:
+        return _wall_ms(lambda: eng._fn(eng.model, xd), reps)
+    finally:
+        vattn.flash3_fwd = served
+
+
+def _rel_norm(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _clip_checkpoints(tmp: str):
+    """The serve phase's seeded ViT-L/14 weights and adapters (written
+    here when that phase did not run)."""
+    wpath = os.path.join(tmp, "ViT-L-14-random.pt")
+    dpath = os.path.join(tmp, "epoch1_dora_params.pth")
+    if not (os.path.exists(wpath) and os.path.exists(dpath)):
+        wpath, dpath, _ = _write_random_checkpoints(tmp)
+    return wpath, dpath
+
+
+def phase_serve_vit(tmp: str):
+    import logging
+    import torch
+    from vit_project_torch.ckpt import vit_ckpt
+    from vit_project_torch.cli import serve as cli
+    from vit_project_torch.core.configs import ViTTrainConfig
+    from vit_project_torch.models import convert as vconvert
+    from vit_project_torch.models import vit as vvit
+    from vit_project_torch.ops import attention as vattn
+    from vit_project_torch.ops import fused_dw as vfdw
+    from vit_project_torch.ops import quant as vquant
+    from vit_project_torch.train import vit_loop
+
+    res: dict = {}
+    t0 = time.time()
+    cfg = vvit.VIT_CONFIGS["vit_base_patch16_224"]
+    model = vvit.init_vit_params(vvit.empty_vit(cfg, "cuda"),
+                                 torch.Generator(device="cuda")
+                                 .manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    tree = vconvert.vit_jax_from_state_dict(model.state_dict())
+    ckdir = os.path.join(tmp, "vit_serve_ckpt")
+    ckpt = vit_ckpt.save_checkpoint(0, tree, {"momentum": None}, {}, 0.0,
+                                    0.0, 0.0, ckdir)
+    del model, tree
+
+    def vit_args(*extra):
+        return cli.parse_args(["--model", "vit_base_patch16_224",
+                               "--checkpoint", ckpt, "--buckets",
+                               SERVE_VIT_BUCKETS, "--http_port", "0", *extra])
+    eng, size, norm = cli.build_engine(vit_args())
+    print(f"[serve_vit] ViT-B/16 engine ({n_params / 1e6:.1f}M parameters, "
+          f"JAX-layout checkpoint, bf16 weights, buckets {eng.buckets}) "
+          f"built in {time.time() - t0:.1f} s", flush=True)
+    if n_params != 86567656:
+        fail(f"ViT-B/16 has {n_params} parameters, expected 86,567,656")
+    pre = cli._http_preprocess(norm)
+    rs = np.random.RandomState(SEED)
+    # uint8 pixels, as a client posts them (a float request is read as
+    # [0, 1], the JAX wire contract)
+    reqs = [rs.randint(0, 256, (n, size, size, 3)).astype(np.uint8)
+            for n in SERVE_VIT_REQUESTS]
+    eng.warmup((size, size, 3))
+
+    # --- the main path: counts from 0, requests through the engine ---
+    vattn.reset_launch_counts()
+    outs = [eng(pre(a)) for a in reqs]
+    launches = vattn.LAUNCHES["flash3_fwd"]
+    if launches != 12 * SERVE_VIT_CHUNKS:
+        fail(f"flash3_fwd launched {launches} times over {SERVE_VIT_CHUNKS} "
+             f"chunks, expected 12 per chunk")
+    for a, o in zip(reqs, outs):
+        if o.shape != (len(a), 1000) or not np.all(np.isfinite(o)):
+            fail(f"bad logits: shape {o.shape}, finite "
+                 f"{np.all(np.isfinite(o))}")
+    print(f"[serve_vit] requests of {SERVE_VIT_REQUESTS} images: logits "
+          f"[n, 1000], finite; flash3_fwd launches {launches} = 12 x "
+          f"{SERVE_VIT_CHUNKS} chunks", flush=True)
+
+    # the same engine with the attention swapped for its plain version: the
+    # logits, and every token of the last block (the patch rows apart from
+    # the CLS row the logits read)
+    x8 = pre(reqs[1])
+
+    def tokens():
+        with torch.inference_mode():
+            return vvit.vit_encode(eng.model, eng._place(x8),
+                                   input_norm=vit_loop.IMAGENET_NORM,
+                                   compute_dtype=torch.bfloat16).float()
+    tok = tokens()
+    swapped = vattn.flash_mha_packed_qkv
+    vattn.flash_mha_packed_qkv = (
+        lambda qkv, *, num_heads, causal=False:
+        vattn.flash_mha_packed_qkv_reference(qkv, num_heads, causal)[0])
+    try:
+        plain = eng(x8)
+        tok_plain = tokens()
+    finally:
+        vattn.flash_mha_packed_qkv = swapped
+    kernel_err = float(np.abs(outs[1] - plain).max() / np.abs(plain).max())
+    patch_err = float((tok - tok_plain)[:, 1:].abs().max()
+                      / tok_plain[:, 1:].abs().max())
+    print(f"[serve_vit] kernel vs plain attention (8 images, bf16): logits "
+          f"max |diff| / max |logit| {kernel_err:.3e}; the last block's "
+          f"patch tokens max |diff| / max |token| {patch_err:.3e} (max |token| "
+          f"{float(tok_plain[:, 1:].abs().max()):.3f}); tol "
+          f"{SERVE_VIT_KERNEL_RTOL} each", flush=True)
+    if not kernel_err <= SERVE_VIT_KERNEL_RTOL:
+        fail(f"kernel and plain attention disagree on the logits: "
+             f"{kernel_err}")
+    if not patch_err <= SERVE_VIT_KERNEL_RTOL:
+        fail(f"kernel and plain attention disagree on the patch tokens: "
+             f"{patch_err}")
+    del tok, tok_plain
+
+    # features mode: [n, 768], token pooling is the classifier's CLS token
+    feng, _, _ = cli.build_engine(vit_args("--mode", "features"))
+    feats = feng(x8)
+    with torch.inference_mode():
+        cls_tok = vvit.vit_encode(eng.model, eng._place(x8),
+                                  input_norm=vit_loop.IMAGENET_NORM,
+                                  compute_dtype=torch.bfloat16)[:, 0]
+    if feats.shape != (8, cfg.width) or not np.array_equal(
+            feats, cls_tok.float().cpu().numpy()):
+        fail(f"features mode: shape {feats.shape}, or the token pooling "
+             f"differs from the classifier's CLS token")
+    print(f"[serve_vit] --mode features: [8, {cfg.width}], equal to the "
+          f"classifier's CLS token bit for bit", flush=True)
+    del feng, feats, cls_tok
+
+    # int8 ViT-B/16: same checkpoint, the scales f32, 12 launches a chunk
+    qeng, _, _ = cli.build_engine(vit_args("--quantize", "int8"))
+    wq = qeng.model.blocks[0].attn.qkv.weight
+    if not vquant.is_quantized(wq) or wq.s.dtype != torch.float32:
+        fail("the int8 engine's qkv weight is not an int8 holder with f32 "
+             "scales")
+    qeng.warmup((size, size, 3))
+    vattn.reset_launch_counts()
+    qouts = [qeng(pre(a)) for a in reqs]
+    q_launches = vattn.LAUNCHES["flash3_fwd"]
+    if q_launches != 12 * SERVE_VIT_CHUNKS:
+        fail(f"int8: flash3_fwd launched {q_launches} times over "
+             f"{SERVE_VIT_CHUNKS} chunks, expected 12 per chunk")
+    x256 = pre(reqs[3])
+    q_err = _rel_norm(qouts[3], outs[3])
+    top1 = float(np.mean(qouts[3].argmax(1) == outs[3].argmax(1)))
+    print(f"[serve_vit] int8 ViT-B/16: flash3_fwd launches {q_launches} = "
+          f"12 x {SERVE_VIT_CHUNKS} chunks; |int8 - bf16| / |bf16| over 256 "
+          f"images' logits {q_err:.4f} (tol {INT8_VIT_RTOL}); top-1 agreement "
+          f"{top1:.3f}", flush=True)
+    if not q_err <= INT8_VIT_RTOL:
+        fail(f"int8 ViT-B/16 logits differ from bf16 by {q_err}")
+    bf_s, q_s = _in_turns(lambda r: _call_s(eng, x256, r),
+                          lambda r: _call_s(qeng, x256, r))
+    with torch.inference_mode():
+        xd = eng._place(x256)
+        fwd = {"bf16": _wall_ms(lambda: eng._fn(eng.model, xd), 5),
+               "int8": _wall_ms(lambda: qeng._fn(qeng.model, xd), 5)}
+        prof = {"bf16": _profile(lambda: eng._fn(eng.model, xd)),
+                "int8": _profile(lambda: qeng._fn(qeng.model, xd))}
+    print(f"[serve_vit] bucket 256, in turns: bf16 {256 / bf_s:.1f} "
+          f"images/s ({bf_s * 1e3:.2f} ms a call), int8 {256 / q_s:.1f} "
+          f"images/s ({q_s * 1e3:.2f} ms); forward from inputs on the card "
+          f"bf16 {fwd['bf16']:.2f} ms, int8 {fwd['int8']:.2f} ms", flush=True)
+    for k, p in prof.items():
+        if p:
+            print(f"[serve_vit] {k} forward at 256, device ms by group: "
+                  + ", ".join(f"{g} {v:.2f}" for g, v in
+                              p["ms_per_call"].items())
+                  + f"; idle share {p['idle_share']:.3f}; top other "
+                  f"{p['top_other_ms']}", flush=True)
+    # the registered op against the served direct launch where the host
+    # leads: the bucket-8 forward (12 dispatches in a few ms), in turns
+    with torch.inference_mode():
+        xd8 = eng._place(x8)
+        op8, direct8 = _in_turns(lambda r: _fwd_ms(eng, xd8, r, True),
+                                 lambda r: _fwd_ms(eng, xd8, r, False), 30)
+    print(f"[serve_vit] bucket 8 forward from inputs on the card, in turns: "
+          f"through the registered op {op8:.3f} ms, as served (the kernel "
+          f"launched directly) {direct8:.3f} ms ({(op8 - direct8) / 12 * 1e3:.1f}"
+          f" us a dispatch)", flush=True)
+    res.update(launches=launches, chunks=SERVE_VIT_CHUNKS,
+               kernel_vs_plain_rel=kernel_err,
+               kernel_vs_plain_patch_rel=patch_err,
+               forward_ms_8={"registered_op": op8, "direct_launch": direct8},
+               int8_launches=q_launches,
+               int8_vs_bf16_rel=q_err, int8_top1_agreement=top1,
+               images_per_s_256={"bf16": 256 / bf_s, "int8": 256 / q_s},
+               forward_ms_256=fwd, profile_256=prof)
+    del qeng, qouts, xd, xd8
+    torch.cuda.empty_cache()
+
+    # an artifact: --export_dir through the CLI, --from_export in a fresh
+    # process, its outputs against the live engine's on the same requests
+    art = os.path.join(tmp, "vit_artifact")
+    t0 = time.time()
+    if cli.main(["--model", "vit_base_patch16_224", "--checkpoint", ckpt,
+                 "--buckets", SERVE_VIT_BUCKETS, "--export_dir", art]) != 0:
+        fail("--export_dir returned non-zero")
+    export_s = time.time() - t0
+    sizes = {f: os.path.getsize(os.path.join(art, f))
+             for f in sorted(os.listdir(art))}
+    req_path = os.path.join(tmp, "vit_requests.npz")
+    out_path = os.path.join(tmp, "vit_artifact_outputs.npz")
+    np.savez(req_path, **{f"r{i}": pre(a) for i, a in enumerate(reqs)})
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-c", _FROM_EXPORT, ROOT, art, req_path, out_path],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    sub_s = time.time() - t0
+    if proc.returncode != 0:
+        fail(f"--from_export process failed:\n{proc.stderr[-3000:]}")
+    sub = json.loads(proc.stdout.strip().splitlines()[-1])
+    got = np.load(out_path)
+    same = all(np.array_equal(got[f"r{i}"], o) for i, o in enumerate(outs))
+    worst = max(float(np.abs(got[f"r{i}"] - o).max())
+                for i, o in enumerate(outs))
+    print(f"[serve_vit] artifact: exported buckets {sub['buckets']} in "
+          f"{export_s:.1f} s; files {sizes} ({sum(sizes.values()) / 2**20:.1f}"
+          f" MiB, parameters {n_params * 2 / 2**20:.1f} MiB in bf16); fresh "
+          f"process {sub_s:.1f} s (ready {sub['load_s']:.2f} s from start, "
+          f"of which imports and CUDA init {sub['import_s']:.2f} s; "
+          f"first requests {sub['first_requests_s']:.2f} s, warm 256-image "
+          f"call {sub['warm_call_s'] * 1e3:.2f} ms); flash3_fwd launches "
+          f"{sub['launches']} = 12 x {SERVE_VIT_CHUNKS} chunks; outputs "
+          f"equal to the live engine's: {same} (max |diff| {worst:.3e})",
+          flush=True)
+    if sub["launches"] != 12 * SERVE_VIT_CHUNKS:
+        fail(f"the artifact launched flash3_fwd {sub['launches']} times, "
+             f"expected 12 per chunk")
+    if not same:
+        fail(f"the artifact's outputs differ from the live engine's "
+             f"(max |diff| {worst})")
+    if sizes["params.pth"] < n_params * 2 or any(
+            v > sizes["params.pth"] / 20 for k, v in sizes.items()
+            if k.startswith("bucket_")):
+        fail(f"the weights are not stored once: {sizes}")
+    res["artifact"] = {"export_s": export_s, "files": sizes,
+                       "process_s": sub_s, **sub}
+    del eng, outs
+    torch.cuda.empty_cache()
+
+    # CLIP ViT-L/14 with baked adapters: int8 against bf16, 36 launches a
+    # chunk, images/s in turns, and the registered op's dispatch cost
+    wpath, dpath = _clip_checkpoints(tmp)
+
+    def clip_engine(*extra):
+        return cli.build_clip_engine(cli.parse_args(
+            ["--clip_weights", wpath, "--dora_checkpoint", dpath, "--rank",
+             "32", "--allow_hash_tokenizer", "--buckets", SERVE_VIT_BUCKETS,
+             "--http_port", "0", *extra]))
+    t0 = time.time()
+    ceng, csize, cnorm = clip_engine()
+    cqeng, _, _ = clip_engine("--quantize", "int8")
+    print(f"[serve_vit] CLIP ViT-L/14 engines (bf16 and int8, rank-32 DoRA "
+          f"baked) built in {time.time() - t0:.1f} s", flush=True)
+    cpre = cli._http_preprocess(cnorm)
+    creqs = [cpre(rs.randint(0, 256, (n, csize, csize, 3)).astype(np.uint8))
+             for n in (8, 256)]
+    cqeng.warmup((csize, csize, 3))
+    ceng.warmup((csize, csize, 3))
+    vattn.reset_launch_counts()
+    cq = [cqeng(x) for x in creqs]
+    c_launches = vattn.LAUNCHES["flash3_fwd"]
+    cb = [ceng(x) for x in creqs]
+    if c_launches != 36 * 2:
+        fail(f"int8 CLIP: flash3_fwd launched {c_launches} times over 2 "
+             f"chunks, expected 36 per chunk")
+    c_err = _rel_norm(cq[1], cb[1])
+    print(f"[serve_vit] int8 CLIP-HBA: flash3_fwd launches {c_launches} = 36 "
+          f"x 2 chunks; |int8 - bf16| / |bf16| over 256 images' scores "
+          f"{c_err:.4f} (tol {INT8_CLIP_RTOL}); max |score| "
+          f"{float(np.abs(cb[1]).max()):.3f}", flush=True)
+    if not c_err <= INT8_CLIP_RTOL or not np.all(np.isfinite(cq[1])):
+        fail(f"int8 CLIP-HBA scores differ from bf16 by {c_err}")
+    cbf_s, cq_s = _in_turns(lambda r: _call_s(ceng, creqs[1], r),
+                            lambda r: _call_s(cqeng, creqs[1], r))
+    with torch.inference_mode():
+        xd = ceng._place(creqs[1])
+        op_ms, direct_ms = _in_turns(lambda r: _fwd_ms(ceng, xd, r, True),
+                                     lambda r: _fwd_ms(ceng, xd, r, False))
+    print(f"[serve_vit] CLIP bucket 256, in turns: bf16 {256 / cbf_s:.1f} "
+          f"images/s, int8 {256 / cq_s:.1f} images/s; forward from inputs "
+          f"on the card through the registered op {op_ms:.2f} ms, as served "
+          f"(the kernel launched directly) {direct_ms:.2f} ms", flush=True)
+    res["clip"] = {"int8_launches": c_launches, "int8_vs_bf16_rel": c_err,
+                   "images_per_s_256": {"bf16": 256 / cbf_s,
+                                        "int8": 256 / cq_s},
+                   "forward_ms_256": {"registered_op": op_ms,
+                                      "direct_launch": direct_ms}}
+    del ceng, cqeng, xd
+    torch.cuda.empty_cache()
+
+    # the profiler trace: one ViT-B/16 training epoch (4 steps at batch
+    # 256, fused_dw) with profile_dir, as cli.vit_train --profile_dir runs
+    data = os.path.join(tmp, "imagenet")
+    if not os.path.isdir(data):
+        _write_image_folder(data, np.random.RandomState(SEED))
+    trace_dir = os.path.join(tmp, "vit_trace")
+    logger = logging.getLogger("chip_smoke.serve_vit")
+    logger.setLevel(logging.WARNING)
+    stats = []
+    vattn.reset_launch_counts()
+    vfdw.reset_launch_counts()
+    vit_loop.run_vit_training(
+        ViTTrainConfig(data_path=data, output_dir=os.path.join(tmp, "vit_tr"),
+                       batch_size=256, epochs=1, num_workers=8,
+                       compute_dtype="bfloat16", fused_dw=True,
+                       random_seed=SEED, profile_dir=trace_dir),
+        logger=logger, vit_cfg=cfg, device="cuda", on_epoch=stats.append)
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        fail(f"expected one trace file in {trace_dir}, got {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    named = {k: sum(n for name, n in kernels.items() if k in name)
+             for k in ("attn_fwd", "attn_bwd", "dw_db")}
+    steps = stats[0]["steps"]
+    print(f"[serve_vit] trace of one epoch ({steps} steps, train "
+          f"{stats[0]['train_s']:.2f} s): {files[0]} "
+          f"{os.path.getsize(os.path.join(trace_dir, files[0])) / 2**20:.1f} "
+          f"MiB, {len(events)} events, {sum(kernels.values())} kernel events; "
+          f"flash3 forward {named['attn_fwd']}, backward {named['attn_bwd']}, "
+          f"dw_db {named['dw_db']} (launches counted: flash3_fwd "
+          f"{vattn.LAUNCHES['flash3_fwd']}, flash3_bwd "
+          f"{vattn.LAUNCHES['flash3_bwd']}, dw_db {vfdw.LAUNCHES['dw_db']})",
+          flush=True)
+    if not all(named.values()):
+        fail(f"the trace does not name the flash3 and dw_db kernels: {named}")
+    res["trace"] = {"file_mib": os.path.getsize(
+        os.path.join(trace_dir, files[0])) / 2**20, "events": len(events),
+        "kernel_events": named, "epoch": stats[0]}
+    RESULTS["serve_vit"] = res
     return launches
 
 
@@ -2807,7 +3246,7 @@ def main(argv=None) -> int:
     rows = phase_kernel(peaks) if "kernel" in phases else []
     ops_launches = phase_ops() if "ops" in phases else None
     serve_launches = train_launches = vit_launches = sweep_launches = None
-    forks_launches = grid_launches = None
+    forks_launches = grid_launches = serve_vit_launches = None
     tmp = os.path.join(ROOT, "vit_project_torch", "_build",
                        f"smoke-{os.getpid()}")
     os.makedirs(tmp, exist_ok=True)
@@ -2820,6 +3259,8 @@ def main(argv=None) -> int:
             vit_launches = phase_vit_train(tmp)
         if "vit_grid" in phases:
             grid_launches = phase_vit_grid(tmp)
+        if "serve_vit" in phases:
+            serve_vit_launches = phase_serve_vit(tmp)
         if "sweep" in phases or "forks" in phases:
             sweep_launches, ctx = phase_sweep(tmp)
             if "forks" in phases:
@@ -2860,7 +3301,7 @@ def main(argv=None) -> int:
     kernels = [
         entry("flash3_fwd", "vit_project_torch/csrc/flash3_fwd.cu",
               "vit_project_tpu/ops/attention.py:465", serve_launches,
-              {"serve": serve_launches,
+              {"serve": serve_launches, "serve_vit": serve_vit_launches,
                "train": train_launches and train_launches["flash3_fwd"],
                "vit_train": vit("flash3_fwd"),
                "vit_grid": grid("flash3_fwd"), "sweep": sweep("flash3_fwd"),

@@ -221,6 +221,32 @@ class TestDora:
                     np.testing.assert_array_equal(loaded[tower][i][k].numpy(),
                                                   np.asarray(v))
 
+    def test_load_dora_strict_refuses_what_a_resume_overlays(self, tmp_path):
+        """strict=True (a bake) takes a file that matches the spec as the
+        resume does, and refuses a spec block the file lacks or a file
+        adapter outside the spec, which the resume's overlay lets pass."""
+        cfg, params = _tiny_jax_clip()
+        spec, trainable, _, _ = _jax_adapters(params, cfg)
+        path = jckpt.save_dora_parameters(trainable, str(tmp_path), 0)
+
+        def init(s):
+            return tadora.apply_dora(_port_model(params), s, r=4,
+                                     generator=torch.Generator())[0]
+        lenient = tckpt.load_dora_parameters(path, init(spec), spec)
+        strict = tckpt.load_dora_parameters(path, init(spec), spec,
+                                            strict=True)
+        for tower in ("visual", "text"):
+            for i, d in lenient[tower].items():
+                for k, v in d.items():
+                    assert torch.equal(strict[tower][i][k], v)
+        wide = tadora.dora_spec(cfg.visual.layers, cfg.text.layers, 2, 1)
+        narrow = tadora.dora_spec(cfg.visual.layers, cfg.text.layers, 0, 1)
+        for s, match in ((wide, "missing adapters"),
+                         (narrow, "not covered by")):
+            tckpt.load_dora_parameters(path, init(s), s)       # the resume
+            with pytest.raises(ValueError, match=match):
+                tckpt.load_dora_parameters(path, init(s), s, strict=True)
+
 
 # -- weights bridge -----------------------------------------------------------
 
@@ -382,7 +408,10 @@ def test_port_source_imports_neither_jax_nor_the_jax_package():
     assert {"train/multi_fork.py", "core/hostcopy.py", "data/fastimage.py",
             "cli/pack.py", "cli/vit_rsa_eval.py", "cli/vit_measure.py",
             "analysis/figs.py", "analysis/parity.py",
-            "analysis/manifest.py"} <= names
+            "analysis/manifest.py", "ops/quant.py", "serve/export.py",
+            "cli/export_torch.py", "cli/serve.py", "serve/engine.py",
+            "core/profiling.py", "models/convert.py",
+            "data/things.py"} <= names
     for path in _port_modules() + [REPO / "chip_smoke.py"]:
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):

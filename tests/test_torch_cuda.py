@@ -668,3 +668,47 @@ def test_fork_axis_launches_the_solo_step_kernels(cuda_device):
         assert counts[0]["flash3_fwd"] == (3 if cached else 6)
         assert counts[0]["flash3_bwd"] == 1 and all(oks)
         np.testing.assert_allclose(losses, solo, rtol=2e-2, atol=1e-3)
+
+
+# -- int8 serving and the AOT artifacts on the card --------------------------------
+
+@pytest.mark.cuda
+def test_int8_dense_on_the_card_equals_the_cpu(cuda_device):
+    """The int8 product is an exact int32 sum (cuBLASLt here, the CPU's
+    there) and the rescale the same IEEE f32 operations: equal bits."""
+    from vit_project_torch.ops import quant as tquant
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(4, 50, 768).astype(np.float32))
+    w = torch.from_numpy(rs.randn(2304, 768).astype(np.float32))
+    b = torch.from_numpy(rs.randn(2304).astype(np.float32))
+    wq = tquant.quantize_weight(w)
+    want = tquant.int8_dense(x, wq, b)
+    got = tquant.int8_dense(x.to(cuda_device), wq.to(cuda_device),
+                            b.to(cuda_device))
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_artifact_on_the_card_equals_the_live_engine(cuda_device, tmp_path,
+                                                     quantize):
+    """A ViT exported on the card (dh 64: the kernel's template) serves the
+    live engine's bits, and every block's attention launches the kernel."""
+    from vit_project_torch.models import vit as tvit
+    from vit_project_torch.serve import export as sexport
+    from vit_project_torch.serve import vit_classifier_engine
+    cfg = tvit.ViTConfig(patch=8, width=128, layers=2, heads=2,
+                         image_size=32, num_classes=10)
+    model = tvit.init_vit_params(tvit.empty_vit(cfg, cuda_device),
+                                 torch.Generator(device=cuda_device)
+                                 .manual_seed(0))
+    live = vit_classifier_engine(model, buckets=(4, 32), quantize=quantize,
+                                 param_dtype=torch.bfloat16,
+                                 device=cuda_device)
+    sexport.export_serving(live, (32, 32, 3), str(tmp_path / "art"))
+    aot = sexport.load_serving(str(tmp_path / "art"), device=cuda_device)
+    imgs = np.random.RandomState(1).rand(37, 32, 32, 3).astype(np.float32)
+    tattn.reset_launch_counts()
+    got = aot(imgs)                       # chunks of 32 and 5 -> 4
+    assert tattn.LAUNCHES["flash3_fwd"] == 2 * cfg.layers
+    np.testing.assert_array_equal(got, live(imgs))

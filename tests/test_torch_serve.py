@@ -1,8 +1,13 @@
 """The port's serving stack on the CPU: the bucketed engine (mirroring
 tests/test_serve.py), the baked-DoRA CLIP-HBA engine against the JAX
-package's adapted forward, the HTTP daemon, the CLI's engine build from
-files, and the rule that entry points run on the GPU unless told otherwise."""
+package's adapted forward, the ViT classifier and feature engines against
+the JAX engines, the HTTP daemon, the CLI (CLIP-HBA and ViT, int8, and the
+AOT artifacts, as tests/test_serve_cli.py runs the JAX CLI), and the rule
+that entry points run on the GPU unless told otherwise."""
+import csv
 import io
+import json
+import os
 import urllib.request
 
 import jax
@@ -11,16 +16,21 @@ import numpy as np
 import pytest
 import torch
 
+from vit_project_tpu import serve as jserve
 from vit_project_tpu.adapters import dora as jadora
 from vit_project_tpu.ckpt import clip_ckpt as jckpt
+from vit_project_tpu.ckpt import vit_ckpt as jvit_ckpt
 from vit_project_tpu.models import clip as jclip
 from vit_project_tpu.models import convert as jconvert
+from vit_project_tpu.models import vit as jvit
 from vit_project_torch.cli import serve as tcli
 from vit_project_torch.core.device import resolve_device
 from vit_project_torch.models import clip as tclip
 from vit_project_torch.models import convert as tconvert
+from vit_project_torch.models import vit as tvit
 from vit_project_torch.serve import (InferenceEngine, ServingDaemon,
-                                     clip_hba_engine)
+                                     clip_hba_engine, vit_classifier_engine,
+                                     vit_features_engine)
 
 CFG = tclip.tiny_clip_config()
 N_PROMPTS = 5
@@ -258,6 +268,23 @@ def test_build_clip_engine_from_files(tmp_path):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("layers,match", [(2, "missing adapters"),
+                                          (0, "not covered by")])
+def test_build_clip_engine_refuses_an_adapter_mismatch(tmp_path, layers,
+                                                       match):
+    """Serving bakes the adapters as export does: a block of the spec with
+    no trained adapter, or a trained adapter outside the spec, is refused
+    (the same check as cli/export_torch's, in the shared loader)."""
+    wpath, dpath, _ = _write_files(tmp_path)
+    args = tcli.parse_args(["--clip_weights", wpath, "--dora_checkpoint", dpath,
+                            "--rank", "4", "--vision_layers", str(layers),
+                            "--transformer_layers", "1",
+                            "--allow_hash_tokenizer", "--device", "cpu",
+                            "--buckets", "4", "--http_port", "0"])
+    with pytest.raises(SystemExit, match=match):
+        tcli.build_clip_engine(args)
+
+
 def test_cli_batch_mode_writes_csv(tmp_path):
     from PIL import Image
     wpath, _, _ = _write_files(tmp_path)
@@ -277,18 +304,6 @@ def test_cli_batch_mode_writes_csv(tmp_path):
                                                        "im2.png"]
 
 
-@pytest.mark.parametrize("extra,msg", [
-    (["--quantize", "int8"], "--quantize"),
-    (["--model", "vit_base_patch16_224"], "ViT"),
-    (["--export_dir", "x"], "AOT export"),
-    (["--from_export", "x"], "AOT export"),
-])
-def test_cli_refuses_unported_modes(extra, msg, capsys):
-    with pytest.raises(SystemExit):
-        tcli.parse_args(["--clip_weights", "w.pt", "--http_port", "0", *extra])
-    assert msg in capsys.readouterr().err
-
-
 def test_cli_needs_clip_weights(capsys):
     with pytest.raises(SystemExit):
         tcli.parse_args(["--http_port", "0"])
@@ -302,3 +317,234 @@ def test_hash_tokenizer_needs_opt_in(tmp_path, monkeypatch):
     monkeypatch.delenv("CLIP_BPE_PATH", raising=False)
     with pytest.raises(SystemExit, match="BPE vocab"):
         tcli.build_clip_engine(args)
+
+
+# -- the ViT engines against the JAX engines -------------------------------------
+
+VIT_TINY = tvit.VIT_CONFIGS["test-tiny"]
+IMAGENET_NORM = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+
+
+@pytest.mark.parametrize("kind", ["logits", "token", "avg"])
+def test_vit_engines_equal_jax(kind):
+    """The same parameters, raw 0..255 images, f32: max |port - JAX| over
+    max |JAX| within 1e-5 (the two packages sum in another order; measured
+    1.2e-6 at most, on the avg pooling)."""
+    jtiny = jvit.VIT_CONFIGS["test-tiny"]
+    params = jvit.init_vit_params(jax.random.PRNGKey(0), jtiny)
+    model = tconvert.vit_from_jax(params, VIT_TINY, "cpu")
+    kw = dict(input_norm=IMAGENET_NORM, buckets=(4, 8))
+    if kind == "logits":
+        je = jserve.vit_classifier_engine(params, jtiny, use_pallas=True,
+                                          compute_dtype=jnp.float32, **kw)
+        te = vit_classifier_engine(model, compute_dtype=torch.float32,
+                                   device="cpu", **kw)
+    else:
+        je = jserve.vit_features_engine(params, jtiny, pool=kind,
+                                        use_pallas=True,
+                                        compute_dtype=jnp.float32, **kw)
+        te = vit_features_engine(model, pool=kind,
+                                 compute_dtype=torch.float32, device="cpu",
+                                 **kw)
+    imgs = (np.random.RandomState(7).rand(5, 32, 32, 3) * 255).astype(
+        np.float32)
+    want, got = je(imgs), te(imgs)
+    assert got.shape == want.shape == ((5, 10) if kind == "logits"
+                                       else (5, 32))
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_features_token_pooling_is_the_classifier_cls():
+    model = tvit.init_vit_params(tvit.empty_vit(VIT_TINY, "cpu"),
+                                 torch.Generator().manual_seed(1))
+    feats = vit_features_engine(model, compute_dtype=torch.float32,
+                                buckets=(4,), device="cpu")
+    imgs = np.random.RandomState(2).rand(3, 32, 32, 3).astype(np.float32)
+    with torch.inference_mode():
+        tokens = tvit.vit_encode(model, torch.from_numpy(imgs))
+    np.testing.assert_array_equal(feats(imgs), tokens[:, 0].numpy())
+
+
+def test_vit_http_preprocess_takes_raw_pixels():
+    pre = tcli._http_preprocess(None)
+    raw = np.random.RandomState(1).randint(0, 256, (2, 8, 8, 3), np.uint8)
+    np.testing.assert_array_equal(pre(raw), raw.astype(np.float32))
+    np.testing.assert_allclose(pre(raw.astype(np.float32) / 255), raw,
+                               atol=1e-4)
+
+
+# -- the CLI: ViT, int8 and the AOT artifacts (tests/test_serve_cli.py) ---------
+
+@pytest.fixture(scope="module")
+def image_dir(tmp_path_factory):
+    from PIL import Image
+    root = tmp_path_factory.mktemp("imgs")
+    rs = np.random.RandomState(0)
+    for sub in ("a", "b"):
+        os.makedirs(root / sub)
+    for i, sub in enumerate(["a", "a", "b", "b", "b"]):
+        arr = rs.randint(0, 255, (48, 48, 3), dtype=np.uint8)
+        Image.fromarray(arr).save(root / sub / f"img{i}.png")
+    return str(root)
+
+
+@pytest.fixture(scope="module")
+def vit_checkpoint(tmp_path_factory):
+    """A checkpoint written by the JAX package's vit_ckpt."""
+    out = str(tmp_path_factory.mktemp("ckpt"))
+    params = jvit.init_vit_params(jax.random.PRNGKey(0),
+                                  jvit.VIT_CONFIGS["test-tiny"])
+    jvit_ckpt.save_checkpoint(0, params, {"momentum": None}, {}, 1.0, 1.0,
+                              10.0, out)
+    return os.path.join(out, "checkpoint_epoch_000.pth")
+
+
+def _vit_flags(ckpt, *extra):
+    return ["--model", "test-tiny", "--checkpoint", ckpt, "--device", "cpu",
+            *extra]
+
+
+def test_cli_vit_logits_csv(image_dir, vit_checkpoint, tmp_path):
+    out = str(tmp_path / "preds.csv")
+    assert tcli.main(["--images", image_dir, "--out", out,
+                      *_vit_flags(vit_checkpoint, "--buckets", "4,8",
+                                  "--param_dtype", "f32", "--topk",
+                                  "3")]) == 0
+    with open(out) as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == 5
+    assert rows[0]["filename"] == os.path.join("a", "img0.png")
+    for r in rows:
+        assert 0 <= int(r["top1_index"]) < VIT_TINY.num_classes
+        assert (float(r["top1_score"]) >= float(r["top2_score"])
+                >= float(r["top3_score"]))
+
+
+def test_cli_vit_deterministic_across_runs(image_dir, vit_checkpoint,
+                                           tmp_path):
+    outs = []
+    for name in ("p1.csv", "p2.csv"):
+        out = str(tmp_path / name)
+        tcli.main(["--images", image_dir, "--out", out,
+                   *_vit_flags(vit_checkpoint, "--buckets", "8")])
+        with open(out) as f:
+            outs.append(f.read())
+    assert outs[0] == outs[1]
+
+
+def test_cli_vit_features_npy(image_dir, vit_checkpoint, tmp_path):
+    out = str(tmp_path / "emb.npy")
+    assert tcli.main(["--images", image_dir, "--out", out, "--mode",
+                      "features", *_vit_flags(vit_checkpoint, "--buckets",
+                                              "8", "--param_dtype",
+                                              "f32")]) == 0
+    assert np.load(out).shape == (5, VIT_TINY.width)
+    names = (tmp_path / "emb.filenames.txt").read_text().split()
+    assert names[0] == os.path.join("a", "img0.png") and len(names) == 5
+
+
+def test_cli_vit_random_init_and_int8(image_dir, tmp_path):
+    out = str(tmp_path / "q.csv")
+    assert tcli.main(["--images", image_dir, "--out", out, "--model",
+                      "test-tiny", "--random_init", "--quantize", "int8",
+                      "--device", "cpu", "--buckets", "8"]) == 0
+    with open(out) as f:
+        assert len(list(csv.DictReader(f))) == 5
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["--model", "test-tiny"], "--checkpoint"),
+    (["--model", "nope", "--random_init"], "unknown --model"),
+    (["--clip_weights", "w.pt", "--mode", "features"], "ViT surface"),
+])
+def test_cli_refuses_before_loading(argv, msg, capsys, tmp_path):
+    with pytest.raises(SystemExit):
+        tcli.parse_args(["--images", str(tmp_path), "--out", "x.csv",
+                         *argv])
+    assert msg in capsys.readouterr().err
+
+
+def test_cli_empty_dir_refused(vit_checkpoint, tmp_path):
+    empty = tmp_path / "empty"
+    os.makedirs(empty)
+    with pytest.raises(SystemExit, match="no images"):
+        tcli.main(["--images", str(empty), "--out", str(tmp_path / "x.csv"),
+                   *_vit_flags(vit_checkpoint)])
+
+
+@pytest.mark.parametrize("quantize", [[], ["--quantize", "int8"]])
+def test_cli_export_then_serve_equals_live(image_dir, vit_checkpoint,
+                                           tmp_path, quantize):
+    """--export_dir writes the artifact; --from_export serves it and the
+    predictions CSV equals the live engine's byte for byte (float and int8
+    engines)."""
+    base = _vit_flags(vit_checkpoint, "--buckets", "4,8", "--param_dtype",
+                      "f32", *quantize)
+    art = str(tmp_path / "artifact")
+    assert tcli.main(["--export_dir", art, *base]) == 0
+    with open(os.path.join(art, "manifest.json")) as f:
+        m = json.load(f)
+    assert m["model"] == "test-tiny" and m["normalize"] is None
+    live = str(tmp_path / "live.csv")
+    tcli.main(["--images", image_dir, "--out", live, *base])
+    aot = str(tmp_path / "aot.csv")
+    assert tcli.main(["--from_export", art, "--device", "cpu", "--images",
+                      image_dir, "--out", aot]) == 0
+    with open(aot) as f, open(live) as g:
+        assert f.read() == g.read()
+
+
+def test_cli_features_mode_pinned_by_manifest(image_dir, vit_checkpoint,
+                                              tmp_path):
+    art = str(tmp_path / "feat_art")
+    tcli.main(["--export_dir", art, "--mode", "features",
+               *_vit_flags(vit_checkpoint, "--buckets", "8")])
+    out = str(tmp_path / "emb.npy")
+    assert tcli.main(["--from_export", art, "--device", "cpu", "--images",
+                      image_dir, "--out", out]) == 0
+    assert np.load(out).shape == (5, VIT_TINY.width)
+
+
+def test_cli_export_and_from_export_are_exclusive(tmp_path, capsys):
+    with pytest.raises(SystemExit):
+        tcli.main(["--export_dir", str(tmp_path / "a"),
+                   "--from_export", str(tmp_path / "b")])
+    assert "at most one" in capsys.readouterr().err
+
+
+def test_cli_clip_export_normalize_rides_manifest(image_dir, tmp_path):
+    """A CLIP-HBA artifact reproduces the live scores byte for byte: the
+    normalize constants and the mode travel in the manifest, so
+    --from_export needs none of the CLIP flags."""
+    wpath, _, _ = _write_files(tmp_path)
+    base = ["--clip_weights", wpath, "--buckets", "8", "--param_dtype",
+            "f32", "--allow_hash_tokenizer", "--topk", "2", "--device", "cpu"]
+    art = str(tmp_path / "clip_art")
+    assert tcli.main(base + ["--export_dir", art]) == 0
+    with open(os.path.join(art, "manifest.json")) as f:
+        m = json.load(f)
+    assert m["model"] == "clip_hba" and len(m["normalize"]) == 2
+    live = str(tmp_path / "live.csv")
+    tcli.main(base + ["--images", image_dir, "--out", live])
+    aot = str(tmp_path / "aot.csv")
+    assert tcli.main(["--from_export", art, "--device", "cpu", "--images",
+                      image_dir, "--out", aot, "--topk", "2"]) == 0
+    with open(aot) as f, open(live) as g:
+        assert f.read() == g.read()
+
+
+def test_cli_clip_int8_engine(tmp_path):
+    wpath, dpath, _ = _write_files(tmp_path)
+    args = tcli.parse_args(["--clip_weights", wpath, "--dora_checkpoint",
+                            dpath, "--rank", "4", "--vision_layers", "1",
+                            "--transformer_layers", "1",
+                            "--allow_hash_tokenizer", "--device", "cpu",
+                            "--buckets", "4", "--quantize", "int8",
+                            "--http_port", "0"])
+    eng, size, norm = tcli.build_clip_engine(args)
+    blk = eng.model.visual.transformer.resblocks[1]
+    assert blk.attn.out_proj.weight.s.dtype == torch.float32
+    assert blk.attn.out_proj.bias.dtype == torch.bfloat16
+    got = eng(tcli._http_preprocess(norm)(
+        np.random.RandomState(1).randint(0, 256, (3, 32, 32, 3), np.uint8)))
+    assert got.shape == (3, 66) and np.all(np.isfinite(got))

@@ -577,12 +577,42 @@ def test_cli_trains_on_the_cpu_and_defaults_to_the_card(imagenet, tmp_path):
             tcli.main(args + ["--output_dir", str(tmp_path / "cuda")])
 
 
+# -- the profiler trace -----------------------------------------------------------
+
+def test_trace_is_nothing_without_a_logdir(tmp_path):
+    from vit_project_torch.core.profiling import trace
+    with trace(None):
+        torch.ones(2).sum()
+    with trace(""):
+        pass
+    assert not os.listdir(tmp_path)
+
+
+def test_cli_profile_dir_writes_a_trace_of_the_first_epoch(imagenet,
+                                                           tmp_path):
+    """--profile_dir (JAX: a jax.profiler trace of the first epoch) writes
+    one Chrome / TensorBoard trace on the CPU, naming the step's ops, and
+    the run trains and checkpoints as without it."""
+    import json
+    out, prof = str(tmp_path / "run"), str(tmp_path / "prof")
+    tcli.main(["--data_path", imagenet, "--output_dir", out, "--backbone",
+               "test-tiny", "--epochs", "2", "--batch_size", "8",
+               "--num_workers", "2", "--compute_dtype", "float32",
+               "--device", "cpu", "--profile_dir", prof])
+    assert [r.split(",")[0] for r in _metrics(out)[1:]] == ["0", "1"]
+    traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    assert len(traces) == 1           # the first epoch only
+    with open(os.path.join(prof, traces[0])) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert any("vit_project_torch::flash3_fwd" in n for n in names)
+    assert any(n.startswith("aten::") for n in names)
+
+
 # -- refusals -------------------------------------------------------------------
 
 @pytest.mark.parametrize("field,value", [
     ("pp_stages", 2), ("sp_devices", 2), ("sp_ring", True), ("ep_devices", 2),
-    ("tp_devices", 2), ("zero1", True), ("fsdp", True), ("moe_experts", 4),
-    ("profile_dir", "trace")])
+    ("tp_devices", 2), ("zero1", True), ("fsdp", True), ("moe_experts", 4)])
 def test_unported_modes_are_refused_by_name(imagenet, tmp_path, field, value):
     cfg = dataclasses.replace(_tiny(TTrainConfig, imagenet,
                                     str(tmp_path / "x")), **{field: value})

@@ -34,12 +34,32 @@ def save_dora_parameters(trainable: dict, dora_parameters_path: str,
 
 
 def load_dora_parameters(path: str, trainable: dict, spec: dict,
-                         logger=None) -> dict:
-    """strict=False load: overlay whatever adapter entries the file has onto
-    `trainable` (reference-named torch archives, as the reference and both
-    packages write them)."""
+                         logger=None, strict: bool = False) -> dict:
+    """Overlay whatever adapter entries the file has onto `trainable`
+    (reference-named torch archives, as the reference and both packages
+    write them): a training resume, strict=False as the reference loads.
+
+    strict=True is for a bake (serving, export): the file must hold an
+    adapter for every block of `spec` and none outside it, since a block
+    left at its init or a trained adapter dropped from the bake gives wrong
+    weights. Raises ValueError otherwise."""
     flat = ser.load_flat(path)
     loaded = adora.from_reference_names(flat, spec)
+    if strict:
+        missing = [f"{t}:{i}" for t, idxs in spec.items() for i in idxs
+                   if int(i) not in {int(k) for k in loaded.get(t, {})}]
+        if missing:
+            raise ValueError(
+                f"{path} is missing adapters for blocks {missing}; check "
+                "--vision_layers/--transformer_layers/--rank match the run")
+        extra = sorted(adora.checkpoint_module_paths(flat)
+                       - adora.spec_module_paths(spec))
+        if extra:
+            raise ValueError(
+                f"{path} contains trained adapters not covered by the "
+                f"requested blocks: {extra}. Raise --vision_layers/"
+                "--transformer_layers to match the run so every trained "
+                "adapter is baked.")
     return adora.merge_loaded(trainable, loaded)
 
 

@@ -3,10 +3,11 @@ cli/vit_train.py, with the same flags plus --device).
 
 Reference: Training/vit_training/baseline/train_vit_sgd.py (torchrun/DDP). One
 process trains on one card unless --device says otherwise. Flags of the JAX
-CLI whose features are not ported yet (the parallel modes, MoE, the
-profiler) are accepted and refused by the training loop at any value but
-their default. Exits 143 when a SIGTERM stopped the run mid-epoch (run it
-again to resume inside the epoch).
+CLI whose features are not ported yet (the parallel modes, MoE) are
+accepted and refused by the training loop at any value but their default.
+--profile_dir writes a torch.profiler trace of the first epoch. Exits 143
+when a SIGTERM stopped the run mid-epoch (run it again to resume inside the
+epoch).
 
   python -m vit_project_torch.cli.vit_train --data_path imagenet/ \\
       --output_dir runs/vit_b16
@@ -41,7 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backbone", default="vit_base_patch16_224",
                    help="model config name (see models.vit.VIT_CONFIGS)")
     p.add_argument("--profile_dir", default=None,
-                   help="profiler trace of the first epoch (not ported yet)")
+                   help="write a torch.profiler trace of the first epoch "
+                        "here")
     p.add_argument("--use_native_loader", action="store_true",
                    help="decode/augment through the C++ core "
                         "(native/libfastimage.so; build with: make -C native)")

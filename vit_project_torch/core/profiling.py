@@ -1,9 +1,37 @@
-"""Per-epoch wall time and throughput (copy of ``EpochTimer`` from the JAX
-package's core/profiling.py). The reference has only coarse per-epoch
-time.time() prints (train_vit_sgd.py:130,159-163)."""
+"""Tracing and per-epoch timing (counterpart of the JAX package's
+core/profiling.py). The reference has only coarse per-epoch time.time()
+prints (train_vit_sgd.py:130,159-163). Here:
+
+- ``trace(logdir)``: a ``torch.profiler`` trace of the host and the card
+  (CUDA kernels, the hand-written ones launched through ctypes included)
+  around any region, written to `logdir` as a Chrome / TensorBoard trace
+  (``*.pt.trace.json``); nothing when `logdir` is falsy;
+- ``EpochTimer``: per-epoch wall time and images/s for the run logs.
+"""
 from __future__ import annotations
 
+import contextlib
+import os
 import time
+
+
+@contextlib.contextmanager
+def trace(logdir: str | None):
+    """torch.profiler trace (CPU and, with a visible GPU, CUDA activity)
+    of the wrapped region into `logdir`, else nothing."""
+    if not logdir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import tensorboard_trace_handler
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield
 
 
 class EpochTimer:

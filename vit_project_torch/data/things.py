@@ -16,6 +16,7 @@ normalized on the device. PIL is imported only inside the decode.
 from __future__ import annotations
 
 import csv
+import hashlib
 import os
 from concurrent.futures import ThreadPoolExecutor
 
@@ -57,11 +58,39 @@ def read_annotations(csv_file: str) -> tuple[list[str], np.ndarray]:
 
 
 class ThingsDataset:
-    """Train dataset: (names, images_u8 [N,224,224,3], targets [N,66])."""
+    """Train dataset: (names, images_u8 [N,224,224,3], targets [N,66]).
 
-    def __init__(self, csv_file: str, img_dir: str, size: int = 224):
+    `cache_file` keeps the decoded images in an ``.npz`` (the suffix is
+    added when missing, where np.savez writes) with ``images`` and
+    ``names_sha256``, a digest of the exact name sequence: the JAX package's
+    format, so a cache written by either package loads in the other. A cache
+    made for another image list, order or size is decoded again and
+    rewritten."""
+
+    def __init__(self, csv_file: str, img_dir: str, size: int = 224,
+                 cache_file: str | None = None):
         self.names, self.targets = read_annotations(csv_file)
-        self.images_u8 = decode_images(img_dir, self.names, size)
+        if cache_file and not cache_file.endswith(".npz"):
+            cache_file += ".npz"
+        digest = hashlib.sha256(
+            "\n".join(map(str, self.names)).encode()).hexdigest()
+        cached = None
+        if cache_file and os.path.exists(cache_file):
+            with np.load(cache_file, allow_pickle=False) as z:
+                arr = z["images"]
+                if ("names_sha256" in z.files
+                        and str(z["names_sha256"]) == digest
+                        and arr.shape[0] == len(self.names)
+                        and arr.shape[1] == size):
+                    cached = arr
+        if cached is not None:
+            self.images_u8 = cached
+        else:
+            self.images_u8 = decode_images(img_dir, self.names, size)
+            if cache_file:
+                os.makedirs(os.path.dirname(cache_file) or ".", exist_ok=True)
+                np.savez(cache_file, images=self.images_u8,
+                         names_sha256=digest)
 
     def __len__(self):
         return len(self.names)
@@ -139,12 +168,15 @@ class EpochShuffler:
     (data_seed, epoch), permutation = PCG64([data_seed, epoch]), the JAX
     package's exact stream. Saving `data_seed` once reproduces every
     epoch's order (the reference checkpoints its DataLoader generator
-    instead, ref :696-728)."""
+    instead, ref :696-728). `drop_last` leaves out the last, partial
+    batch."""
 
-    def __init__(self, n: int, batch_size: int, data_seed: int):
+    def __init__(self, n: int, batch_size: int, data_seed: int,
+                 drop_last: bool = False):
         self.n = n
         self.batch_size = batch_size
         self.data_seed = int(data_seed)
+        self.drop_last = drop_last
 
     def epoch_order(self, epoch: int) -> np.ndarray:
         rng = np.random.Generator(
@@ -153,8 +185,11 @@ class EpochShuffler:
 
     def batches(self, epoch: int):
         order = self.epoch_order(epoch)
-        for s in range(0, self.n, self.batch_size):
+        end = (self.n - self.n % self.batch_size) if self.drop_last else self.n
+        for s in range(0, end, self.batch_size):
             yield order[s:s + self.batch_size]
 
     def num_batches(self) -> int:
+        if self.drop_last:
+            return self.n // self.batch_size
         return (self.n + self.batch_size - 1) // self.batch_size

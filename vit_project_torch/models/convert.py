@@ -22,14 +22,20 @@ and ``vit_jax_from_state_dict`` follow the JAX package's
 layout, bit for bit both ways. The same two functions carry the SGD momentum,
 which is a tree of the parameters' shapes; the ViT checkpoints store both in
 the JAX tree layout, so the two packages resume each other's runs.
+``vit_from_jax`` and ``clip_from_jax`` build the models from JAX trees whose
+block weights may be int8 (the JAX package's ops/quant.py leaves
+{"q": int8 [in, out], "s": f32 [out]}): those go into the port's
+``QuantizedWeight`` holders with q transposed to [out, in].
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..ops import quant as vquant
 from .clip import CLIP, CLIPConfig, TextConfig, empty_clip
-from .vit import CLIP_VISUAL_FLAGS, ViTConfig
+from .vit import (CLIP_VISUAL_FLAGS, ViTConfig, VisionTransformerClassifier,
+                  empty_vit)
 
 # integer metadata an OpenAI jit archive keeps beside the weights
 _ARCHIVE_METADATA = ("input_resolution", "context_length", "vocab_size")
@@ -232,3 +238,70 @@ def vit_jax_from_state_dict(sd: dict) -> dict:
     if "norm_pre.weight" in sd:
         tree["ln_pre"] = ln("norm_pre")
     return tree
+
+
+# -- int8 trees of the JAX package -----------------------------------------------
+
+# the JAX block's quantized leaves (its ops/quant.py _QKEYS), in the order of
+# ops.quant.block_weight_slots
+_JAX_QKEYS = ("qkv_w", "out_w", "fc1_w", "fc2_w")
+
+
+def _jax_quantized(w) -> bool:
+    return isinstance(w, dict) and "q" in w and "s" in w
+
+
+def _dequantized_jax_tree(tree):
+    """A JAX tree with every int8 leaf pair {"q", "s"} replaced by its float
+    weight q * s [in, out], the layout the state-dict converters read."""
+    if _jax_quantized(tree):
+        return np.asarray(tree["q"], np.float32) * np.asarray(tree["s"],
+                                                              np.float32)
+    if isinstance(tree, dict):
+        return {k: _dequantized_jax_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_dequantized_jax_tree(v) for v in tree]
+    return tree
+
+
+def _load_jax_quantized_blocks(blocks, jax_blocks) -> None:
+    """Put the int8 leaves of JAX blocks into the port's `blocks` (a
+    classifier's or a tower's), each as a ``QuantizedWeight`` on its slot's
+    device with q transposed to [out, in]; float leaves are left alone."""
+    for blk, jb in zip(blocks, jax_blocks):
+        device = next(blk.parameters()).device
+        for (module, attr), key in zip(vquant.block_weight_slots(blk),
+                                       _JAX_QKEYS):
+            w = jb[key]
+            if not _jax_quantized(w):
+                continue
+            q = np.ascontiguousarray(np.asarray(w["q"], np.int8).T)
+            holder = vquant.QuantizedWeight(
+                torch.from_numpy(q), torch.from_numpy(np.array(w["s"],
+                                                               np.float32)))
+            delattr(module, attr)
+            setattr(module, attr, holder.to(device))
+
+
+def vit_from_jax(tree: dict, cfg: ViTConfig,
+                 device) -> VisionTransformerClassifier:
+    """A ViT classifier on `device` from a JAX-layout tree (a checkpoint's
+    params), float or with int8 block weights."""
+    model = empty_vit(cfg, device)
+    model.load_state_dict(vit_state_dict_from_jax(_dequantized_jax_tree(tree),
+                                                  cfg.patch), strict=True)
+    _load_jax_quantized_blocks(model.blocks, tree["blocks"])
+    return model
+
+
+def clip_from_jax(tree: dict, cfg: CLIPConfig, device) -> CLIP:
+    """A ``CLIP`` on `device` from the JAX package's CLIP tree, float or
+    with int8 block weights in either tower."""
+    model = clip_from_state_dict(
+        clip_state_dict_from_jax_params(_dequantized_jax_tree(tree), cfg),
+        device, cfg)
+    _load_jax_quantized_blocks(model.visual.transformer.resblocks,
+                              tree["visual"]["blocks"])
+    _load_jax_quantized_blocks(model.transformer.resblocks,
+                              tree["text"]["blocks"])
+    return model

@@ -40,8 +40,14 @@ training:
   block optionally recomputed in the backward), ``vit_classify`` (f32
   logits from the CLS token) and ``forward_features`` (CLS or mean pooling).
 
-MoE blocks, ring attention, sequence and head sharding and int8 weights are
-not ported yet and are refused by name.
+Both block functions serve int8 weights (``ops/quant.py``, the JAX block's
+quantized branch): ONE packed int8 projection [B, S, 3D], its q lanes then
+multiplied by 1/sqrt(dh) in the compute dtype (not folded into the weights),
+then the packed flash op; the other three dense layers take the int8
+product through ``ops.nn.dense``.
+
+MoE blocks, ring attention, and sequence and head sharding are not ported
+yet and are refused by name.
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ from torch import nn
 from ..ops import attention as vattn
 from ..ops import dora as vdora
 from ..ops import nn as vnn
+from ..ops import quant as vquant
 
 
 @dataclass(frozen=True)
@@ -187,6 +194,23 @@ def _prescaled_in_proj(attn: MultiheadAttention, dh: int, dtype):
     return w, b
 
 
+def _wt(w):
+    """The [in, out] operand ``vnn.dense`` takes for an [out, in] weight
+    slot: a float weight's transposed view, or a ``QuantizedWeight`` as it
+    is (``dense`` sends it to the int8 product)."""
+    return w if vquant.is_quantized(w) else w.t()
+
+
+def _quantized_qkv(h: torch.Tensor, wq, b: torch.Tensor,
+                   dh: int) -> torch.Tensor:
+    """The int8 packed projection [B, S, 3D] with its q lanes multiplied by
+    1/sqrt(dh) in h's dtype after the product, as the packed kernel expects
+    them (JAX models/vit.py:196-201)."""
+    qkv = vnn.dense(h, wq, b)
+    qkv[..., :qkv.shape[-1] // 3].mul_(1.0 / (dh ** 0.5))
+    return qkv
+
+
 def block_forward(blk: ResidualAttentionBlock, x: torch.Tensor, *,
                   adapter: dict | None = None,
                   adapter_cfg: dict | None = None,
@@ -194,11 +218,16 @@ def block_forward(blk: ResidualAttentionBlock, x: torch.Tensor, *,
                   deterministic: bool = True) -> torch.Tensor:
     """Pre-norm transformer block on x [B, S, D] (x.dtype is the compute
     dtype). Attention goes through the packed flash op; with `adapter`
-    ({trainable, buffers}) the out_proj is the DoRA layer instead."""
+    ({trainable, buffers}) the out_proj is the DoRA layer instead. Int8
+    weights (serving) take the quantized branch."""
     h = vnn.layer_norm(x, blk.ln_1.weight, blk.ln_1.bias)
-    D = h.shape[-1]
-    w, b = _prescaled_in_proj(blk.attn, D // blk.heads, h.dtype)
-    qkv = vnn.dense(h, w.t(), b)                                  # [B, S, 3D]
+    dh = h.shape[-1] // blk.heads
+    if vquant.is_quantized(blk.attn.in_proj_weight):
+        qkv = _quantized_qkv(h, blk.attn.in_proj_weight,
+                             blk.attn.in_proj_bias, dh)
+    else:
+        w, b = _prescaled_in_proj(blk.attn, dh, h.dtype)
+        qkv = vnn.dense(h, w.t(), b)                              # [B, S, 3D]
     o = vattn.flash_mha_packed_qkv(qkv, num_heads=blk.heads,
                                    causal=blk.causal)
     if adapter is not None:
@@ -208,11 +237,11 @@ def block_forward(blk: ResidualAttentionBlock, x: torch.Tensor, *,
             dropout_p=adapter_cfg.get("dropout", 0.0),
             dropout_key=dropout_key, deterministic=deterministic)
     else:
-        o = vnn.dense(o, blk.attn.out_proj.weight.t(), blk.attn.out_proj.bias)
+        o = vnn.dense(o, _wt(blk.attn.out_proj.weight), blk.attn.out_proj.bias)
     x = x + o
     h = vnn.layer_norm(x, blk.ln_2.weight, blk.ln_2.bias)
-    h = vnn.mlp(h, blk.mlp.c_fc.weight.t(), blk.mlp.c_fc.bias,
-                blk.mlp.c_proj.weight.t(), blk.mlp.c_proj.bias)
+    h = vnn.mlp(h, _wt(blk.mlp.c_fc.weight), blk.mlp.c_fc.bias,
+                _wt(blk.mlp.c_proj.weight), blk.mlp.c_proj.bias)
     return x + h
 
 
@@ -574,22 +603,25 @@ def classifier_block(blk: Block, x: torch.Tensor, heads: int, *, act,
     JAX's colscale does), the [B, S, 3D] result goes whole to the packed
     flash attention op, then the output projection and the MLP. With
     `fused_dw` every dense layer here takes (dW, db) from the fused
-    kernel."""
+    kernel. Int8 weights (serving) take the quantized branch."""
     h = vnn.layer_norm(x, blk.norm1.weight, blk.norm1.bias)
     D = h.shape[-1]
-    scale = 1.0 / ((D // heads) ** 0.5)
-    colscale = torch.ones(3 * D, dtype=torch.float32, device=h.device)
-    colscale[:D] = scale
-    w = blk.attn.qkv.weight * colscale[:, None]              # [3D, D]
-    b = blk.attn.qkv.bias * colscale
-    qkv = vnn.dense(h, w.t(), b, fused_dw=fused_dw)          # [B, S, 3D]
+    if vquant.is_quantized(blk.attn.qkv.weight):
+        qkv = _quantized_qkv(h, blk.attn.qkv.weight, blk.attn.qkv.bias,
+                             D // heads)
+    else:
+        colscale = torch.ones(3 * D, dtype=torch.float32, device=h.device)
+        colscale[:D] = 1.0 / ((D // heads) ** 0.5)
+        w = blk.attn.qkv.weight * colscale[:, None]          # [3D, D]
+        b = blk.attn.qkv.bias * colscale
+        qkv = vnn.dense(h, w.t(), b, fused_dw=fused_dw)      # [B, S, 3D]
     o = vattn.flash_mha_packed_qkv(qkv, num_heads=heads)
-    o = vnn.dense(o, blk.attn.proj.weight.t(), blk.attn.proj.bias,
+    o = vnn.dense(o, _wt(blk.attn.proj.weight), blk.attn.proj.bias,
                   fused_dw=fused_dw)
     x = x + o
     h = vnn.layer_norm(x, blk.norm2.weight, blk.norm2.bias)
-    h = vnn.mlp(h, blk.mlp.fc1.weight.t(), blk.mlp.fc1.bias,
-                blk.mlp.fc2.weight.t(), blk.mlp.fc2.bias, act=act,
+    h = vnn.mlp(h, _wt(blk.mlp.fc1.weight), blk.mlp.fc1.bias,
+                _wt(blk.mlp.fc2.weight), blk.mlp.fc2.bias, act=act,
                 fused_dw=fused_dw)
     return x + h
 

@@ -30,6 +30,17 @@ Each kernel wrapper has two versions:
 The entry points are differentiable through ``torch.autograd.Function``s
 whose backward is a kernel wrapper too. Without a gradient to record
 (serving under ``torch.inference_mode``) they call the forward alone.
+
+The packed forward ``flash3_fwd`` is also a registered op,
+``torch.ops.vit_project_torch.flash3_fwd``: its CUDA implementation
+launches the kernel (and counts the launch), its CPU implementation is the
+plain version, and its fake implementation gives the output shapes. Under
+tracing (``torch.export``, ``torch.compile``) ``flash3_fwd`` goes through
+it, so an export holds the kernel as one node of a serving program
+(serve/export.py), and a program loaded from an artifact launches the same
+kernel as the live model does. An eager call on the card launches the
+kernel directly: the op's dispatch costs tens of microseconds a call,
+which a small serving bucket feels.
 """
 from __future__ import annotations
 
@@ -487,14 +498,41 @@ def _dispatch(name: str, x: torch.Tensor, kernel, plain):
     raise ValueError(f"{name}: no version for device {x.device}")
 
 
+@torch.library.custom_op(
+    "vit_project_torch::flash3_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor qkv, int num_heads, bool causal) -> (Tensor, Tensor)")
+def _flash3_fwd_op(qkv, num_heads, causal):
+    return _launch_fwd(qkv, num_heads, causal)
+
+
+@_flash3_fwd_op.register_kernel("cpu")
+def _flash3_fwd_op_cpu(qkv, num_heads, causal):
+    return flash_mha_packed_qkv_reference(qkv, num_heads, causal)
+
+
+@_flash3_fwd_op.register_fake
+def _flash3_fwd_op_fake(qkv, num_heads, causal):
+    B, S, D = _check_packed(qkv, num_heads)
+    return (qkv.new_empty(B, S, D),
+            qkv.new_empty(B, S, num_heads, dtype=torch.float32))
+
+
+def _traced(x: torch.Tensor) -> bool:
+    """Whether x is seen by a tracer (torch.export's fake tensors,
+    torch.compile) rather than computed on."""
+    return type(x) is not torch.Tensor or torch.compiler.is_compiling()
+
+
 def flash3_fwd(qkv: torch.Tensor, num_heads: int, causal: bool = False):
     """(o [B, S, D], lse [B, S, H] f32) from packed qkv [B, S, 3D] with q
-    prescaled. A CUDA tensor launches the kernel (or raises); a CPU tensor
-    takes the plain version."""
-    return _dispatch("flash3_fwd", qkv,
-                     lambda: _launch_fwd(qkv, num_heads, causal),
-                     lambda: flash_mha_packed_qkv_reference(qkv, num_heads,
-                                                            causal))
+    prescaled. A CUDA tensor launches the kernel (or raises): directly in
+    eager mode, through the registered op under tracing; a CPU tensor takes
+    the plain version, through the op."""
+    if not _traced(qkv) and qkv.device.type == "cuda":
+        return _launch_fwd(qkv, num_heads, causal)
+    if qkv.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash3_fwd: no version for device {qkv.device}")
+    return torch.ops.vit_project_torch.flash3_fwd(qkv, num_heads, causal)
 
 
 def flash3_bwd(qkv: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,

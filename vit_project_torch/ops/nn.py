@@ -11,11 +11,17 @@ that has a bias takes its weight and bias gradients from the fused dW+db
 kernel (``ops/fused_dw.py``). The JAX package switches this with a
 process-wide flag read at trace time; here each caller says it, so one
 model cannot leak the choice into another.
+
+A quantized weight (``ops.quant.QuantizedWeight``, [out, in] int8 with its
+scales) given to ``dense`` takes the int8 product (``quant.int8_dense``), as
+the JAX package's dense dispatches its {"q", "s"} leaves.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from . import quant as vquant
 
 
 def dense(x: torch.Tensor, w: torch.Tensor,
@@ -28,7 +34,10 @@ def dense(x: torch.Tensor, w: torch.Tensor,
     rounds the product, then adds the bias in x.dtype; the two agree
     exactly in f32). With `fused_dw` and a bias, the same forward runs
     inside ``fused_dw.DenseDwFused``, whose backward produces (dW, db) in
-    float32 with one kernel."""
+    float32 with one kernel. A ``QuantizedWeight`` (in the place of w)
+    takes ``quant.int8_dense``."""
+    if vquant.is_quantized(w):
+        return vquant.int8_dense(x, w, b)
     if fused_dw and b is not None:
         from . import fused_dw as _fdw
         return _fdw.dense_dw_fused(x, w, b)
@@ -120,7 +129,8 @@ def patch_embed_affine(images_raw: torch.Tensor, w: torch.Tensor,
     pix_b = -torch.tensor(mean, dtype=torch.float32, device=w.device) / std_t
     w4 = w.reshape(patch * patch, C, D)
     wf = (w4 * a[None, :, None]).reshape(patch, patch, C, D)
-    bias = torch.einsum("c,pcd->d", pix_b, w4)
+    # f32 for bf16 weights too (JAX's einsum promotes them; torch's cannot)
+    bias = torch.einsum("c,pcd->d", pix_b, w4.float())
     if b is not None:
         bias = bias + b
     x = images_raw.reshape(B, gh, patch, gw, patch, C).to(compute_dtype)

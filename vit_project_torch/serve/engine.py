@@ -14,6 +14,15 @@ serve/engine.py).
   runs chunk k; a chunk's result is copied back only when it is drained.
 - zero-overhead adapters: ``clip_hba_engine`` bakes trained DoRA adapters
   into the weights, so the served forward is a plain CLIP pass.
+- int8 serving: ``quantize="int8"`` rewrites every block's four dense
+  weights to int8 (ops/quant.py) after the float cast and the bake; the
+  engine then casts nothing, so the scales stay float32.
+
+The ViT engines (``vit_classifier_engine``, ``vit_features_engine``) serve
+a ``VisionTransformerClassifier``: logits [B, num_classes] or pooled
+embeddings [B, width]. With ``input_norm=(mean, std)`` they take raw
+0..255 images (uint8 or float) and fold the normalization into the patch
+matmul.
 
 Every forward runs under ``torch.inference_mode()`` (which is per thread, so
 each entry point enters it itself).
@@ -28,6 +37,8 @@ import torch
 from ..adapters import dora as adora
 from ..core.device import resolve_device
 from ..models import clip as vclip
+from ..models import vit as vvit
+from ..ops import quant as vquant
 
 DEFAULT_BUCKETS = (8, 32, 128, 256)
 
@@ -96,7 +107,10 @@ class InferenceEngine:
 
     @staticmethod
     def _fetch(out: torch.Tensor, m: int) -> np.ndarray:
-        return out[:m].cpu().numpy()
+        out = out[:m]
+        if out.dtype == torch.bfloat16:   # numpy has no bf16; exact in f32
+            out = out.float()
+        return out.cpu().numpy()
 
     # -- serving surfaces ----------------------------------------------
 
@@ -143,24 +157,84 @@ class InferenceEngine:
                 yield done
 
 
+def _maybe_quantize(model, quantize, param_dtype, quant_fn):
+    """Apply the optional serving quantization: (model, the param_dtype the
+    engine should cast to). The float cast runs FIRST, so the scales are
+    taken from the served weights and stay float32; the engine then casts
+    nothing (JAX serve/engine.py _maybe_quantize)."""
+    if quantize is None:
+        return model, param_dtype
+    if quantize != "int8":
+        raise ValueError(f"unknown quantize mode {quantize!r} (only 'int8')")
+    if param_dtype is not None:
+        model = _cast_float_leaves(model, param_dtype)
+    return quant_fn(model), None
+
+
+# -- model-specific constructors ----------------------------------------
+
+def vit_classifier_engine(model: vvit.VisionTransformerClassifier, *,
+                          compute_dtype=torch.bfloat16, input_norm=None,
+                          buckets=DEFAULT_BUCKETS, param_dtype=None,
+                          quantize: str | None = None,
+                          device=None) -> InferenceEngine:
+    """Serve ViT classifier logits [B, num_classes] (models.vit.vit_classify)
+    on `device` (default CUDA). quantize="int8" rewrites every block's dense
+    weights to int8 (ops/quant.py), in place."""
+    model = model.to(resolve_device(device))
+    model, param_dtype = _maybe_quantize(model, quantize, param_dtype,
+                                         vquant.quantize_vit_blocks)
+
+    def apply_fn(m, images):
+        return vvit.vit_classify(m, images, input_norm=input_norm,
+                                 compute_dtype=compute_dtype)
+    return InferenceEngine(apply_fn, model, buckets=buckets,
+                           param_dtype=param_dtype, device=device)
+
+
+def vit_features_engine(model: vvit.VisionTransformerClassifier, *,
+                        pool: str = "token", compute_dtype=torch.bfloat16,
+                        input_norm=None, buckets=DEFAULT_BUCKETS,
+                        param_dtype=None, quantize: str | None = None,
+                        device=None) -> InferenceEngine:
+    """Serve pooled ViT embeddings [B, width] (models.vit.forward_features:
+    pool "token" is the CLS token, "avg" the mean of the patch tokens).
+    quantize as in vit_classifier_engine."""
+    model = model.to(resolve_device(device))
+    model, param_dtype = _maybe_quantize(model, quantize, param_dtype,
+                                         vquant.quantize_vit_blocks)
+
+    def apply_fn(m, images):
+        return vvit.forward_features(m, images, pool=pool,
+                                     input_norm=input_norm,
+                                     compute_dtype=compute_dtype)
+    return InferenceEngine(apply_fn, model, buckets=buckets,
+                           param_dtype=param_dtype, device=device)
+
+
 def clip_hba_engine(model: vclip.CLIP, prompt_tokens, *, trainable=None,
                     static=None, alpha: int = 16, r: int = 8,
                     compute_dtype=torch.bfloat16, buckets=DEFAULT_BUCKETS,
-                    param_dtype=None, device=None) -> InferenceEngine:
+                    param_dtype=None, quantize: str | None = None,
+                    device=None) -> InferenceEngine:
     """Serve CLIP-HBA behavioral scores [B, n_prompts].
 
     Trained adapters (trainable + static, as adapters.dora.apply_dora and a
     loaded checkpoint give them) are BAKED into the model's weights first,
     in place, so the served forward is a plain CLIP pass. prompt_tokens
     [n_prompts, context] are fixed at build and re-encoded on every call, as
-    the JAX forward does. Runs on `device` (default CUDA; raises without a
-    GPU unless device='cpu')."""
+    the JAX forward does. quantize="int8" quantizes both towers' blocks
+    after the bake (the adapted out_proj is the weight that gets the int8
+    treatment). Runs on `device` (default CUDA; raises without a GPU unless
+    device='cpu')."""
     if (trainable is None) != (static is None):
         raise ValueError("pass both trainable and static, or neither")
     device = resolve_device(device)
     model = model.to(device)
     if trainable is not None:
         adora.bake(model, trainable, static, alpha=alpha, r=r)
+    model, param_dtype = _maybe_quantize(model, quantize, param_dtype,
+                                         vquant.quantize_clip_blocks)
     tok = torch.as_tensor(np.asarray(prompt_tokens), dtype=torch.long,
                           device=device)
 

@@ -31,9 +31,12 @@ mid-epoch preemption with a bit-exact resume.
 - ``compute_rsa_score``: the CLS embeddings of the THINGS-48 images in
   dataset order against the human RDM (Spearman rho).
 
+``profile_dir`` wraps the first epoch this call trains in a
+``torch.profiler`` trace (core/profiling.py).
+
 One process, one card. The parallel modes (pipeline, sequence, tensor and
-expert parallelism, ZeRO-1, FSDP), MoE and the profiler trace are not
-ported yet and are refused by name.
+expert parallelism, ZeRO-1, FSDP) and MoE are not ported yet and are
+refused by name.
 """
 from __future__ import annotations
 
@@ -62,7 +65,7 @@ IMAGE_PERTURBATIONS = ("gaussian", "uniform_gray")
 # that leaves them off
 _UNPORTED = (("pp_stages", 1), ("sp_devices", 1), ("sp_ring", False),
              ("ep_devices", 1), ("tp_devices", 1), ("zero1", False),
-             ("fsdp", False), ("moe_experts", 0), ("profile_dir", None))
+             ("fsdp", False), ("moe_experts", 0))
 
 
 def refuse_unported(cfg: ViTTrainConfig) -> None:
@@ -342,6 +345,7 @@ def run_vit_training(cfg: ViTTrainConfig, logger=None,
     from ..ckpt import serialization as ser
     from ..ckpt import vit_ckpt
     from ..core.preempt import PreemptionGuard
+    from ..core.profiling import trace
     from ..data.packed import make_loader
     from .schedules import CosineAnnealingLRWithWarmup
 
@@ -429,9 +433,10 @@ def run_vit_training(cfg: ViTTrainConfig, logger=None,
                 mid_kw = dict(start_batch=mid_resume["batch_idx"],
                               loss_carry=(mid_resume["total_loss"],
                                           mid_resume["num_batches"]))
-            train_loss = trainer.train_one_epoch(
-                momentum, train_loader, epoch, lr, logger=logger, guard=guard,
-                **mid_kw)
+            with trace(cfg.profile_dir if epoch == start_epoch else None):
+                train_loss = trainer.train_one_epoch(
+                    momentum, train_loader, epoch, lr, logger=logger,
+                    guard=guard, **mid_kw)
             if guard is not None and getattr(guard, "mid_state", None):
                 # the scheduler state saved here is the epoch-start state
                 # (step() has not run), so the resume's peek() re-derives
