@@ -82,6 +82,20 @@
    outputs must equal the live engine's bit for bit with 12 launches a
    chunk there; and one ViT-B/16 training epoch (fused_dw) with
    `profile_dir`, whose trace must name the flash3 and dw_db kernels;
+6d. phase `dist`: data parallelism over torch.distributed as a user
+   launches it, at ViT-B/16's full width and depth (bf16, global batch
+   256, SGD lr 0.01, 2 epochs on phase vit_train's ImageFolder):
+   ``cli.vit_train
+   --fused_dw`` alone and under ``torchrun --standalone --nproc_per_node
+   1`` in dp, ``--zero1`` and ``--fsdp`` (NCCL; one card, so world size
+   1), each in its own process, which reports its kernel launches and
+   peak memory. It checks 49 dw_db, 12 flash3_bwd and 12 flash3_fwd a
+   step in every mode, dp and zero1 equal to the run alone bit for bit,
+   fsdp within a stated tolerance; ``cli.vit_rsa_eval`` and one
+   ``cli.vit_measure`` cell under torchrun write the CSVs the CLIs write
+   alone, byte for byte; it times a step of each mode in turns in one
+   process; then two ranks under gloo share the card: a dp run within the
+   tolerance of the run alone, and the RSA gathered in dataset order;
 7. phase `sweep`: writes THINGS at its real size to disk (1,806 training
    and 48 inference JPEGs at 224^2, whose targets are the initial model's
    own predictions) and seeded random ViT-L/14 weights, and drives the
@@ -116,6 +130,8 @@
 Any failed check exits non-zero before the last line. Without a CUDA device,
 or without the package beside this script, it exits non-zero and prints no
 result. ``--json PATH`` also writes every number to PATH.
+``--dist_drift [LRS]`` runs no phase: it measures how far two gloo ranks
+drift from one process by learning rate (the reason for DIST_LR).
 """
 from __future__ import annotations
 
@@ -206,7 +222,7 @@ LN_TOLERANCE = {"float32": {"dx": 1e-5, "dparams": 1e-4},
 SEED = 0
 RESULTS: dict = {}
 ALL_PHASES = ("kernel", "ops", "serve", "train", "vit_train", "vit_grid",
-              "serve_vit", "sweep", "forks")
+              "serve_vit", "dist", "sweep", "forks")
 
 
 def fail(msg: str) -> None:
@@ -3214,7 +3230,448 @@ def phase_vit_grid(tmp: str):
     return grid_launches
 
 
+# the dist phase: data parallelism over torch.distributed, launched as a
+# user launches it (torchrun, one process per card; NCCL, so one rank on
+# this one card), each run in its own process through _dist_worker
+DIST_EPOCHS = 2
+DIST_STEPS = 4 * DIST_EPOCHS          # 1,024 train images, batch 256
+DIST_VAL_BATCHES = DIST_EPOCHS        # 256 val images, one batch an epoch
+DIST_MODES = ("single", "dp", "zero1", "fsdp")
+DIST_BATCH = 256
+# the phase's learning rate: 0.01, where this synthetic set trains stably
+# (its loss falls from 3.0 to 0.49 over the 8 steps). At the CLI's
+# default 0.1 it rises from 4.8 to 9.5, and there runs that differ only in
+# rounding drift apart (--dist_drift: a one-process run whose dW+db
+# sums in another order by 1.9e-3 in loss, two gloo ranks by 1.0e-2)
+DIST_LR = "0.01"
+# fsdp against the one-process run at world size 1, and two gloo ranks
+# against it: the same products, but fsdp's gradient lands through
+# .backward() and a reduce-scatter of one rank, and the ranks sum two half
+# batches in another order without the fused dW+db. Allowed: losses within
+# 1e-2 relative, accuracy within 2 of 256 images, fsdp's parameters within
+# 1e-2 of their tree's largest magnitude. At lr 0.01 two one-process runs
+# whose dW+db sums in another order already differ by 2.3e-3 in loss and
+# by one image (--dist_drift)
+DIST_LOSS_RTOL = 1e-2
+DIST_ACC_ATOL = 100 * 2 / 256
+DIST_PARAM_RTOL = 1e-2
+# the gathered RSA against one process: within the grid's kernel-vs-plain
+# bound (a wrong row order gives an unrelated rho)
+DIST_RHO_ATOL = 1e-3
+
+
+def _dist_worker(report: str, argv: list) -> int:
+    """Run one entry point in this process (under torchrun or alone) and
+    write what it launched and used to `report`.rank{RANK}.json. argv:
+    [--gloo] MODULE ARGS...; MODULE is a CLI module (its main(ARGS)) or
+    "time_modes". --gloo makes the process group first, with gloo on the
+    card (the CLI then leaves it alone)."""
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from vit_project_torch.ops import attention as vattn
+    from vit_project_torch.ops import fused_dw as vfdw
+    gloo = argv[0] == "--gloo"
+    if gloo:
+        argv = argv[1:]
+        tdist.init_process_group("gloo")
+    from vit_project_torch.parallel import dist
+    rank = int(os.environ.get("RANK", "0"))
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    module, args = argv[0], argv[1:]
+    backend = {}
+    setup = dist.setup_distributed
+
+    def recording_setup(*a, **k):
+        ranks = setup(*a, **k)
+        if dist.is_initialized():
+            backend["name"] = tdist.get_backend()
+        return ranks
+    dist.setup_distributed = recording_setup
+    vattn.reset_launch_counts()
+    vfdw.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    if module == "time_modes":
+        extra = _time_modes()
+    else:
+        import importlib
+        importlib.import_module(module).main(args)
+        extra = {}
+    torch.cuda.synchronize()
+    out = {"rank": rank, "world": world, "s": time.time() - t0,
+           "launches": {**vattn.LAUNCHES, **vfdw.LAUNCHES},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "backend": backend.get("name"), **extra}
+    if gloo:
+        tdist.destroy_process_group()
+    with open(f"{report}.rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _time_modes() -> dict:
+    """Under torchrun at world size 1 (NCCL): ViT-B/16 trainers of the four
+    modes side by side (single trains alone, distributed=False), each from
+    the same seed; a step's launches per mode, then ms a step in turns
+    (single, dp, zero1, fsdp, fsdp, zero1, dp, single; 10 steps a turn
+    after 2 unmeasured, CUDA events between steps) on one batch on the card."""
+    import dataclasses
+    import torch
+    from vit_project_torch.core.configs import ViTTrainConfig
+    from vit_project_torch.models import vit as vvit
+    from vit_project_torch.ops import attention as vattn
+    from vit_project_torch.ops import fused_dw as vfdw
+    from vit_project_torch.parallel import dist
+    from vit_project_torch.train import vit_loop
+    dev = dist.local_device("cuda")
+    dist.setup_distributed(dev)
+    vit_cfg = vvit.VIT_CONFIGS["vit_base_patch16_224"]
+    base = ViTTrainConfig(batch_size=DIST_BATCH, compute_dtype="bfloat16",
+                          fused_dw=True)
+    trainers = {}
+    for mode in DIST_MODES:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        model = vvit.init_vit_params(vvit.empty_vit(vit_cfg, dev), gen)
+        tr = vit_loop.ViTTrainer(
+            vit_cfg, dataclasses.replace(base, zero1=mode == "zero1",
+                                         fsdp=mode == "fsdp"),
+            model, dev, distributed=mode != "single")
+        trainers[mode] = (tr, tr.init_momentum())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    size = vit_cfg.image_size
+    imgs = torch.randint(0, 256, (base.batch_size, size, size, 3),
+                         generator=gen, device=dev, dtype=torch.uint8)
+    lbls = torch.randint(0, vit_cfg.num_classes, (base.batch_size,),
+                         generator=gen, device=dev)
+    per_step = {}
+    for mode, (tr, mom) in trainers.items():
+        vattn.reset_launch_counts()
+        vfdw.reset_launch_counts()
+        tr.step(mom, imgs, lbls, 0.02)
+        torch.cuda.synchronize()
+        per_step[mode] = {**vattn.LAUNCHES, **vfdw.LAUNCHES}
+
+    def turn(mode, steps=10):
+        tr, mom = trainers[mode]
+        for _ in range(2):
+            tr.step(mom, imgs, lbls, 0.02)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+        ev[0].record()
+        for i in range(steps):
+            tr.step(mom, imgs, lbls, 0.02)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+    turns = {m: [] for m in DIST_MODES}
+    for mode in DIST_MODES + DIST_MODES[::-1]:
+        turns[mode].append(turn(mode))
+    return {"per_step": per_step, "turns": turns}
+
+
+def _dist_run(tmp: str, name: str, argv: list, nproc: int | None = 1,
+              timeout: int = 600) -> list:
+    """`argv` ([--gloo] MODULE ARGS) through _dist_worker: under
+    ``torchrun --standalone --nproc_per_node nproc``, or alone (nproc
+    None). Returns the ranks' reports; on failure prints the output's tail
+    and fails the phase."""
+    report = os.path.join(tmp, f"{name}.report")
+    log = os.path.join(tmp, f"{name}.log")
+    me = os.path.abspath(__file__)
+    cmd = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(nproc)] if nproc else [sys.executable])
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    with open(log, "w") as f:
+        res = subprocess.run(cmd + [me, "--dist_worker", report, *argv],
+                             cwd=ROOT, env=env, stdout=f,
+                             stderr=subprocess.STDOUT, timeout=timeout)
+    if res.returncode != 0:
+        with open(log) as f:
+            print(f.read()[-6000:], flush=True)
+        fail(f"[dist] {name} exited {res.returncode}")
+    reports = []
+    for r in range(nproc or 1):
+        with open(f"{report}.rank{r}.json") as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [] if tree is None else [np.asarray(tree)]
+
+
+def _rel_tree_diff(a, b) -> float:
+    """max |a - b| over max |b|, over two trees' leaves."""
+    la, lb = _tree_leaves(a), _tree_leaves(b)
+    if len(la) != len(lb):
+        return float("inf")
+    diff = max(float(np.abs(x.astype(np.float64) - y).max())
+               for x, y in zip(la, lb))
+    return diff / max(float(np.abs(y).max()) for y in lb)
+
+
+def phase_dist(tmp: str):
+    """Data parallelism as users launch it: cli.vit_train at ViT-B/16's full
+    width and depth (bf16, global batch 256, fused_dw) alone and under
+    ``torchrun --standalone --nproc_per_node 1`` in dp, --zero1 and --fsdp
+    (NCCL); cli.vit_rsa_eval and one cli.vit_measure cell under torchrun
+    against the same CLIs alone; ms a step per mode in turns; and two ranks
+    under gloo on this one card (dp, the gathered RSA)."""
+    import pandas as pd
+    from vit_project_torch.cli import vit_measure as measure_cli
+    from vit_project_torch.cli import vit_rsa_eval as rsa_cli
+
+    t_phase = time.time()
+    root = os.path.join(tmp, "dist")
+    os.makedirs(root)
+    data = os.path.join(tmp, "imagenet")
+    if not os.path.isdir(data):        # phase vit_train's, when it ran
+        _write_image_folder(data, np.random.RandomState(SEED))
+    rs = np.random.RandomState(SEED + 2)
+    img_dir, names, _ = _write_things(root, rs, n_train=0)
+    things = _write_things_csvs(root, names, rs.randn(len(names), 66),
+                                n_train=0)
+    things_args = ["--things_csv", things["inference_csv_file"],
+                   "--things_img_dir", img_dir,
+                   "--things_rdm_path", things["RDM48_triplet_dir"]]
+    print(f"[dist] fixture ready in {time.time() - t_phase:.1f} s (the "
+          f"vit_train ImageFolder; 48 THINGS JPEGs and an RDM); ViT-B/16, "
+          f"batch 256, bf16, SGD lr {DIST_LR}, {DIST_EPOCHS} epochs a run",
+          flush=True)
+    train_cli = "vit_project_torch.cli.vit_train"
+    train_args = ["--data_path", data, "--batch_size", "256", "--epochs",
+                  str(DIST_EPOCHS), "--num_workers", "8", "--lr", DIST_LR]
+
+    # --- the main path: cli.vit_train alone and under torchrun per mode;
+    # each process starts its counts at 0 and reports them at its end ---
+    want = {"dw_db": 49 * DIST_STEPS, "flash3_bwd": 12 * DIST_STEPS,
+            "flash3_fwd": 12 * (DIST_STEPS + DIST_VAL_BATCHES)}
+    runs, trees, rows = {}, {}, {}
+    for mode in DIST_MODES:
+        out = os.path.join(root, mode)
+        flags = {"zero1": ["--zero1"], "fsdp": ["--fsdp"]}.get(mode, [])
+        rep = _dist_run(root, mode, [train_cli, *train_args, "--fused_dw",
+                                     "--output_dir", out, *flags],
+                        nproc=None if mode == "single" else 1)[0]
+        if rep["launches"] != {**{k: 0 for k in rep["launches"]}, **want}:
+            fail(f"[dist] {mode}: launches {rep['launches']}, want {want}")
+        if rep["backend"] != (None if mode == "single" else "nccl"):
+            fail(f"[dist] {mode}: backend {rep['backend']}")
+        runs[mode] = rep
+        trees[mode] = _ckpt_trees(out)
+        rows[mode] = _read_rows(os.path.join(out, "training_metrics.csv"))
+        print(f"[dist] {mode}: {rep['s']:.1f} s, peak "
+              f"{rep['peak_gib']:.2f} GiB, launches "
+              + ", ".join(f"{k} {v}" for k, v in sorted(
+                  rep["launches"].items()) if v)
+              + "; rows " + "; ".join(",".join(r) for r in rows[mode][1:]),
+              flush=True)
+    if [r[0] for r in rows["single"][1:]] != [str(e) for e in
+                                               range(DIST_EPOCHS)]:
+        fail(f"[dist] single rows {rows['single']}")
+    for r in rows["single"][1:]:
+        if not all(np.isfinite([float(v) for v in r[1:]])):
+            fail(f"[dist] bad row {r}")
+    cmp = {}
+    for mode in ("dp", "zero1", "fsdp"):
+        exact = rows[mode] == rows["single"] and all(
+            _trees_equal(a, b) for a, b in zip(trees[mode], trees["single"]))
+        got = np.array([[float(v) for v in r[1:]] for r in rows[mode][1:]])
+        ref = np.array([[float(v) for v in r[1:]]
+                        for r in rows["single"][1:]])
+        rel = [_rel_tree_diff(a, b) for a, b in zip(trees[mode],
+                                                    trees["single"])]
+        cmp[mode] = {"bit_equal": exact, "tree_rel_diff": rel,
+                     "loss_rel_diff": float(np.abs(got[:, :2] / ref[:, :2]
+                                                   - 1).max()),
+                     "acc_diff": float(np.abs(got[:, 2] - ref[:, 2]).max())}
+        print(f"[dist] {mode} against single: "
+              + ("bit-equal rows and checkpoints" if exact else
+                 f"losses {cmp[mode]['loss_rel_diff']:.3e} relative, "
+                 f"accuracy {cmp[mode]['acc_diff']:.3f} points, trees "
+                 f"{rel[0]:.3e} / {rel[1]:.3e} of their largest"),
+              flush=True)
+        if mode in ("dp", "zero1") and not exact:
+            fail(f"[dist] {mode} at world size 1 differs from one process")
+        if mode == "fsdp" and not (
+                cmp[mode]["loss_rel_diff"] <= DIST_LOSS_RTOL
+                and cmp[mode]["acc_diff"] <= DIST_ACC_ATOL
+                and max(rel) <= DIST_PARAM_RTOL):
+            fail(f"[dist] fsdp outside the tolerance: {cmp[mode]}")
+    del trees
+    main_launches = {k: sum(runs[m]["launches"][k] for m in DIST_MODES
+                            if m != "single") for k in want}
+
+    # --- the per-epoch RSA and one grid cell: torchrun at world size 1
+    # against the same CLIs alone (in this process) ---
+    single = os.path.join(root, "single")
+    rsa_one = os.path.join(root, "rsa_one.csv")
+    _cli(rsa_cli.main, ["--checkpoint_dir", single, "--output_csv", rsa_one,
+                        *things_args], os.path.join(root, "rsa_one.log"))
+    rsa_rep = _dist_run(root, "rsa_dp", [
+        "vit_project_torch.cli.vit_rsa_eval", "--checkpoint_dir", single,
+        "--output_csv", os.path.join(root, "rsa_dp.csv"), *things_args])[0]
+    cell = ["--baseline_checkpoint_dir", single, "--baseline_metrics_csv",
+            rsa_one, "--data_path", data, *things_args, "--perturb_epochs",
+            "1", "--perturbation_types", "gaussian", "--batch_size", "256",
+            "--num_workers", "8", "--lr", DIST_LR]
+    _cli(measure_cli.main, cell + ["--output_csv",
+                                   os.path.join(root, "cell_one.csv")],
+         os.path.join(root, "cell_one.log"))
+    cell_rep = _dist_run(root, "cell_dp", [
+        "vit_project_torch.cli.vit_measure", *cell, "--output_csv",
+        os.path.join(root, "cell_dp.csv")])[0]
+    same = {}
+    for name in ("rsa", "cell"):
+        with open(os.path.join(root, f"{name}_one.csv"), "rb") as f:
+            one = f.read()
+        with open(os.path.join(root, f"{name}_dp.csv"), "rb") as f:
+            same[name] = f.read() == one
+    print(f"[dist] torchrun world size 1 against one process: "
+          f"cli.vit_rsa_eval {rsa_rep['s']:.1f} s, flash3_fwd "
+          f"{rsa_rep['launches']['flash3_fwd']}, CSV "
+          f"{'equal' if same['rsa'] else 'DIFFERS'}; cli.vit_measure "
+          f"gaussian @ 1 {cell_rep['s']:.1f} s, flash3_fwd "
+          f"{cell_rep['launches']['flash3_fwd']} flash3_bwd "
+          f"{cell_rep['launches']['flash3_bwd']}, CSV "
+          f"{'equal' if same['cell'] else 'DIFFERS'}", flush=True)
+    if not all(same.values()):
+        fail(f"[dist] torchrun CSVs differ from one process: {same}")
+    if rsa_rep["launches"]["flash3_fwd"] != 2 * 12 * GRID_RSA_CHUNKS or \
+            cell_rep["launches"]["flash3_fwd"] != \
+            GRID_CELL_LAUNCHES["flash3_fwd"]:
+        fail(f"[dist] launches {rsa_rep['launches']} {cell_rep['launches']}")
+
+    # --- ms a step per mode, in turns, in one process ---
+    tm = _dist_run(root, "time_modes", ["time_modes"])[0]
+    per_step_want = {"dw_db": 49, "flash3_bwd": 12, "flash3_fwd": 12}
+    for mode, got in tm["per_step"].items():
+        if {k: got[k] for k in per_step_want} != per_step_want:
+            fail(f"[dist] {mode}: a step launched {got}")
+    step_ms = {m: statistics.mean(x for t in v for x in t)
+               for m, v in tm["turns"].items()}
+    print("[dist] a step's launches, every mode: flash3_fwd 12, flash3_bwd "
+          "12, dw_db 49; ms a step in turns (single, dp, zero1, fsdp, and "
+          "back; 10 steps a turn): " + "; ".join(
+              f"{m} {step_ms[m]:.2f} (turns "
+              + ", ".join(f"{statistics.mean(t):.2f}" for t in v)
+              + f"; +{step_ms[m] - step_ms['single']:.2f})"
+              for m, v in tm["turns"].items())
+          + f"; peak in that process {tm['peak_gib']:.2f} GiB "
+          f"(four models); {smi_line()}", flush=True)
+
+    # --- two ranks on this card under gloo: dp and the gathered RSA ---
+    gloo_out = os.path.join(root, "gloo_dp")
+    g = _dist_run(root, "gloo_dp", ["--gloo", train_cli, *train_args,
+                                    "--device", "cuda:0", "--output_dir",
+                                    gloo_out], nproc=2)
+    g_rows = _read_rows(os.path.join(gloo_out, "training_metrics.csv"))
+    got = np.array([[float(v) for v in r[1:]] for r in g_rows[1:]])
+    ref = np.array([[float(v) for v in r[1:]] for r in rows["single"][1:]])
+    g_loss = float(np.abs(got[:, :2] / ref[:, :2] - 1).max())
+    g_acc = float(np.abs(got[:, 2] - ref[:, 2]).max())
+    half = {"flash3_fwd": 12 * (DIST_STEPS + DIST_VAL_BATCHES),
+            "flash3_bwd": 12 * DIST_STEPS}
+    for rep in g:
+        if rep["backend"] != "gloo" or any(
+                rep["launches"][k] != v for k, v in half.items()):
+            fail(f"[dist] gloo rank {rep['rank']}: {rep}")
+    g_rsa = _dist_run(root, "gloo_rsa", [
+        "--gloo", "vit_project_torch.cli.vit_rsa_eval", "--checkpoint_dir",
+        single, "--output_csv", os.path.join(root, "rsa_gloo.csv"),
+        *things_args, "--device", "cuda:0"], nproc=2)
+    rho_g = pd.read_csv(os.path.join(root, "rsa_gloo.csv"))["rsa_score"]
+    rho_1 = pd.read_csv(rsa_one)["rsa_score"]
+    rho_diff = float(np.abs(rho_g.to_numpy() - rho_1.to_numpy()).max())
+    print(f"[dist] 2 ranks, gloo, one card (128 images a rank, no fused_dw): "
+          f"{g[0]['s']:.1f} s, peak {max(r['peak_gib'] for r in g):.2f} GiB "
+          f"a rank; rows " + "; ".join(",".join(r) for r in g_rows[1:])
+          + f"; against one process: losses {g_loss:.3e} relative, accuracy "
+          f"{g_acc:.3f} points; RSA over 2 ranks {g_rsa[0]['s']:.1f} s, rho "
+          f"within {rho_diff:.2e} of one process's", flush=True)
+    if not (g_loss <= DIST_LOSS_RTOL and g_acc <= DIST_ACC_ATOL
+            and rho_diff <= DIST_RHO_ATOL):
+        fail(f"[dist] gloo 2-rank run outside the tolerance: losses "
+             f"{g_loss}, accuracy {g_acc}, rho {rho_diff}")
+    RESULTS["dist"] = {
+        "runs": runs, "compare": cmp, "rsa": rsa_rep, "cell": cell_rep,
+        "time_modes": tm, "step_ms": step_ms, "gloo": g, "gloo_rsa": g_rsa,
+        "gloo_rows": g_rows[1:], "gloo_loss_rel": g_loss,
+        "gloo_acc_diff": g_acc, "gloo_rho_diff": rho_diff,
+        "seconds": time.time() - t_phase}
+    print(f"[dist] phase {time.time() - t_phase:.1f} s", flush=True)
+    return main_launches
+
+
+def _dist_drift(lrs: list) -> int:
+    """``--dist_drift [LRS]``, run alone: how far two data-parallel ranks
+    drift from one process, by learning rate (the measurement behind
+    DIST_LR). On phase vit_train's seeded ImageFolder, ViT-B/16 at batch
+    256 in bf16 for 2 epochs, each run ``cli.vit_train`` in its own process
+    (``--dist_worker``), at each learning rate: one process with
+    ``--fused_dw``; one process with the plain dW+db (the same arithmetic
+    summed in another order: the spread of a change that should not
+    matter); two ranks under gloo sharing the card (128 images a rank, the
+    plain dW+db). Prints each run's rows, then the largest relative loss
+    difference and the accuracy difference against the fused run, and
+    the card's name and power limit; no result line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    tmp = os.path.join(ROOT, "vit_project_torch", "_build",
+                       f"drift-{os.getpid()}")
+    os.makedirs(tmp)
+    try:
+        phase_build()
+        data = os.path.join(tmp, "imagenet")
+        _write_image_folder(data, np.random.RandomState(SEED))
+        train = "vit_project_torch.cli.vit_train"
+        for lr in lrs:
+            args = ["--data_path", data, "--batch_size", "256", "--epochs",
+                    "2", "--num_workers", "8", "--lr", lr]
+            rows = {}
+            for name, extra, nproc in (("fused", ["--fused_dw"], None),
+                                       ("plain", [], None),
+                                       ("gloo", ["--device", "cuda:0"], 2)):
+                out = os.path.join(tmp, f"{name}_{lr}")
+                argv = (["--gloo"] if name == "gloo" else []) + [
+                    train, *args, *extra, "--output_dir", out]
+                _dist_run(tmp, f"{name}_{lr}", argv, nproc=nproc)
+                rows[name] = np.array([[float(v) for v in r[1:]] for r in
+                                       _read_rows(os.path.join(
+                                           out, "training_metrics.csv"))[1:]])
+                print(f"[drift] lr {lr} {name}: rows "
+                      + "; ".join(",".join(f"{v:.6f}" for v in r)
+                                  for r in rows[name]), flush=True)
+            ref = rows["fused"]
+            for name in ("plain", "gloo"):
+                got = rows[name]
+                print(f"[drift] lr {lr} {name} against fused: losses "
+                      f"{np.abs(got[:, :2] / ref[:, :2] - 1).max():.3e} "
+                      f"relative, accuracy "
+                      f"{np.abs(got[:, 2] - ref[:, 2]).max():.4f} points",
+                      flush=True)
+        print(smi_line(), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--dist_worker"]:      # a process of phase dist
+        return _dist_worker(argv[1], argv[2:])
+    if argv[:1] == ["--dist_drift"]:       # DIST_LR's measurement
+        return _dist_drift((argv[1:] or ["0.1,0.01,0.001"])[0].split(","))
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma list of phases to run (default: all)")
@@ -3247,6 +3704,7 @@ def main(argv=None) -> int:
     ops_launches = phase_ops() if "ops" in phases else None
     serve_launches = train_launches = vit_launches = sweep_launches = None
     forks_launches = grid_launches = serve_vit_launches = None
+    dist_launches = None
     tmp = os.path.join(ROOT, "vit_project_torch", "_build",
                        f"smoke-{os.getpid()}")
     os.makedirs(tmp, exist_ok=True)
@@ -3261,6 +3719,8 @@ def main(argv=None) -> int:
             grid_launches = phase_vit_grid(tmp)
         if "serve_vit" in phases:
             serve_vit_launches = phase_serve_vit(tmp)
+        if "dist" in phases:
+            dist_launches = phase_dist(tmp)
         if "sweep" in phases or "forks" in phases:
             sweep_launches, ctx = phase_sweep(tmp)
             if "forks" in phases:
@@ -3289,6 +3749,9 @@ def main(argv=None) -> int:
     def grid(name):
         return grid_launches and grid_launches[name]
 
+    def dist(name):
+        return dist_launches and dist_launches[name]
+
     def entry(name, source, replaces, launches, by_path, errors, main_row,
               at):
         return {"name": name, "route": "cuda", "source": source,
@@ -3305,7 +3768,7 @@ def main(argv=None) -> int:
                "train": train_launches and train_launches["flash3_fwd"],
                "vit_train": vit("flash3_fwd"),
                "vit_grid": grid("flash3_fwd"), "sweep": sweep("flash3_fwd"),
-               "forks": forks("flash3_fwd")},
+               "forks": forks("flash3_fwd"), "dist": dist("flash3_fwd")},
               [r["max_abs_err_o"] for r in rows
                if r["kernel"] == "flash3_fwd"],
               row_of("flash3_fwd", "image_b256"),
@@ -3317,7 +3780,7 @@ def main(argv=None) -> int:
               {"train": train_launches and train_launches["flash3_bwd"],
                "vit_train": vit("flash3_bwd"),
                "vit_grid": grid("flash3_bwd"), "sweep": sweep("flash3_bwd"),
-               "forks": forks("flash3_bwd")},
+               "forks": forks("flash3_bwd"), "dist": dist("flash3_bwd")},
               [r["max_abs_err"] for r in rows
                if r["kernel"] == "flash3_bwd"],
               row_of("flash3_bwd", "image_b64"),
@@ -3325,7 +3788,7 @@ def main(argv=None) -> int:
               "[64, 257, 3072], H=16; launches: the training run"),
         entry("dw_db", "vit_project_torch/csrc/dw_db.cu",
               "vit_project_tpu/ops/fused_dw.py:41", vit("dw_db"),
-              {"vit_train": vit("dw_db")},
+              {"vit_train": vit("dw_db"), "dist": dist("dw_db")},
               [r["max_abs_err"] for r in rows if r["kernel"] == "dw_db"],
               row_of("dw_db", "fc1"),
               "ViT-B/16 step at batch 256, bfloat16, fc1: x [50432, 768], "

@@ -411,7 +411,8 @@ def test_port_source_imports_neither_jax_nor_the_jax_package():
             "analysis/manifest.py", "ops/quant.py", "serve/export.py",
             "cli/export_torch.py", "cli/serve.py", "serve/engine.py",
             "core/profiling.py", "models/convert.py",
-            "data/things.py"} <= names
+            "data/things.py", "parallel/__init__.py", "parallel/dist.py",
+            "parallel/mesh.py"} <= names
     for path in _port_modules() + [REPO / "chip_smoke.py"]:
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):

@@ -626,9 +626,20 @@ def test_collective_poll_is_local_in_one_process(monkeypatch):
     monkeypatch.setattr(tdist, "is_initialized", lambda: True)
     monkeypatch.setattr(tdist, "get_world_size", lambda: 1)
     assert g.should_stop_collective() is True
+    # over several ranks: the flags are all-gathered, any one stops all
+    from vit_project_torch.parallel import dist as pdist
     monkeypatch.setattr(tdist, "get_world_size", lambda: 4)
-    with pytest.raises(NotImplementedError, match="parallel modes"):
-        g.should_stop_collective()
+    monkeypatch.setattr(pdist, "collective_device",
+                        lambda: torch.device("cpu"))
+    others = [0.0, 0.0, 0.0]
+    monkeypatch.setattr(pdist, "all_gather_rows", lambda t: torch.stack(
+        [t, *(torch.tensor([f]) for f in others)]))
+    assert g.should_stop_collective() is True
+    assert g.should_stop() is False          # mid-epoch: one process only
+    g2 = PreemptionGuard()
+    assert g2.should_stop_collective() is False
+    others[2] = 1.0
+    assert g2.should_stop_collective() is True
 
 
 # -- end to end: preemption, the image kind on the cache, the refusals --------

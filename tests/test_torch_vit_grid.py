@@ -275,14 +275,22 @@ def test_missing_checkpoint_or_baseline_row_is_skipped(jax_run, rsa_rows):
             None, None, {}, 0.1) is None
 
 
-def test_measure_refuses_several_ranks(monkeypatch):
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="WORLD_SIZE=2"):
+def test_measure_refuses_a_batch_the_ranks_do_not_divide(monkeypatch,
+                                                         tmp_path):
+    """Over several ranks --batch_size is the global batch, split evenly
+    (the 2-rank grid itself: tests/test_torch_parallel.py)."""
+    import contextlib
+    from vit_project_torch.parallel import dist as pdist
+    monkeypatch.setattr(pdist, "process_group",
+                        lambda device: contextlib.nullcontext((1, 3)))
+    pd.DataFrame({"epoch": [1]}).to_csv(tmp_path / "b.csv", index=False)
+    with pytest.raises(SystemExit, match="must divide by 3 processes"):
         tmeasure.main(["--baseline_checkpoint_dir", "x",
-                       "--baseline_metrics_csv", "x", "--data_path", "x",
-                       "--output_csv", "x", "--things_csv", "x",
-                       "--things_img_dir", "x", "--things_rdm_path", "x",
-                       "--device", "cpu"])
+                       "--baseline_metrics_csv", str(tmp_path / "b.csv"),
+                       "--data_path", "x", "--output_csv", "x",
+                       "--things_csv", "x", "--things_img_dir", "x",
+                       "--things_rdm_path", "x", "--batch_size", "8",
+                       "--backbone", "test-tiny", "--device", "cpu"])
 
 
 # -- the unperturbed replay of a port-trained baseline -------------------------

@@ -612,7 +612,8 @@ def test_cli_profile_dir_writes_a_trace_of_the_first_epoch(imagenet,
 
 @pytest.mark.parametrize("field,value", [
     ("pp_stages", 2), ("sp_devices", 2), ("sp_ring", True), ("ep_devices", 2),
-    ("tp_devices", 2), ("zero1", True), ("fsdp", True), ("moe_experts", 4)])
+    ("tp_devices", 2), ("tp_devices", 4), ("pp_stages", 4),
+    ("moe_experts", 4)])
 def test_unported_modes_are_refused_by_name(imagenet, tmp_path, field, value):
     cfg = dataclasses.replace(_tiny(TTrainConfig, imagenet,
                                     str(tmp_path / "x")), **{field: value})
@@ -620,7 +621,8 @@ def test_unported_modes_are_refused_by_name(imagenet, tmp_path, field, value):
         tloop.run_vit_training(cfg, vit_cfg=TTINY, device="cpu")
 
 
-@pytest.mark.parametrize("flag", [["--sp_devices", "2"], ["--zero1"],
+@pytest.mark.parametrize("flag", [["--sp_devices", "2"],
+                                  ["--tp_devices", "2"],
                                   ["--moe_experts", "2"]])
 def test_cli_refuses_unported_flags(imagenet, tmp_path, flag):
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -11,6 +11,14 @@ The files are pickles of numpy trees through ``ckpt/serialization.py``, with
 layout (``models/convert.py vit_jax_from_state_dict``), so either package
 resumes the other's runs. The pod-sharded `.orbax` directories the JAX
 package writes from several hosts are not ported yet and are refused.
+
+In a multi-process run the primary (rank 0) writes the `.pth` files, the
+CSV row and the pruning, and the other ranks meet it at a barrier, so no
+rank reads a half-written tree. The caller hands every rank the full
+state (the ZeRO-1 momentum and the FSDP parameters gathered first). The
+JAX package writes the sharded `.orbax` form there instead, every host its
+own shards; the port keeps the one `.pth` format that both packages resume
+from until `save_sharded` is ported.
 """
 from __future__ import annotations
 
@@ -20,6 +28,15 @@ import shutil
 
 from . import serialization as ser
 from ..core import csvio
+from ..parallel import dist
+
+
+def _is_multiprocess() -> bool:
+    return dist.world_size() > 1
+
+
+def _primary() -> bool:
+    return dist.is_primary()
 
 
 def _refuse_orbax(path: str) -> None:
@@ -34,9 +51,21 @@ def save_checkpoint(epoch: int, params, opt_state, sched_state: dict,
                     output_dir: str, logger=None) -> str:
     """Write checkpoint_epoch_{epoch:03d}.pth and its byte copy
     checkpoint_latest.pth, and append the epoch's metrics row. `params` and
-    `opt_state` are JAX-layout trees (numpy arrays or tensors)."""
-    os.makedirs(output_dir, exist_ok=True)
+    `opt_state` are JAX-layout trees (numpy arrays or tensors). Every rank
+    calls it; only the primary writes (module docstring)."""
     path = os.path.join(output_dir, f"checkpoint_epoch_{epoch:03d}.pth")
+    if _primary():
+        _write(path, epoch, params, opt_state, sched_state, train_loss,
+               val_loss, val_acc, output_dir, logger)
+    if _is_multiprocess():
+        dist.barrier()
+    return path
+
+
+def _write(path: str, epoch: int, params, opt_state, sched_state: dict,
+           train_loss: float, val_loss: float, val_acc: float,
+           output_dir: str, logger) -> None:
+    os.makedirs(output_dir, exist_ok=True)
     ser.save(path, {
         "epoch": epoch,
         "params": params,
@@ -64,7 +93,6 @@ def save_checkpoint(epoch: int, params, opt_state, sched_state: dict,
         logger.info(f"Saved checkpoint: {os.path.basename(path)}")
     csvio.append_vit_row(os.path.join(output_dir, "training_metrics.csv"),
                          epoch, train_loss, val_loss, val_acc)
-    return path
 
 
 def load_checkpoint(path: str):
@@ -76,9 +104,11 @@ def prune_checkpoints(output_dir: str, keep_last: int, current_epoch: int,
                       logger=None) -> list[str]:
     """Delete per-epoch checkpoints older than the last `keep_last` epochs.
     Opt-in retention for pure-training runs (the experimental paradigms need
-    every epoch); 'latest' is never touched."""
+    every epoch); 'latest' is never touched. The primary prunes; the other
+    ranks return at once (deleting a finished epoch's files is not a
+    collective)."""
     removed: list[str] = []
-    if keep_last <= 0:
+    if keep_last <= 0 or not _primary():
         return removed
     pat = re.compile(r"^checkpoint_epoch_(\d{3,})\.pth$")
     cutoff = current_epoch - keep_last

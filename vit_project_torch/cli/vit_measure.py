@@ -7,9 +7,10 @@ checkpoint from epoch-1 (model + optimizer + scheduler), train exactly ONE
 perturbed epoch, validate + compute THINGS-48 RSA, and emit
 delta_loss / delta_rsa rows into one CSV.
 
-One process on one card (unless --device says otherwise): the grid is not
-split across ranks yet, and a launch with WORLD_SIZE > 1 is refused rather
-than run once per rank.
+Alone, one process on one card (unless --device says otherwise). Under
+torchrun every rank trains each cell on its strided shard of the data
+(--batch_size is the global batch), the validation sums and the RSA
+embeddings are gathered, and rank 0 alone writes the CSVs.
 
   python -m vit_project_torch.cli.vit_measure --baseline_checkpoint_dir RUN \\
       --baseline_metrics_csv rsa_results.csv --data_path imagenet/ \\
@@ -31,6 +32,7 @@ from ..core.configs import ViTTrainConfig
 from ..core.device import resolve_device
 from ..data import imagenet as dimg
 from ..models import vit as vvit
+from ..parallel import dist
 from ..perturb import injectors
 from ..train.schedules import CosineAnnealingLRWithWarmup
 from ..train.vit_loop import ViTTrainer, load_trees, sgd_init
@@ -188,19 +190,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="decode/augment through the C++ core "
                         "(build with: make -C native)")
     p.add_argument("--device", default="cuda",
-                   help="torch device to run on ('cpu' for tests)")
+                   help="torch device to run on ('cpu' for tests, gloo "
+                        "under torchrun); under torchrun 'cuda' is the "
+                        "rank's card")
     return p
 
 
 def main(argv=None):
-    import scipy.io
     args = build_parser().parse_args(argv)
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world > 1:
-        raise SystemExit(f"WORLD_SIZE={world}: the measurement grid runs in "
-                         f"one process (split across ranks is not ported); "
-                         f"launch it once, without torchrun")
-    dev = resolve_device(args.device)
+    dev = resolve_device(dist.local_device(args.device))
+    with dist.process_group(dev) as (proc_id, proc_count):
+        return _main(args, dev, proc_id, proc_count)
+
+
+def _main(args, dev, proc_id: int, proc_count: int):
+    import scipy.io
 
     vit_cfg = vvit.VIT_CONFIGS[args.backbone]
     cfg = ViTTrainConfig(
@@ -214,16 +218,24 @@ def main(argv=None):
     trainer = ViTTrainer(vit_cfg, cfg, vvit.empty_vit(vit_cfg, dev), dev)
 
     baseline_df = pd.read_csv(args.baseline_metrics_csv)
+    # the batch is global: each rank loads its strided shard and feeds its
+    # local share (run_vit_training's contract)
+    if args.batch_size % proc_count != 0:   # not an assert: survives -O
+        raise SystemExit(f"global batch {args.batch_size} must divide by "
+                         f"{proc_count} processes")
+    local_bs = args.batch_size // proc_count
     from ..data.packed import make_loader
     train_loader = make_loader(
-        f"{args.data_path}/train", args.batch_size, train=True,
+        f"{args.data_path}/train", local_bs, train=True,
         seed=args.random_seed,  # replay the baseline's shuffle/aug stream
         size=vit_cfg.image_size, workers=args.num_workers, drop_last=True,
-        use_native=args.use_native_loader)
+        use_native=args.use_native_loader, num_shards=proc_count,
+        shard_id=proc_id)
     val_loader = make_loader(
-        f"{args.data_path}/val", args.batch_size, train=False,
+        f"{args.data_path}/val", local_bs, train=False,
         size=vit_cfg.image_size, workers=args.num_workers,
-        use_native=args.use_native_loader)
+        use_native=args.use_native_loader, num_shards=proc_count,
+        shard_id=proc_id)
     _, things_images = load_things_for_vit(args.things_csv,
                                            args.things_img_dir,
                                            size=vit_cfg.image_size)
@@ -248,6 +260,8 @@ def main(argv=None):
                 results.append(r)
 
     df = pd.DataFrame(results)
+    if not dist.is_primary():   # one CSV writer (reference rank-0 gate)
+        return results
     csvio.write_measure_csv(args.output_csv, results)
     print(f"Saved results to {args.output_csv}")
     print(df.to_string(index=False))

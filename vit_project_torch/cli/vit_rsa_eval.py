@@ -6,7 +6,9 @@ Produces the enriched metrics CSV
 `checkpoint,epoch,train_loss,val_loss,val_acc,rsa_score`
 (the reference ships this as Data/vit_results/rsa_results_final.csv but commits no
 script that writes it; the measurement grid, cli/vit_measure.py, reads its
-rsa_score column as the baseline).
+rsa_score column as the baseline). Under torchrun every rank embeds its
+strided share of the THINGS images, the embeddings are gathered in dataset
+order, and rank 0 writes the CSV.
 
   python -m vit_project_torch.cli.vit_rsa_eval --checkpoint_dir RUN \\
       --output_csv rsa_results.csv --things_csv things48.csv \\
@@ -25,6 +27,7 @@ from ..ckpt import vit_ckpt
 from ..core.configs import ViTTrainConfig
 from ..core.device import resolve_device
 from ..models import vit as vvit
+from ..parallel import dist
 from ..train.vit_loop import ViTTrainer, load_trees
 from .vit_measure import load_things_for_vit
 
@@ -54,14 +57,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--compute_dtype", default="bfloat16")
     p.add_argument("--device", default="cuda",
-                   help="torch device to run on ('cpu' for tests)")
+                   help="torch device to run on ('cpu' for tests, gloo "
+                        "under torchrun); under torchrun 'cuda' is the "
+                        "rank's card")
     return p
 
 
 def main(argv=None):
-    import scipy.io
     args = build_parser().parse_args(argv)
-    dev = resolve_device(args.device)
+    dev = resolve_device(dist.local_device(args.device))
+    with dist.process_group(dev):
+        return _main(args, dev)
+
+
+def _main(args, dev):
+    import scipy.io
     vit_cfg = vvit.VIT_CONFIGS[args.backbone]
     cfg = ViTTrainConfig(batch_size=args.batch_size,
                          compute_dtype=args.compute_dtype,
@@ -98,11 +108,12 @@ def main(argv=None):
         print(f"epoch {epoch}: rsa={rho:.4f}")
 
     df = pd.DataFrame(rows)
-    d = os.path.dirname(args.output_csv)
-    if d:
-        os.makedirs(d, exist_ok=True)
-    df.to_csv(args.output_csv, index=False)
-    print(f"Wrote {args.output_csv}")
+    if dist.is_primary():   # one CSV writer
+        d = os.path.dirname(args.output_csv)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        df.to_csv(args.output_csv, index=False)
+        print(f"Wrote {args.output_csv}")
     return df
 
 

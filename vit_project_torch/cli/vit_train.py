@@ -1,16 +1,23 @@
 """ViT-B/16 ImageNet training entry point (counterpart of the JAX package's
 cli/vit_train.py, with the same flags plus --device).
 
-Reference: Training/vit_training/baseline/train_vit_sgd.py (torchrun/DDP). One
-process trains on one card unless --device says otherwise. Flags of the JAX
-CLI whose features are not ported yet (the parallel modes, MoE) are
-accepted and refused by the training loop at any value but their default.
---profile_dir writes a torch.profiler trace of the first epoch. Exits 143
-when a SIGTERM stopped the run mid-epoch (run it again to resume inside the
-epoch).
+Reference: Training/vit_training/baseline/train_vit_sgd.py (torchrun/DDP).
+Alone, one process trains on one card (or on --device). Under torchrun each
+rank joins the process group (NCCL on its card, cuda:LOCAL_RANK; gloo with
+--device cpu) and trains data-parallel: dp by default, --zero1 shards the
+momentum, --fsdp the parameters and the momentum (FSDP2). --batch_size is
+the global batch. Flags of the JAX CLI whose features are not ported yet
+(tensor, sequence, pipeline and expert parallelism, MoE) are accepted and
+refused by the training loop at any value but their default. --fused_dw
+(no JAX flag; JAX's ViTTrainConfig field) routes the dense layers' dW and
+db through the fused kernel, one process only. --profile_dir writes a
+torch.profiler trace of the first epoch. Exits 143 when a SIGTERM stopped
+the run (run it again to resume).
 
   python -m vit_project_torch.cli.vit_train --data_path imagenet/ \\
       --output_dir runs/vit_b16
+  torchrun --nproc_per_node 4 -m vit_project_torch.cli.vit_train \\
+      --data_path imagenet/ --output_dir runs/vit_b16 --batch_size 512
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import argparse
 import sys
 
 from ..core.configs import ViTTrainConfig
+from ..parallel import dist
 from ..train.vit_loop import run_vit_training
 
 
@@ -28,8 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Path to ImageNet data (train/ + val/ ImageFolders)")
     p.add_argument("--output_dir", type=str, required=True)
     p.add_argument("--batch_size", type=int, default=256,
-                   help="global batch size (one card); the reference's "
-                        "256/GPU x 2 GPUs = --batch_size 512")
+                   help="global batch size (split over the ranks); the "
+                        "reference's 256/GPU x 2 GPUs = --batch_size 512")
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--lr", type=float, default=0.1)
     p.add_argument("--momentum", type=float, default=0.9)
@@ -63,11 +71,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="lookahead depth: copy batch k+1 to the card on a "
                         "feeder thread while batch k trains; 0 disables")
     p.add_argument("--zero1", action="store_true",
-                   help="shard the SGD momentum (not ported yet)")
+                   help="shard the SGD momentum over the ranks (ZeRO-1)")
     p.add_argument("--tp_devices", type=int, default=1,
                    help="tensor parallelism (not ported yet)")
     p.add_argument("--fsdp", action="store_true",
-                   help="shard params and momentum (not ported yet)")
+                   help="shard params and momentum over the ranks (FSDP2)")
     p.add_argument("--grad_accum", type=int, default=1,
                    help="split each batch into N gradient microbatches "
                         "inside one step: peak activation memory = one "
@@ -98,8 +106,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "(core/preempt.py); by default a preemption notice "
                         "saves checkpoint_preempt.pth and exits 143, and "
                         "the next invocation resumes inside the epoch")
+    p.add_argument("--fused_dw", action="store_true",
+                   help="dense-layer dW and db through the fused kernel "
+                        "(ops/fused_dw.py); one process only")
     p.add_argument("--device", default="cuda",
-                   help="torch device to train on ('cpu' for tests)")
+                   help="torch device to train on ('cpu' for tests, gloo "
+                        "under torchrun); under torchrun 'cuda' is the "
+                        "rank's card")
     return p
 
 
@@ -125,8 +138,10 @@ def main(argv=None):
         sp_devices=args.sp_devices, sp_ring=args.sp_ring,
         ep_devices=args.ep_devices, moe_experts=args.moe_experts,
         moe_topk=args.moe_topk, preempt_save=not args.no_preempt_save,
-        keep_last=args.keep_last)
-    result = run_vit_training(cfg, vit_cfg=vit_cfg, device=args.device)
+        keep_last=args.keep_last, fused_dw=args.fused_dw)
+    device = dist.local_device(args.device)
+    with dist.process_group(device):
+        result = run_vit_training(cfg, vit_cfg=vit_cfg, device=device)
     if result.get("preempted"):
         # conventional SIGTERM exit status: orchestration layers (and the
         # reference's SLURM habit of requeueing nonzero exits) see the run

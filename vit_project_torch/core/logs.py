@@ -4,9 +4,8 @@ new_cvpr_train_behavior_things_pipeline.py:51-85, and setup_main_logger,
 clip_train_behavior_sweep.py:81-109): a per-run logger and an orchestrator
 ("main") logger.
 
-The port runs one process, so the file handler needs no primary-process
-gate; it still opens its file at the first record, as the JAX package's
-does.
+In a multi-process run only the primary process (rank 0) writes the log
+file; every rank keeps its console output.
 """
 from __future__ import annotations
 
@@ -18,24 +17,38 @@ _FORMAT = "%(asctime)s - %(levelname)s - %(message)s"
 _DATEFMT = "%Y-%m-%d %H:%M:%S"
 
 
-class _LazyFileHandler(logging.Handler):
-    """Truncating (mode "w") file handler that opens at the first record."""
+def _is_primary() -> bool:
+    from ..parallel import dist
+    return dist.is_primary()
+
+
+class _PrimaryFileHandler(logging.Handler):
+    """Truncating (mode "w") file handler of the primary process, decided
+    at the first record: the log file belongs to rank 0 (the reference
+    rank-gates its prints the same way, train_vit_sgd.py:149), and the
+    other ranks write nothing. As the JAX package's, it decides at the
+    first record, so a caller may build the logger before it joins the
+    process group."""
 
     def __init__(self, path: str, formatter: logging.Formatter):
         super().__init__(logging.INFO)
         self._path = path
         self._inner: logging.FileHandler | None = None
+        self._decided = False
         self.setFormatter(formatter)
 
     def emit(self, record):
-        if self._inner is None:
-            d = os.path.dirname(self._path)
-            if d:
-                os.makedirs(d, exist_ok=True)
-            self._inner = logging.FileHandler(self._path, mode="w")
-            self._inner.setLevel(logging.INFO)
-            self._inner.setFormatter(self.formatter)
-        self._inner.emit(record)
+        if not self._decided:
+            self._decided = True
+            if _is_primary():
+                d = os.path.dirname(self._path)
+                if d:
+                    os.makedirs(d, exist_ok=True)
+                self._inner = logging.FileHandler(self._path, mode="w")
+                self._inner.setLevel(logging.INFO)
+                self._inner.setFormatter(self.formatter)
+        if self._inner is not None:
+            self._inner.emit(record)
 
     def close(self):
         if self._inner is not None:
@@ -50,7 +63,7 @@ def _build(name: str, log_file_path: str) -> logging.Logger:
         h.close()
     logger.handlers = []
     formatter = logging.Formatter(_FORMAT, datefmt=_DATEFMT)
-    logger.addHandler(_LazyFileHandler(log_file_path, formatter))
+    logger.addHandler(_PrimaryFileHandler(log_file_path, formatter))
     ch = logging.StreamHandler(sys.stdout)
     ch.setLevel(logging.INFO)
     ch.setFormatter(formatter)

@@ -4,9 +4,14 @@ resumable (copy of the JAX package's core/preempt.py ``PreemptionGuard``).
 The CLIP-HBA loop polls the guard at epoch boundaries, right after the
 epoch's checkpoints are written, so a stop is exactly resumable in place;
 the batched sweep and lengths poll ``should_stop_collective`` at each lock-step
-and group boundary. The port trains in one process: with a multi-process
-``torch.distributed`` group the collective poll raises until the port of
-the parallel modes brings its all-gather.
+and group boundary, and the ViT loop at each epoch boundary.
+
+Mid-epoch stops are a one-process feature: signals reach the ranks of a
+``torch.distributed`` group at different times, and a rank that stops at
+batch k while another goes on to k+1 would hang the next collective. So
+over more than one process ``should_stop()`` answers False, and a stop
+happens at the next ``should_stop_collective()``, which every rank calls at
+the same loop point: one rank's flag stops them all.
 """
 from __future__ import annotations
 
@@ -51,22 +56,22 @@ class PreemptionGuard:
         return self._event.is_set()
 
     def should_stop(self) -> bool:
-        """True when a stop was requested (by a signal or `request()`)."""
-        return self._event.is_set()
+        """True when a stop was requested (by a signal or `request()`) and
+        this is the only process (module docstring)."""
+        from ..parallel import dist
+        return self._event.is_set() and dist.world_size() == 1
 
     def should_stop_collective(self) -> bool:
-        """The poll every process makes at the same loop point (JAX's
-        collective one). One process, or no process group: the local flag.
-        A multi-process group needs an all-gather of the flags, which comes
-        with the parallel modes."""
-        import torch.distributed as tdist
-        if (not tdist.is_available() or not tdist.is_initialized()
-                or tdist.get_world_size() == 1):
+        """The poll every process makes at the same loop point: True when
+        any rank's flag is set (the flags are all-gathered; one process, or
+        no process group: the local flag)."""
+        from ..parallel import dist
+        if dist.world_size() == 1:
             return self._event.is_set()
-        raise NotImplementedError(
-            "PreemptionGuard.should_stop_collective over "
-            f"{tdist.get_world_size()} processes is not ported yet: it comes "
-            f"with {PARALLEL_MODES}")
+        import torch
+        flag = torch.tensor([1.0 if self._event.is_set() else 0.0],
+                            device=dist.collective_device())
+        return bool(dist.all_gather_rows(flag).sum().item() > 0)
 
     def _handler(self, signum, frame):
         self.signaled_by = signum

@@ -1,8 +1,10 @@
 """Vision Transformers: the CLIP visual tower under OpenAI's names and the
 timm-style ViT classifier under timm's names.
 
-Counterpart of the JAX package's models/vit.py. The modules only hold
-parameters; the forward is plain functions on them.
+Counterpart of the JAX package's models/vit.py. The modules hold the
+parameters; the forward is plain functions on them (the classifier's and
+its blocks' ``forward`` call those functions, so module hooks such as
+FSDP2's see every block).
 
 The CLIP visual tower (``conv1.weight``,
 ``transformer.resblocks.{i}.attn.in_proj_weight``, ``ln_1``, ``mlp.c_fc``,
@@ -521,6 +523,12 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(width)
         self.mlp = Mlp(width, width * mlp_ratio)
 
+    def forward(self, x: torch.Tensor, heads: int, *, act,
+                fused_dw: bool = False) -> torch.Tensor:
+        """``classifier_block`` on this block (through the module call, so
+        FSDP2's hooks gather a sharded block's parameters around it)."""
+        return classifier_block(self, x, heads, act=act, fused_dw=fused_dw)
+
 
 class PatchEmbed(nn.Module):
     def __init__(self, width: int, patch: int, bias: bool):
@@ -547,6 +555,15 @@ class VisionTransformerClassifier(nn.Module):
                                     for _ in range(cfg.layers))
         self.norm = nn.LayerNorm(cfg.width)
         self.head = nn.Linear(cfg.width, cfg.num_classes)
+
+    def forward(self, images: torch.Tensor, *, pool: str | None = None,
+                **kw) -> torch.Tensor:
+        """``vit_classify`` (or, with `pool`, ``forward_features``) on this
+        model through the module call, which FSDP2 hooks on a sharded
+        model."""
+        if pool is None:
+            return vit_classify(self, images, **kw)
+        return forward_features(self, images, pool=pool, **kw)
 
 
 def empty_vit(cfg: ViTConfig, device) -> VisionTransformerClassifier:
@@ -679,11 +696,10 @@ def vit_encode(model: VisionTransformerClassifier, images: torch.Tensor, *,
     for blk in model.blocks:
         if remat and torch.is_grad_enabled():
             x = torch.utils.checkpoint.checkpoint(
-                classifier_block, blk, x, cfg.heads, act=act,
-                fused_dw=fused_dw, use_reentrant=False)
+                blk, x, cfg.heads, act=act, fused_dw=fused_dw,
+                use_reentrant=False)
         else:
-            x = classifier_block(blk, x, cfg.heads, act=act,
-                                 fused_dw=fused_dw)
+            x = blk(x, cfg.heads, act=act, fused_dw=fused_dw)
     return vnn.layer_norm(x, model.norm.weight, model.norm.bias)
 
 
