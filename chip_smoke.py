@@ -96,6 +96,24 @@
    alone, byte for byte; it times a step of each mode in turns in one
    process; then two ranks under gloo share the card: a dp run within the
    tolerance of the run alone, and the RSA gathered in dataset order;
+6e. phase `clip_dist`: CLIP-HBA training across ranks as users launch it,
+   at full width and depth (ViT-L/14, rank-32 DoRA, bf16, batch 64, 2
+   epochs) on THINGS at its real size on disk (the images phase sweep
+   reuses, here with random targets): ``cli.baseline`` alone and under
+   ``torchrun --standalone --nproc_per_node 1`` (NCCL: the data-parallel
+   step at world size 1), each counting its launches from 0 (36 flash3_fwd
+   and 1 flash3_bwd a step, 36 an eval and an RSA), rows, DoRA and
+   random-state pickles bit-equal; two gloo ranks sharing the card within
+   the stated tolerance, one log, no file written by rank 1, peak memory a
+   rank; one sequential ``cli.sweep`` run, which restores the baseline's
+   AdamW state, over the two gloo ranks within that tolerance of world
+   size 1; ms a step alone
+   and data-parallel in turns; ``cli.sweep --batched_forks 3
+   --frozen_cache`` of runs 1, 2 under torchrun against the same
+   invocation alone, bit for bit. Phases dist and clip_dist put their
+   torchrun runs at world size 1 into one launch each (``--dist_worker``'s
+   ``--then`` chain; the worker makes the group, the CLIs join it), since
+   a process costs ~20 s to start;
 7. phase `sweep`: writes THINGS at its real size to disk (1,806 training
    and 48 inference JPEGs at 224^2, whose targets are the initial model's
    own predictions) and seeded random ViT-L/14 weights, and drives the
@@ -222,7 +240,7 @@ LN_TOLERANCE = {"float32": {"dx": 1e-5, "dparams": 1e-4},
 SEED = 0
 RESULTS: dict = {}
 ALL_PHASES = ("kernel", "ops", "serve", "train", "vit_train", "vit_grid",
-              "serve_vit", "dist", "sweep", "forks")
+              "serve_vit", "dist", "clip_dist", "sweep", "forks")
 
 
 def fail(msg: str) -> None:
@@ -2357,27 +2375,29 @@ def _solo_lengths(lengths_cli, fork, root, logs, onset, length):
             text, sec)
 
 
-def phase_sweep(tmp: str):
+_CLIP_FIXTURE: dict = {}
+
+
+def _clip_fixture(tmp: str) -> dict:
+    """THINGS at its real size on disk and seeded random ViT-L/14 weights,
+    written once and shared by phases clip_dist and sweep: the weights in
+    OpenAI's layout (loaded back the way the CLIs load them), rank-32 DoRA
+    from SWEEP_SEED, a trainer on them, 1,806 + 48 JPEGs whose targets are
+    the initial model's predictions, the CSVs and the RDM, and the CLIs'
+    data flags."""
+    if _CLIP_FIXTURE:
+        return _CLIP_FIXTURE
     import torch
     from vit_project_torch.adapters import dora as adora
-    from vit_project_torch.cli import baseline as baseline_cli
-    from vit_project_torch.cli import lengths as lengths_cli
-    from vit_project_torch.cli import sweep as sweep_cli
-    from vit_project_torch.core.prng import Key
-    from vit_project_torch.data import things as dthings
     from vit_project_torch.data.spose66 import classnames66
     from vit_project_torch.models import clip as vclip
     from vit_project_torch.models import convert as vconvert
     from vit_project_torch.models import tokenizer as vtok
-    from vit_project_torch.ops import attention as vattn
     from vit_project_torch.train import clip_loop
 
-    t_phase = time.time()
-    root = os.path.join(tmp, "sweep")
-    logs = os.path.join(root, "logs")
-    os.makedirs(logs)
-    # seeded random ViT-L/14 weights in OpenAI's layout, as phase serve
-    # writes them, loaded back the way the CLIs load them
+    t0 = time.time()
+    root = os.path.join(tmp, "clip_things")
+    os.makedirs(root)
     cfg = vclip.CLIP_VIT_L14
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     model = vclip.init_clip_weights_(vclip.empty_clip(cfg, "cuda"), gen)
@@ -2402,18 +2422,46 @@ def phase_sweep(tmp: str):
                                     all_dev, len(names))
     del all_dev
     data = _write_things_csvs(root, names, preds)
-    spread = float(preds.std(axis=0).mean())
-    print(f"[sweep] THINGS-sized fixture on disk (1,806 train / 48 inference "
-          f"JPEGs at 224^2; targets = the initial model's predictions, mean "
-          f"across-image std {spread:.3f}) and ViT-L/14 weights written in "
-          f"{time.time() - t_phase:.1f} s", flush=True)
+    _CLIP_FIXTURE.update(
+        cfg=cfg, model=model, init_tr=init_tr, trainer=trainer,
+        pixels=pixels, preds=preds, wpath=wpath, names=names,
+        img_dir=img_dir,
+        spread=float(preds.std(axis=0).mean()), seconds=time.time() - t0,
+        model_args=["--clip_weights", wpath, "--allow_hash_tokenizer",
+                    "--batch_size", "64", "--random_seed", str(SWEEP_SEED)])
+    _CLIP_FIXTURE["common"] = [
+        "--csv_file", data["csv_file"], "--img_dir", img_dir,
+        "--inference_csv_file", data["inference_csv_file"],
+        "--RDM48_triplet_dir", data["RDM48_triplet_dir"],
+        *_CLIP_FIXTURE["model_args"]]
+    print(f"[things] THINGS-sized fixture on disk (1,806 train / 48 "
+          f"inference JPEGs at 224^2; targets = the initial model's "
+          f"predictions, mean across-image std {_CLIP_FIXTURE['spread']:.3f})"
+          f" and ViT-L/14 weights written in {_CLIP_FIXTURE['seconds']:.1f} "
+          f"s", flush=True)
+    return _CLIP_FIXTURE
 
-    common = ["--csv_file", data["csv_file"], "--img_dir", img_dir,
-              "--inference_csv_file", data["inference_csv_file"],
-              "--RDM48_triplet_dir", data["RDM48_triplet_dir"],
-              "--clip_weights", wpath, "--allow_hash_tokenizer",
-              "--epochs", "3", "--batch_size", "64",
-              "--random_seed", str(SWEEP_SEED)]
+
+def phase_sweep(tmp: str):
+    import torch
+    from vit_project_torch.adapters import dora as adora
+    from vit_project_torch.cli import baseline as baseline_cli
+    from vit_project_torch.cli import lengths as lengths_cli
+    from vit_project_torch.cli import sweep as sweep_cli
+    from vit_project_torch.core.prng import Key
+    from vit_project_torch.data import things as dthings
+    from vit_project_torch.ops import attention as vattn
+
+    t_phase = time.time()
+    root = os.path.join(tmp, "sweep")
+    logs = os.path.join(root, "logs")
+    os.makedirs(logs)
+    fx = _clip_fixture(tmp)
+    trainer, init_tr, pixels, preds = (fx["trainer"], fx["init_tr"],
+                                       fx["pixels"], fx["preds"])
+    spread = fx["spread"]
+
+    common = fx["common"] + ["--epochs", "3"]
     runs = []   # (label, log text, seconds)
 
     def launches():
@@ -2610,7 +2658,7 @@ def phase_sweep(tmp: str):
            "trainer": trainer, "init_tr": init_tr, "imgs_dev": imgs_dev,
            "tgts_dev": tgts_dev, "cache": cache, "n_train": n_train,
            "steps_per_epoch": steps_per_epoch}
-    del model, tr, opt
+    del tr, opt
     return path_launches, ctx
 
 
@@ -3260,12 +3308,63 @@ DIST_PARAM_RTOL = 1e-2
 DIST_RHO_ATOL = 1e-3
 
 
+class _WriteCounter:
+    """The files this process opens for writing (open, torch.save,
+    os.replace) under `root`, while installed."""
+
+    def __init__(self, root: str):
+        import builtins
+        import torch
+        self.root, self.paths = os.path.abspath(root), []
+        self._real = (builtins.open, torch.save, os.replace)
+
+    def _note(self, path):
+        if isinstance(path, (str, os.PathLike)) and \
+                os.path.abspath(path).startswith(self.root):
+            self.paths.append(os.path.relpath(path, self.root))
+
+    def __enter__(self):
+        import builtins
+        import torch
+        real_open, real_save, real_replace = self._real
+
+        def open_(file, mode="r", *a, **k):
+            if any(c in mode for c in "wax+"):
+                self._note(file)
+            return real_open(file, mode, *a, **k)
+
+        def save(obj, f, *a, **k):
+            self._note(f)
+            return real_save(obj, f, *a, **k)
+
+        def replace(src, dst, *a, **k):
+            self._note(dst)
+            return real_replace(src, dst, *a, **k)
+        builtins.open, torch.save, os.replace = open_, save, replace
+        return self
+
+    def __exit__(self, *exc):
+        import builtins
+        import torch
+        builtins.open, torch.save, os.replace = self._real
+        return False
+
+
 def _dist_worker(report: str, argv: list) -> int:
-    """Run one entry point in this process (under torchrun or alone) and
-    write what it launched and used to `report`.rank{RANK}.json. argv:
-    [--gloo] MODULE ARGS...; MODULE is a CLI module (its main(ARGS)) or
-    "time_modes". --gloo makes the process group first, with gloo on the
-    card (the CLI then leaves it alone)."""
+    """Run entry points in this process (under torchrun or alone) and write
+    what each launched and used to `report`.rank{RANK}.json. argv:
+    [--gloo] MODULE ARGS... [--then MODULE ARGS...]...; MODULE is a CLI
+    module (its main(ARGS)), "time_modes" or "clip_step_ms" (ARGS: the
+    weights file). --gloo makes the process group first, with gloo on the
+    card; a chain (--then) under torchrun makes it first with the backend
+    of the rank's card (NCCL); the CLIs then leave it alone. Each module
+    counts its launches from 0 and its peak memory from what the earlier
+    modules still hold (reported as start_gib); the report is the first
+    module's, with the later ones under "then". A rank other than 0 also
+    reports the files it opened for writing under the report's directory
+    (none: rank 0 writes them all)."""
+    import gc
+    import importlib
     import torch
     import torch.distributed as tdist
     sys.path.insert(0, ROOT)
@@ -3273,14 +3372,22 @@ def _dist_worker(report: str, argv: list) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from vit_project_torch.ops import attention as vattn
     from vit_project_torch.ops import fused_dw as vfdw
+    from vit_project_torch.parallel import dist
     gloo = argv[0] == "--gloo"
     if gloo:
         argv = argv[1:]
-        tdist.init_process_group("gloo")
-    from vit_project_torch.parallel import dist
+    chain = [[]]
+    for a in argv:
+        if a == "--then":
+            chain.append([])
+        else:
+            chain[-1].append(a)
     rank = int(os.environ.get("RANK", "0"))
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    module, args = argv[0], argv[1:]
+    if gloo:
+        tdist.init_process_group("gloo")
+    elif len(chain) > 1 and dist.launched():
+        dist.setup_distributed(dist.local_device("cuda"))
     backend = {}
     setup = dist.setup_distributed
 
@@ -3290,25 +3397,46 @@ def _dist_worker(report: str, argv: list) -> int:
             backend["name"] = tdist.get_backend()
         return ranks
     dist.setup_distributed = recording_setup
-    vattn.reset_launch_counts()
-    vfdw.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    if module == "time_modes":
-        extra = _time_modes()
-    else:
-        import importlib
-        importlib.import_module(module).main(args)
-        extra = {}
-    torch.cuda.synchronize()
-    out = {"rank": rank, "world": world, "s": time.time() - t0,
-           "launches": {**vattn.LAUNCHES, **vfdw.LAUNCHES},
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "backend": backend.get("name"), **extra}
-    if gloo:
+    outs = []
+    for module, *args in chain:
+        backend.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        vattn.reset_launch_counts()
+        vfdw.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        # what the chain's earlier modules still hold (a floor under this
+        # module's peak)
+        start_gib = torch.cuda.memory_allocated() / 2**30
+        t0 = time.time()
+        counter = _WriteCounter(os.path.dirname(report)) if rank else None
+        if counter is not None:
+            counter.__enter__()
+        try:
+            if module == "time_modes":
+                extra = _time_modes()
+            elif module == "clip_step_ms":
+                extra = _clip_step_ms(args[0])
+            else:
+                result = importlib.import_module(module).main(args)
+                extra = {"result": result if isinstance(result, list)
+                         else None}
+        finally:
+            if counter is not None:
+                counter.__exit__()
+        torch.cuda.synchronize()
+        outs.append({"module": module, "rank": rank, "world": world,
+                     "s": time.time() - t0,
+                     "launches": {**vattn.LAUNCHES, **vfdw.LAUNCHES},
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "start_gib": start_gib,
+                     "backend": backend.get("name"),
+                     "writes": None if counter is None else counter.paths,
+                     **extra})
+    if dist.is_initialized():
         tdist.destroy_process_group()
     with open(f"{report}.rank{rank}.json", "w") as f:
-        json.dump(out, f)
+        json.dump({**outs[0], "then": outs[1:]}, f)
     return 0
 
 
@@ -3424,7 +3552,9 @@ def phase_dist(tmp: str):
     ``torchrun --standalone --nproc_per_node 1`` in dp, --zero1 and --fsdp
     (NCCL); cli.vit_rsa_eval and one cli.vit_measure cell under torchrun
     against the same CLIs alone; ms a step per mode in turns; and two ranks
-    under gloo on this one card (dp, the gathered RSA)."""
+    under gloo on this one card (dp, the gathered RSA). The torchrun runs
+    share one launch (a chain of the worker's, each CLI counted from 0),
+    and so do the two gloo ones: a process costs ~20 s of start-up."""
     import pandas as pd
     from vit_project_torch.cli import vit_measure as measure_cli
     from vit_project_torch.cli import vit_rsa_eval as rsa_cli
@@ -3450,17 +3580,40 @@ def phase_dist(tmp: str):
     train_args = ["--data_path", data, "--batch_size", "256", "--epochs",
                   str(DIST_EPOCHS), "--num_workers", "8", "--lr", DIST_LR]
 
-    # --- the main path: cli.vit_train alone and under torchrun per mode;
-    # each process starts its counts at 0 and reports them at its end ---
+    # --- the main path: cli.vit_train alone, then in one torchrun launch
+    # dp, zero1, fsdp, cli.vit_rsa_eval, one cli.vit_measure cell and the
+    # step timing; each CLI's counts start at 0 and are read at its end ---
     want = {"dw_db": 49 * DIST_STEPS, "flash3_bwd": 12 * DIST_STEPS,
             "flash3_fwd": 12 * (DIST_STEPS + DIST_VAL_BATCHES)}
+    single = os.path.join(root, "single")
+    by_mode = {"single": _dist_run(root, "single", [
+        train_cli, *train_args, "--fused_dw", "--output_dir", single],
+        nproc=None)[0]}
+    rsa_one = os.path.join(root, "rsa_one.csv")
+    _cli(rsa_cli.main, ["--checkpoint_dir", single, "--output_csv", rsa_one,
+                        *things_args], os.path.join(root, "rsa_one.log"))
+    cell = ["--baseline_checkpoint_dir", single, "--baseline_metrics_csv",
+            rsa_one, "--data_path", data, *things_args, "--perturb_epochs",
+            "1", "--perturbation_types", "gaussian", "--batch_size", "256",
+            "--num_workers", "8", "--lr", DIST_LR]
+    chain = []
+    for mode in DIST_MODES[1:]:
+        flags = {"zero1": ["--zero1"], "fsdp": ["--fsdp"]}.get(mode, [])
+        chain += [train_cli, *train_args, "--fused_dw", "--output_dir",
+                  os.path.join(root, mode), *flags, "--then"]
+    chain += ["vit_project_torch.cli.vit_rsa_eval", "--checkpoint_dir",
+              single, "--output_csv", os.path.join(root, "rsa_dp.csv"),
+              *things_args, "--then", "vit_project_torch.cli.vit_measure",
+              *cell, "--output_csv", os.path.join(root, "cell_dp.csv"),
+              "--then", "time_modes"]
+    first = _dist_run(root, "torchrun", chain)[0]
+    steps = [first] + first.pop("then")
+    by_mode.update(zip(DIST_MODES[1:], steps[:3]))
+    rsa_rep, cell_rep, tm = steps[3:]
     runs, trees, rows = {}, {}, {}
     for mode in DIST_MODES:
         out = os.path.join(root, mode)
-        flags = {"zero1": ["--zero1"], "fsdp": ["--fsdp"]}.get(mode, [])
-        rep = _dist_run(root, mode, [train_cli, *train_args, "--fused_dw",
-                                     "--output_dir", out, *flags],
-                        nproc=None if mode == "single" else 1)[0]
+        rep = by_mode[mode]
         if rep["launches"] != {**{k: 0 for k in rep["launches"]}, **want}:
             fail(f"[dist] {mode}: launches {rep['launches']}, want {want}")
         if rep["backend"] != (None if mode == "single" else "nccl"):
@@ -3469,7 +3622,8 @@ def phase_dist(tmp: str):
         trees[mode] = _ckpt_trees(out)
         rows[mode] = _read_rows(os.path.join(out, "training_metrics.csv"))
         print(f"[dist] {mode}: {rep['s']:.1f} s, peak "
-              f"{rep['peak_gib']:.2f} GiB, launches "
+              f"{rep['peak_gib']:.3f} GiB ({rep['start_gib']:.3f} GiB held "
+              f"at its start), launches "
               + ", ".join(f"{k} {v}" for k, v in sorted(
                   rep["launches"].items()) if v)
               + "; rows " + "; ".join(",".join(r) for r in rows[mode][1:]),
@@ -3511,24 +3665,10 @@ def phase_dist(tmp: str):
                             if m != "single") for k in want}
 
     # --- the per-epoch RSA and one grid cell: torchrun at world size 1
-    # against the same CLIs alone (in this process) ---
-    single = os.path.join(root, "single")
-    rsa_one = os.path.join(root, "rsa_one.csv")
-    _cli(rsa_cli.main, ["--checkpoint_dir", single, "--output_csv", rsa_one,
-                        *things_args], os.path.join(root, "rsa_one.log"))
-    rsa_rep = _dist_run(root, "rsa_dp", [
-        "vit_project_torch.cli.vit_rsa_eval", "--checkpoint_dir", single,
-        "--output_csv", os.path.join(root, "rsa_dp.csv"), *things_args])[0]
-    cell = ["--baseline_checkpoint_dir", single, "--baseline_metrics_csv",
-            rsa_one, "--data_path", data, *things_args, "--perturb_epochs",
-            "1", "--perturbation_types", "gaussian", "--batch_size", "256",
-            "--num_workers", "8", "--lr", DIST_LR]
+    # (above) against the same CLIs alone (in this process) ---
     _cli(measure_cli.main, cell + ["--output_csv",
                                    os.path.join(root, "cell_one.csv")],
          os.path.join(root, "cell_one.log"))
-    cell_rep = _dist_run(root, "cell_dp", [
-        "vit_project_torch.cli.vit_measure", *cell, "--output_csv",
-        os.path.join(root, "cell_dp.csv")])[0]
     same = {}
     for name in ("rsa", "cell"):
         with open(os.path.join(root, f"{name}_one.csv"), "rb") as f:
@@ -3550,8 +3690,7 @@ def phase_dist(tmp: str):
             GRID_CELL_LAUNCHES["flash3_fwd"]:
         fail(f"[dist] launches {rsa_rep['launches']} {cell_rep['launches']}")
 
-    # --- ms a step per mode, in turns, in one process ---
-    tm = _dist_run(root, "time_modes", ["time_modes"])[0]
+    # --- ms a step per mode, in turns, in one process (the launch above) ---
     per_step_want = {"dw_db": 49, "flash3_bwd": 12, "flash3_fwd": 12}
     for mode, got in tm["per_step"].items():
         if {k: got[k] for k in per_step_want} != per_step_want:
@@ -3570,9 +3709,13 @@ def phase_dist(tmp: str):
 
     # --- two ranks on this card under gloo: dp and the gathered RSA ---
     gloo_out = os.path.join(root, "gloo_dp")
-    g = _dist_run(root, "gloo_dp", ["--gloo", train_cli, *train_args,
-                                    "--device", "cuda:0", "--output_dir",
-                                    gloo_out], nproc=2)
+    g = _dist_run(root, "gloo", [
+        "--gloo", train_cli, *train_args, "--device", "cuda:0",
+        "--output_dir", gloo_out, "--then",
+        "vit_project_torch.cli.vit_rsa_eval", "--checkpoint_dir", single,
+        "--output_csv", os.path.join(root, "rsa_gloo.csv"), *things_args,
+        "--device", "cuda:0"], nproc=2)
+    g_rsa = [rep["then"][0] for rep in g]
     g_rows = _read_rows(os.path.join(gloo_out, "training_metrics.csv"))
     got = np.array([[float(v) for v in r[1:]] for r in g_rows[1:]])
     ref = np.array([[float(v) for v in r[1:]] for r in rows["single"][1:]])
@@ -3584,10 +3727,6 @@ def phase_dist(tmp: str):
         if rep["backend"] != "gloo" or any(
                 rep["launches"][k] != v for k, v in half.items()):
             fail(f"[dist] gloo rank {rep['rank']}: {rep}")
-    g_rsa = _dist_run(root, "gloo_rsa", [
-        "--gloo", "vit_project_torch.cli.vit_rsa_eval", "--checkpoint_dir",
-        single, "--output_csv", os.path.join(root, "rsa_gloo.csv"),
-        *things_args, "--device", "cuda:0"], nproc=2)
     rho_g = pd.read_csv(os.path.join(root, "rsa_gloo.csv"))["rsa_score"]
     rho_1 = pd.read_csv(rsa_one)["rsa_score"]
     rho_diff = float(np.abs(rho_g.to_numpy() - rho_1.to_numpy()).max())
@@ -3609,6 +3748,349 @@ def phase_dist(tmp: str):
         "seconds": time.time() - t_phase}
     print(f"[dist] phase {time.time() - t_phase:.1f} s", flush=True)
     return main_launches
+
+
+CLIP_DIST_EPOCHS = 2
+# 1,444 training images at batch 64: 22 full batches and one of 36
+CLIP_DIST_STEPS = 23 * CLIP_DIST_EPOCHS
+# 36 flash3_fwd a full-tower forward (24 image blocks, 12 text): each step,
+# and the eval (the 362 test images as one batch) and the RSA before
+# training and after each epoch; one flash3_bwd a step (image block 23)
+CLIP_DIST_WANT = {"flash3_fwd": 36 * (CLIP_DIST_STEPS
+                                      + 2 * (CLIP_DIST_EPOCHS + 1)),
+                  "flash3_bwd": CLIP_DIST_STEPS}
+# two gloo ranks (32 rows a rank, bf16) against the run alone (64 rows):
+# the cuBLAS GEMMs of the image tower see other shapes, so each layer may
+# round otherwise. Measured on an H100 at 700 W: 1.839e-4 relative in the
+# losses and 1.612e-4 in rho over 2 epochs (the same in two runs); the
+# bounds are ten times that
+CLIP_DIST_LOSS_RTOL = 2e-3
+CLIP_DIST_RHO_ATOL = 2e-3
+
+
+def _clip_step_ms(wpath: str) -> dict:
+    """Under torchrun at world size 1 (NCCL): CLIP-HBA trainers alone and
+    data-parallel (a mesh of one rank) on the same ViT-L/14 weights and
+    adapters; a step's launches for each, then ms a step in turns (one, dp,
+    dp, one; 10 steps a turn after 2 unmeasured, CUDA events between
+    steps) on 64 images on the card."""
+    import torch
+    from vit_project_torch.adapters import dora as adora
+    from vit_project_torch.core.prng import Key
+    from vit_project_torch.data.spose66 import classnames66
+    from vit_project_torch.models import convert as vconvert
+    from vit_project_torch.models import tokenizer as vtok
+    from vit_project_torch.ops import attention as vattn
+    from vit_project_torch.parallel import dist
+    from vit_project_torch.parallel import mesh as vmesh
+    from vit_project_torch.train import clip_loop
+    dev = dist.local_device("cuda")
+    dist.setup_distributed(dev)
+    model = vconvert.clip_from_state_dict(vconvert.load_torch_state_dict(
+        wpath), dev)
+    cfg = model.cfg
+    init_tr, static, acfg = adora.apply_dora(
+        model, adora.dora_spec(cfg.visual.layers, cfg.text.layers, 2, 1),
+        r=32, alpha=16, dropout=0.1,
+        generator=torch.Generator(device=dev).manual_seed(SWEEP_SEED + 123))
+    prompts = np.minimum(vtok.tokenize(classnames66, context_length=77,
+                                       truncate=True),
+                         cfg.text.vocab_size - 1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    imgs = torch.randint(0, 256, (64, 224, 224, 3), generator=gen,
+                         device=dev, dtype=torch.uint8)
+    tgts = torch.rand((64, 66), generator=gen, device=dev)
+    trainers = {}
+    for mode, mesh in (("one", None), ("dp", vmesh.make_mesh())):
+        tr = clip_loop.ClipHBATrainer(cfg, model, acfg, static, prompts,
+                                      lr=3e-4, compute_dtype=torch.bfloat16,
+                                      mesh=mesh)
+        trainable = adora.make_trainable(init_tr, dev)
+        trainers[mode] = (tr, trainable, tr.init_optimizer(trainable))
+    idx = np.arange(64)
+
+    def step(mode, k):
+        tr, trainable, opt = trainers[mode]
+        return tr.train_step(trainable, opt, imgs, tgts, idx,
+                             Key((SWEEP_SEED, 0, k)), batch_size=64)
+    per_step = {}
+    for mode in trainers:
+        step(mode, 0)
+        torch.cuda.synchronize()
+        vattn.reset_launch_counts()
+        step(mode, 1)
+        torch.cuda.synchronize()
+        per_step[mode] = {k: vattn.LAUNCHES[k]
+                          for k in ("flash3_fwd", "flash3_bwd")}
+
+    def turn(mode, steps=10):
+        for k in range(2):
+            step(mode, k)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+        ev[0].record()
+        for k in range(steps):
+            step(mode, k)
+            ev[k + 1].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+    turns = {m: [] for m in trainers}
+    for mode in ("one", "dp", "dp", "one"):
+        turns[mode].append(turn(mode))
+    return {"per_step": per_step, "turns": turns}
+
+
+def _run_files(out: str) -> dict:
+    """{path: bytes} of a run's files, timestamps in the names replaced by T
+    and the logs left out."""
+    files = {}
+    for d, _, names in os.walk(out):
+        for n in names:
+            path = os.path.join(d, n)
+            key = re.sub(r"_\d{8}_\d{6}", "_T", os.path.relpath(path, out))
+            if "log" not in n:
+                with open(path, "rb") as f:
+                    files[key] = f.read()
+            else:
+                files[key] = None
+    return files
+
+
+def _alone(name: str, main_fn, argv: list, root: str) -> dict:
+    """One CLI in this process, as _dist_run reports a process: its
+    launches (counted from 0), seconds, result and log text."""
+    from vit_project_torch.ops import attention as vattn
+    from vit_project_torch.ops import fused_dw as vfdw
+    import torch
+    vattn.reset_launch_counts()
+    vfdw.reset_launch_counts()
+    result, text, sec = _cli(main_fn, argv, os.path.join(root, f"{name}.log"))
+    torch.cuda.synchronize()
+    return {"rank": 0, "world": 1, "s": sec, "backend": None,
+            "launches": {**vattn.LAUNCHES, **vfdw.LAUNCHES}, "writes": None,
+            "result": result if isinstance(result, list) else None,
+            "text": text}
+
+
+def _epoch_train_s(text: str, n_train: int) -> list:
+    """Each epoch's training seconds from a CLI log's epoch lines (the
+    images_per_sec it prints over the training images)."""
+    return [n_train / float(m.group(2)) for m in _EPOCH_LINE.finditer(text)]
+
+
+def phase_clip_dist(tmp: str):
+    """CLIP-HBA training across ranks as users launch it, at full width and
+    depth (ViT-L/14, rank-32 DoRA, bf16, batch 64, 2 epochs, THINGS-sized
+    images with random targets): cli.baseline alone against cli.baseline
+    under torchrun at world size 1 (NCCL, the data-parallel step) and under
+    two gloo ranks on this card; one sequential cli.sweep run, which
+    restores the baseline's AdamW state, over two gloo ranks against world
+    size 1; ms a step alone against dp in turns; and
+    cli.sweep --batched_forks 3 --frozen_cache alone against torchrun. The
+    alone runs are made in this process; the torchrun work at world size 1
+    is one launch (a chain of the worker's: a process costs ~20 s)."""
+    from vit_project_torch.cli import baseline as baseline_cli
+    from vit_project_torch.cli import sweep as sweep_cli
+    from vit_project_torch.data import things as dthings
+    t_phase = time.time()
+    root = os.path.join(tmp, "clip_dist")
+    os.makedirs(root)
+    fx = _clip_fixture(tmp)
+    # targets as the train phase draws them (U[0, 2) a dimension), so the
+    # losses sit near 0.7 and a relative bound means something
+    data = _write_things_csvs(root, fx["names"], np.random.RandomState(
+        SEED + 4).rand(len(fx["names"]), 66) * 2)
+    args = ["--csv_file", data["csv_file"], "--img_dir", fx["img_dir"],
+            "--inference_csv_file", data["inference_csv_file"],
+            "--RDM48_triplet_dir", data["RDM48_triplet_dir"],
+            *fx["model_args"], "--epochs", str(CLIP_DIST_EPOCHS)]
+    n_train = len(dthings.random_split_indices(1806, 0.8, SWEEP_SEED)[0])
+    base_cli = "vit_project_torch.cli.baseline"
+
+    # --- the main path: cli.baseline alone (here); under torchrun at world
+    # size 1 (NCCL), chained in one launch with the batched sweep below and
+    # the step timing; two gloo ranks. Each CLI counts its launches from 0 ---
+    base = os.path.join(root, "alone")
+
+    def forks_argv(out):
+        stamp = next(n for n in os.listdir(base)
+                     if n.startswith("dora_params_"))[len("dora_params_"):]
+        rs_dir = os.path.join(base, f"random_states_{stamp}")
+        return args + [
+            "--baseline_dora_directory",
+            os.path.join(base, f"dora_params_{stamp}"),
+            "--baseline_random_state_path", rs_dir,
+            "--baseline_split_indices_path",
+            os.path.join(rs_dir, "dataset_split_indices.pth"),
+            "--perturb_seed", "42", "--perturb_type", "random_target",
+            "--training_order", "1,2", "--batched_forks", "3",
+            "--frozen_cache", "--output_base_directory", out]
+
+    def resumed_argv(out):
+        # one sequential sweep run, data-parallel: run 2 resumes the
+        # baseline's epoch-1 adapters and AdamW state (its step count is
+        # restored on the CPU beside moments on the card)
+        argv = forks_argv(out)
+        i = argv.index("--batched_forks")
+        return argv[:argv.index("--training_order")] + [
+            "--training_order", "2", *argv[i + 3:]]
+    sweep_cli_name = "vit_project_torch.cli.sweep"
+    runs, files, rows, epoch_s = {}, {}, {}, {}
+    forks, resumed = {}, {}
+    for name, nproc in (("alone", 0), ("dp1", 1), ("gloo2", 2)):
+        out = os.path.join(root, name)
+        argv = [*args, "--output_dir", out]
+        res_out = os.path.join(root, f"resumed_{name}")
+        if nproc == 0:
+            reps = [_alone(name, baseline_cli.main, argv, root)]
+            text = reps[0].pop("text")
+        else:
+            chain = (["--gloo", base_cli, *argv, "--device", "cuda:0",
+                      "--then", sweep_cli_name, *resumed_argv(res_out),
+                      "--device", "cuda:0"]
+                     if nproc == 2 else
+                     [base_cli, *argv, "--then", sweep_cli_name,
+                      *forks_argv(os.path.join(root, "forks_dp1")), "--then",
+                      sweep_cli_name, *resumed_argv(res_out), "--then",
+                      "clip_step_ms", fx["wpath"]])
+            reps = _dist_run(root, name, chain, nproc=nproc)
+            if nproc == 1:
+                forks["forks_dp1"], res, tm = reps[0].pop("then")
+                resumed[name] = [res]
+            else:
+                resumed[name] = [rep.pop("then")[0] for rep in reps]
+            for rep in resumed[name]:
+                if rep["result"] != [] or rep["writes"]:
+                    fail(f"[clip_dist] resumed sweep run {name} rank "
+                         f"{rep['rank']}: {rep}")
+            with open(os.path.join(root, f"{name}.log")) as f:
+                text = f.read()
+        for rep in reps:
+            got = {k: v for k, v in rep["launches"].items() if v}
+            if got != CLIP_DIST_WANT:
+                fail(f"[clip_dist] {name} rank {rep['rank']}: launches "
+                     f"{got}, want {CLIP_DIST_WANT}")
+            if rep["writes"]:
+                fail(f"[clip_dist] {name} rank {rep['rank']} wrote "
+                     f"{rep['writes']}")
+        backend = {"alone": None, "dp1": "nccl", "gloo2": "gloo"}[name]
+        if any(rep["backend"] != backend for rep in reps):
+            fail(f"[clip_dist] {name}: backend {reps[0]['backend']}")
+        runs[name], files[name] = reps, _run_files(out)
+        rows[name] = _read_rows(os.path.join(out, next(
+            n for n in os.listdir(out) if n.startswith("training_res_"))))
+        # the baseline's epochs (each rank prints its own; the resumed
+        # sweep run's come after them)
+        epoch_s[name] = _epoch_train_s(text, n_train)[
+            :CLIP_DIST_EPOCHS * max(nproc, 1)]
+        peak = (" / ".join(f"{r['peak_gib']:.2f}" for r in reps)
+                + " GiB a rank" if nproc else "not read (in this process)")
+        print(f"[clip_dist] cli.baseline {name}: {reps[0]['s']:.1f} s, peak "
+              f"{peak}, launches a rank flash3_fwd "
+              f"{reps[0]['launches']['flash3_fwd']} flash3_bwd "
+              f"{reps[0]['launches']['flash3_bwd']}; epoch training s "
+              + ", ".join(f"{x:.3f}" for x in epoch_s[name]) + "; rows "
+              + "; ".join(",".join(r) for r in rows[name][1:]), flush=True)
+    if [r[0] for r in rows["alone"][1:]] != ["1", "2"]:
+        fail(f"[clip_dist] alone rows {rows['alone']}")
+    logs = [k for k in files["gloo2"] if k.startswith("training_log_")]
+    if sorted(files["gloo2"]) != sorted(files["alone"]) or len(logs) != 1:
+        fail(f"[clip_dist] the 2-rank tree {sorted(files['gloo2'])} is not "
+             f"the run alone's {sorted(files['alone'])}")
+    dp1_equal = files["dp1"] == files["alone"]
+    print(f"[clip_dist] torchrun world size 1 (NCCL) against alone: rows, "
+          f"DoRA and random-state pickles "
+          f"{'bit-equal' if dp1_equal else 'DIFFER'}", flush=True)
+    if not dp1_equal:
+        fail("[clip_dist] world size 1 differs from the run alone")
+    got = np.array([[float(v) for v in r[1:5]] for r in rows["gloo2"][1:]])
+    ref = np.array([[float(v) for v in r[1:5]] for r in rows["alone"][1:]])
+    g_loss = float(np.abs(got[:, :2] / ref[:, :2] - 1).max())
+    g_rho = float(np.abs(got[:, 2] - ref[:, 2]).max())
+    print(f"[clip_dist] 2 gloo ranks on one card (32 rows a rank) against "
+          f"alone: losses {g_loss:.3e} relative, rho {g_rho:.3e} "
+          f"(tolerance {CLIP_DIST_LOSS_RTOL}, {CLIP_DIST_RHO_ATOL}); one "
+          f"log, rank 1 wrote no file", flush=True)
+    if [r[0] for r in rows["gloo2"][1:]] != ["1", "2"] or not (
+            g_loss <= CLIP_DIST_LOSS_RTOL and g_rho <= CLIP_DIST_RHO_ATOL):
+        fail(f"[clip_dist] 2 gloo ranks outside the tolerance: losses "
+             f"{g_loss}, rho {g_rho}")
+
+    # --- the resumed sweep run (restored AdamW state): two gloo ranks
+    # against world size 1, whose baseline is the run alone's ---
+    res_rows = {}
+    for name in resumed:
+        csvs = [os.path.join(d, n) for d, _, ns in os.walk(
+            os.path.join(root, f"resumed_{name}")) for n in ns
+            if n.startswith("training_res_")]
+        if len(csvs) != 1:
+            fail(f"[clip_dist] resumed {name}: result CSVs {csvs}")
+        res_rows[name] = _read_rows(csvs[0])
+    got = np.array([[float(v) for v in r[1:5]]
+                    for r in res_rows["gloo2"][1:]])
+    ref = np.array([[float(v) for v in r[1:5]] for r in res_rows["dp1"][1:]])
+    r_loss = float(np.abs(got[:, :2] / ref[:, :2] - 1).max())
+    r_rho = float(np.abs(got[:, 2] - ref[:, 2]).max())
+    print(f"[clip_dist] cli.sweep run 2 (resumes epoch 1's adapters and "
+          f"AdamW state): 2 gloo ranks {resumed['gloo2'][0]['s']:.1f} s, "
+          f"world size 1 {resumed['dp1'][0]['s']:.1f} s; rows "
+          + "; ".join(",".join(r) for r in res_rows["gloo2"][1:])
+          + f"; against world size 1: losses {r_loss:.3e} relative, rho "
+          f"{r_rho:.3e}; rank 1 wrote no file", flush=True)
+    if [r[0] for r in res_rows["gloo2"][1:]] != [
+            r[0] for r in res_rows["dp1"][1:]] or not (
+            r_loss <= CLIP_DIST_LOSS_RTOL and r_rho <= CLIP_DIST_RHO_ATOL):
+        fail(f"[clip_dist] the resumed run over 2 gloo ranks outside the "
+             f"tolerance: losses {r_loss}, rho {r_rho}")
+
+    # --- ms a step, alone and dp at world size 1, in turns (the dp1
+    # launch) ---
+    want_step = {"flash3_fwd": 36, "flash3_bwd": 1}
+    if any(v != want_step for v in tm["per_step"].values()):
+        fail(f"[clip_dist] a step launched {tm['per_step']}")
+    # medians: a step is host-bound enough that a turn can catch a stall
+    step_ms = {m: statistics.median(x for t in v for x in t)
+               for m, v in tm["turns"].items()}
+    print(f"[clip_dist] a step launches flash3_fwd 36, flash3_bwd 1 alone "
+          f"and dp; ms a step in turns (one, dp, dp, one; 10 steps a turn), "
+          f"median of 20: "
+          + "; ".join(f"{m} {step_ms[m]:.2f} (turn means "
+                      + ", ".join(f"{statistics.mean(t):.2f}" for t in v)
+                      + ")" for m, v in tm["turns"].items())
+          + f"; dp adds {step_ms['dp'] - step_ms['one']:+.2f} ms; "
+          f"{smi_line()}", flush=True)
+
+    # --- batched forks: under torchrun (the dp1 launch), every rank runs
+    # the groups; against the same invocation alone (here) ---
+    forks["forks_alone"] = _alone("forks_alone", sweep_cli.main, forks_argv(
+        os.path.join(root, "forks_alone")), root)
+    forks["forks_alone"].pop("text")
+    for name, rep in forks.items():
+        if rep["result"] != [] or rep["launches"]["flash3_bwd"] == 0:
+            fail(f"[clip_dist] {name}: {rep}")
+    trees = {name: _run_files(os.path.join(root, name)) for name in forks}
+    f_equal = trees["forks_dp1"] == trees["forks_alone"]
+    n_csv = sum(k.endswith(".csv") for k in trees["forks_alone"])
+    print(f"[clip_dist] cli.sweep --batched_forks 3 --frozen_cache, runs 1,2: "
+          f"alone {forks['forks_alone']['s']:.1f} s, torchrun "
+          f"{forks['forks_dp1']['s']:.1f} s; {n_csv} CSVs and the "
+          f"checkpoints {'bit-equal' if f_equal else 'DIFFER'}; launches "
+          f"{forks['forks_dp1']['launches']['flash3_fwd']} / "
+          f"{forks['forks_dp1']['launches']['flash3_bwd']}", flush=True)
+    if not f_equal or n_csv != 2 or forks["forks_dp1"]["launches"] != \
+            forks["forks_alone"]["launches"]:
+        fail("[clip_dist] batched forks under torchrun differ from alone")
+    RESULTS["clip_dist"] = {
+        "runs": runs, "rows": rows, "epoch_train_s": epoch_s,
+        "gloo_loss_rel": g_loss, "gloo_rho_diff": g_rho,
+        "step_ms": step_ms, "time_modes": tm, "forks": forks,
+        "resumed": resumed, "resumed_rows": res_rows,
+        "resumed_loss_rel": r_loss, "resumed_rho_diff": r_rho,
+        "seconds": time.time() - t_phase}
+    print(f"[clip_dist] phase {time.time() - t_phase:.1f} s", flush=True)
+    return {k: sum(r["launches"][k] for name in ("dp1", "gloo2")
+                   for r in runs[name] + resumed[name])
+            + forks["forks_dp1"]["launches"][k]
+            for k in ("flash3_fwd", "flash3_bwd")}
 
 
 def _dist_drift(lrs: list) -> int:
@@ -3704,7 +4186,7 @@ def main(argv=None) -> int:
     ops_launches = phase_ops() if "ops" in phases else None
     serve_launches = train_launches = vit_launches = sweep_launches = None
     forks_launches = grid_launches = serve_vit_launches = None
-    dist_launches = None
+    dist_launches = clip_dist_launches = None
     tmp = os.path.join(ROOT, "vit_project_torch", "_build",
                        f"smoke-{os.getpid()}")
     os.makedirs(tmp, exist_ok=True)
@@ -3721,12 +4203,15 @@ def main(argv=None) -> int:
             serve_vit_launches = phase_serve_vit(tmp)
         if "dist" in phases:
             dist_launches = phase_dist(tmp)
+        if "clip_dist" in phases:
+            clip_dist_launches = phase_clip_dist(tmp)
         if "sweep" in phases or "forks" in phases:
             sweep_launches, ctx = phase_sweep(tmp)
             if "forks" in phases:
                 forks_launches = phase_forks(ctx)
             del ctx
-            torch.cuda.empty_cache()
+        _CLIP_FIXTURE.clear()
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3752,6 +4237,9 @@ def main(argv=None) -> int:
     def dist(name):
         return dist_launches and dist_launches[name]
 
+    def clip_dist(name):
+        return clip_dist_launches and clip_dist_launches[name]
+
     def entry(name, source, replaces, launches, by_path, errors, main_row,
               at):
         return {"name": name, "route": "cuda", "source": source,
@@ -3768,7 +4256,8 @@ def main(argv=None) -> int:
                "train": train_launches and train_launches["flash3_fwd"],
                "vit_train": vit("flash3_fwd"),
                "vit_grid": grid("flash3_fwd"), "sweep": sweep("flash3_fwd"),
-               "forks": forks("flash3_fwd"), "dist": dist("flash3_fwd")},
+               "forks": forks("flash3_fwd"), "dist": dist("flash3_fwd"),
+               "clip_dist": clip_dist("flash3_fwd")},
               [r["max_abs_err_o"] for r in rows
                if r["kernel"] == "flash3_fwd"],
               row_of("flash3_fwd", "image_b256"),
@@ -3780,7 +4269,8 @@ def main(argv=None) -> int:
               {"train": train_launches and train_launches["flash3_bwd"],
                "vit_train": vit("flash3_bwd"),
                "vit_grid": grid("flash3_bwd"), "sweep": sweep("flash3_bwd"),
-               "forks": forks("flash3_bwd"), "dist": dist("flash3_bwd")},
+               "forks": forks("flash3_bwd"), "dist": dist("flash3_bwd"),
+               "clip_dist": clip_dist("flash3_bwd")},
               [r["max_abs_err"] for r in rows
                if r["kernel"] == "flash3_bwd"],
               row_of("flash3_bwd", "image_b64"),

@@ -252,19 +252,24 @@ def test_preempted_run_exits_143(tmp_path, monkeypatch):
 # -- refusals -----------------------------------------------------------------
 
 @pytest.mark.parametrize("flag", [["--fork_devices", "2"]])
-def test_sweep_refuses_batched_forks_before_writing(tmp_path, flag):
-    """The fork axis over several devices waits for the parallel modes."""
+def test_sweep_refuses_batched_forks_before_writing(tmp_path, monkeypatch,
+                                                    flag):
+    """The fork axis over several cards (two left after the clamp on a
+    host with four) waits for a later slice; one card runs as without the
+    flag (tests/test_torch_clip_parallel.py)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match="parallel modes"):
+    with pytest.raises(NotImplementedError, match="several cards"):
         tsweep.main(REQUIRED + ["--output_base_directory", str(out),
                                 "--device", "cpu", "--batched_forks", "2",
                                 *flag])
     assert not out.exists()
 
 
-def test_lengths_refuses_fork_devices_before_writing(tmp_path):
+def test_lengths_refuses_fork_devices_before_writing(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match="parallel modes"):
+    with pytest.raises(NotImplementedError, match="several cards"):
         tlengths.main(["--perturb_type", "random_target", "--perturb_length",
                        "2", "--onsets", "3,8", "--fork_devices", "2",
                        "--device", "cpu", "--baseline_dora_directory", "d",

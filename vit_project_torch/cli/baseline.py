@@ -6,7 +6,13 @@ Reference: Training/clip_behavioral_finetuning/baseline/clip_train_behavior_base
 (ViT-L/14, 500 epochs, bs 64, lr 3e-4, patience 20, seed 1, DoRA rank 32 on
 the last 2 vision + 1 text layers, MSE), overridable from the command line.
 Runs on the GPU unless --device says otherwise; exits 143 when a SIGTERM
-stopped the run at an epoch boundary (resume it in place).
+stopped the run at an epoch boundary (resume it in place). Under torchrun
+the run is data-parallel over the ranks (one per GPU, NCCL; `--device cpu`
+takes gloo), `--batch_size` is the global batch and rank 0 writes every
+file:
+
+  torchrun --standalone --nproc_per_node 2 -m vit_project_torch.cli.baseline \
+      ... (the flags above)
 
   python -m vit_project_torch.cli.baseline --csv_file spose_train.csv \\
       --img_dir things/ --inference_csv_file spose_val.csv \\
@@ -19,6 +25,7 @@ import argparse
 import sys
 from datetime import datetime
 
+from ..parallel import dist
 from ..train.clip_loop import run_behavioral_training
 
 
@@ -53,7 +60,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--device", default="cuda",
-                   help="torch device to train on ('cpu' for tests)")
+                   help="torch device to train on ('cpu' for tests, gloo "
+                        "under torchrun); under torchrun 'cuda' is the "
+                        "rank's card")
     # flags of the JAX CLI whose features the port of the parallel modes
     # brings: accepted with their defaults, refused by the loop otherwise
     p.add_argument("--sp_devices", type=int, default=1,
@@ -126,7 +135,9 @@ def main(argv=None):
         "nod_img_dir": args.nod_img_dir,
         "nod_dump_dir": f"{out}/nod_inference_results",
     }
-    result = run_behavioral_training(config, device=args.device)
+    device = dist.local_device(args.device)
+    with dist.process_group(device):
+        result = run_behavioral_training(config, device=device)
     if result.get("preempted"):
         sys.exit(143)  # SIGTERM convention: interrupted, resume in place
 

@@ -21,8 +21,10 @@ Exits 143 when a SIGTERM stopped the run at an epoch boundary (re-invoke to
 resume in place). `--onsets 3,8,15` trains every (onset x --perturb_length)
 condition of one length in lock-step groups of `--batched_forks` on one
 card (train/multi_fork.run_batched_lengths), each condition keeping its
-`{type}_e{E}_l{L}/` layout and the resume ladder above; `--fork_devices > 1`
-comes with the port of the parallel modes.
+`{type}_e{E}_l{L}/` layout and the resume ladder above; `--fork_devices` is
+clamped as the sweep's is. Under torchrun a condition trains data-parallel
+over the ranks (the batched mode runs every group on every rank), rank 0
+writes, and every rank reads the ladder after a barrier.
 """
 from __future__ import annotations
 
@@ -36,8 +38,8 @@ from pathlib import Path
 from ..core import csvio
 from ..core.device import resolve_device
 from ..core.logs import setup_main_logger
-from ..core.preempt import (PARALLEL_MODES, PreemptionGuard,
-                            exit_if_undispatched)
+from ..core.preempt import PreemptionGuard, exit_if_undispatched
+from ..parallel import dist
 from ..train.clip_loop import run_behavioral_training
 
 # the `{type}_e{E}_l{L}` condition-directory naming shared with the fig4
@@ -181,9 +183,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batched_forks", type=int, default=8,
                    help="group size for --onsets batching")
     p.add_argument("--fork_devices", type=int, default=1,
-                   help="shard the batched fork axis over N devices (not "
-                        "ported yet: comes with the port of the parallel "
-                        "modes)")
+                   help="shard the batched fork axis over N devices, "
+                        "clamped to this host's cards and the group; more "
+                        "than one after the clamp is not ported yet")
     return p
 
 
@@ -244,10 +246,14 @@ def _main_batched(args, parser, device, timestamp: str) -> list[str]:
                      "the baseline mode per condition")
     onsets = [int(x) for x in args.onsets.split(",") if x.strip()]
     config = {**_base_config(args), "perturb_length": args.perturb_length}
-    from ..train.multi_fork import run_batched_lengths
-    os.makedirs(args.output_base_directory, exist_ok=True)
+    from ..train.multi_fork import make_fork_mesh, run_batched_lengths
     logger = setup_main_logger(os.path.join(
         args.output_base_directory, f"lengths_batched_log_{timestamp}.txt"))
+    # the clamp sees one vmapped group's forks, not the whole onset list;
+    # a refusal comes before any file is written
+    make_fork_mesh(args.fork_devices, min(args.batched_forks, len(onsets)),
+                   logger)
+    os.makedirs(args.output_base_directory, exist_ok=True)
     logger.info(f"Batched lengths mode: type={args.perturb_type} "
                 f"length={args.perturb_length} onsets={onsets}")
     guard = PreemptionGuard()
@@ -265,15 +271,16 @@ def _main_batched(args, parser, device, timestamp: str) -> list[str]:
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.fork_devices > 1:
-        raise NotImplementedError(
-            f"--fork_devices {args.fork_devices} is not ported yet: it comes "
-            f"with {PARALLEL_MODES}")
     if args.onsets is None and (args.perturb_epoch is None
                                 or args.output_dir is None):
         parser.error("--perturb_epoch and --output_dir are required (or "
                      "pass --onsets for the batched multi-condition mode)")
-    device = resolve_device(args.device)
+    device = resolve_device(dist.local_device(args.device))
+    with dist.process_group(device):
+        return _main(args, parser, device)
+
+
+def _main(args, parser, device):
     timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
     if args.onsets is not None:
         return _main_batched(args, parser, device, timestamp)
@@ -293,7 +300,9 @@ def main(argv=None):
         out_dir, f"random_states_{args.perturb_epoch}")
 
     # in-place resume scan (reference :141-160), anchored on the newest
-    # epoch whose checkpoint actually exists
+    # epoch whose checkpoint actually exists; every rank reads the same
+    # tree
+    dist.barrier()
     last_completed_epoch = csvio.last_completed_epoch0(
         config["training_res_path"])
     resume_epoch = rollback_to_checkpoint(config["dora_parameters_path"],

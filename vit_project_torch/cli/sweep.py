@@ -22,8 +22,14 @@ when a run failed and 143 when a SIGTERM stopped a run at an epoch boundary
 the order, each pinned to one card through `--worker_device_env`.
 `--batched_forks R` trains the forks in lock-step groups of R on one card
 (train/multi_fork.py): one setup for every group, one step on R*64 rows.
-`--fork_devices > 1` (the fork axis over several cards) comes with the port
-of the parallel modes and raises until then.
+`--fork_devices N` is clamped to this host's cards and the group (JAX's
+make_fork_mesh): on one card the groups run as without it; the fork axis
+over several cards comes with a later slice of the port and raises.
+
+Under torchrun (one rank per GPU; `--device cpu` takes gloo) each run
+trains data-parallel over the ranks, and `--batched_forks` runs every group
+on every rank; rank 0 writes the files and the reports. `--workers` then
+raises: a worker would inherit the launcher's RANK and WORLD_SIZE.
 """
 from __future__ import annotations
 
@@ -36,8 +42,8 @@ from datetime import datetime
 
 from ..core.device import resolve_device
 from ..core.logs import setup_main_logger
-from ..core.preempt import (PARALLEL_MODES, PreemptionGuard,
-                            exit_if_undispatched)
+from ..core.preempt import PreemptionGuard, exit_if_undispatched
+from ..parallel import dist
 from ..train.clip_loop import run_behavioral_training
 
 
@@ -153,9 +159,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "GPU, the fork axis folded into the batch "
                         "(train/multi_fork.py); 1 = one fork at a time")
     p.add_argument("--fork_devices", type=int, default=1,
-                   help="shard the batched fork axis over N devices (not "
-                        "ported yet: comes with the port of the parallel "
-                        "modes)")
+                   help="shard the batched fork axis over N devices, "
+                        "clamped to this host's cards and the group; more "
+                        "than one after the clamp is not ported yet")
     return p
 
 
@@ -196,7 +202,9 @@ def _worker_argv(args) -> list[str]:
 
 def _write_json_atomically(path: str, value) -> None:
     """tmp + os.replace: a worker killed mid-write leaves the old file or
-    the new one, never truncated JSON."""
+    the new one, never truncated JSON. Rank 0 alone writes it."""
+    if not dist.is_primary():
+        return
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "w") as f:
         json.dump(value, f)
@@ -295,31 +303,51 @@ def _run_workers(args, training_order: list[int], logger) -> list[int]:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.fork_devices > 1:
-        raise NotImplementedError(
-            f"--fork_devices {args.fork_devices} is not ported yet: it comes "
-            f"with {PARALLEL_MODES}")
-    device = resolve_device(args.device)
-    timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+    if args.workers > 1 and dist.launched():
+        raise ValueError(
+            f"--workers {args.workers} under torchrun: each dispatched worker "
+            f"would inherit RANK / WORLD_SIZE and join the launcher's group "
+            f"as a rank; launch the sweep once, without torchrun, to "
+            f"dispatch workers")
+    device = resolve_device(dist.local_device(args.device))
+    if args.workers > 1:
+        return _dispatch(args)
+    with dist.process_group(device):
+        return _run(args, device)
+
+
+def _logger(args, timestamp: str):
     # dispatched workers share the dispatcher's output dir and start within
     # the same second: a pid suffix keeps them from truncating one another's
     # (or the dispatcher's) main log
     suffix = f"_p{os.getpid()}" if os.environ.get(
         "VIT_SWEEP_FAILED_JSON") else ""
-    logger = setup_main_logger(os.path.join(
+    return setup_main_logger(os.path.join(
         args.output_base_directory,
         f"main_training_log_{timestamp}{suffix}.txt"))
+
+
+def _dispatch(args) -> list[int]:
+    """--workers N: the runs over N worker processes (pure host work)."""
+    logger = _logger(args, datetime.now().strftime("%Y%m%d_%H%M%S"))
     # stable dedup before any dispatch: duplicate run numbers share one
     # artifact dir
     training_order = list(dict.fromkeys(parse_order(args.training_order)))
+    logger.info(f"Dispatching {len(training_order)} runs across "
+                f"{args.workers} single-GPU workers")
+    failed_run_list = _run_workers(args, training_order, logger)
+    logger.info(f"All workers done. Failed runs: {failed_run_list}")
+    _report_failed(failed_run_list)
+    return failed_run_list
 
-    if args.workers > 1:
-        logger.info(f"Dispatching {len(training_order)} runs across "
-                    f"{args.workers} single-GPU workers")
-        failed_run_list = _run_workers(args, training_order, logger)
-        logger.info(f"All workers done. Failed runs: {failed_run_list}")
-        _report_failed(failed_run_list)
-        return failed_run_list
+
+def _run(args, device) -> list[int]:
+    """The runs in this process (and its torchrun ranks): sequentially, or
+    in batched fork groups."""
+    timestamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+    logger = _logger(args, timestamp)
+    # stable dedup: duplicate run numbers share one artifact dir
+    training_order = list(dict.fromkeys(parse_order(args.training_order)))
 
     config = {
         "csv_file": args.csv_file,
@@ -357,7 +385,8 @@ def main(argv=None):
     }
 
     if args.batched_forks > 1:
-        from ..train.multi_fork import run_batched_sweep
+        from ..train.multi_fork import make_fork_mesh, run_batched_sweep
+        make_fork_mesh(args.fork_devices, args.batched_forks, logger)
         logger.info(f"Batched-fork mode: {len(training_order)} runs in "
                     f"lock-step groups of {args.batched_forks}")
         guard = PreemptionGuard()
@@ -409,6 +438,11 @@ def main(argv=None):
             failed_runs += 1
             failed_run_list.append(training_run)
             logger.exception(f"  Training run {training_run} FAILED")
+            if dist.world_size() > 1:
+                # the other ranks may be waiting in the run's collectives:
+                # end the job (torchrun stops the other ranks) rather than
+                # leave them waiting
+                raise
         else:
             if summary.get("preempted"):
                 # the interrupted run resumes from its own artifacts; the

@@ -22,7 +22,7 @@ import torch
 import torch.distributed as tdist
 
 
-def _env_configured() -> bool:
+def launched() -> bool:
     """torchrun (or a launcher like it) named this process's rank."""
     return "RANK" in os.environ and "WORLD_SIZE" in os.environ
 
@@ -55,7 +55,7 @@ def setup_distributed(device="cuda") -> tuple[int, int]:
     """
     if is_initialized():
         return tdist.get_rank(), tdist.get_world_size()
-    if not _env_configured():
+    if not launched():
         return 0, 1
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -80,7 +80,7 @@ def process_group(device="cuda"):
     """``setup_distributed(device)`` around a CLI's work; the group it
     created (none when there was one already, or no torchrun) is destroyed
     on the way out. Yields (rank, world_size)."""
-    owned = not is_initialized() and _env_configured()
+    owned = not is_initialized() and launched()
     ranks = setup_distributed(device)
     try:
         yield ranks
@@ -165,3 +165,39 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     if is_initialized():
         tdist.all_reduce(t, op=tdist.ReduceOp.SUM)
     return t
+
+
+@torch.no_grad()
+def check_replicas_equal(tensors: list, what: str) -> None:
+    """Raise unless every rank holds rank 0's `tensors` bit for bit (the
+    ranks build them from one seed or load one checkpoint; replicated
+    updates keep them equal). The tensors may lie on several devices (a
+    restored AdamW keeps its step count on the CPU beside moments on the
+    card); each is compared where the collectives run. Nothing in one
+    process."""
+    if world_size() == 1:
+        return
+    dev = collective_device()
+    flat = torch.cat([t.detach().reshape(-1).to(dev, torch.float32)
+                      for t in tensors])
+    size = torch.tensor([flat.numel()], device=dev)
+    tdist.broadcast(size, src=0)
+    same = int(size) == flat.numel()
+    if same:
+        ref = flat.clone()
+        tdist.broadcast(ref, src=0)
+        same = torch.equal(ref, flat)
+    if not same:
+        raise RuntimeError(f"rank {rank()} starts from other {what} than "
+                           f"rank 0")
+
+
+def primary_values(values: list) -> list:
+    """Rank 0's `values` (floats) on every rank: a decision that steers
+    collectives then reads the same numbers everywhere, even where the
+    ranks computed them apart. Unchanged without a group."""
+    if world_size() == 1:
+        return list(values)
+    t = torch.tensor(values, dtype=torch.float64, device=collective_device())
+    tdist.broadcast(t, src=0)
+    return t.tolist()

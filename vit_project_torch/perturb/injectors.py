@@ -18,7 +18,9 @@ new_cvpr_train_behavior_things_pipeline.py:843-982).
   distribution stats (ref :895-897, stats from :1100-1105).
 
 A batched group of forks gates each fork by its own window
-(``apply_clip_perturbation_forks``). Each random kind is a draw from the
+(``apply_clip_perturbation_forks``); a data-parallel rank perturbs the
+whole batch's targets and draw and keeps its own block
+(``apply_clip_perturbation(block=)``). Each random kind is a draw from the
 key's generator (``draw_clip``) and a transform of that draw, so a test can
 hand the transform JAX's draws. The JAX loop pads every batch to the
 configured batch size and draws at that padded shape; the port does not
@@ -96,22 +98,30 @@ def apply_clip_perturbation(perturb_type: str, key: Key | None,
                             images: torch.Tensor, targets: torch.Tensor, *,
                             distribution: str = "target", mean: float = 0.0,
                             std: float = 1.0, rows: int | None = None,
-                            drawn: torch.Tensor | None = None):
+                            drawn: torch.Tensor | None = None,
+                            block: tuple[int, int] | None = None):
     """(images, targets) after `perturb_type`'s injector; other kinds pass
     both through. The draw is made from `key` at [rows, ...] (rows defaults
-    to the batch's n) unless `drawn` hands it in."""
+    to the batch's n) unless `drawn` hands it in.
+
+    `block` (lo, hi): one data-parallel rank's share. `images` then holds
+    the batch's rows [lo, hi) and `targets` the whole batch's n rows; the
+    draw and the targets are perturbed whole (so `label_shuffle` permutes
+    across the ranks' blocks) and the result is the block's rows, each the
+    one-process batch's row."""
     n = targets.shape[0]
+    lo, hi = block or (0, n)
     if drawn is None:
         drawn = draw_clip(perturb_type, key, rows or n, images, targets)
     if perturb_type == "random_target":
-        return images, random_targets(drawn[:n], distribution, mean, std)
-    if perturb_type == "label_shuffle":
-        return images, shuffle_targets(targets, drawn)
-    if perturb_type == "uniform_images":
-        return uniform_images(images), targets
-    if perturb_type == "image_noise":
-        return image_noise(drawn[:n], mean, std), targets
-    return images, targets
+        targets = random_targets(drawn[:n], distribution, mean, std)
+    elif perturb_type == "label_shuffle":
+        targets = shuffle_targets(targets, drawn)
+    elif perturb_type == "uniform_images":
+        images = uniform_images(images)
+    elif perturb_type == "image_noise":
+        images = image_noise(drawn[lo:hi], mean, std)
+    return images, targets[lo:hi]
 
 
 def apply_clip_perturbation_forks(perturb_type: str, keys: list,

@@ -34,8 +34,24 @@ change the tower's input. ``remat`` recomputes every block in the backward
 (torch.utils.checkpoint).
 
 The port's AdamW updates the adapter tensors in place (the JAX loop returns
-new trees). The data-parallel and sequence-parallel modes come with the
-port of the parallel modes; until then those options raise.
+new trees).
+
+Data parallelism (``mesh``, a ``("data",)`` mesh over the ranks of a
+``torch.distributed`` group; one process per card under torchrun) is the
+JAX loop's data mesh, the reference's ``cuda == -1`` DataParallel path.
+Every rank holds the whole THINGS set, the frozen model, the prompts and
+the adapters. Each step's index batch is padded to ceil(batch_size / W) * W
+rows and rank k runs its block [k*w, (k+1)*w) (``_prep_idx``,
+``_local_rows``); the injector perturbs the whole batch and each rank keeps
+its block. The loss is the sum of the global batch's row MSEs over its row
+count, each rank contributing its share, and one all-reduce sums the
+adapters' gradients with the loss and the ranks' non-finite flags, so the
+NaN guard skips a step on every rank together. AdamW runs replicated: the
+ranks start equal (``dist.check_replicas_equal``) and stay equal. Eval splits
+each batch the same way and all-reduces its sum; the RSA, the dumps and
+the frozen-prefix caches run whole on every rank. The primary writes every
+file, and the ranks meet at a barrier after each epoch's writes. The
+sequence-parallel modes raise: they come with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -66,6 +82,7 @@ from ..models import convert as vconvert
 from ..models import tokenizer as vtok
 from ..models import vit as vvit
 from ..ops import rsa as vrsa
+from ..parallel import dist
 from ..perturb import injectors, windows
 
 # eval runs the whole test set as one batch while it stays under this many
@@ -102,9 +119,13 @@ class ClipHBATrainer:
                  dist_mean: float = 0.0, dist_std: float = 1.0, mesh=None,
                  remat: bool = False, sp: bool = False,
                  sp_ring: bool = False):
-        if mesh is not None or sp or sp_ring:
-            raise _unported("data-parallel and sequence-parallel training",
+        if sp or sp_ring:
+            raise _unported("sequence-parallel training (sp, sp_ring)",
                             PARALLEL_MODES)
+        # a ("data",) mesh over the group's ranks: data-parallel steps
+        self.mesh = mesh
+        self.world = dist.world_size() if mesh is not None else 1
+        self.rank = dist.rank() if mesh is not None else 0
         self.cfg = clip_cfg
         self.model = model.requires_grad_(False)
         self.device = next(model.parameters()).device
@@ -207,6 +228,91 @@ class ClipHBATrainer:
             distribution=self.perturb_distribution, mean=self.dist_mean,
             std=self.dist_std, rows=rows)
 
+    # -- data parallelism: this rank's block of each batch ------------------
+
+    def _local_rows(self, x):
+        """This rank's contiguous block of a batch every rank holds whole
+        (JAX's ``_local_rows``: rank k owns rows [k*w, (k+1)*w))."""
+        if self.world == 1:
+            return x
+        if len(x) % self.world != 0:
+            # a floor division would drop the remainder rows
+            raise ValueError(f"global batch width {len(x)} must divide by "
+                             f"{self.world} processes")
+        per = len(x) // self.world
+        return x[self.rank * per:(self.rank + 1) * per]
+
+    def _prep_idx(self, idx, batch_size: int):
+        """An index batch padded to the data-parallel width, batch_size
+        rounded up to a multiple of the world size, with its valid mask
+        (JAX's ``_prep_idx``), as this rank's block: (idx [w] int64, valid
+        [w] float32). The padding indexes row 0."""
+        n = len(idx)
+        width = -(-max(batch_size, n) // self.world) * self.world
+        idx_p = np.pad(np.asarray(idx, np.int64), (0, width - n))
+        valid = (np.arange(width) < n).astype(np.float32)
+        return self._local_rows(idx_p), self._local_rows(valid)
+
+    def batch_inputs(self, all_images: torch.Tensor,
+                     all_targets: torch.Tensor, idx, *,
+                     perturb_type: str = "none",
+                     perturb_key: Key | None = None,
+                     batch_size: int | None = None, cached: bool = False):
+        """One step's inputs on this rank: (images, targets, n), the rows
+        `idx` of the resident dataset (normalized uint8 images, or with
+        `cached` their prefix activations) after `perturb_type`'s injector
+        drawn at [batch_size, ...], and the batch's row count n that the
+        loss divides by.
+
+        The rows are this rank's block of the padded batch (``_prep_idx``;
+        one process: the whole batch), perturbed as the whole batch is
+        (``injectors.apply_clip_perturbation(block=)``). The block's trailing
+        padding is not run, so at world size 1 the step is the one-process
+        step, shape for shape. A block of padding only runs its padded rows
+        (dataset row 0, zero targets) and gives n = 0: the rank computes a
+        zero gradient and joins the step's all-reduce."""
+        if cached and perturb_type in injectors.IMAGE_KINDS:
+            raise ValueError(
+                f"perturb_type={perturb_type!r} replaces the input images; "
+                "the frozen-prefix cache is stale under it - use the "
+                "full-tower step for in-window epochs of image kinds")
+        idx_l, valid = self._prep_idx(idx, batch_size or len(idx))
+        m = int(valid.sum())
+        if m == 0:
+            rows = torch.as_tensor(idx_l, device=self.device)
+            zeros = all_targets.new_zeros((len(idx_l),
+                                           *all_targets.shape[1:]))
+            return self._inputs(all_images[rows], cached), zeros, 0
+        lo = self.rank * len(idx_l)
+        images = self._inputs(all_images[torch.as_tensor(
+            idx_l[:m], device=self.device)], cached)
+        targets = all_targets[torch.as_tensor(np.asarray(idx, np.int64),
+                                              device=self.device)]
+        if perturb_type == "none":
+            return images, targets[lo:lo + m], len(idx)
+        images, targets = injectors.apply_clip_perturbation(
+            perturb_type, perturb_key, images, targets,
+            distribution=self.perturb_distribution, mean=self.dist_mean,
+            std=self.dist_std, rows=batch_size, block=(lo, lo + m))
+        return images, targets, len(idx)
+
+    def _all_reduce_step(self, trainable: dict, loss: torch.Tensor,
+                         ok: torch.Tensor):
+        """The global step from this rank's share: one all-reduce (sum) of
+        the adapters' gradients, flattened, with the loss and this rank's
+        non-finite flag. Returns (the global loss, ok on every rank)."""
+        leaves = [leaf for *_, leaf in adora.trainable_leaves(trainable)]
+        flat = torch.cat(
+            [(leaf.grad if leaf.grad is not None
+              else torch.zeros_like(leaf)).reshape(-1).float()
+             for leaf in leaves]
+            + [loss.detach().reshape(1).float(), (~ok).float().reshape(1)])
+        dist.all_reduce_sum(flat)
+        for leaf, g in zip(leaves, flat[:-2].split([leaf.numel()
+                                                    for leaf in leaves])):
+            leaf.grad = g.view_as(leaf).to(leaf.dtype)
+        return flat[-2], flat[-1] == 0
+
     def train_step(self, trainable: dict, optimizer: torch.optim.Optimizer,
                    all_images: torch.Tensor, all_targets: torch.Tensor,
                    idx, dropout_key: Key, *, perturb_type: str = "none",
@@ -215,29 +321,22 @@ class ClipHBATrainer:
         """One masked-MSE step on the rows `idx` of the resident dataset
         (uint8 images, or with `cached` their prefix activations), after
         `perturb_type`'s injector. Returns (loss, ok); when not ok
-        (non-finite loss, targets or predictions) the parameters and the
-        optimizer are left as they were."""
-        if cached and perturb_type in injectors.IMAGE_KINDS:
-            raise ValueError(
-                f"perturb_type={perturb_type!r} replaces the input images; "
-                "the frozen-prefix cache is stale under it - use the "
-                "full-tower step for in-window epochs of image kinds")
-        rows = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
-        images = all_images[rows]
-        if not cached:
-            images = dthings.normalize_uint8(images)
-        targets = all_targets[rows]
-        if perturb_type != "none":
-            images, targets = self.perturb(perturb_type, perturb_key, images,
-                                           targets, batch_size)
+        (non-finite loss, targets or predictions; data-parallel: on any
+        rank) the parameters and the optimizer are left as they were."""
+        images, targets, n = self.batch_inputs(
+            all_images, all_targets, idx, perturb_type=perturb_type,
+            perturb_key=perturb_key, batch_size=batch_size, cached=cached)
         optimizer.zero_grad(set_to_none=True)
         preds = self.forward(trainable, images, dropout_key,
                              deterministic=False, cached=cached)
         row_mse = torch.mean((preds - targets) ** 2, dim=-1)
-        loss = torch.sum(row_mse) / row_mse.shape[0]
+        # this rank's share of the global batch's mean (one process: all)
+        loss = torch.sum(row_mse) / n if n else torch.sum(row_mse) * 0.0
         loss.backward()
         ok = (torch.isfinite(loss) & torch.all(torch.isfinite(targets))
               & torch.all(torch.isfinite(preds)))
+        if self.mesh is not None:
+            loss, ok = self._all_reduce_step(trainable, loss, ok)
         loss_f, ok_f = torch.stack([loss.detach(), ok.float()]).tolist()
         if ok_f:
             optimizer.step()
@@ -282,16 +381,28 @@ class ClipHBATrainer:
         loss * batch and divides by len(dataset)), in the batches of
         `eval_batch_size` (eval has no cross-batch dependence). With
         `cache` (the set's frozen-prefix activations) only the adapted
-        suffix runs."""
+        suffix runs. Each rank runs its block of every batch
+        (``eval_idx_mats`` widened to a multiple of the world size, as
+        JAX's, and ``_local_rows``) and the sum of the row MSEs is
+        all-reduced before the division."""
         cached = cache is not None
         src = cache if cached else imgs_dev
-        bs = self.eval_batch_size(n, batch_size, whole_set)
-        total = torch.zeros((), dtype=torch.float32, device=self.device)
-        for s in range(0, n, bs):
-            preds = self.forward(trainable, self._inputs(src[s:s + bs], cached),
+        idx_mat, valid_mat = (
+            np.pad(m, ((0, 0), (0, (-m.shape[1]) % self.world)))
+            for m in self.eval_idx_mats(n, batch_size, whole_set))
+        total = torch.zeros(1, dtype=torch.float32, device=self.device)
+        for idx, valid in zip(idx_mat, valid_mat):
+            m = int(self._local_rows(valid).sum())
+            if m == 0:     # no kernel launch on an empty block
+                continue
+            rows = torch.as_tensor(self._local_rows(idx)[:m],
+                                   dtype=torch.long, device=self.device)
+            preds = self.forward(trainable, self._inputs(src[rows], cached),
                                  cached=cached)
-            total += torch.sum(torch.mean((preds - tgts_dev[s:s + bs]) ** 2,
+            total += torch.sum(torch.mean((preds - tgts_dev[rows]) ** 2,
                                           dim=-1))
+        if self.mesh is not None:
+            dist.all_reduce_sum(total)
         return float(total) / n
 
     @torch.no_grad()
@@ -462,14 +573,22 @@ def train_model(trainer: ClipHBATrainer, trainable: dict,
     `stopped_at_epoch` when it stops the run. `on_epoch`, if given, is
     called after each epoch with {epoch, steps, train_s, epoch_s, cached}:
     the seconds of its training steps and of the whole epoch, and whether
-    its steps ran from the frozen-prefix cache."""
+    its steps ran from the frozen-prefix cache.
+
+    Over several ranks (the trainer's mesh) the primary alone writes the
+    CSV, the checkpoints and the dumps, and copies the checkpoint trees
+    out; every rank meets it at a barrier after each epoch's writes. Early
+    stopping reads the all-reduced losses and the poll is the collective
+    one, so every rank leaves the loop at the same epoch."""
     log = logger.info if logger else print
     best_test_loss = 500000.0  # reference initializes to 500000 (ref :790)
     epochs_no_improve = 0
+    primary = dist.is_primary()
 
-    os.makedirs(dora_parameters_path, exist_ok=True)
-    csvio.init_clip_csv(training_res_path, resume_from_epoch,
-                        previous_training_res_path, logger)
+    if primary:    # one writer of the run's files
+        os.makedirs(dora_parameters_path, exist_ok=True)
+        csvio.init_clip_csv(training_res_path, resume_from_epoch,
+                            previous_training_res_path, logger)
 
     dropout_root = Key.root(dropout_seed)
     n_train = len(train_images)
@@ -551,9 +670,11 @@ def train_model(trainer: ClipHBATrainer, trainable: dict,
             losses.append(loss)
             oks.append(ok)
         train_s = timer.seconds()
-        trees = (trainable, clip_ckpt.adamw_moments(optimizer, trainable))
-        copies = (hostcopy.prefetch_to_host(*trees) if host_prefetch
-                  else [hostcopy.HostCopy(tree) for tree in trees])
+        copies = None
+        if primary:
+            trees = (trainable, clip_ckpt.adamw_moments(optimizer, trainable))
+            copies = (hostcopy.prefetch_to_host(*trees) if host_prefetch
+                      else [hostcopy.HostCopy(tree) for tree in trees])
         for bi in np.nonzero(~np.asarray(oks))[0]:
             log(f"WARNING: non-finite batch {bi} skipped "
                 f"(epoch {epoch + 1})")
@@ -574,31 +695,38 @@ def train_model(trainer: ClipHBATrainer, trainable: dict,
             trainable, inf_imgs_dev, reference_rdm, cache=inf_cache)
         log(f"Behavioral RSA Correlation & p-value: {rho:.4f}, {p_value:.4f}")
 
-        if dump_dir is not None:
-            dump_embeddings(dump_dir, epoch + 1, emb, inference_names,
-                            prefix="things_48")
-        if nod_imgs_dev is not None and nod_dump_dir is not None:
-            # the second per-epoch inference set (the reference runs
-            # produced nod_embeddings_epochN.csv dumps; SURVEY.md section 0)
-            dump_embeddings(nod_dump_dir, epoch + 1,
-                            trainer.infer_in_chunks(trainable, nod_imgs_dev,
-                                                    len(nod_images),
-                                                    cache=nod_cache),
-                            nod_names, prefix="nod")
+        # the host-side files come from the primary alone: every rank holds
+        # the same replicated state, and two writers of one file would race
+        if primary:
+            if dump_dir is not None:
+                dump_embeddings(dump_dir, epoch + 1, emb, inference_names,
+                                prefix="things_48")
+            if nod_imgs_dev is not None and nod_dump_dir is not None:
+                # the second per-epoch inference set (the reference runs
+                # produced nod_embeddings_epochN.csv dumps; SURVEY.md
+                # section 0)
+                dump_embeddings(nod_dump_dir, epoch + 1,
+                                trainer.infer_in_chunks(
+                                    trainable, nod_imgs_dev, len(nod_images),
+                                    cache=nod_cache),
+                                nod_names, prefix="nod")
 
-        # checkpoints BEFORE the CSV row: a crash between the two leaves
-        # "checkpoint without row" (the epoch is retrained on resume), never
-        # "row without checkpoint"
-        host_tr = copies[0].get()
-        opt_state = clip_ckpt.optax_state_from_moments(*copies[1].get())
-        clip_ckpt.save_dora_parameters(host_tr, dora_parameters_path,
-                                       epoch, logger=logger)
-        log(f"DoRA parameters saved for epoch {epoch + 1}")
-        clip_ckpt.save_random_states(
-            opt_state, epoch, random_state_path, data_seed,
-            {"dropout_seed": dropout_seed}, logger=logger)
-        csvio.append_clip_row(training_res_path, epoch + 1, avg_train_loss,
-                              avg_test_loss, rho, p_value, **flags)
+            # checkpoints BEFORE the CSV row: a crash between the two
+            # leaves "checkpoint without row" (the epoch is retrained on
+            # resume), never "row without checkpoint"
+            host_tr = copies[0].get()
+            opt_state = clip_ckpt.optax_state_from_moments(*copies[1].get())
+            clip_ckpt.save_dora_parameters(host_tr, dora_parameters_path,
+                                           epoch, logger=logger)
+            log(f"DoRA parameters saved for epoch {epoch + 1}")
+            clip_ckpt.save_random_states(
+                opt_state, epoch, random_state_path, data_seed,
+                {"dropout_seed": dropout_seed}, logger=logger)
+            csvio.append_clip_row(training_res_path, epoch + 1,
+                                  avg_train_loss, avg_test_loss, rho,
+                                  p_value, **flags)
+        # a resume or the lengths ladder never reads a half-written tree
+        dist.barrier()
         if on_epoch is not None:
             on_epoch({"epoch": epoch + 1, "steps": len(batch_list),
                       "train_s": train_s, "epoch_s": timer.seconds(),
@@ -616,9 +744,12 @@ def train_model(trainer: ClipHBATrainer, trainable: dict,
             log(f"Early stopping triggered at epoch {epoch + 1}")
             break
         # epoch-boundary preemption poll, skipped on the final epoch (a
-        # completed run must not be flagged as preempted)
+        # completed run must not be flagged as preempted); the collective
+        # form, so one rank's notice stops every rank here
         if preempt_guard is not None and epoch + 1 < epochs:
-            if preempt_guard.should_stop():
+            poll = getattr(preempt_guard, "should_stop_collective",
+                           preempt_guard.should_stop)
+            if poll():
                 log(f"Preemption requested - stopped cleanly after epoch "
                     f"{epoch + 1} (its checkpoints are saved; resume with "
                     f"resume_from_epoch={epoch + 1})")
@@ -723,9 +854,11 @@ def build_run_assets(cfg: ClipRunConfig, logger, device):
             len(dataset), cfg.train_portion, cfg.random_seed)
         split_path = os.path.join(cfg.random_state_path,
                                   "dataset_split_indices.pth")
-        dthings.save_split_indices(split_path, train_idx, test_idx,
-                                   cfg.random_seed)
-        logger.info(f"Saved fresh dataset split to {split_path}")
+        # every rank derives the same split from the seed; one writer
+        if dist.is_primary():
+            dthings.save_split_indices(split_path, train_idx, test_idx,
+                                       cfg.random_seed)
+            logger.info(f"Saved fresh dataset split to {split_path}")
 
     inference = dthings.ThingsInferenceDataset(
         cfg.inference_csv_file, cfg.img_dir, cfg.RDM48_triplet_dir,
@@ -782,6 +915,12 @@ def run_behavioral_training(config, preempt_guard=None, device=None) -> dict:
     ClipRunConfig; runs on `device` (default the GPU; 'cpu' for tests).
     Returns {last_epoch0, training_res_path, trainable, preempted}.
 
+    In a process group (torchrun; the CLIs join it, ``parallel/dist.py``)
+    the run is data-parallel over its ranks, JAX's data mesh over every
+    device it sees (module docstring); at world size 1 that is the
+    one-process run through the dp step. The batch size must pad into
+    equal blocks (``ClipHBATrainer._prep_idx``).
+
     With cfg.preempt_save (default) a SIGTERM stops the run cleanly at the
     next epoch boundary and the summary carries `preempted=True`;
     `preempt_guard` injects a prebuilt guard (tests use stubs)."""
@@ -827,12 +966,21 @@ def run_behavioral_training(config, preempt_guard=None, device=None) -> dict:
         logger.info("Using original DoRA parameters from model initialization")
     trainable = adora.make_trainable(trainable, device)
 
+    # data-parallel over the group's ranks (the reference's cuda == -1
+    # DataParallel path, ref :1174-1176; JAX's data mesh, :1160-1163)
+    mesh = None
+    if dist.is_initialized():
+        from ..parallel import mesh as vmesh
+        mesh = vmesh.make_mesh()
+        logger.info(f"Using {dist.world_size()} devices (data-parallel "
+                    f"mesh)")
+
     trainer = ClipHBATrainer(
         a.clip_cfg, a.model, a.acfg, a.static, a.prompts, lr=cfg.lr,
         compute_dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16"
         else torch.float32,
         perturb_distribution=cfg.perturb_distribution,
-        dist_mean=a.mean, dist_std=a.std, remat=cfg.remat)
+        dist_mean=a.mean, dist_std=a.std, mesh=mesh, remat=cfg.remat)
     optimizer = trainer.init_optimizer(trainable)
 
     # random-state restore (ref :1184-1201)
@@ -863,6 +1011,12 @@ def run_behavioral_training(config, preempt_guard=None, device=None) -> dict:
             logger.warning("baseline_random_state_path not provided in config, "
                            "cannot restore random states")
 
+    leaves = [leaf for *_, leaf in adora.trainable_leaves(trainable)]
+    dist.check_replicas_equal(
+        leaves + [t for leaf in leaves for _, t in sorted(
+            optimizer.state.get(leaf, {}).items())
+                  if isinstance(t, torch.Tensor)],
+        "adapters or AdamW state")
     logger.info("\nModel Configuration:")
     logger.info("-------------------")
     for k, v in cfg.to_dict().items():
@@ -876,7 +1030,8 @@ def run_behavioral_training(config, preempt_guard=None, device=None) -> dict:
     dump_dir = cfg.inference_dump_dir if cfg.dump_inference_embeddings \
         else None
     nod_images = nod_names = None
-    if cfg.nod_csv_file and os.path.exists(cfg.nod_csv_file):
+    if cfg.nod_csv_file and os.path.exists(cfg.nod_csv_file) \
+            and dist.is_primary():     # its dumps are the primary's
         nod_names = read_image_names(cfg.nod_csv_file)
         nod_images = dthings.decode_images(cfg.nod_img_dir or cfg.img_dir,
                                            nod_names,
@@ -914,7 +1069,7 @@ def run_behavioral_training(config, preempt_guard=None, device=None) -> dict:
             nod_dump_dir=cfg.nod_dump_dir, host_prefetch=cfg.host_prefetch,
             frozen_cache=cfg.frozen_cache)
 
-    if cfg.nod_dump_dir and nod_names is not None:
+    if cfg.nod_dump_dir and nod_names is not None and dist.is_primary():
         # per-epoch category-RDM archive (the reference runs shipped
         # hba_nod_category_rdms_dict.npz with no producing script; SURVEY.md
         # section 0; schema in analysis/category_rdms.py)

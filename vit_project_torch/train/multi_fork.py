@@ -40,8 +40,15 @@ keeps it in its compiled program as a rider whose updates are dropped;
 eager PyTorch has no fixed shape to keep), so the ride-along accounting
 counts no rider epochs. Groups are built from the ascending, deduplicated
 order. The preemption guard is polled at every group boundary and at every
-lock-step after the first. The fork axis over several GPUs comes with the
-port of the parallel modes.
+lock-step after the first.
+
+Under torchrun every rank runs every group, as JAX's processes all run the
+same program (its trainer has no data mesh here): the primary writes the
+CSVs and checkpoints, the early-stopping decisions read the primary's eval
+losses, and the ranks meet at a barrier after each lock-step's writes and
+at the collective polls. ``--fork_devices`` is clamped as JAX's
+``make_fork_mesh`` clamps it; the fork axis over several cards comes with
+a later slice of the port.
 """
 from __future__ import annotations
 
@@ -58,14 +65,36 @@ from ..core.configs import ClipRunConfig
 from ..core.device import resolve_device
 from ..core.prng import Key, perturb_base_key
 from ..data import things as dthings
+from ..parallel import dist
 from ..perturb import injectors, windows
 from .clip_loop import ClipHBATrainer, build_run_assets
 
+def make_fork_mesh(n_requested: int, n_items: int, logger=None):
+    """The fork axis's devices, clamped as JAX's ``make_fork_mesh`` clamps
+    them: min(requested, this host's cards, the group's forks). One device
+    (or none requested) gives None, and the group runs on this rank's card
+    as it does without the flag; more than one raises, since the fork axis
+    over several cards is not ported yet."""
+    if n_requested <= 1:
+        return None
+    import torch
+    n = min(n_requested, torch.cuda.device_count(), n_items)
+    if n <= 1:
+        (logger.info if logger else print)(
+            f"Fork axis on 1 device (requested {n_requested})")
+        return None
+    raise NotImplementedError(
+        f"--fork_devices {n_requested} ({n} cards after the clamp): the "
+        f"fork axis over several cards is not ported yet: it comes with "
+        f"port slice 9b")
 
-def per_chip_forks(group_size: int) -> int:
-    """Forward passes one batched call materializes on the card: the
-    group's forks (the fork axis is not sharded over cards yet)."""
-    return max(1, int(group_size))
+
+def per_chip_forks(group_size: int, mesh=None) -> int:
+    """Forward passes one batched call materializes on a card: the group's
+    forks over the fork axis's devices (JAX's signature; `mesh` is None
+    until the fork axis spans cards)."""
+    n_dev = 1 if mesh is None else mesh.size()
+    return max(1, -(-int(group_size) // int(n_dev)))
 
 
 class _ForkState:
@@ -297,6 +326,7 @@ def run_batched_sweep(base_config: dict, training_order: list[int], *,
             if done_report is not None:
                 done_report([f.run for f in forks])
         except Exception as e:
+            _end_the_job_across_ranks()
             # a fork that finished has its whole tree: reporting it failed
             # would invite a re-run that truncates it
             done = sorted(f.run for f in forks if f.finished)
@@ -309,6 +339,15 @@ def run_batched_sweep(base_config: dict, training_order: list[int], *,
     if totals["lock_steps"]:
         log(f"Batched sweep ride-along total: {_ride_along_str(totals)}")
     return failed
+
+
+def _end_the_job_across_ranks() -> None:
+    """Re-raise a group's failure when other ranks share the job: they may
+    be waiting at the group's barriers and polls, and ending the job
+    (torchrun then stops them) beats leaving them waiting. One process
+    reports the group failed and goes on."""
+    if dist.world_size() > 1:
+        raise
 
 
 def _tally_ride_along(totals: dict, st: dict) -> None:
@@ -419,6 +458,7 @@ def run_batched_lengths(base_config: dict, onsets: list[int], length: int, *,
             log(f"Group {gi + 1}/{len(groups)} ({names}) completed "
                 f"({_ride_along_str(st)})")
         except Exception as e:
+            _end_the_job_across_ranks()
             bad = [f.label for f in forks if not f.finished]
             log(f"Group {gi + 1}/{len(groups)} ({names}) FAILED: {e!r} "
                 f"(incomplete conditions: {bad})")
@@ -495,9 +535,15 @@ def _run_group(su: _Setup, forks: list[_ForkState], inits, guard=None):
     (rider stays 0: stopped forks leave the stack), with `interrupted` when
     the guard stopped the group."""
     cfg, trainer, log = su.cfg, su.trainer, su.log
+    primary = dist.is_primary()
+    # every rank has read the group's trees (the ladder) before the primary
+    # rewrites them
+    dist.barrier()
     for f in forks:
         f.finished = f.stopped or f.epoch0_at(0) >= cfg.epochs
-        csvio.init_clip_csv(f.res_path, f.start_epoch0, f.prepop_csv, None)
+        if primary:
+            csvio.init_clip_csv(f.res_path, f.start_epoch0, f.prepop_csv,
+                                None)
     trainables = [t for t, _, _ in inits]
     optimizers = [o for _, o, _ in inits]
     seeds = [int(s) for _, _, s in inits]
@@ -550,16 +596,21 @@ def _run_group(su: _Setup, forks: list[_ForkState], inits, guard=None):
                 cached=su.use_cache)
         # one bulk copy-out of the live forks' checkpoint trees, started
         # now so it runs beside the eval and RSA work (core/hostcopy.py)
-        trees = (tr_live, [clip_ckpt.adamw_moments(o, tr)
-                           for o, tr in zip(opt_live, tr_live)])
-        copies = (hostcopy.prefetch_to_host(*trees) if su.host_prefetch
-                  else [hostcopy.HostCopy(tree) for tree in trees])
+        if primary:
+            trees = (tr_live, [clip_ckpt.adamw_moments(o, tr)
+                               for o, tr in zip(opt_live, tr_live)])
+            copies = (hostcopy.prefetch_to_host(*trees) if su.host_prefetch
+                      else [hostcopy.HostCopy(tree) for tree in trees])
         test_losses = trainer.evaluate_forks(
             tr_live, su.test_imgs_dev, su.test_tgts_dev, su.n_test,
             cfg.batch_size, vmap_factor=su.vmap_factor, cache=su.test_cache)
+        # the stopping decisions (and so the lock-steps, and the polls in
+        # them) follow the primary's numbers on every rank
+        test_losses = dist.primary_values(test_losses)
         rsa = trainer.behavioral_rsa_forks(tr_live, su.inf_imgs_dev, su.rdm,
                                            cache=su.inf_cache)
-        host_tr, host_mom = (c.get() for c in copies)
+        if primary:
+            host_tr, host_mom = (c.get() for c in copies)
 
         sizes = np.array([len(b) for b in batch_lists[0]])
         for j, i in enumerate(live):
@@ -579,12 +630,14 @@ def _run_group(su: _Setup, forks: list[_ForkState], inits, guard=None):
             # checkpoints before the CSV row: a crash between the two leaves
             # "checkpoint without row" (retrained on resume), never "row
             # without checkpoint"
-            clip_ckpt.save_dora_parameters(host_tr[j], f.dora_path, e0)
-            clip_ckpt.save_random_states(
-                clip_ckpt.optax_state_from_moments(*host_mom[j]), e0,
-                f.state_path, seeds[i], {"dropout_seed": cfg.random_seed})
-            csvio.append_clip_row(f.res_path, e0 + 1, train_loss, test_loss,
-                                  rho, p, **flags)
+            if primary:
+                clip_ckpt.save_dora_parameters(host_tr[j], f.dora_path, e0)
+                clip_ckpt.save_random_states(
+                    clip_ckpt.optax_state_from_moments(*host_mom[j]), e0,
+                    f.state_path, seeds[i],
+                    {"dropout_seed": cfg.random_seed})
+                csvio.append_clip_row(f.res_path, e0 + 1, train_loss,
+                                      test_loss, rho, p, **flags)
             if test_loss < f.best_test_loss:
                 f.best_test_loss = test_loss
                 f.no_improve = 0
@@ -594,6 +647,8 @@ def _run_group(su: _Setup, forks: list[_ForkState], inits, guard=None):
                 log(f"  run {f.run}: early stopping at epoch {e0 + 1}")
                 f.stopped = True
             f.finished = f.stopped or f.epoch0_at(t + 1) >= cfg.epochs
+        # the lock-step's files are whole before any rank goes on
+        dist.barrier()
         t += 1
     return stats
 
@@ -601,7 +656,9 @@ def _run_group(su: _Setup, forks: list[_ForkState], inits, guard=None):
 @torch.no_grad()
 def _log_injection_evidence(su: _Setup, forks, in_win, first_batches, log):
     """Each in-window fork's first batch after its injector (the reference's
-    debug-print verification, ref :886-982)."""
+    debug-print verification, ref :886-982); logged by the primary."""
+    if not dist.is_primary():
+        return
     cfg, trainer = su.cfg, su.trainer
     for f, inw, idx in zip(forks, in_win, first_batches):
         if not inw:

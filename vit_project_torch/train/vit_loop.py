@@ -133,23 +133,6 @@ def sgd_init(params: dict) -> dict:
     return {k: torch.zeros_like(v) for k, v in params.items()}
 
 
-@torch.no_grad()
-def check_replicas_equal(model) -> None:
-    """Raise unless every rank holds rank 0's parameters bit for bit (the
-    ranks build them from one seed or one checkpoint; DDP would broadcast
-    rank 0's, FSDP2 shards whatever each rank holds). Nothing without a
-    group."""
-    if dist.world_size() == 1:
-        return
-    dev = dist.collective_device()
-    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
-    ref = flat.to(dev, copy=True)
-    torch.distributed.broadcast(ref, src=0)
-    if not torch.equal(ref.to(flat.device), flat):
-        raise RuntimeError(f"rank {dist.rank()} starts from other parameters "
-                           f"than rank 0")
-
-
 def _device_prefetch(batches, place, depth: int):
     """Overlap the copy of batch k+1 to the card with the step on batch k:
     `place` (pinned host copy + non-blocking transfer) runs on the feeder
@@ -691,7 +674,9 @@ def run_vit_training(cfg: ViTTrainConfig, logger=None,
             log(f"WARNING: ignoring checkpoint_preempt.pth for epoch "
                 f"{pc['epoch']} > next epoch {start_epoch} (torn tree?)")
 
-    check_replicas_equal(model)
+    # the ranks build the parameters from one seed or one checkpoint (DDP
+    # would broadcast rank 0's, FSDP2 shards whatever each rank holds)
+    dist.check_replicas_equal(list(model.parameters()), "parameters")
     trainer = ViTTrainer(vit_cfg, cfg, model, dev)   # fsdp: shards model
     momentum = trainer.init_momentum(momentum)
 
