@@ -95,7 +95,13 @@
    ``cli.vit_measure`` cell under torchrun write the CSVs the CLIs write
    alone, byte for byte; it times a step of each mode in turns in one
    process; then two ranks under gloo share the card: a dp run within the
-   tolerance of the run alone, and the RSA gathered in dataset order;
+   tolerance of the run alone, and the RSA gathered in dataset order; and,
+   in the same launch, tensor parallelism (``--tp_devices 2``, batch 64:
+   each rank's 6 heads through the flash3 kernels, 12 flash3_fwd and 12
+   flash3_bwd a step on each rank): the rows and checkpoint within the
+   tolerance of one process on the same data, the TP block's output and
+   packed qkv gradient against the same block whole on the plain
+   attention, ms a step; one process resumes the tp checkpoint;
 6e. phase `clip_dist`: CLIP-HBA training across ranks as users launch it,
    at full width and depth (ViT-L/14, rank-32 DoRA, bf16, batch 64, 2
    epochs) on THINGS at its real size on disk (the images phase sweep
@@ -149,7 +155,9 @@ Any failed check exits non-zero before the last line. Without a CUDA device,
 or without the package beside this script, it exits non-zero and prints no
 result. ``--json PATH`` also writes every number to PATH.
 ``--dist_drift [LRS]`` runs no phase: it measures how far two gloo ranks
-drift from one process by learning rate (the reason for DIST_LR).
+(dp at batch 256, tp at 64) drift from one process by learning rate,
+beside a one-process change that should not matter (the reason for
+DIST_LR and the tp bounds).
 """
 from __future__ import annotations
 
@@ -288,23 +296,27 @@ def attention_cases():
     """(label, B, S, H, causal) at the serving path's shapes: the image
     tower at buckets 8, 32 and 256, and the 66 causal text prompts; the
     ViT-B/16 step; a ViT-B/16 RSA chunk (compute_rsa_score's batch of 8,
-    72 of a grid cell's 132 forward launches); and the image tower of a
-    lock-step of 8 batched forks (8 x 64 rows)."""
+    72 of a grid cell's 132 forward launches); the image tower of a
+    lock-step of 8 batched forks (8 x 64 rows); and one rank's 6 heads of
+    the ViT-B/16 step under --tp_devices 2 (phase dist, batch 64)."""
     return [("image_b8", 8, 257, 16, False), ("image_b32", 32, 257, 16, False),
             ("image_b256", 256, 257, 16, False), ("text_66", 66, 77, 12, True),
             ("vit_b256", 256, 197, 12, False), ("vit_b8", 8, 197, 12, False),
-            ("image_b512", 512, 257, 16, False)]
+            ("image_b512", 512, 257, 16, False),
+            ("vit_tp2_b64", 64, 197, 6, False)]
 
 
 def bwd_cases():
     """(label, B, S, H, causal) of the attention backward on the training
     path: the image tower at the training batch of 64, and the 66 causal
     text prompts (reached when a text block below the last is adapted), the
-    ViT-B/16 training step (batch 256, S=197, 12 heads), and the image
-    tower of a lock-step of 8 batched forks (8 x 64 rows)."""
+    ViT-B/16 training step (batch 256, S=197, 12 heads), the image
+    tower of a lock-step of 8 batched forks (8 x 64 rows), and one rank's
+    6 heads of the ViT-B/16 step under --tp_devices 2 (batch 64)."""
     return [("image_b64", 64, 257, 16, False), ("text_66", 66, 77, 12, True),
             ("vit_b256", 256, 197, 12, False),
-            ("image_b512", 512, 257, 16, False)]
+            ("image_b512", 512, 257, 16, False),
+            ("vit_tp2_b64", 64, 197, 6, False)]
 
 
 def _random_qkv(B, S, H, dtype, seed=SEED):
@@ -3306,6 +3318,37 @@ DIST_PARAM_RTOL = 1e-2
 # the gathered RSA against one process: within the grid's kernel-vs-plain
 # bound (a wrong row order gives an unrelated rho)
 DIST_RHO_ATOL = 1e-3
+# tensor parallelism on the card: two gloo ranks share cuda:0 (NCCL takes
+# one rank a card), one model group, a data axis of 1. Each block
+# all-reduces [B, 197, 768] bf16 twice forward and twice backward through
+# the host: 14.5 MB of payload an image a training step whatever B, so B
+# sets the size of each all-reduce and the count of them. B = 64: 19.4 MB
+# an all-reduce (a pinned host buffer of that size a rank), 48 a step, 16
+# steps an epoch over the 1,024 train images, 4 validation batches
+TP_BATCH = 64
+TP_TIMED_STEPS = 6
+TP_STEPS = 1024 // TP_BATCH * DIST_EPOCHS
+TP_VAL_BATCHES = 256 // TP_BATCH * DIST_EPOCHS
+# the TP block (the kernels on each rank's 6 heads, [B, 197, 1152]) against
+# the same block whole on the plain attention, bf16, max |err| over the
+# largest |value| of the plain version, for the block's output and for the
+# packed qkv gradient at the rank's columns: the attention's own versions
+# differ by one bf16 spacing (TOLERANCE, BWD_TOLERANCE: 2^-7 of the
+# largest value), and the two partial products of each row-split dense,
+# rounded to bf16 and summed, add one more rounding on the way out and one
+# on the way back
+TP_BLOCK_RTOL = 2e-2
+# the tp run (and its epoch 0 resumed in one process) against one process
+# on the same data at TP_BATCH. At batch 64 a change that should not
+# matter drifts further than at 256: `--dist_drift 0.01` on an H100
+# measured one process with the fused dW+db against the plain one at
+# 9.474e-3 in the losses, 0 images, 5.626e-4 of the parameters' largest
+# value and 1.291e-2 of the momentum's (tp: 6.370e-3, 0, 7.275e-4,
+# 1.520e-2; at 256, two gloo dp ranks' momentum 1.409e-2). Allowed: twice
+# that spread in the losses and the momentum, DIST_ACC_ATOL and
+# DIST_PARAM_RTOL as phase dist's other runs
+TP_LOSS_RTOL = 2e-2
+TP_MOMENTUM_RTOL = 3e-2
 
 
 class _WriteCounter:
@@ -3417,6 +3460,8 @@ def _dist_worker(report: str, argv: list) -> int:
                 extra = _time_modes()
             elif module == "clip_step_ms":
                 extra = _clip_step_ms(args[0])
+            elif module == "tp_check":
+                extra = _tp_check()
             else:
                 result = importlib.import_module(module).main(args)
                 extra = {"result": result if isinstance(result, list)
@@ -3497,6 +3542,128 @@ def _time_modes() -> dict:
     for mode in DIST_MODES + DIST_MODES[::-1]:
         turns[mode].append(turn(mode))
     return {"per_step": per_step, "turns": turns}
+
+
+def _plain_packed_qkv(qkv, num_heads):
+    """The packed attention op on its plain versions (forward and
+    backward), differentiable as the kernel's autograd Function is."""
+    import torch
+    from vit_project_torch.ops import attention as vattn
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, qkv):
+            o, lse = vattn.flash_mha_packed_qkv_reference(qkv, num_heads)
+            ctx.save_for_backward(qkv, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            qkv, lse = ctx.saved_tensors
+            return vattn.flash_mha_packed_qkv_bwd_reference(
+                qkv, do.contiguous(), lse, num_heads)
+    return Plain.apply(qkv)
+
+
+def _tp_check() -> dict:
+    """Under two gloo ranks sharing the card (one model group),
+    ViT-B/16's width with tp_devices 2: one block tensor-parallel, each
+    rank's 6 heads through the kernels, against the same block whole on
+    the plain attention: the output, and the packed qkv gradient
+    [B, 197, 1152] against the whole block's at the rank's columns (max
+    |err| over the largest |value|); the kernel launches of that block and
+    of one training step; ms a step over TP_TIMED_STEPS (CUDA events) at
+    batch TP_BATCH."""
+    import torch
+    from vit_project_torch.core.configs import ViTTrainConfig
+    from vit_project_torch.models import vit as vvit
+    from vit_project_torch.ops import attention as vattn
+    from vit_project_torch.parallel import dist
+    from vit_project_torch.parallel import mesh as vmesh
+    from vit_project_torch.train import vit_loop
+    dev = dist.local_device("cuda:0")        # the card both ranks share
+    vit_cfg = vvit.VIT_CONFIGS["vit_base_patch16_224"]
+    D, H, T = vit_cfg.width, vit_cfg.heads, 2
+    mesh = vmesh.make_mesh(n_model=T)
+    group, t = mesh.get_group("model"), mesh.get_local_rank("model")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    blk = vvit.Block(D, vit_cfg.mlp_ratio).to(dev)
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            unit = name.startswith("norm") and name.endswith("weight")
+            p.copy_(float(unit) + 0.02 * torch.randn(
+                p.shape, generator=gen, device=dev))
+    x = torch.randn(TP_BATCH, vit_cfg.seq_len, D, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16)
+    act = vvit._activation(vit_cfg)
+    seen = {}
+    kernel_op = vattn.flash_mha_packed_qkv
+
+    def capturing(op):
+        def attn(qkv, *, num_heads, causal=False):
+            qkv.retain_grad()
+            seen["qkv"] = qkv
+            return op(qkv, num_heads)
+        return attn
+    vattn.flash_mha_packed_qkv = capturing(_plain_packed_qkv)
+    try:
+        y_ref = vvit.classifier_block(blk, x, H, act=act)
+        y_ref.backward(dy)
+    finally:
+        vattn.flash_mha_packed_qkv = kernel_op
+    cols = [c for j in range(3)
+            for c in range(j * D + t * D // T, j * D + (t + 1) * D // T)]
+    g_ref = seen["qkv"].grad[..., cols].float()
+    local = vvit.Block(D, vit_cfg.mlp_ratio).to(dev)
+    state = {f"blocks.0.{n}": p.detach() for n, p in blk.named_parameters()}
+    for name, v in vmesh.shard_vit_params_tp(state, T, t, heads=H).items():
+        owner, leaf = name[len("blocks.0."):].rsplit(".", 1)
+        setattr(local.get_submodule(owner), leaf, torch.nn.Parameter(v))
+    vattn.reset_launch_counts()
+    vattn.flash_mha_packed_qkv = capturing(
+        lambda qkv, h: kernel_op(qkv, num_heads=h))
+    try:
+        y = vvit.classifier_block_tp(local, x, H, act=act, group=group)
+        y.backward(dy)
+    finally:
+        vattn.flash_mha_packed_qkv = kernel_op
+    torch.cuda.synchronize()
+    block = {"launches": dict(vattn.LAUNCHES),
+             "qkv_shape": list(seen["qkv"].shape),
+             "y_rel_err": ((y.float() - y_ref.float()).abs().max()
+                           / y_ref.float().abs().max()).item(),
+             "dqkv_rel_err": ((seen["qkv"].grad.float() - g_ref).abs().max()
+                              / g_ref.abs().max()).item()}
+    del blk, local, x, dy, y, y_ref, seen, g_ref
+
+    cfg = ViTTrainConfig(batch_size=TP_BATCH, compute_dtype="bfloat16",
+                         tp_devices=T)
+    model = vvit.init_vit_params(vvit.empty_vit(vit_cfg, dev),
+                                 torch.Generator(device=dev).manual_seed(SEED))
+    tr = vit_loop.ViTTrainer(vit_cfg, cfg, model, dev)
+    mom = tr.init_momentum()
+    size = vit_cfg.image_size
+    imgs = torch.randint(0, 256, (TP_BATCH, size, size, 3), generator=gen,
+                         device=dev, dtype=torch.uint8)
+    lbls = torch.randint(0, vit_cfg.num_classes, (TP_BATCH,), generator=gen,
+                         device=dev)
+    vattn.reset_launch_counts()
+    tr.step(mom, imgs, lbls, 0.01)
+    torch.cuda.synchronize()
+    per_step = dict(vattn.LAUNCHES)
+    # a step is ~1.2 s of gloo round-trips on the H100 machine: one turn of
+    # TP_TIMED_STEPS after one unmeasured step
+    tr.step(mom, imgs, lbls, 0.01)
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(TP_TIMED_STEPS + 1)]
+    ev[0].record()
+    for i in range(TP_TIMED_STEPS):
+        tr.step(mom, imgs, lbls, 0.01)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    turns = [[ev[i].elapsed_time(ev[i + 1]) for i in range(TP_TIMED_STEPS)]]
+    return {"block": block, "per_step": per_step, "turns": turns}
 
 
 def _dist_run(tmp: str, name: str, argv: list, nproc: int | None = 1,
@@ -3707,14 +3874,21 @@ def phase_dist(tmp: str):
           + f"; peak in that process {tm['peak_gib']:.2f} GiB "
           f"(four models); {smi_line()}", flush=True)
 
-    # --- two ranks on this card under gloo: dp and the gathered RSA ---
+    # --- two ranks on this card under gloo: dp, the gathered RSA, and
+    # tensor parallelism (its run and its block check) ---
     gloo_out = os.path.join(root, "gloo_dp")
+    tp_out = os.path.join(root, "gloo_tp")
+    tp_args = ["--data_path", data, "--batch_size", str(TP_BATCH),
+               "--epochs", str(DIST_EPOCHS), "--num_workers", "8", "--lr",
+               DIST_LR]
     g = _dist_run(root, "gloo", [
         "--gloo", train_cli, *train_args, "--device", "cuda:0",
         "--output_dir", gloo_out, "--then",
         "vit_project_torch.cli.vit_rsa_eval", "--checkpoint_dir", single,
         "--output_csv", os.path.join(root, "rsa_gloo.csv"), *things_args,
-        "--device", "cuda:0"], nproc=2)
+        "--device", "cuda:0", "--then", train_cli, *tp_args, "--device",
+        "cuda:0", "--tp_devices", "2", "--output_dir", tp_out, "--then",
+        "tp_check"], nproc=2)
     g_rsa = [rep["then"][0] for rep in g]
     g_rows = _read_rows(os.path.join(gloo_out, "training_metrics.csv"))
     got = np.array([[float(v) for v in r[1:]] for r in g_rows[1:]])
@@ -3740,14 +3914,112 @@ def phase_dist(tmp: str):
             and rho_diff <= DIST_RHO_ATOL):
         fail(f"[dist] gloo 2-rank run outside the tolerance: losses "
              f"{g_loss}, accuracy {g_acc}, rho {rho_diff}")
+    tp = _check_tp(root, train_cli, tp_args, tp_out,
+                   [rep["then"][1] for rep in g],
+                   [rep["then"][2] for rep in g])
     RESULTS["dist"] = {
         "runs": runs, "compare": cmp, "rsa": rsa_rep, "cell": cell_rep,
         "time_modes": tm, "step_ms": step_ms, "gloo": g, "gloo_rsa": g_rsa,
         "gloo_rows": g_rows[1:], "gloo_loss_rel": g_loss,
-        "gloo_acc_diff": g_acc, "gloo_rho_diff": rho_diff,
+        "gloo_acc_diff": g_acc, "gloo_rho_diff": rho_diff, "tp": tp,
         "seconds": time.time() - t_phase}
     print(f"[dist] phase {time.time() - t_phase:.1f} s", flush=True)
-    return main_launches
+    return {**main_launches, "tp": tp["launches"]}
+
+
+def _check_tp(root: str, train_cli: str, tp_args: list, tp_out: str,
+              runs: list, checks: list) -> dict:
+    """Phase dist's tensor-parallel checks on the gloo launch's reports
+    (`runs`: each rank's cli.vit_train --tp_devices 2; `checks`: each
+    rank's _tp_check) and two one-process runs in this process on the same
+    data: the same invocation without --tp_devices (the rows within
+    TP_LOSS_RTOL and DIST_ACC_ATOL, the checkpoint's parameters within
+    DIST_PARAM_RTOL and its momentum within TP_MOMENTUM_RTOL), and the tp
+    run's epoch 0 resumed (its epoch-1 row within the same bounds of the
+    tp run's)."""
+    import importlib
+    train_main = importlib.import_module(train_cli).main
+    want = {"flash3_fwd": 12 * (TP_STEPS + TP_VAL_BATCHES),
+            "flash3_bwd": 12 * TP_STEPS}
+    for rep in runs:
+        got = {k: v for k, v in rep["launches"].items() if v}
+        if rep["backend"] != "gloo" or got != want:
+            fail(f"[dist] tp rank {rep['rank']}: backend {rep['backend']}, "
+                 f"launches {got}, want {want}")
+    one = os.path.join(root, "tp_one")
+    _cli(train_main, tp_args + ["--output_dir", one],
+         os.path.join(root, "tp_one.log"))
+    resumed = os.path.join(root, "tp_resumed")
+    os.makedirs(resumed)
+    shutil.copyfile(os.path.join(tp_out, "checkpoint_epoch_000.pth"),
+                    os.path.join(resumed, "checkpoint_latest.pth"))
+    tp_rows = _read_rows(os.path.join(tp_out, "training_metrics.csv"))
+    with open(os.path.join(resumed, "training_metrics.csv"), "w") as f:
+        f.write("\n".join(",".join(r) for r in tp_rows[:2]) + "\n")
+    _cli(train_main, tp_args + ["--output_dir", resumed],
+         os.path.join(root, "tp_resumed.log"))
+
+    def against(rows, ref):
+        got = np.array([[float(v) for v in r[1:]] for r in rows[1:]])
+        want_ = np.array([[float(v) for v in r[1:]] for r in ref[1:]])
+        if got.shape != want_.shape or not np.isfinite(got).all():
+            fail(f"[dist] tp rows {rows} against {ref}")
+        return (float(np.abs(got[:, :2] / want_[:, :2] - 1).max()),
+                float(np.abs(got[:, 2] - want_[:, 2]).max()))
+    one_rows = _read_rows(os.path.join(one, "training_metrics.csv"))
+    loss_rel, acc_diff = against(tp_rows, one_rows)
+    tree_rel = [_rel_tree_diff(a, b) for a, b in
+                zip(_ckpt_trees(tp_out), _ckpt_trees(one))]
+    res_loss, res_acc = against(
+        _read_rows(os.path.join(resumed, "training_metrics.csv")), tp_rows)
+    blocks = [c["block"] for c in checks]
+    step_ms = [statistics.mean(x for t in c["turns"] for x in t)
+               for c in checks]
+    per_step = [{k: c["per_step"][k] for k in ("flash3_fwd", "flash3_bwd")}
+                for c in checks]
+    print(f"[dist] tp 2 ranks, gloo, one card (--tp_devices 2, batch "
+          f"{TP_BATCH}, 6 heads a rank): {runs[0]['s']:.1f} s, peak "
+          f"{max(r['peak_gib'] for r in runs):.2f} GiB a rank, launches "
+          f"flash3_fwd {runs[0]['launches']['flash3_fwd']} flash3_bwd "
+          f"{runs[0]['launches']['flash3_bwd']} a rank; a step's launches "
+          f"{per_step}; ms a step "
+          + ", ".join(f"rank {r} {ms:.2f} (turns "
+                      + ", ".join(f"{statistics.mean(t):.2f}"
+                                  for t in c["turns"]) + ")"
+                      for r, (ms, c) in enumerate(zip(step_ms, checks)))
+          + "; rows " + "; ".join(",".join(r) for r in tp_rows[1:])
+          + f"; against one process: losses {loss_rel:.3e} relative, "
+          f"accuracy {acc_diff:.3f} points, parameters {tree_rel[0]:.3e} / "
+          f"momentum {tree_rel[1]:.3e} of their largest (bounds "
+          f"{TP_LOSS_RTOL}, {DIST_ACC_ATOL:.3f}, {DIST_PARAM_RTOL}, "
+          f"{TP_MOMENTUM_RTOL}); its epoch 0 resumed in one "
+          f"process: losses {res_loss:.3e}, accuracy {res_acc:.3f}; block "
+          f"against the whole plain block: "
+          + "; ".join(f"rank {r} qkv {b['qkv_shape']}, y {b['y_rel_err']:.3e}"
+                      f", dqkv {b['dqkv_rel_err']:.3e}"
+                      for r, b in enumerate(blocks))
+          + f" (tol {TP_BLOCK_RTOL}); {smi_line()}", flush=True)
+    for b in blocks:
+        if b["qkv_shape"] != [TP_BATCH, 197, 1152] or {
+                k: b["launches"][k] for k in ("flash3_fwd", "flash3_bwd")} \
+                != {"flash3_fwd": 1, "flash3_bwd": 1} \
+                or not (b["y_rel_err"] <= TP_BLOCK_RTOL
+                        and b["dqkv_rel_err"] <= TP_BLOCK_RTOL):
+            fail(f"[dist] tp block: {b}")
+    if per_step != [{"flash3_fwd": 12, "flash3_bwd": 12}] * 2:
+        fail(f"[dist] a tp step launched {per_step}")
+    if not (max(loss_rel, res_loss) <= TP_LOSS_RTOL
+            and max(acc_diff, res_acc) <= DIST_ACC_ATOL
+            and tree_rel[0] <= DIST_PARAM_RTOL
+            and tree_rel[1] <= TP_MOMENTUM_RTOL):
+        fail(f"[dist] tp outside the tolerance of one process: losses "
+             f"{loss_rel} / {res_loss}, accuracy {acc_diff} / {res_acc}, "
+             f"trees {tree_rel}")
+    return {"runs": runs, "checks": checks, "rows": tp_rows[1:],
+            "step_ms": step_ms, "loss_rel": loss_rel, "acc_diff": acc_diff,
+            "tree_rel": tree_rel, "resumed_loss_rel": res_loss,
+            "resumed_acc_diff": res_acc,
+            "launches": {k: runs[0]["launches"][k] for k in want}}
 
 
 CLIP_DIST_EPOCHS = 2
@@ -4094,17 +4366,22 @@ def phase_clip_dist(tmp: str):
 
 
 def _dist_drift(lrs: list) -> int:
-    """``--dist_drift [LRS]``, run alone: how far two data-parallel ranks
-    drift from one process, by learning rate (the measurement behind
-    DIST_LR). On phase vit_train's seeded ImageFolder, ViT-B/16 at batch
-    256 in bf16 for 2 epochs, each run ``cli.vit_train`` in its own process
-    (``--dist_worker``), at each learning rate: one process with
-    ``--fused_dw``; one process with the plain dW+db (the same arithmetic
-    summed in another order: the spread of a change that should not
-    matter); two ranks under gloo sharing the card (128 images a rank, the
-    plain dW+db). Prints each run's rows, then the largest relative loss
-    difference and the accuracy difference against the fused run, and
-    the card's name and power limit; no result line."""
+    """``--dist_drift [LRS]``, run alone: how far the distributed runs drift
+    from one process, by learning rate (the measurement behind DIST_LR and
+    the tolerances of phase dist). On phase vit_train's seeded
+    ImageFolder, ViT-B/16 in bf16 for 2 epochs, each run ``cli.vit_train``
+    in its own process (``--dist_worker``), at each learning rate: at
+    batch 256 one process with ``--fused_dw`` (the reference), one with
+    the plain dW+db (the same arithmetic summed in another order: the
+    spread of a change that should not matter), and two dp ranks under
+    gloo sharing the card (128 images a rank, the plain dW+db); at
+    TP_BATCH one process with the plain dW+db (the reference, as phase
+    dist's tp check), one with ``--fused_dw``, and ``--tp_devices 2`` over
+    two gloo ranks. Prints each run's rows, then against its batch's
+    reference the largest relative loss difference, the accuracy
+    difference and each checkpoint tree's largest difference over its
+    largest value (parameters, momentum), and the card's name and power
+    limit; no result line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4117,31 +4394,43 @@ def _dist_drift(lrs: list) -> int:
         data = os.path.join(tmp, "imagenet")
         _write_image_folder(data, np.random.RandomState(SEED))
         train = "vit_project_torch.cli.vit_train"
+        gloo = ["--device", "cuda:0"]
+        batches = ((256, (("fused", ["--fused_dw"], None), ("plain", [], None),
+                          ("gloo", gloo, 2))),
+                   (TP_BATCH, (("plain", [], None),
+                               ("fused", ["--fused_dw"], None),
+                               ("tp", gloo + ["--tp_devices", "2"], 2))))
         for lr in lrs:
-            args = ["--data_path", data, "--batch_size", "256", "--epochs",
-                    "2", "--num_workers", "8", "--lr", lr]
-            rows = {}
-            for name, extra, nproc in (("fused", ["--fused_dw"], None),
-                                       ("plain", [], None),
-                                       ("gloo", ["--device", "cuda:0"], 2)):
-                out = os.path.join(tmp, f"{name}_{lr}")
-                argv = (["--gloo"] if name == "gloo" else []) + [
-                    train, *args, *extra, "--output_dir", out]
-                _dist_run(tmp, f"{name}_{lr}", argv, nproc=nproc)
-                rows[name] = np.array([[float(v) for v in r[1:]] for r in
-                                       _read_rows(os.path.join(
-                                           out, "training_metrics.csv"))[1:]])
-                print(f"[drift] lr {lr} {name}: rows "
-                      + "; ".join(",".join(f"{v:.6f}" for v in r)
-                                  for r in rows[name]), flush=True)
-            ref = rows["fused"]
-            for name in ("plain", "gloo"):
-                got = rows[name]
-                print(f"[drift] lr {lr} {name} against fused: losses "
-                      f"{np.abs(got[:, :2] / ref[:, :2] - 1).max():.3e} "
-                      f"relative, accuracy "
-                      f"{np.abs(got[:, 2] - ref[:, 2]).max():.4f} points",
-                      flush=True)
+            for batch, runs in batches:
+                args = ["--data_path", data, "--batch_size", str(batch),
+                        "--epochs", "2", "--num_workers", "8", "--lr", lr]
+                rows, trees = {}, {}
+                for name, extra, nproc in runs:
+                    tag = f"{name}_{batch}_{lr}"
+                    out = os.path.join(tmp, tag)
+                    argv = (["--gloo"] if nproc else []) + [
+                        train, *args, *extra, "--output_dir", out]
+                    _dist_run(tmp, tag, argv, nproc=nproc)
+                    rows[name] = np.array([[float(v) for v in r[1:]] for r in
+                                           _read_rows(os.path.join(
+                                               out, "training_metrics.csv"))[1:]])
+                    trees[name] = _ckpt_trees(out)
+                    print(f"[drift] lr {lr} batch {batch} {name}: rows "
+                          + "; ".join(",".join(f"{v:.6f}" for v in r)
+                                      for r in rows[name]), flush=True)
+                ref = runs[0][0]
+                for name, _, _ in runs[1:]:
+                    got, want = rows[name], rows[ref]
+                    rel = [_rel_tree_diff(a, b)
+                           for a, b in zip(trees[name], trees[ref])]
+                    print(f"[drift] lr {lr} batch {batch} {name} against "
+                          f"{ref}: losses "
+                          f"{np.abs(got[:, :2] / want[:, :2] - 1).max():.3e} "
+                          f"relative, accuracy "
+                          f"{np.abs(got[:, 2] - want[:, 2]).max():.4f} "
+                          f"points, trees {rel[0]:.3e} (parameters) / "
+                          f"{rel[1]:.3e} (momentum) of their largest",
+                          flush=True)
         print(smi_line(), flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4237,6 +4526,9 @@ def main(argv=None) -> int:
     def dist(name):
         return dist_launches and dist_launches[name]
 
+    def dist_tp(name):
+        return dist_launches and dist_launches["tp"][name]
+
     def clip_dist(name):
         return clip_dist_launches and clip_dist_launches[name]
 
@@ -4257,6 +4549,7 @@ def main(argv=None) -> int:
                "vit_train": vit("flash3_fwd"),
                "vit_grid": grid("flash3_fwd"), "sweep": sweep("flash3_fwd"),
                "forks": forks("flash3_fwd"), "dist": dist("flash3_fwd"),
+               "dist_tp": dist_tp("flash3_fwd"),
                "clip_dist": clip_dist("flash3_fwd")},
               [r["max_abs_err_o"] for r in rows
                if r["kernel"] == "flash3_fwd"],
@@ -4270,6 +4563,7 @@ def main(argv=None) -> int:
                "vit_train": vit("flash3_bwd"),
                "vit_grid": grid("flash3_bwd"), "sweep": sweep("flash3_bwd"),
                "forks": forks("flash3_bwd"), "dist": dist("flash3_bwd"),
+               "dist_tp": dist_tp("flash3_bwd"),
                "clip_dist": clip_dist("flash3_bwd")},
               [r["max_abs_err"] for r in rows
                if r["kernel"] == "flash3_bwd"],

@@ -414,7 +414,9 @@ def test_port_source_imports_neither_jax_nor_the_jax_package():
             "data/things.py", "parallel/__init__.py", "parallel/dist.py",
             "parallel/mesh.py", "train/clip_loop.py", "cli/baseline.py",
             "cli/sweep.py", "cli/lengths.py",
-            "perturb/injectors.py"} <= names
+            "perturb/injectors.py", "models/vit.py", "train/vit_loop.py",
+            "cli/vit_train.py", "ckpt/serialization.py", "ckpt/vit_ckpt.py",
+            "core/configs.py"} <= names
     for path in _port_modules() + [REPO / "chip_smoke.py"]:
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):

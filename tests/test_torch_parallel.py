@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 
 import jax
 import numpy as np
@@ -46,6 +47,12 @@ TTINY = tvit.ViTConfig(patch=8, width=32, layers=2, heads=2, image_size=32,
 LOSS_RTOL = 1e-4
 # JAX's bound between its own data-parallel modes (tests/test_vit_training.py)
 MODE_RTOL, MODE_ATOL = 1e-4, 1e-5
+# the launch of every scenario: ~40 s alone, several times that beside
+# three other files' launches under xdist
+LAUNCH_TIMEOUT = 600
+# how long rank 0 holds back cli.vit_rsa_eval's CSV in the worker: far
+# longer than rank 1 takes to reach cli.vit_measure's read of it
+RSA_WRITE_DELAY = 2.0
 
 
 def _tiny(cfg_cls, data, out, epochs=2, **kw):
@@ -250,10 +257,15 @@ def _worker(spec_path):
     report["rsa_emb"] = tdist_mod.ordered_allgather_strided(emb, n).tolist()
     del trainer
 
-    # the per-epoch RSA and one grid cell, CSVs from rank 0 only
+    # the per-epoch RSA and one grid cell, CSVs from rank 0 only. Rank 0's
+    # RSA write is held back RSA_WRITE_DELAY s, and cli.vit_measure (which
+    # reads that CSV first) follows at once on every rank: a rank that left
+    # cli.vit_rsa_eval before the file was whole reads none or part of it
     writes = {"measure": 0, "rsa": 0}
     write_measure = csvio.write_measure_csv
-    to_csv = pd.DataFrame.to_csv
+    to_csv, read_csv = pd.DataFrame.to_csv, pd.read_csv
+    rsa_csv = out("rsa2/rsa_results.csv")
+    report["rsa_rows_read"] = []
 
     def counting_measure(*a, **k):
         writes["measure"] += 1
@@ -261,21 +273,30 @@ def _worker(spec_path):
 
     def counting_to_csv(self, *a, **k):
         writes["rsa"] += 1
+        if "rsa_summary_also" not in writes:
+            time.sleep(RSA_WRITE_DELAY)
         return to_csv(self, *a, **k)
+
+    def recording_read_csv(path, *a, **k):
+        df = read_csv(path, *a, **k)
+        if path == rsa_csv:
+            report["rsa_rows_read"].append(len(df))
+        return df
     csvio.write_measure_csv = counting_measure
     pd.DataFrame.to_csv = counting_to_csv
+    pd.read_csv = recording_read_csv
     mode_of_run["run"] = "grid"
     try:
-        trsa.main(_rsa_args(spec, out("dp"), out("rsa2/rsa_results.csv")))
+        trsa.main(_rsa_args(spec, out("dp"), rsa_csv))
         writes["rsa_summary_also"] = writes["rsa"]
         writes["rsa"] = 0
-        tmeasure.main(_grid_args(spec, out("dp"),
-                                 out("rsa2/rsa_results.csv"),
+        tmeasure.main(_grid_args(spec, out("dp"), rsa_csv,
                                  out("grid2/effects.csv")))
         writes["summary"] = writes["rsa"]
     finally:
         csvio.write_measure_csv = write_measure
         pd.DataFrame.to_csv = to_csv
+        pd.read_csv = read_csv
     report["writes"] = {"rsa": writes["rsa_summary_also"],
                         "measure": writes["measure"],
                         "summary": writes["summary"]}
@@ -336,7 +357,7 @@ def ranks(imagenet, tmp_path_factory):
     res = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc_per_node", str(WORLD), __file__, spec_path],
-        env=env, capture_output=True, text=True, timeout=600)
+        env=env, capture_output=True, text=True, timeout=LAUNCH_TIMEOUT)
     assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-8000:]
     reports = []
     for r in range(WORLD):
@@ -464,9 +485,14 @@ def test_ordered_allgather_interleaves_the_strided_shards(ranks):
 # -- parallel/mesh.py ---------------------------------------------------------
 
 def test_make_mesh_refuses_the_later_axes():
-    for kw in (dict(n_model=2), dict(n_stage=2), dict(n_expert=4)):
+    for kw in (dict(n_stage=2), dict(n_expert=4)):
         with pytest.raises(NotImplementedError, match="not ported"):
             tmesh.make_mesh(**kw)
+    # the model axis is ported (tests/test_torch_tp.py); it must divide the
+    # ranks, in JAX's words
+    with pytest.raises(ValueError, match=r"model axis \(2\) must divide the "
+                                         r"device count \(1\)"):
+        tmesh.make_mesh(n_model=2)
 
 
 @pytest.mark.parametrize("shape", [(8,), (12,), (16, 3), (24, 5, 2), (6, 4),
@@ -658,6 +684,16 @@ def test_mid_epoch_stop_is_one_process_only(monkeypatch):
     assert g.should_stop() is True
     monkeypatch.setattr(tdist_mod, "world_size", lambda: 2)
     assert g.should_stop() is False
+
+
+def test_chained_grid_clis_read_the_primarys_whole_csv(ranks):
+    """cli.vit_measure straight after cli.vit_rsa_eval in one group, with
+    rank 0's RSA write held back RSA_WRITE_DELAY s: both ranks read the
+    whole CSV (its two epoch rows). A rank that returned from
+    cli.vit_rsa_eval before the primary's write ended would fail the
+    launch on a missing or empty file."""
+    for rep in ranks[2]:
+        assert rep["rsa_rows_read"] == [2]
 
 
 def test_grid_over_two_ranks_writes_one_csv_equal_to_one_process(

@@ -612,8 +612,7 @@ def test_cli_profile_dir_writes_a_trace_of_the_first_epoch(imagenet,
 
 @pytest.mark.parametrize("field,value", [
     ("pp_stages", 2), ("sp_devices", 2), ("sp_ring", True), ("ep_devices", 2),
-    ("tp_devices", 2), ("tp_devices", 4), ("pp_stages", 4),
-    ("moe_experts", 4)])
+    ("pp_stages", 4), ("moe_experts", 4)])
 def test_unported_modes_are_refused_by_name(imagenet, tmp_path, field, value):
     cfg = dataclasses.replace(_tiny(TTrainConfig, imagenet,
                                     str(tmp_path / "x")), **{field: value})
@@ -622,7 +621,6 @@ def test_unported_modes_are_refused_by_name(imagenet, tmp_path, field, value):
 
 
 @pytest.mark.parametrize("flag", [["--sp_devices", "2"],
-                                  ["--tp_devices", "2"],
                                   ["--moe_experts", "2"]])
 def test_cli_refuses_unported_flags(imagenet, tmp_path, flag):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -631,15 +629,35 @@ def test_cli_refuses_unported_flags(imagenet, tmp_path, flag):
                    "--device", "cpu", *flag])
 
 
+@pytest.mark.parametrize("flags,words", [
+    (["--tp_devices", "2"], "launch with torchrun"),
+    (["--tp_devices", "2", "--sp_devices", "2"], "enable at most one"),
+    (["--tp_devices", "2", "--zero1"], "do not compose with tp_devices"),
+    (["--tp_devices", "4"], "must divide the model heads")])
+def test_cli_takes_tp_and_refuses_jaxs_conflicts(imagenet, tmp_path, flags,
+                                                 words):
+    """--tp_devices reaches the training loop (tensor parallelism is
+    ported): alone it asks for torchrun, and JAX's conflicts are refused
+    in JAX's words (test-tiny has 2 heads)."""
+    with pytest.raises(ValueError, match=words):
+        tcli.main(["--data_path", imagenet, "--output_dir",
+                   str(tmp_path / "x"), "--backbone", "test-tiny",
+                   "--device", "cpu", *flags])
+    assert not os.path.exists(tmp_path / "x" / "training_metrics.csv")
+
+
 def test_other_unported_paths_are_refused_by_name(imagenet, tmp_path):
     model = tvit.empty_vit(TTINY, "cpu")
     imgs = torch.zeros(1, 32, 32, 3)
     for kw, name in ((dict(seq_shard=object()), "seq_shard"),
                      (dict(ring_attn=True), "ring_attn"),
-                     (dict(with_aux=True), "with_aux"),
-                     (dict(head_shard=object()), "head_shard")):
+                     (dict(with_aux=True), "with_aux")):
         with pytest.raises(NotImplementedError, match=name):
             tvit.vit_classify(model, imgs, **kw)
+    # JAX's head_shard is a GSPMD pin; the port's tensor parallelism takes
+    # its model group as tp= instead, and has no such argument
+    with pytest.raises(TypeError, match="head_shard"):
+        tvit.vit_classify(model, imgs, head_shard=object())
     with pytest.raises(NotImplementedError, match="MoE"):
         tvit.empty_vit(dataclasses.replace(TTINY, moe_experts=2), "cpu")
     os.makedirs(tmp_path / "pod" / "checkpoint_latest.orbax")

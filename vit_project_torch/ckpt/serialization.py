@@ -103,7 +103,9 @@ def reap_stale_temps(path: str) -> None:
             pass
 
 
-def _atomic_write(path: str, write) -> None:
+def atomic_write(path: str, write) -> None:
+    """`write(tmp)` to a temporary name beside `path`, then ``os.replace``:
+    a reader sees the old file or the whole new one, never a torn one."""
     d = os.path.dirname(path)
     if d:
         os.makedirs(d, exist_ok=True)
@@ -125,7 +127,7 @@ def save(path: str, tree) -> None:
     def write(tmp):
         with open(tmp, "wb") as f:
             _Writer(f, protocol=4).dump(_to_host(tree))
-    _atomic_write(path, write)
+    atomic_write(path, write)
 
 
 def load(path: str):
@@ -139,7 +141,7 @@ def save_torch(path: str, flat: dict) -> None:
     out = {k: (v.detach().cpu() if isinstance(v, torch.Tensor)
                else torch.from_numpy(np.array(v)))
            for k, v in flat.items()}
-    _atomic_write(path, lambda tmp: torch.save(out, tmp))
+    atomic_write(path, lambda tmp: torch.save(out, tmp))
 
 
 def load_flat(path: str) -> dict:

@@ -104,12 +104,23 @@ def prune_checkpoints(output_dir: str, keep_last: int, current_epoch: int,
                       logger=None) -> list[str]:
     """Delete per-epoch checkpoints older than the last `keep_last` epochs.
     Opt-in retention for pure-training runs (the experimental paradigms need
-    every epoch); 'latest' is never touched. The primary prunes; the other
-    ranks return at once (deleting a finished epoch's files is not a
-    collective)."""
+    every epoch); 'latest' is never touched. Every rank calls it; the
+    primary prunes and the others wait for it at a barrier, so none lists
+    a checkpoint that is being deleted (the last epoch's prune is the
+    training CLI's last write, and a chained cli.vit_rsa_eval lists the
+    directory next)."""
+    if keep_last <= 0:
+        return []
+    removed = _prune(output_dir, keep_last, current_epoch, logger) \
+        if _primary() else []
+    if _is_multiprocess():
+        dist.barrier()
+    return removed
+
+
+def _prune(output_dir: str, keep_last: int, current_epoch: int,
+           logger) -> list[str]:
     removed: list[str] = []
-    if keep_last <= 0 or not _primary():
-        return removed
     pat = re.compile(r"^checkpoint_epoch_(\d{3,})\.pth$")
     cutoff = current_epoch - keep_last
     for name in os.listdir(output_dir):

@@ -11,6 +11,9 @@ produces bit-identical batches.
 
   python -m vit_project_torch.cli.pack --src /data/imagenet --out /data/packed
   # packs src/train and src/val (or a single split with --split)
+
+It joins no process group and gates no write on the rank: run it once,
+outside torchrun, before the training CLIs read what it wrote.
 """
 from __future__ import annotations
 

@@ -10,7 +10,8 @@ delta_loss / delta_rsa rows into one CSV.
 Alone, one process on one card (unless --device says otherwise). Under
 torchrun every rank trains each cell on its strided shard of the data
 (--batch_size is the global batch), the validation sums and the RSA
-embeddings are gathered, and rank 0 alone writes the CSVs.
+embeddings are gathered, and rank 0 alone writes the CSVs (atomically;
+every rank waits for them before returning).
 
   python -m vit_project_torch.cli.vit_measure --baseline_checkpoint_dir RUN \\
       --baseline_metrics_csv rsa_results.csv --data_path imagenet/ \\
@@ -26,6 +27,7 @@ import time
 import numpy as np
 import pandas as pd
 
+from ..ckpt import serialization as ser
 from ..ckpt import vit_ckpt
 from ..core import csvio
 from ..core.configs import ViTTrainConfig
@@ -153,6 +155,24 @@ def measure_perturbation_effect(
     return result
 
 
+def _write_csvs(output_csv: str, results: list, df) -> None:
+    """The grid CSV and, beside it, the reference runs' companion table
+    (Data/vit_results/perturbation_summary_table.csv, committed without
+    the script that wrote it: a 4-decimal projection of the grid); each
+    written atomically."""
+    ser.atomic_write(output_csv,
+                     lambda tmp: csvio.write_measure_csv(tmp, results))
+    print(f"Saved results to {output_csv}")
+    print(df.to_string(index=False))
+    if len(df):
+        summary = df[["perturb_epoch", "perturbation_type", "delta_loss",
+                      "delta_rsa", "baseline_loss", "baseline_rsa"]].round(4)
+        spath = os.path.join(os.path.dirname(output_csv) or ".",
+                             "perturbation_summary_table.csv")
+        ser.atomic_write(spath, lambda tmp: summary.to_csv(tmp, index=False))
+        print(f"Saved summary table to {spath}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Measure single-epoch perturbation "
                                             "effects on ViT (PyTorch / CUDA)")
@@ -260,21 +280,11 @@ def _main(args, dev, proc_id: int, proc_count: int):
                 results.append(r)
 
     df = pd.DataFrame(results)
-    if not dist.is_primary():   # one CSV writer (reference rank-0 gate)
-        return results
-    csvio.write_measure_csv(args.output_csv, results)
-    print(f"Saved results to {args.output_csv}")
-    print(df.to_string(index=False))
-    if len(df):
-        # the reference runs' companion table
-        # (Data/vit_results/perturbation_summary_table.csv, committed without
-        # the script that wrote it): a 4-decimal projection of the grid
-        summary = df[["perturb_epoch", "perturbation_type", "delta_loss",
-                      "delta_rsa", "baseline_loss", "baseline_rsa"]].round(4)
-        spath = os.path.join(os.path.dirname(args.output_csv) or ".",
-                             "perturbation_summary_table.csv")
-        summary.to_csv(spath, index=False)
-        print(f"Saved summary table to {spath}")
+    if dist.is_primary():   # one CSV writer (reference rank-0 gate)
+        _write_csvs(args.output_csv, results, df)
+    # a caller may chain another CLI in this group: no rank returns before
+    # the primary's files are whole
+    dist.barrier()
     return results
 
 

@@ -8,7 +8,8 @@ Produces the enriched metrics CSV
 script that writes it; the measurement grid, cli/vit_measure.py, reads its
 rsa_score column as the baseline). Under torchrun every rank embeds its
 strided share of the THINGS images, the embeddings are gathered in dataset
-order, and rank 0 writes the CSV.
+order, and rank 0 writes the CSV (atomically; every rank waits for it
+before returning).
 
   python -m vit_project_torch.cli.vit_rsa_eval --checkpoint_dir RUN \\
       --output_csv rsa_results.csv --things_csv things48.csv \\
@@ -23,6 +24,7 @@ import re
 import numpy as np
 import pandas as pd
 
+from ..ckpt import serialization as ser
 from ..ckpt import vit_ckpt
 from ..core.configs import ViTTrainConfig
 from ..core.device import resolve_device
@@ -109,11 +111,12 @@ def _main(args, dev):
 
     df = pd.DataFrame(rows)
     if dist.is_primary():   # one CSV writer
-        d = os.path.dirname(args.output_csv)
-        if d:
-            os.makedirs(d, exist_ok=True)
-        df.to_csv(args.output_csv, index=False)
+        ser.atomic_write(args.output_csv,
+                         lambda tmp: df.to_csv(tmp, index=False))
         print(f"Wrote {args.output_csv}")
+    # a caller may chain another CLI in this group (cli.vit_measure reads
+    # this CSV next): no rank returns before the file is whole
+    dist.barrier()
     return df
 
 

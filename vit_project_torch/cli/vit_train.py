@@ -5,9 +5,11 @@ Reference: Training/vit_training/baseline/train_vit_sgd.py (torchrun/DDP).
 Alone, one process trains on one card (or on --device). Under torchrun each
 rank joins the process group (NCCL on its card, cuda:LOCAL_RANK; gloo with
 --device cpu) and trains data-parallel: dp by default, --zero1 shards the
-momentum, --fsdp the parameters and the momentum (FSDP2). --batch_size is
-the global batch. Flags of the JAX CLI whose features are not ported yet
-(tensor, sequence, pipeline and expert parallelism, MoE) are accepted and
+momentum, --fsdp the parameters and the momentum (FSDP2); --tp_devices T
+shards the blocks over model groups of T consecutive ranks (Megatron
+tensor parallelism; the ranks of a group read the same data). --batch_size
+is the global batch. Flags of the JAX CLI whose features are not ported
+yet (sequence, pipeline and expert parallelism, MoE) are accepted and
 refused by the training loop at any value but their default. --fused_dw
 (no JAX flag; JAX's ViTTrainConfig field) routes the dense layers' dW and
 db through the fused kernel, one process only. --profile_dir writes a
@@ -18,6 +20,8 @@ the run (run it again to resume).
       --output_dir runs/vit_b16
   torchrun --nproc_per_node 4 -m vit_project_torch.cli.vit_train \\
       --data_path imagenet/ --output_dir runs/vit_b16 --batch_size 512
+  torchrun --nproc_per_node 4 -m vit_project_torch.cli.vit_train \\
+      --data_path imagenet/ --output_dir runs/vit_b16_tp --tp_devices 2
 """
 from __future__ import annotations
 
@@ -73,7 +77,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--zero1", action="store_true",
                    help="shard the SGD momentum over the ranks (ZeRO-1)")
     p.add_argument("--tp_devices", type=int, default=1,
-                   help="tensor parallelism (not ported yet)")
+                   help="Megatron tensor parallelism: block weights sharded "
+                        "over the 'model' axis of a ('data','model') mesh "
+                        "(head-aligned qkv; one all-reduce per block); "
+                        "checkpoints stay flat so dp and tp runs resume "
+                        "each other; must divide the model heads")
     p.add_argument("--fsdp", action="store_true",
                    help="shard params and momentum over the ranks (FSDP2)")
     p.add_argument("--grad_accum", type=int, default=1,

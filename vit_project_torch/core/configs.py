@@ -160,9 +160,9 @@ class ViTTrainConfig:
     device_prefetch: int = 2  # h2d lookahead: a feeder thread copies batch
                               # k+1 to the card while batch k trains; 0 = off.
                               # Same batches in the same order either way.
-    zero1: bool = False  # shard the SGD momentum (not ported yet)
-    fsdp: bool = False   # shard params and momentum (not ported yet)
-    tp_devices: int = 1  # tensor parallelism (not ported yet)
+    zero1: bool = False  # shard the SGD momentum over the ranks
+    fsdp: bool = False   # shard params and momentum over the ranks
+    tp_devices: int = 1  # tensor parallelism: ranks in a model group
     sp_devices: int = 1  # sequence parallelism (not ported yet)
     sp_ring: bool = False  # ring attention with sp_devices (not ported yet)
     ep_devices: int = 1  # expert parallelism (not ported yet)

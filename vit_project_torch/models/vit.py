@@ -48,8 +48,16 @@ multiplied by 1/sqrt(dh) in the compute dtype (not folded into the weights),
 then the packed flash op; the other three dense layers take the int8
 product through ``ops.nn.dense``.
 
-MoE blocks, ring attention, and sequence and head sharding are not ported
-yet and are refused by name.
+Tensor parallelism (``tp``, a model group of T ranks): each block is
+``classifier_block_tp``, Megatron's form on the rank's shards of the block
+(``parallel/mesh.shard_vit_params_tp``: whole heads, fc1's output rows,
+the input columns of the attention output and fc2). The packed attention
+op runs on the rank's own heads, [B, S, 3D/T] with H/T heads; JAX's tp
+forward takes its XLA einsum path there (a pallas_call has no GSPMD rule),
+and attention is independent per head, so the function is the same.
+
+MoE blocks, ring attention and sequence sharding are not ported yet and
+are refused by name.
 """
 from __future__ import annotations
 
@@ -57,6 +65,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.distributed as tdist
 import torch.utils.checkpoint
 from torch import nn
 
@@ -524,9 +533,12 @@ class Block(nn.Module):
         self.mlp = Mlp(width, width * mlp_ratio)
 
     def forward(self, x: torch.Tensor, heads: int, *, act,
-                fused_dw: bool = False) -> torch.Tensor:
+                fused_dw: bool = False, tp=None) -> torch.Tensor:
         """``classifier_block`` on this block (through the module call, so
-        FSDP2's hooks gather a sharded block's parameters around it)."""
+        FSDP2's hooks gather a sharded block's parameters around it), or
+        ``classifier_block_tp`` over the model group `tp`."""
+        if tp is not None:
+            return classifier_block_tp(self, x, heads, act=act, group=tp)
         return classifier_block(self, x, heads, act=act, fused_dw=fused_dw)
 
 
@@ -643,12 +655,71 @@ def classifier_block(blk: Block, x: torch.Tensor, heads: int, *, act,
     return x + h
 
 
-def _refuse_parallel(seq_shard=None, ring_attn=False, with_aux=False,
-                     head_shard=None):
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: the identity forward; the backward sums the gradient
+    over the model group (each rank's shard contributed one part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        tdist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: the forward sums the ranks' partial products over the
+    model group; the backward is the identity (every rank's part gets the
+    whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone(memory_format=torch.contiguous_format)
+        tdist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def classifier_block_tp(blk: Block, x: torch.Tensor, heads: int, *, act,
+                        group) -> torch.Tensor:
+    """``classifier_block`` on a model rank's shards of the block (x [B, S,
+    D] whole on every rank of `group`, T ranks): the packed projection of
+    the rank's heads [B, S, 3D/T] ([q_t | k_t | v_t], the 1/sqrt(dh)
+    colscale on its q columns), the packed attention op on its H/T heads,
+    its part of the output projection, summed over the group, then the
+    whole bias once; the MLP the same way (fc1's rows of the rank, its
+    part of fc2, the sum, fc2's bias). Two all-reduces forward, two
+    backward, in the same order on every rank."""
+    T = tdist.get_world_size(group)
+    h = vnn.layer_norm(x, blk.norm1.weight, blk.norm1.bias)
+    h = _CopyToModel.apply(h, group)
+    dl = blk.attn.qkv.weight.shape[0] // 3                   # D / T
+    colscale = torch.ones(3 * dl, dtype=torch.float32, device=h.device)
+    colscale[:dl] = 1.0 / ((h.shape[-1] // heads) ** 0.5)
+    w = blk.attn.qkv.weight * colscale[:, None]                # [3D/T, D]
+    b = blk.attn.qkv.bias * colscale
+    qkv = vnn.dense(h, w.t(), b)                               # [B, S, 3D/T]
+    o = vattn.flash_mha_packed_qkv(qkv, num_heads=heads // T)
+    o = _ReduceFromModel.apply(vnn.dense(o, blk.attn.proj.weight.t()), group)
+    x = x + (o + blk.attn.proj.bias.to(o.dtype))
+    h = vnn.layer_norm(x, blk.norm2.weight, blk.norm2.bias)
+    h = _CopyToModel.apply(h, group)
+    h = act(vnn.dense(h, blk.mlp.fc1.weight.t(), blk.mlp.fc1.bias))
+    h = _ReduceFromModel.apply(vnn.dense(h, blk.mlp.fc2.weight.t()), group)
+    return x + (h + blk.mlp.fc2.bias.to(h.dtype))
+
+
+def _refuse_parallel(seq_shard=None, ring_attn=False, with_aux=False):
     for name, given in (("seq_shard (sequence parallelism)", seq_shard),
                         ("ring_attn (ring attention)", ring_attn),
-                        ("with_aux (the MoE load-balance loss)", with_aux),
-                        ("head_shard (tensor-parallel heads)", head_shard)):
+                        ("with_aux (the MoE load-balance loss)", with_aux)):
         if given:
             _not_ported(name)
 
@@ -679,7 +750,7 @@ def vit_embed(model: VisionTransformerClassifier, images: torch.Tensor, *,
 
 def vit_encode(model: VisionTransformerClassifier, images: torch.Tensor, *,
                input_norm: tuple | None = None, compute_dtype=torch.float32,
-               remat: bool = False, fused_dw: bool = False,
+               remat: bool = False, fused_dw: bool = False, tp=None,
                **parallel) -> torch.Tensor:
     """images [B, H, W, 3] -> tokens [B, S, width] after the final LayerNorm
     (timm's forward_features contract).
@@ -687,19 +758,27 @@ def vit_encode(model: VisionTransformerClassifier, images: torch.Tensor, *,
     `remat=True` recomputes each block's forward in the backward
     (torch.utils.checkpoint) instead of holding its activations: peak memory
     drops from O(layers) to O(1) block activations for ~1/3 more work; the
-    gradients are the same numbers."""
+    gradients are the same numbers (under `tp` the recomputed forward
+    repeats its all-reduces, on every rank of the group alike).
+
+    `tp` (a model group) runs each block tensor-parallel on the model's
+    shards (``classifier_block_tp``); the stem, the final LayerNorm and
+    the head run whole on every rank."""
     _refuse_parallel(**parallel)
     cfg = model.cfg
     act = _activation(cfg)
+    if tp is not None and fused_dw:
+        raise ValueError("fused_dw is a single-chip path; disable it under "
+                         "tensor parallelism")
     x = vit_embed(model, images, input_norm=input_norm,
                   compute_dtype=compute_dtype, fused_dw=fused_dw)
     for blk in model.blocks:
         if remat and torch.is_grad_enabled():
             x = torch.utils.checkpoint.checkpoint(
-                blk, x, cfg.heads, act=act, fused_dw=fused_dw,
+                blk, x, cfg.heads, act=act, fused_dw=fused_dw, tp=tp,
                 use_reentrant=False)
         else:
-            x = blk(x, cfg.heads, act=act, fused_dw=fused_dw)
+            x = blk(x, cfg.heads, act=act, fused_dw=fused_dw, tp=tp)
     return vnn.layer_norm(x, model.norm.weight, model.norm.bias)
 
 

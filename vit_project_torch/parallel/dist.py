@@ -9,8 +9,11 @@ backend follows the device: NCCL on a card, gloo on the CPU (the tests).
 There is no backend flag (JAX has none), and no fallback: a failed NCCL
 init raises, it never retries with gloo or on the CPU.
 
-Every collective here runs on the default group, on tensors on the
-backend's device (the card for NCCL, the CPU for gloo).
+Every collective here runs on the default group, or on the subgroup a
+caller passes (``group``: a tensor-parallel run's data or model group,
+from its DeviceMesh, ``parallel/mesh.make_mesh``), on tensors on the
+backend's device (the card for NCCL, the CPU for gloo; gloo's all-reduce
+also takes a card's tensors, through the host).
 """
 from __future__ import annotations
 
@@ -123,25 +126,26 @@ def barrier() -> None:
         tdist.barrier()
 
 
-def all_gather_rows(local: torch.Tensor) -> torch.Tensor:
-    """[P, *local.shape]: every rank's `local` (equal shapes), in rank
-    order, on `local`'s device."""
-    world = tdist.get_world_size()
+def all_gather_rows(local: torch.Tensor, group=None) -> torch.Tensor:
+    """[P, *local.shape]: every rank's `local` (equal shapes) of `group`, in
+    its rank order, on `local`'s device."""
+    world = tdist.get_world_size(group)
     out = torch.empty(world * local.numel(), dtype=local.dtype,
                       device=local.device)
     # the concatenated form (gloo takes no stacked output)
-    tdist.all_gather_into_tensor(out, local.contiguous().reshape(-1))
+    tdist.all_gather_into_tensor(out, local.contiguous().reshape(-1),
+                                 group=group)
     return out.view((world,) + tuple(local.shape))
 
 
-def ordered_allgather_strided(local, n_total: int):
+def ordered_allgather_strided(local, n_total: int, group=None):
     """Gather the ranks' rows back into DATASET order.
 
-    Rank p holds the rows of a strided shard: dataset indices p, p+P,
-    p+2P, ... (the loaders' num_shards contract, wrap-padded so every rank
-    holds the same count). The shards are gathered and interleaved so row i
-    of the result is dataset item i, then the wrap padding is trimmed to
-    `n_total` rows.
+    Rank p of `group` holds the rows of a strided shard: dataset indices
+    p, p+P, p+2P, ... (the loaders' num_shards contract, wrap-padded so
+    every rank holds the same count). The shards are gathered and
+    interleaved so row i of the result is dataset item i, then the wrap
+    padding is trimmed to `n_total` rows.
 
     This fixes the reference's RSA gather (SURVEY.md section 0): its
     all_gather concatenates the shards in rank order and takes [:48], so
@@ -154,42 +158,44 @@ def ordered_allgather_strided(local, n_total: int):
         return local[:n_total]
     as_numpy = not isinstance(local, torch.Tensor)
     t = torch.as_tensor(np.asarray(local)) if as_numpy else local
-    stacked = all_gather_rows(t.to(collective_device()))
+    stacked = all_gather_rows(t.to(collective_device()), group)
     out = stacked.transpose(0, 1).reshape((-1,) + tuple(t.shape[1:]))
     out = out[:n_total].to(t.device)
     return out.numpy() if as_numpy else out
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """`t` summed over the ranks, in place; unchanged without a group."""
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """`t` summed over the ranks of `group`, in place; unchanged without a
+    process group."""
     if is_initialized():
-        tdist.all_reduce(t, op=tdist.ReduceOp.SUM)
+        tdist.all_reduce(t, op=tdist.ReduceOp.SUM, group=group)
     return t
 
 
 @torch.no_grad()
-def check_replicas_equal(tensors: list, what: str) -> None:
-    """Raise unless every rank holds rank 0's `tensors` bit for bit (the
-    ranks build them from one seed or load one checkpoint; replicated
-    updates keep them equal). The tensors may lie on several devices (a
-    restored AdamW keeps its step count on the CPU beside moments on the
-    card); each is compared where the collectives run. Nothing in one
-    process."""
-    if world_size() == 1:
+def check_replicas_equal(tensors: list, what: str, group=None) -> None:
+    """Raise unless every rank of `group` holds its first rank's `tensors`
+    bit for bit (the ranks build them from one seed or load one
+    checkpoint; replicated updates keep them equal). The tensors may lie
+    on several devices (a restored AdamW keeps its step count on the CPU
+    beside moments on the card); each is compared where the collectives
+    run. Nothing in one process."""
+    if not is_initialized() or tdist.get_world_size(group) == 1:
         return
     dev = collective_device()
+    src = 0 if group is None else tdist.get_global_rank(group, 0)
     flat = torch.cat([t.detach().reshape(-1).to(dev, torch.float32)
                       for t in tensors])
     size = torch.tensor([flat.numel()], device=dev)
-    tdist.broadcast(size, src=0)
+    tdist.broadcast(size, src=src, group=group)
     same = int(size) == flat.numel()
     if same:
         ref = flat.clone()
-        tdist.broadcast(ref, src=0)
+        tdist.broadcast(ref, src=src, group=group)
         same = torch.equal(ref, flat)
     if not same:
         raise RuntimeError(f"rank {rank()} starts from other {what} than "
-                           f"rank 0")
+                           f"rank {src}")
 
 
 def primary_values(values: list) -> list:

@@ -1,18 +1,28 @@
-"""The data mesh and the sharding rules (counterpart of the parts of the JAX
-package's parallel/mesh.py that data parallelism uses).
+"""The device mesh and the sharding rules (counterpart of the parts of the
+JAX package's parallel/mesh.py that data and tensor parallelism use).
 
-JAX drives a ('data',) mesh from one process and places arrays on it; the
-port runs one process per card, and each rank holds its own share. So:
+JAX drives a mesh from one process and places arrays on it; the port runs
+one process per card, and each rank holds its own share. So:
 
 - ``make_mesh(n_data)`` is a 1-D ``("data",)`` DeviceMesh over the ranks
-  of the default group (FSDP2 takes it). The second mesh axes, ``n_model``
-  (tensor and sequence parallelism), ``n_stage`` (the pipeline) and
-  ``n_expert`` (MoE), raise: they come with later slices of the port.
+  of the default group (FSDP2 takes it); ``make_mesh(n_model=T)`` is JAX's
+  2-D ``("data", "model")`` mesh of shape (W/T, T) over W ranks,
+  row-major, so each model group is T consecutive ranks. ``n_stage`` (the
+  pipeline) and ``n_expert`` (MoE) raise: they come with later slices of
+  the port.
 - ``shard_batch`` and ``replicate`` have no counterpart: each rank's loader
   reads its own strided shard of the global batch (``num_shards`` = the
-  world size, ``shard_id`` = the rank), and parameters are replicated by
-  construction (every rank builds them from the same seed, and the trainer
-  checks that they agree).
+  data axis, ``shard_id`` = the rank's place on it), and parameters are
+  replicated by construction (every rank builds them from the same seed,
+  and the trainer checks that they agree).
+- ``head_sharding`` and ``batch_head_sharding`` have no counterpart either:
+  they are GSPMD pins that keep XLA from re-laying out the attention
+  activations, and the port's tensor-parallel layout is explicit (each
+  rank computes on its own heads, ``models/vit.classifier_block_tp``).
+- ``shard_vit_params_tp`` / ``unshard_vit_params_tp`` are JAX's
+  Megatron placement on the port's flat state: a model rank holds whole
+  heads of q, k and v (the head-aligned layout), fc1's output rows and
+  the input columns of the attention output and fc2.
 - ``zero1_sharding`` and ``fsdp_sharding`` keep JAX's placement rules as
   predicates on one tensor: shard its leading axis over the ranks when the
   world size divides it. The ZeRO-1 momentum (``train/vit_loop.py``)
@@ -26,34 +36,109 @@ port runs one process per card, and each rank holds its own share. So:
 """
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
 from . import dist
 
-_LATER = {"n_model": "tensor and sequence parallelism (port slice 9b)",
-          "n_stage": "the pipeline (port slice 9, item 13)",
+_LATER = {"n_stage": "the pipeline (port slice 9, item 13)",
           "n_expert": "MoE expert parallelism (port slice 9, item 13)"}
 
 
 def make_mesh(n_data: int | None = None, n_model: int = 1, n_stage: int = 1,
               n_expert: int = 1, device_type: str | None = None):
-    """A 1-D ("data",) DeviceMesh over the default group's ranks (one
-    device per rank). `n_data`, when given, must equal the world size."""
+    """A DeviceMesh over the default group's ranks (one device per rank):
+    ("data",) over all of them, or with `n_model` > 1 ("data", "model") of
+    shape (W / n_model, n_model). `n_data`, when given, must be the data
+    axis that leaves. `device_type` defaults to where the default group's
+    collectives run."""
     from torch.distributed.device_mesh import init_device_mesh
-    for name, size in (("n_model", n_model), ("n_stage", n_stage),
-                       ("n_expert", n_expert)):
+    for name, size in (("n_stage", n_stage), ("n_expert", n_expert)):
         if size > 1:
             raise NotImplementedError(
                 f"make_mesh({name}={size}): {_LATER[name]} is not ported to "
-                f"vit_project_torch yet; the port's mesh is ('data',)")
+                f"vit_project_torch yet; the port's mesh is ('data',) or "
+                f"('data', 'model')")
     world = dist.world_size()
-    if n_data is not None and n_data != world:
-        raise ValueError(f"n_data ({n_data}) must equal the number of ranks "
-                         f"({world}): one device per rank")
+    if world % n_model != 0:
+        raise ValueError(f"model axis ({n_model}) must divide the device "
+                         f"count ({world})")
+    if n_data is not None and n_data * n_model != world:
+        raise ValueError(f"n_data ({n_data}) x n_model ({n_model}) must equal "
+                         f"the number of ranks ({world}): one device per rank")
     if device_type is None:
         device_type = dist.collective_device().type
-    return init_device_mesh(device_type, (world,), mesh_dim_names=("data",))
+    if n_model == 1:
+        return init_device_mesh(device_type, (world,),
+                                mesh_dim_names=("data",))
+    return init_device_mesh(device_type, (world // n_model, n_model),
+                            mesh_dim_names=("data", "model"))
+
+
+# the tensor-parallel block leaves: name within a block -> (axis, parts).
+# A leaf is split on `axis` into `parts` equal parts (q, k, v for the
+# packed projection), and model rank t holds the t-th of n_model slices of
+# each part, the parts in order: [q_t | k_t | v_t] for qkv, which is the
+# packed [B, S, 3D/T] layout the attention kernel takes. The torch layout
+# is [out, in]: fc1 and qkv split their output rows, the attention output
+# projection and fc2 their input columns. Their biases, the LayerNorms,
+# the embeddings and the head stay whole.
+TP_LEAVES = {"attn.qkv.weight": (0, 3), "attn.qkv.bias": (0, 3),
+             "attn.proj.weight": (1, 1),
+             "mlp.fc1.weight": (0, 1), "mlp.fc1.bias": (0, 1),
+             "mlp.fc2.weight": (1, 1)}
+_BLOCK_LEAF = re.compile(r"blocks\.\d+\.(.+)")
+
+
+def tp_layout(name: str) -> tuple[int, int] | None:
+    """(axis, parts) of a tensor-parallel leaf of the classifier, None for a
+    leaf every rank holds whole."""
+    m = _BLOCK_LEAF.fullmatch(name)
+    return TP_LEAVES.get(m.group(1)) if m else None
+
+
+def shard_vit_params_tp(state: dict, n_model: int, index: int,
+                        heads: int | None = None) -> dict:
+    """Model rank `index`'s share of the classifier's flat state {name:
+    tensor} (parameters or momentum) over `n_model` ranks: each
+    tensor-parallel leaf's slices (``TP_LEAVES``), in new memory; every
+    other leaf as it is (the same tensor). Pass `heads` to check that the
+    model axis divides them (whole heads on each rank)."""
+    if heads is not None and heads % n_model != 0:
+        raise ValueError(f"model axis ({n_model}) must divide heads ({heads}) "
+                         "for head-aligned qkv sharding")
+    out = {}
+    for name, x in state.items():
+        layout = tp_layout(name)
+        if layout is None:
+            out[name] = x
+            continue
+        axis, parts = layout
+        y = x.movedim(axis, 0)
+        y = y.reshape(parts, n_model, -1, *y.shape[1:])[:, index]
+        out[name] = y.reshape(-1, *y.shape[2:]).movedim(0, axis).clone(
+            memory_format=torch.contiguous_format)
+    return out
+
+
+def unshard_vit_params_tp(shards: list) -> dict:
+    """The flat state from every model rank's share (`shards[t]` is
+    ``shard_vit_params_tp(state, len(shards), t)``): the inverse, bit for
+    bit. The whole leaves are taken from rank 0's share."""
+    n_model = len(shards)
+    out = {}
+    for name, x in shards[0].items():
+        layout = tp_layout(name)
+        if layout is None:
+            out[name] = x
+            continue
+        axis, parts = layout
+        y = torch.stack([s[name].movedim(axis, 0) for s in shards])
+        y = y.reshape(n_model, parts, -1, *y.shape[2:]).transpose(0, 1)
+        out[name] = y.reshape(-1, *y.shape[3:]).movedim(0, axis).contiguous()
+    return out
 
 
 def _divides(x, n: int) -> bool:

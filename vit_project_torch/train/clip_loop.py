@@ -1080,6 +1080,9 @@ def run_behavioral_training(config, preempt_guard=None, device=None) -> dict:
                          "hba_nod_category_rdms_dict.npz"))
         if arc:
             logger.info(f"Wrote NOD category-RDM archive: {arc}")
+    # the primary's archive is the run's last write: no rank returns (and
+    # no chained CLI reads it) before it is whole
+    dist.barrier()
 
     return {"last_epoch0": last_epoch0,
             "training_res_path": cfg.training_res_path,

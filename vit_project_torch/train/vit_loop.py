@@ -58,9 +58,24 @@ each with the update arithmetic above on the same numbers:
   sync), and the update runs on each rank's shards of the parameters and
   the momentum (DTensors, updated through their local tensors).
 
+Tensor parallelism, ``tp`` (``tp_devices`` = T > 1, under torchrun with W
+ranks): JAX's ("data", "model") mesh of shape (W/T, T), row-major, so each
+model group is T consecutive ranks (``parallel/mesh.make_mesh``). Each
+rank holds its model rank's shards of the block weights and of their
+momentum (``parallel/mesh.shard_vit_params_tp``) and the rest whole, and
+runs the Megatron block (``models/vit.classifier_block_tp``). The data
+shards by the DATA rank: both ranks of a model group read the same
+images, local batch = global batch / (W/T). Gradients, shards and whole
+leaves alike, are averaged over the data group only (within a model group
+the whole leaves' gradients are already equal: the block's copy / reduce
+pair makes them so). Validation and the RSA count each image once over the
+data axis. Checkpoints gather the shards over the model group into the
+flat layout, so dp, tp, one process and the JAX package resume each
+other's files.
+
 ``fused_dw`` is refused with more than one process, as JAX refuses it on a
-multi-device mesh. Pipeline, sequence, tensor and expert parallelism and
-MoE are not ported yet and are refused by name.
+multi-device mesh. Pipeline, sequence and expert parallelism and MoE are
+not ported yet and are refused by name.
 """
 from __future__ import annotations
 
@@ -90,29 +105,57 @@ IMAGE_PERTURBATIONS = ("gaussian", "uniform_gray")
 # ViTTrainConfig fields whose features are not ported yet, with the value
 # that leaves them off
 _UNPORTED = (("pp_stages", 1), ("sp_devices", 1), ("sp_ring", False),
-             ("ep_devices", 1), ("tp_devices", 1), ("moe_experts", 0))
+             ("ep_devices", 1), ("moe_experts", 0))
 
 
-def train_mode(cfg: ViTTrainConfig, grouped: bool) -> str:
-    """"single" (no process group), "dp", "zero1" or "fsdp" (fsdp wins over
-    zero1: its shards hold the momentum too, as JAX's). Raises on the
-    combinations JAX refuses, before the refusal of what is not ported."""
+def train_mode(cfg: ViTTrainConfig, grouped: bool,
+               heads: int | None = None) -> str:
+    """"single" (no process group), "dp", "zero1", "fsdp" (fsdp wins over
+    zero1: its shards hold the momentum too, as JAX's) or "tp". Raises on
+    the combinations JAX refuses (in its words; `heads`, when given, must
+    divide over tp_devices), before the refusal of what is not ported."""
     sharded = cfg.zero1 or cfg.fsdp
+    tp = cfg.tp_devices > 1
+    if sum((cfg.pp_stages > 1, cfg.sp_devices > 1, cfg.ep_devices > 1,
+            tp)) > 1:
+        raise ValueError("pp_stages / sp_devices / ep_devices / tp_devices "
+                         "each need the whole second mesh axis; enable at "
+                         "most one")
+    if tp and cfg.moe_experts:
+        raise ValueError("tp_devices does not compose with MoE blocks: the "
+                         "expert FFNs shard over 'expert', not 'model' (use "
+                         "ep_devices)")
+    if tp and heads is not None and heads % cfg.tp_devices != 0:
+        raise ValueError(f"tp_devices ({cfg.tp_devices}) must divide the "
+                         f"model heads ({heads}) for head-aligned qkv "
+                         f"sharding")
     if sharded and cfg.pp_stages > 1:
         raise ValueError("zero1/fsdp shard over the 'data' axis of the dp "
                          "mesh; they do not compose with pp_stages")
+    if sharded and tp:
+        raise ValueError(
+            "zero1/fsdp do not compose with tp_devices: their "
+            "zero1_sharding constraints would re-layout the model-sharded "
+            "block weights to the 'data' axis every step")
     refuse_unported(cfg)
     if not grouped:
         if sharded:
             raise ValueError(
                 "zero1/fsdp shard over the ranks of a process group: launch "
                 "with torchrun (--nproc_per_node 1 for one card)")
+        if tp:
+            raise ValueError(
+                "tp_devices shards the blocks over the ranks of a process "
+                "group: launch with torchrun (--nproc_per_node tp_devices "
+                "or a multiple of it)")
         return "single"
     if cfg.fused_dw and dist.world_size() > 1:
         # JAX: the kernel has no GSPMD rule, so a sharded mesh would
         # all-gather its operands to one device
         raise ValueError("fused_dw is a single-chip path; disable it with "
                          f"{dist.world_size()} processes")
+    if tp:
+        return "tp"
     return "fsdp" if cfg.fsdp else "zero1" if cfg.zero1 else "dp"
 
 
@@ -158,13 +201,34 @@ class ViTTrainer:
                  distributed: bool | None = None):
         grouped = dist.is_initialized() if distributed is None \
             else distributed
-        self.mode = train_mode(train_cfg, grouped)
+        self.mode = train_mode(train_cfg, grouped, vit_cfg.heads)
         self.world = dist.world_size() if grouped else 1
         self.rank = dist.rank() if grouped else 0
         self.vit_cfg = vit_cfg
         self.cfg = train_cfg
         self.model = model
         self.device = torch.device(device)
+        # the data axis: every rank, except under tp, where it is the
+        # mesh's "data" dimension (a model group reads one shard)
+        self.n_data, self.data_rank, self.data_group = \
+            self.world, self.rank, None
+        self.tp_group = None
+        if self.mode == "tp":
+            n_model = train_cfg.tp_devices
+            mesh = vmesh.make_mesh(n_model=n_model)
+            self.tp_group = mesh.get_group("model")
+            self.data_group = mesh.get_group("data")
+            self.n_data = self.world // n_model
+            self.data_rank = mesh.get_local_rank("data")
+            self.model_rank = mesh.get_local_rank("model")
+            local = vmesh.shard_vit_params_tp(
+                dict(model.named_parameters()), n_model, self.model_rank,
+                heads=vit_cfg.heads)
+            with torch.no_grad():
+                for name in self.tp_names():
+                    owner, leaf = name.rsplit(".", 1)
+                    setattr(model.get_submodule(owner), leaf,
+                            torch.nn.Parameter(local[name]))
         if self.mode == "fsdp":
             from torch.distributed.fsdp import fully_shard
             data_mesh = vmesh.make_mesh(device_type=self.device.type)
@@ -186,7 +250,7 @@ class ViTTrainer:
         the patch matrix), or of normalized images with input_norm=None."""
         return self.model(images, input_norm=input_norm,
                           compute_dtype=self.compute_dtype, remat=remat,
-                          fused_dw=self.fused_dw)
+                          fused_dw=self.fused_dw, tp=self.tp_group)
 
     def loss(self, images: torch.Tensor, labels: torch.Tensor,
              input_norm: tuple | None = IMAGENET_NORM):
@@ -242,10 +306,11 @@ class ViTTrainer:
         return total / G, grads
 
     def _all_reduce_mean(self, grads: list) -> list:
-        """The ranks' mean of every gradient: one all-reduce of them all,
-        flattened, then a division by the world size."""
-        flat = dist.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]))
-        flat.div_(self.world)
+        """The data axis's mean of every gradient: one all-reduce of them
+        all, flattened, over the data group, then a division by its size."""
+        flat = dist.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]),
+                                   self.data_group)
+        flat.div_(self.n_data)
         return [f.view_as(g) for f, g in
                 zip(flat.split([g.numel() for g in grads]), grads)]
 
@@ -256,13 +321,37 @@ class ViTTrainer:
         if self.mode == "fsdp":
             self.model.reshard()
 
+    def tp_names(self) -> list:
+        """The names of the tensor-parallel leaves (``mesh.TP_LEAVES``)."""
+        return [n for n, _ in self.model.named_parameters()
+                if vmesh.tp_layout(n)]
+
+    def check_replicas(self, momentum: dict) -> None:
+        """Under tp, raise unless the data group's ranks hold equal shards
+        and the model group's equal whole leaves, of the parameters and of
+        `momentum` (the trainer's layout) alike."""
+        if self.mode != "tp":
+            return
+        tp = set(self.tp_names())
+        for st in (dict(self.model.named_parameters()), momentum):
+            dist.check_replicas_equal([t for n, t in st.items() if n in tp],
+                                      "tensor-parallel shards",
+                                      self.data_group)
+            dist.check_replicas_equal(
+                [t for n, t in st.items() if n not in tp], "whole leaves",
+                self.tp_group)
+
     def init_momentum(self, full: dict | None = None) -> dict:
         """The momentum in this mode's layout, from `full` (every leaf
         whole, on the device; zeros when None): whole in single and dp;
         this rank's rows of the leaves ``zero1_sharding`` splits under
         zero1; DTensors sharded as FSDP2 shards the parameters under
-        fsdp."""
+        fsdp; the model rank's shards of the tensor-parallel leaves under
+        tp."""
         named = dict(self.model.named_parameters())
+        if self.mode == "tp" and full is not None:
+            return vmesh.shard_vit_params_tp(full, self.cfg.tp_devices,
+                                             self.model_rank)
         if self.mode == "fsdp":
             out = {}
             for n, p in named.items():
@@ -290,13 +379,15 @@ class ViTTrainer:
     @torch.no_grad()
     def full_state(self, momentum: dict) -> tuple[dict, dict]:
         """(parameters, momentum) by name with every leaf whole, on the
-        device; a collective under zero1 and fsdp, which every rank makes
-        (the checkpoint trees)."""
+        device; a collective under zero1, fsdp and tp, which every rank
+        makes (the checkpoint trees)."""
         self._reshard()
         named = dict(self.model.named_parameters())
         if self.mode == "fsdp":
             return ({n: p.full_tensor() for n, p in named.items()},
                     {n: m.full_tensor() for n, m in momentum.items()})
+        if self.mode == "tp":
+            return self._unshard_tp(named), self._unshard_tp(momentum)
         if self.mode != "zero1":
             return named, momentum
         split = [n for n, p in named.items()
@@ -307,14 +398,27 @@ class ViTTrainer:
             full[n] = r.reshape(named[n].shape)
         return named, full
 
-    def _gather_rows(self, shards: list) -> list:
-        """Every rank's `shards` (one leading-axis share of each leaf, equal
-        shapes on every rank) gathered with one all-gather: per leaf a
-        [world, rows...] tensor in rank order."""
+    def _unshard_tp(self, state: dict) -> dict:
+        """`state` (parameters or momentum, this rank's shards) with every
+        tensor-parallel leaf gathered over the model group into the flat
+        layout (``mesh.unshard_vit_params_tp``)."""
+        names = self.tp_names()
+        gathered = self._gather_rows([state[n] for n in names],
+                                     self.tp_group)
+        return vmesh.unshard_vit_params_tp([
+            {**state, **{n: g[t] for n, g in zip(names, gathered)}}
+            for t in range(self.cfg.tp_devices)])
+
+    def _gather_rows(self, shards: list, group=None) -> list:
+        """Every rank's `shards` (equal shapes on the ranks of `group`, the
+        default group when None) gathered with one all-gather where the
+        collectives run: per leaf a [ranks, ...] tensor in rank order, on
+        the shards' device."""
         flat = torch.cat([s.reshape(-1) for s in shards])
-        stacked = dist.all_gather_rows(flat)
+        stacked = dist.all_gather_rows(flat.to(dist.collective_device()),
+                                       group).to(flat.device)
         sizes = [s.numel() for s in shards]
-        return [part.reshape((self.world,) + tuple(s.shape))
+        return [part.reshape((len(stacked),) + tuple(s.shape))
                 for part, s in zip(stacked.split(sizes, dim=1), shards)]
 
     def step(self, momentum: dict, images_u8, labels, lr: float,
@@ -328,7 +432,7 @@ class ViTTrainer:
         GaussianNoiseTransform / UniformGrayTransform,
         measure...effect.py:36-60) before any grad_accum split. Over
         several ranks the gaussian draw is the global batch's, and each
-        rank takes the rows of its local batch (rank-major, as JAX
+        rank takes the rows of its local batch (data-rank-major, as JAX
         assembles the global batch)."""
         self._reshard()
         named = list(self.model.named_parameters())
@@ -337,13 +441,13 @@ class ViTTrainer:
             ptype, key, epsilon = perturb
             images = normalize_imagenet(images_u8)
             drawn = None
-            if ptype == "gaussian" and self.world > 1:
+            if ptype == "gaussian" and self.n_data > 1:
                 b = images.shape[0]
                 drawn = torch.randn(
-                    (self.world * b,) + tuple(images.shape[1:]),
+                    (self.n_data * b,) + tuple(images.shape[1:]),
                     dtype=images.dtype, device=images.device,
                     generator=key.generator(images.device))[
-                        self.rank * b:(self.rank + 1) * b]
+                        self.data_rank * b:(self.data_rank + 1) * b]
             images_u8, labels = injectors.apply_vit_perturbation(
                 ptype, key, images, labels, epsilon=epsilon, drawn=drawn)
             input_norm = None
@@ -383,11 +487,12 @@ class ViTTrainer:
         return loss
 
     def global_mean(self, t: torch.Tensor) -> torch.Tensor:
-        """The ranks' mean of a device scalar (a new tensor; `t` itself
-        when this trainer is alone)."""
-        if self.world == 1:
+        """The data axis's mean of a device scalar (a new tensor; `t`
+        itself on a data axis of one)."""
+        if self.n_data == 1:
             return t
-        return dist.all_reduce_sum(t.detach().clone()) / self.world
+        return dist.all_reduce_sum(t.detach().clone(),
+                                   self.data_group) / self.n_data
 
     @torch.no_grad()
     def eval_counts(self, images_u8, labels, valid=None):
@@ -407,7 +512,7 @@ class ViTTrainer:
         """CLS embeddings (forward_features, pool='token') of raw 0..255
         images, in the compute dtype."""
         return self.model(images_u8, pool="token", input_norm=IMAGENET_NORM,
-                          compute_dtype=self.compute_dtype)
+                          compute_dtype=self.compute_dtype, tp=self.tp_group)
 
     # -- epochs ---------------------------------------------------------------
 
@@ -479,7 +584,7 @@ class ViTTrainer:
         # loader.batch_size is this rank's share: report global images
         self.last_epoch = {"steps": num_batches - carry_n,
                            "images": (num_batches - carry_n)
-                           * loader.batch_size * self.world,
+                           * loader.batch_size * self.n_data,
                            "train_s": time.time() - t0}
         if not preempted:
             dt = self.last_epoch["train_s"]
@@ -490,9 +595,9 @@ class ViTTrainer:
 
     def validate(self, loader, logger=None) -> tuple[float, float]:
         """(val loss, val accuracy %) over the whole validation set: one sum
-        and one count for both, summed over the ranks (each validates its
-        strided shard; the wrap padding that evens the shards counts for
-        nothing) and read once at the end."""
+        and one count for both, summed over the data axis (each data rank
+        validates its strided shard; the wrap padding that evens the shards
+        counts for nothing) and read once at the end."""
         log = logger.info if logger else print
         sums = torch.zeros(3, dtype=torch.float32, device=self.device)
         n_set = loader.num_samples()
@@ -511,8 +616,8 @@ class ViTTrainer:
                                         valid=valid)
             sums += torch.stack([ls, c, torch.as_tensor(
                 n, dtype=torch.float32, device=self.device)])
-        if self.world > 1:
-            dist.all_reduce_sum(sums)
+        if self.n_data > 1:
+            dist.all_reduce_sum(sums, self.data_group)
         tot_loss, tot_correct, tot_n = sums.tolist()
         val_loss = tot_loss / max(tot_n, 1.0)
         val_acc = 100.0 * tot_correct / max(tot_n, 1.0)
@@ -527,25 +632,26 @@ class ViTTrainer:
         against `reference_rdm` (reference compute_rsa_score,
         measure...effect.py:298-355).
 
-        Over several ranks each embeds its strided shard (indices r::P,
-        wrap-padded to equal counts) and the shards are gathered back into
-        dataset order (``parallel/dist.ordered_allgather_strided``), which
-        fixes the reference's rank-order concatenation
-        (measure...effect.py:327-334, SURVEY.md section 0)."""
+        Over several data ranks each embeds its strided shard (indices
+        r::P, wrap-padded to equal counts) and the shards are gathered back
+        into dataset order over the data group
+        (``parallel/dist.ordered_allgather_strided``), which fixes the
+        reference's rank-order concatenation (measure...effect.py:327-334,
+        SURVEY.md section 0)."""
         n = len(things_images_u8)
         mine = things_images_u8
-        if self.world > 1:
-            per = -(-n // self.world)
+        if self.n_data > 1:
+            per = -(-n // self.n_data)
             mine = things_images_u8[
-                np.arange(self.rank, self.world * per, self.world) % n]
+                np.arange(self.data_rank, self.n_data * per, self.n_data) % n]
         embs = []
         for s in range(0, len(mine), batch_size):
             chunk = np.ascontiguousarray(mine[s:s + batch_size])
             embs.append(self._feature_step(
                 torch.from_numpy(chunk).to(self.device)))
         emb = torch.cat(embs)
-        if self.world > 1:
-            emb = dist.ordered_allgather_strided(emb, n)
+        if self.n_data > 1:
+            emb = dist.ordered_allgather_strided(emb, n, self.data_group)
         rho, p, _ = vrsa.behavioral_rsa(emb, reference_rdm)
         return float(rho), float(p)
 
@@ -576,7 +682,8 @@ def run_vit_training(cfg: ViTTrainConfig, logger=None,
     """Full ViT-B/16 ImageNet training with auto-resume (reference main,
     train_vit_sgd.py:246-371) on `device` (default: the card; under
     torchrun, the rank's card), data-parallel over the ranks torchrun
-    launched (``parallel/dist.setup_distributed``; module docstring).
+    launched (``parallel/dist.setup_distributed``; module docstring), or
+    tensor-parallel with ``tp_devices``.
 
     Preemption (cfg.preempt_save): a SIGTERM mid-epoch checkpoints {params,
     momentum, scheduler, epoch, batch_idx, running loss} to
@@ -598,25 +705,28 @@ def run_vit_training(cfg: ViTTrainConfig, logger=None,
     log = logger.info if logger else print
     dev = resolve_device(dist.local_device(
         "cuda" if device is None else device))
-    proc_id, proc_count = dist.setup_distributed(dev)
-    mode = train_mode(cfg, dist.is_initialized())
+    _, proc_count = dist.setup_distributed(dev)
     vit_cfg = vit_cfg or vvit.ViTConfig(
         patch=16, width=768, layers=12, heads=12, image_size=cfg.image_size,
         num_classes=cfg.num_classes)
+    mode = train_mode(cfg, dist.is_initialized(), vit_cfg.heads)
+    # the data axis: the ranks, or under tp the mesh's "data" dimension
+    n_data = proc_count // cfg.tp_devices if mode == "tp" else proc_count
 
     log("=" * 60)
     log("ViT-Base ImageNet Training (SGD)")
     log("=" * 60)
     log(f"Device: {dev}  processes: {proc_count}  mode: {mode}")
+    if mode == "tp":
+        log(f"Mesh: {n_data} data x {cfg.tp_devices} model")
     log(f"Global batch size: {cfg.batch_size}")
     log(f"Total epochs: {cfg.epochs}")
     log(f"Optimizer: SGD lr={cfg.lr} momentum={cfg.momentum} "
         f"wd={cfg.weight_decay} warmup={cfg.warmup_epochs}")
     log(f"Output directory: {cfg.output_dir}")
-    if cfg.batch_size % proc_count != 0:   # not an assert: must survive -O
+    if cfg.batch_size % n_data != 0:   # not an assert: must survive -O
         raise ValueError(f"global batch {cfg.batch_size} must divide by "
-                         f"{proc_count} processes")
-    local_bs = cfg.batch_size // proc_count
+                         f"{n_data} data shards")
 
     gen = torch.Generator(device=dev).manual_seed(cfg.random_seed)
     model = vvit.init_vit_params(vvit.empty_vit(vit_cfg, dev), gen)
@@ -625,23 +735,6 @@ def run_vit_training(cfg: ViTTrainConfig, logger=None,
     momentum = sgd_init(dict(model.named_parameters()))
     scheduler = CosineAnnealingLRWithWarmup(cfg.lr, cfg.warmup_epochs,
                                             cfg.epochs)
-
-    # each rank loads its strided shard and feeds its local batch
-    # (reference DistributedSampler + per-rank loaders, train_vit_sgd.py:
-    # 58-66); make_loader routes each split to PackedLoader when it is a
-    # packed directory (identical batches either way)
-    train_loader = make_loader(
-        f"{cfg.data_path}/train", local_bs, train=True,
-        seed=cfg.random_seed, size=cfg.image_size, workers=cfg.num_workers,
-        drop_last=True, use_native=cfg.use_native_loader, echo=cfg.data_echo,
-        num_shards=proc_count, shard_id=proc_id)
-    val_loader = make_loader(
-        f"{cfg.data_path}/val", local_bs, train=False,
-        size=cfg.image_size, workers=cfg.num_workers,
-        use_native=cfg.use_native_loader, num_shards=proc_count,
-        shard_id=proc_id)
-    log(f"Data loaded. Train batches: {len(train_loader)}, "
-        f"Val batches: {len(val_loader)}")
 
     start_epoch = 0
     latest = vit_ckpt.latest_checkpoint(cfg.output_dir)
@@ -677,13 +770,33 @@ def run_vit_training(cfg: ViTTrainConfig, logger=None,
     # the ranks build the parameters from one seed or one checkpoint (DDP
     # would broadcast rank 0's, FSDP2 shards whatever each rank holds)
     dist.check_replicas_equal(list(model.parameters()), "parameters")
-    trainer = ViTTrainer(vit_cfg, cfg, model, dev)   # fsdp: shards model
+    trainer = ViTTrainer(vit_cfg, cfg, model, dev)   # fsdp, tp: shard model
     momentum = trainer.init_momentum(momentum)
+    trainer.check_replicas(momentum)
+
+    # each data rank loads its strided shard and feeds its local batch
+    # (reference DistributedSampler + per-rank loaders, train_vit_sgd.py:
+    # 58-66); the ranks of a model group read the same one. make_loader
+    # routes each split to PackedLoader when it is a packed directory
+    # (identical batches either way)
+    local_bs = cfg.batch_size // n_data
+    train_loader = make_loader(
+        f"{cfg.data_path}/train", local_bs, train=True,
+        seed=cfg.random_seed, size=cfg.image_size, workers=cfg.num_workers,
+        drop_last=True, use_native=cfg.use_native_loader, echo=cfg.data_echo,
+        num_shards=n_data, shard_id=trainer.data_rank)
+    val_loader = make_loader(
+        f"{cfg.data_path}/val", local_bs, train=False,
+        size=cfg.image_size, workers=cfg.num_workers,
+        use_native=cfg.use_native_loader, num_shards=n_data,
+        shard_id=trainer.data_rank)
+    log(f"Data loaded. Train batches: {len(train_loader)}, "
+        f"Val batches: {len(val_loader)}")
 
     def save_trees():
         """The JAX-layout checkpoint trees: host copies (started beside
         validation with host_prefetch) that the primary converts; every
-        rank takes part in the gathers of zero1 and fsdp."""
+        rank takes part in the gathers of zero1, fsdp and tp."""
         trees = trainer.full_state(momentum)
         if not dist.is_primary():
             return None
