@@ -48,12 +48,23 @@
    width and depth (bf16 compute, batch 256, SGD) for 2 epochs through
    ``run_vit_training`` with ``fused_dw=True``. It checks the CSV rows and
    checkpoint files, that every step launched the dW+db kernel 49 times and
-   the attention backward 12 times (the forward 12 per forward), that a run
-   stopped after epoch 1 and resumed equals the uninterrupted run bit for
-   bit, and that one step with the kernel agrees with the same step on the
-   plain dW+db; it times steps on a batch already on the card (fused and
-   plain backward in turns, with their spread), training images/s with
-   host decode, validation and peak memory;
+   the attention backward 12 times (the forward 12 per forward), that epoch
+   1 trained again from the epoch-0 checkpoint equals the uninterrupted
+   run's bit for bit, and that one step with the kernel agrees with the
+   same step on the plain dW+db; it times steps on a batch already on the
+   card (fused and plain backward in turns, with their spread), training
+   images/s with host decode, validation and peak memory;
+6a. phase `moe`: the MoE ViT on one card through ``cli.vit_train``'s
+   ``main`` as a user runs it (``--backbone vit_base_patch16_224
+   --moe_experts 8 --fused_dw``, batch 256, bf16, lr 0.01, 2 epochs on
+   phase vit_train's ImageFolder): 37 dw_db, 12 flash3_bwd and 12
+   flash3_fwd launches a step (12 a validation forward), the aux loss an
+   epoch, peak memory; its epoch 0 resumed trains epoch 1 again bit for
+   bit; ``--moe_topk 2`` for one epoch; the share of token choices each
+   MoE block drops on a validation batch; the index dispatch of block 1
+   against JAX's one-hot einsum form in plain PyTorch, f32 and bf16; a
+   step against the dense ViT-B/16 step in turns, and the MoE step's
+   profile by kernel group;
 6b. phase `vit_grid`: the measurement grid through the CLIs' ``main``, at
    ViT-B/16's full width and depth (bf16, batch 256, SGD, fused_dw off as
    the grid's CLIs run it): writes the seeded ImageFolder and 48 THINGS
@@ -101,7 +112,12 @@
    flash3_bwd a step on each rank): the rows and checkpoint within the
    tolerance of one process on the same data, the TP block's output and
    packed qkv gradient against the same block whole on the plain
-   attention, ms a step; one process resumes the tp checkpoint;
+   attention, ms a step; one process resumes the tp checkpoint; and
+   expert parallelism (``--moe_experts 8 --ep_devices 2``, batch 64, 4
+   experts of each MoE block on each rank): the rows and checkpoint
+   within the same tolerance of one process, launches and ms a step. The
+   torchrun chain at world size 1 also trains phase moe's MoE run for one
+   epoch, bit-equal to its epoch 0 alone;
 6e. phase `clip_dist`: CLIP-HBA training across ranks as users launch it,
    at full width and depth (ViT-L/14, rank-32 DoRA, bf16, batch 64, 2
    epochs) on THINGS at its real size on disk (the images phase sweep
@@ -157,11 +173,16 @@ result. ``--json PATH`` also writes every number to PATH.
 ``--dist_drift [LRS]`` runs no phase: it measures how far two gloo ranks
 (dp at batch 256, tp at 64) drift from one process by learning rate,
 beside a one-process change that should not matter (the reason for
-DIST_LR and the tp bounds).
+DIST_LR and the tp bounds). ``--dwdb_drift [STEPS]`` runs no phase
+either: ViT-B/16 at batch 64 with the dW+db kernel, its f32 plain version
+and the plain autograd backward, step by step from one seed (where that
+change's drift comes from; ``--dwdb_drift 8 report.json`` also writes
+every number to the file).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import io
 import json
 import os
@@ -247,7 +268,8 @@ LN_TOLERANCE = {"float32": {"dx": 1e-5, "dparams": 1e-4},
 
 SEED = 0
 RESULTS: dict = {}
-ALL_PHASES = ("kernel", "ops", "serve", "train", "vit_train", "vit_grid",
+ALL_PHASES = ("kernel", "ops", "serve", "train", "vit_train", "moe",
+              "vit_grid",
               "serve_vit", "dist", "clip_dist", "sweep", "forks")
 
 
@@ -1747,6 +1769,8 @@ def phase_serve_vit(tmp: str):
         os.path.join(trace_dir, files[0])) / 2**20, "events": len(events),
         "kernel_events": named, "epoch": stats[0]}
     RESULTS["serve_vit"] = res
+    for d in ("vit_serve_ckpt", "vit_artifact", "vit_tr"):
+        shutil.rmtree(os.path.join(tmp, d), ignore_errors=True)
     return launches
 
 
@@ -1997,6 +2021,16 @@ def _write_image_folder(root: str, rs: np.random.RandomState,
                     os.path.join(d, f"{i:04d}.jpg"), quality=90)
 
 
+def _resume_from_epoch0(src: str, dst: str, rows: list) -> None:
+    """A run tree holding only epoch 0 of `src`: its checkpoint as latest
+    (a hard link: no bytes written) and its first metrics row."""
+    os.makedirs(dst)
+    os.link(os.path.join(src, "checkpoint_epoch_000.pth"),
+            os.path.join(dst, "checkpoint_latest.pth"))
+    with open(os.path.join(dst, "training_metrics.csv"), "w") as f:
+        f.write("\n".join(",".join(r) for r in rows[:2]) + "\n")
+
+
 def _ckpt_trees(out: str):
     from vit_project_torch.ckpt import serialization as ser
     ck = ser.load(os.path.join(out, "checkpoint_latest.pth"))
@@ -2121,10 +2155,9 @@ def phase_vit_train(tmp: str):
           f"{launches['flash3_fwd']} (12 per forward); rows "
           + "; ".join(",".join(r) for r in rows[1:]), flush=True)
 
-    # a run stopped after epoch 1 and resumed in place equals run A
+    # run A's epoch 0 resumed: epoch 1 trained again equals run A's
     out_b = os.path.join(tmp, "vit_b")
-    vit_loop.run_vit_training(cfg(out_b, 1), logger=logger, vit_cfg=vit_cfg,
-                              device="cuda")
+    _resume_from_epoch0(out_a, out_b, rows)
     vit_loop.run_vit_training(cfg(out_b, 2), logger=logger, vit_cfg=vit_cfg,
                               device="cuda")
     rows_b = _read_rows(os.path.join(out_b, "training_metrics.csv"))
@@ -2132,12 +2165,13 @@ def phase_vit_train(tmp: str):
     pb, mb = _ckpt_trees(out_b)
     resume_exact = (rows_b == rows and _trees_equal(pa, pb)
                     and _trees_equal(ma, mb))
-    print(f"[vit_train] stopped after epoch 1 and resumed: rows, parameters "
-          f"and momentum {'bit-exact' if resume_exact else 'DIFFER'}",
-          flush=True)
+    print(f"[vit_train] epoch 0 resumed, epoch 1 trained again: rows, "
+          f"parameters and momentum "
+          f"{'bit-exact' if resume_exact else 'DIFFER'}", flush=True)
     if not resume_exact:
         fail(f"resumed run differs: rows {rows_b} vs {rows}")
     del pa, ma, pb, mb
+    shutil.rmtree(out_b)
 
     # one step twice from the same state and batch: the dW+db kernel, then
     # the plain dW+db swapped in
@@ -2254,9 +2288,360 @@ def phase_vit_train(tmp: str):
         "train_images_per_s": ips, "val_ms": e2["val_s"] * 1e3,
         "profile": prof, "decode_images_per_s": decode_ips,
         "epoch_s": e2["epoch_s"], "peak_mem_gib": peak_gib}
+    shutil.rmtree(out_a)
     del res, model, momentum, trainer, p0, m0
     torch.cuda.empty_cache()
     return launches
+
+# the MoE phase: ViT-B/16 with 8 experts in every other block (6 MoE
+# blocks), on phase vit_train's ImageFolder at batch 256, lr DIST_LR (the
+# rate where this set trains stably; see phase dist)
+MOE_EXPERTS = 8
+MOE_EPOCHS = 2
+MOE_STEPS = 4 * MOE_EPOCHS
+MOE_BLOCKS = 6
+# a step's launches under --fused_dw: dW+db for qkv and proj of every
+# block, fc1 and fc2 of the 6 dense ones, and the head (the expert FFNs are
+# batched products); the attention pair in all 12 blocks
+MOE_PER_STEP = {"dw_db": 4 * 6 + 2 * MOE_BLOCKS + 1, "flash3_bwd": 12,
+                "flash3_fwd": 12}
+# the index dispatch (ops/moe.py) against the one-hot einsum oracle at one
+# MoE block (the trained block 1, x [64, 197, 768]): max |err| over the
+# largest |value| of the oracle's y and dx. Both compute the same products:
+# in float32 they differ by summation order (1e-5); in bfloat16 the expert
+# FFNs' GEMMs may round an element of h and of y one bf16 spacing apart
+# (2^-8 of the element each), so 2^-6 of the largest value. aux: the same
+# f32 sums, 1e-5 relative
+MOE_ORACLE_BATCH = 64
+MOE_ORACLE_TOL = {"float32": 1e-5, "bfloat16": 2 ** -6}
+MOE_TIMED_STEPS = 5
+
+
+def _moe_oracle(x, moe, act, capacity_factor, topk=1):
+    """JAX's one-hot einsum form of the MoE FFN in plain PyTorch: [T, E, C]
+    dispatch and combine one-hots (never called by the port)."""
+    import torch
+    import torch.nn.functional as F
+    from vit_project_torch.ops import moe as vmoe
+    B, S, D = x.shape
+    T, E = B * S, moe.router_w.shape[1]
+    C = vmoe.expert_capacity(T, E, capacity_factor * topk)
+    xt = x.reshape(T, D)
+    logits = xt.float() @ moe.router_w.float()
+    probs = torch.softmax(logits, -1)
+    e1 = probs.argmax(-1)
+    gate = probs.gather(1, e1[:, None])[:, 0]
+    oh = F.one_hot(e1, E).float()
+    pos = torch.cumsum(oh, 0) * oh - 1
+    keep = oh * (pos < C)
+    pos_oh = F.one_hot(pos.max(-1).values.long().clamp(0, C - 1), C).float()
+    dispatch = keep[:, :, None] * pos_oh[:, None, :]
+    combine = dispatch * gate[:, None, None]
+    dt = x.dtype
+    xe = torch.einsum("tec,td->ecd", dispatch.to(dt), xt)
+    h = act(torch.einsum("ecd,edh->ech", xe, moe.fc1_w.to(dt))
+            + moe.fc1_b[:, None, :].to(dt))
+    ye = (torch.einsum("ech,ehd->ecd", h, moe.fc2_w.to(dt))
+          + moe.fc2_b[:, None, :].to(dt))
+    y = torch.einsum("tec,ecd->td", combine.to(dt), ye)
+    aux = E * (oh.mean(0) * probs.mean(0)).sum()
+    return y.reshape(B, S, D), aux
+
+
+def _moe_oracle_check(model) -> dict:
+    """The index dispatch against `_moe_oracle` on block 1 of `model`
+    (its trained router and experts, in f32), in f32 and bf16, on the same
+    seeded input and output gradient: y, aux and dx."""
+    import torch
+    from vit_project_torch.models import vit as vvit
+    from vit_project_torch.ops import moe as vmoe
+    moe = model.blocks[1].moe
+    act = vvit._activation(model.cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    x0 = torch.randn(MOE_ORACLE_BATCH, 197, model.cfg.width, generator=gen,
+                     device="cuda")
+    dy0 = torch.randn(x0.shape, generator=gen, device="cuda")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        res = []
+        for fn in (lambda x: vmoe.moe_mlp(x, moe, act=act),
+                   lambda x: _moe_oracle(x, moe, act, 1.25)):
+            x = x0.to(dtype).requires_grad_()
+            y, aux = fn(x)
+            (dx,) = torch.autograd.grad(y, x, dy0.to(dtype))
+            res.append((y.float(), aux.item(), dx.float()))
+            del x, y, dx
+        (y, aux, dx), (ry, raux, rdx) = res
+        err = {"y": ((y - ry).abs().max() / ry.abs().max()).item(),
+               "dx": ((dx - rdx).abs().max() / rdx.abs().max()).item(),
+               "aux": abs(aux / raux - 1)}
+        out[dname] = err
+        if not (err["y"] <= MOE_ORACLE_TOL[dname]
+                and err["dx"] <= MOE_ORACLE_TOL[dname]
+                and err["aux"] <= 1e-5):
+            fail(f"[moe] index dispatch against the one-hot oracle, {dname}: "
+                 f"{err} (tolerance {MOE_ORACLE_TOL[dname]})")
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moe_recorders():
+    """Wrap ops.moe's route and moe_mlp (module globals, so the model's
+    calls see the wrappers): every call's dropped share of its token
+    choices, and the aux of each training forward's MoE layer (grad
+    enabled), kept on the device. Returns (records, restore)."""
+    import torch
+    from vit_project_torch.ops import moe as vmoe
+    route, moe_mlp = vmoe.route, vmoe.moe_mlp
+    rec = {"dropped": [], "aux": []}
+
+    def recording_route(*a, **k):
+        r = route(*a, **k)
+        rec["dropped"].append((r.slots < 0).float().mean().detach())
+        return r
+
+    def recording_moe(*a, **k):
+        y, aux = moe_mlp(*a, **k)
+        if torch.is_grad_enabled():
+            rec["aux"].append(aux.detach())
+        return y, aux
+    vmoe.route, vmoe.moe_mlp = recording_route, recording_moe
+
+    def restore():
+        vmoe.route, vmoe.moe_mlp = route, moe_mlp
+    return rec, restore
+
+
+def _moe_drop_shares(model, images) -> list:
+    """The dropped share of each MoE block's token choices in one forward
+    of `images` (raw uint8 on the card) through `model`."""
+    import torch
+    from vit_project_torch.train.vit_loop import IMAGENET_NORM
+    rec, restore = _moe_recorders()
+    try:
+        with torch.no_grad():
+            model(images, input_norm=IMAGENET_NORM,
+                  compute_dtype=torch.bfloat16)
+    finally:
+        restore()
+    return [float(d) for d in rec["dropped"]]
+
+
+def _moe_args(data: str) -> list:
+    """cli.vit_train's flags of phase moe's main run (but --epochs and
+    --output_dir)."""
+    return ["--data_path", data, "--backbone", "vit_base_patch16_224",
+            "--moe_experts", str(MOE_EXPERTS), "--fused_dw", "--batch_size",
+            "256", "--num_workers", "8", "--lr", DIST_LR, "--random_seed",
+            str(SEED)]
+
+
+def phase_moe(tmp: str):
+    """The MoE ViT on one card through cli.vit_train's main (module
+    docstring, 6a)."""
+    import logging
+    import torch
+    from vit_project_torch.cli import vit_train as train_cli
+    from vit_project_torch.core.configs import ViTTrainConfig
+    from vit_project_torch.data.packed import make_loader
+    from vit_project_torch.models import vit as vvit
+    from vit_project_torch.ops import attention as vattn
+    from vit_project_torch.ops import fused_dw as vfdw
+    from vit_project_torch.train import vit_loop
+
+    t_phase = time.time()
+    root = os.path.join(tmp, "moe")
+    os.makedirs(root)
+    data = os.path.join(tmp, "imagenet")
+    if not os.path.isdir(data):        # phase vit_train's, when it ran
+        _write_image_folder(data, np.random.RandomState(SEED))
+    args = _moe_args(data)
+    print(f"[moe] ViT-B/16 with {MOE_EXPERTS} experts in blocks 1, 3, ..., "
+          f"11 (top-1, capacity factor 1.25, aux weight 0.01), batch 256, "
+          f"bf16, SGD lr {DIST_LR}, fused_dw, vit_train's ImageFolder",
+          flush=True)
+
+    # --- the main path: counts from 0, two epochs through the CLI, counts
+    # read; the aux of every training forward recorded on the way ---
+    out_a = os.path.join(root, "moe_a")
+    rec, restore = _moe_recorders()
+    torch.cuda.reset_peak_memory_stats()
+    vattn.reset_launch_counts()
+    vfdw.reset_launch_counts()
+    try:
+        _, _, run_s = _cli(train_cli.main, args + [
+            "--epochs", str(MOE_EPOCHS), "--output_dir", out_a],
+            os.path.join(root, "moe_a.log"))
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = {**vattn.LAUNCHES, **vfdw.LAUNCHES}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: v * MOE_STEPS for k, v in MOE_PER_STEP.items()}
+    want["flash3_fwd"] += 12 * MOE_EPOCHS          # one validation batch
+    if {k: launches[k] for k in want} != want:
+        fail(f"[moe] launches {launches}, expected {want}")
+    aux = torch.stack(rec["aux"]).view(MOE_EPOCHS, -1, MOE_BLOCKS)
+    aux_epoch = aux.sum(-1).mean(-1).tolist()         # a step's sum of 6
+    rows = _read_rows(os.path.join(out_a, "training_metrics.csv"))
+    if [r[0] for r in rows[1:]] != [str(e) for e in range(MOE_EPOCHS)] or \
+            not all(np.isfinite([float(v) for r in rows[1:] for v in r[1:]])):
+        fail(f"[moe] rows {rows}")
+    print(f"[moe] {MOE_EPOCHS} epochs ({MOE_STEPS} steps) in {run_s:.1f} s; "
+          f"launches dw_db {launches['dw_db']} ({MOE_PER_STEP['dw_db']} a "
+          f"step), flash3_bwd {launches['flash3_bwd']} (12), flash3_fwd "
+          f"{launches['flash3_fwd']} (12 a forward); peak {peak_gib:.2f} GiB; "
+          f"aux (a step's sum over the 6 MoE blocks, mean an epoch) "
+          + ", ".join(f"{a:.4f}" for a in aux_epoch) + "; rows "
+          + "; ".join(",".join(r) for r in rows[1:]), flush=True)
+
+    # --- its epoch 0 resumed: epoch 1 again from the same state, bit for
+    # bit (the same computation twice, and the resume) ---
+    out_b = os.path.join(root, "moe_b")
+    _resume_from_epoch0(out_a, out_b, rows)
+    _cli(train_cli.main, args + ["--epochs", str(MOE_EPOCHS), "--output_dir",
+                                 out_b], os.path.join(root, "moe_b.log"))
+    rows_b = _read_rows(os.path.join(out_b, "training_metrics.csv"))
+    exact = rows_b == rows and all(
+        _trees_equal(a, b) for a, b in zip(_ckpt_trees(out_a),
+                                           _ckpt_trees(out_b)))
+    print(f"[moe] epoch 0 resumed, epoch 1 trained again: rows, parameters "
+          f"and momentum {'bit-exact' if exact else 'DIFFER'}", flush=True)
+    if not exact:
+        fail(f"[moe] resumed run differs: {rows_b} vs {rows}")
+    shutil.rmtree(out_b)
+
+    # --- top-2 at a smaller depth: one epoch from the same seed through
+    # the trainer's epoch loop and validation (cli.vit_train's epoch
+    # without the checkpoint: a MoE checkpoint is 2.3 GB of disk) ---
+    dev = torch.device("cuda")
+    vit_cfg = dataclasses.replace(vvit.VIT_CONFIGS["vit_base_patch16_224"],
+                                  moe_experts=MOE_EXPERTS)
+    cfg2 = dataclasses.replace(vit_cfg, moe_topk=2)
+    quiet = logging.getLogger("chip_smoke.moe")
+    quiet.setLevel(logging.WARNING)
+    models = {"top2": vvit.init_vit_params(
+        vvit.empty_vit(cfg2, dev),
+        torch.Generator(device=dev).manual_seed(SEED))}
+    tr2 = vit_loop.ViTTrainer(cfg2, ViTTrainConfig(
+        batch_size=256, compute_dtype="bfloat16", fused_dw=True,
+        moe_experts=MOE_EXPERTS, moe_topk=2), models["top2"], dev)
+    val = make_loader(os.path.join(data, "val"), 256, train=False, size=224,
+                      workers=8)
+    vattn.reset_launch_counts()
+    vfdw.reset_launch_counts()
+    t0 = time.time()
+    row2 = [tr2.train_one_epoch(tr2.init_momentum(), make_loader(
+        os.path.join(data, "train"), 256, train=True, seed=SEED, size=224,
+        workers=8, drop_last=True), 0, float(DIST_LR), logger=quiet),
+        *tr2.validate(val, logger=quiet)]
+    torch.cuda.synchronize()
+    top2_s = time.time() - t0
+    launches2 = {**vattn.LAUNCHES, **vfdw.LAUNCHES}
+    want2 = {k: v * MOE_STEPS // MOE_EPOCHS for k, v in MOE_PER_STEP.items()}
+    want2["flash3_fwd"] += 12
+    if {k: launches2[k] for k in want2} != want2 or \
+            not all(np.isfinite(row2)):
+        fail(f"[moe] top-2: launches {launches2} (want {want2}), row {row2}")
+    del tr2
+
+    # --- the trained models: dropped shares, the oracle, a step in turns
+    # against the dense step, the step's profile ---
+    models["top1"] = vvit.empty_vit(vit_cfg, dev)
+    vit_loop.load_trees(models["top1"], _ckpt_trees(out_a)[0])
+    trainer = vit_loop.ViTTrainer(vit_cfg, ViTTrainConfig(
+        batch_size=256, compute_dtype="bfloat16", fused_dw=True,
+        moe_experts=MOE_EXPERTS), models["top1"], dev)
+    imgs, lbls = trainer.place(*next(iter(val.epoch(0))))
+    drops = {k: _moe_drop_shares(m, imgs) for k, m in models.items()}
+    del models["top2"]
+    oracle = _moe_oracle_check(models["top1"])
+    print(f"[moe] top-2, 1 epoch (the trainer's epoch loop and validation, "
+          f"no checkpoint): {top2_s:.1f} s, launches "
+          + ", ".join(f"{k} {launches2[k]}" for k in sorted(want2))
+          + ", train loss, val loss, val accuracy "
+          + ", ".join(f"{v:.6f}" for v in row2)
+          + "; dropped share of the token "
+          f"choices a MoE block (blocks 1, 3, ..., 11; a validation batch "
+          f"of 256 after training): top-1 "
+          + ", ".join(f"{d:.4f}" for d in drops["top1"]) + "; top-2 "
+          + ", ".join(f"{d:.4f}" for d in drops["top2"])
+          + "; index dispatch against the one-hot einsum at block 1, "
+          f"x [{MOE_ORACLE_BATCH}, 197, 768]: "
+          + "; ".join(f"{d} y {e['y']:.2e} dx {e['dx']:.2e} aux "
+                      f"{e['aux']:.1e} (tolerance {MOE_ORACLE_TOL[d]:.1e})"
+                      for d, e in oracle.items()), flush=True)
+
+    dense_model = vvit.init_vit_params(
+        vvit.empty_vit(vvit.VIT_CONFIGS["vit_base_patch16_224"], dev),
+        torch.Generator(device=dev).manual_seed(SEED))
+    dense = vit_loop.ViTTrainer(dense_model.cfg, ViTTrainConfig(
+        batch_size=256, compute_dtype="bfloat16", fused_dw=True),
+        dense_model, dev)
+    moms = {"moe": trainer.init_momentum(), "dense": dense.init_momentum()}
+    trainers = {"moe": trainer, "dense": dense}
+    vattn.reset_launch_counts()
+    vfdw.reset_launch_counts()
+    trainer.step(moms["moe"], imgs, lbls, 0.01)
+    torch.cuda.synchronize()
+    per_step = {**vattn.LAUNCHES, **vfdw.LAUNCHES}
+    if {k: per_step[k] for k in MOE_PER_STEP} != MOE_PER_STEP:
+        fail(f"[moe] a step launched {per_step}, want {MOE_PER_STEP}")
+
+    def turn(name):
+        tr, mom = trainers[name], moms[name]
+        tr.step(mom, imgs, lbls, 0.01)
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(MOE_TIMED_STEPS + 1)]
+        ev[0].record()
+        for i in range(MOE_TIMED_STEPS):
+            tr.step(mom, imgs, lbls, 0.01)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1])
+                for i in range(MOE_TIMED_STEPS)]
+    turns = {"moe": [], "dense": []}
+    for name in ("moe", "dense", "dense", "moe"):
+        turns[name].append(turn(name))
+    step_ms = {k: statistics.mean(x for t in v for x in t)
+               for k, v in turns.items()}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        prof = _profile(lambda: trainer.step(moms["moe"], imgs, lbls, 0.01))
+    print("[moe] a step's launches "
+          + ", ".join(f"{k} {per_step[k]}" for k in sorted(MOE_PER_STEP))
+          + "; "
+          f"device ms a step in turns (moe, dense, dense, moe; "
+          f"{MOE_TIMED_STEPS} steps each): "
+          + "; ".join(f"{k} {step_ms[k]:.2f} (turns "
+                      + ", ".join(f"{statistics.mean(t):.2f}" for t in v)
+                      + ")" for k, v in turns.items())
+          + (" ; profiler: no device time seen (not measured)" if prof is None
+             else "; profiled MoE step (device ms a step): "
+             + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                 prof["ms_per_call"].items()))
+             + f"; busy {prof['device_ms_per_call']:.2f} of "
+             f"{prof['wall_ms_per_call']:.2f} ms (idle share "
+             f"{prof['idle_share']:.3f}); largest of the rest: "
+             + "; ".join(f"{k} {v:.2f}" for k, v in
+                         prof["top_other_ms"].items()))
+          + f"; {smi_line()}", flush=True)
+    RESULTS["moe"] = {
+        "run_s": run_s, "launches": launches, "peak_gib": peak_gib,
+        "aux_per_epoch": aux_epoch, "rows": rows[1:], "resume_exact": exact,
+        "top2_s": top2_s, "top2_launches": launches2, "top2_row": row2,
+        "dropped": drops, "oracle": oracle, "per_step": per_step,
+        "turns": turns, "step_ms": step_ms, "profile": prof,
+        "seconds": time.time() - t_phase}
+    print(f"[moe] phase {time.time() - t_phase:.1f} s", flush=True)
+    for name in ("checkpoint_epoch_001.pth", "checkpoint_latest.pth"):
+        os.unlink(os.path.join(out_a, name))   # epoch 0 stays for phase dist
+    del trainer, dense, trainers, moms, models, dense_model
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in want}
+
 
 # the sweep phase: the perturbation kinds, and the target kinds (they change
 # only the targets, so their forks train from the frozen-prefix cache in
@@ -3287,6 +3672,7 @@ def phase_vit_grid(tmp: str):
         "libjpeg": _loaded_jpeg_lib(), "phase_s": time.time() - t_phase}
     del trainer, momentum, imgs_t, lbls_t, cache
     torch.cuda.empty_cache()
+    shutil.rmtree(root)       # the disk: the runs and the pack
     return grid_launches
 
 
@@ -3349,6 +3735,12 @@ TP_BLOCK_RTOL = 2e-2
 # DIST_PARAM_RTOL as phase dist's other runs
 TP_LOSS_RTOL = 2e-2
 TP_MOMENTUM_RTOL = 3e-2
+# expert parallelism on the card: two gloo ranks share cuda:0 as one
+# expert group (a data axis of 1), the MoE ViT-B/16 of phase moe at
+# TP_BATCH for DIST_EPOCHS, held to one process on the same data by the tp
+# bounds above. Each MoE block all-reduces its gathered expert outputs
+# [B * 197, 768] bf16 forward and the dispatched tokens' gradient backward
+EP_TIMED_STEPS = 6
 
 
 class _WriteCounter:
@@ -3462,6 +3854,8 @@ def _dist_worker(report: str, argv: list) -> int:
                 extra = _clip_step_ms(args[0])
             elif module == "tp_check":
                 extra = _tp_check()
+            elif module == "ep_check":
+                extra = _ep_check()
             else:
                 result = importlib.import_module(module).main(args)
                 extra = {"result": result if isinstance(result, list)
@@ -3666,6 +4060,51 @@ def _tp_check() -> dict:
     return {"block": block, "per_step": per_step, "turns": turns}
 
 
+def _ep_check() -> dict:
+    """Under two gloo ranks sharing the card (one expert group), the MoE
+    ViT-B/16 of phase moe with ep_devices 2: a training step's kernel
+    launches and ms a step over EP_TIMED_STEPS (CUDA events) at batch
+    TP_BATCH, each rank holding 4 of the 8 experts of each MoE block."""
+    import torch
+    from vit_project_torch.core.configs import ViTTrainConfig
+    from vit_project_torch.models import vit as vvit
+    from vit_project_torch.ops import attention as vattn
+    from vit_project_torch.ops import fused_dw as vfdw
+    from vit_project_torch.parallel import dist
+    from vit_project_torch.train import vit_loop
+    dev = dist.local_device("cuda:0")        # the card both ranks share
+    vit_cfg = dataclasses.replace(vvit.VIT_CONFIGS["vit_base_patch16_224"],
+                                  moe_experts=MOE_EXPERTS)
+    cfg = ViTTrainConfig(batch_size=TP_BATCH, compute_dtype="bfloat16",
+                         moe_experts=MOE_EXPERTS, ep_devices=2)
+    model = vvit.init_vit_params(vvit.empty_vit(vit_cfg, dev),
+                                 torch.Generator(device=dev).manual_seed(SEED))
+    tr = vit_loop.ViTTrainer(vit_cfg, cfg, model, dev)
+    mom = tr.init_momentum()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    size = vit_cfg.image_size
+    imgs = torch.randint(0, 256, (TP_BATCH, size, size, 3), generator=gen,
+                         device=dev, dtype=torch.uint8)
+    lbls = torch.randint(0, vit_cfg.num_classes, (TP_BATCH,), generator=gen,
+                         device=dev)
+    vattn.reset_launch_counts()
+    vfdw.reset_launch_counts()
+    tr.step(mom, imgs, lbls, 0.01)
+    torch.cuda.synchronize()
+    per_step = {**vattn.LAUNCHES, **vfdw.LAUNCHES}
+    tr.step(mom, imgs, lbls, 0.01)
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(EP_TIMED_STEPS + 1)]
+    ev[0].record()
+    for i in range(EP_TIMED_STEPS):
+        tr.step(mom, imgs, lbls, 0.01)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    turns = [[ev[i].elapsed_time(ev[i + 1]) for i in range(EP_TIMED_STEPS)]]
+    return {"per_step": per_step, "turns": turns,
+            "experts_here": int(model.blocks[1].moe.fc1_w.shape[0])}
+
+
 def _dist_run(tmp: str, name: str, argv: list, nproc: int | None = 1,
               timeout: int = 600) -> list:
     """`argv` ([--gloo] MODULE ARGS) through _dist_worker: under
@@ -3772,11 +4211,13 @@ def phase_dist(tmp: str):
               single, "--output_csv", os.path.join(root, "rsa_dp.csv"),
               *things_args, "--then", "vit_project_torch.cli.vit_measure",
               *cell, "--output_csv", os.path.join(root, "cell_dp.csv"),
-              "--then", "time_modes"]
+              "--then", "time_modes", "--then", train_cli,
+              *_moe_args(data), "--epochs", "1", "--output_dir",
+              os.path.join(root, "moe_dp")]
     first = _dist_run(root, "torchrun", chain)[0]
     steps = [first] + first.pop("then")
     by_mode.update(zip(DIST_MODES[1:], steps[:3]))
-    rsa_rep, cell_rep, tm = steps[3:]
+    rsa_rep, cell_rep, tm, moe_rep = steps[3:]
     runs, trees, rows = {}, {}, {}
     for mode in DIST_MODES:
         out = os.path.join(root, mode)
@@ -3828,6 +4269,8 @@ def phase_dist(tmp: str):
                 and max(rel) <= DIST_PARAM_RTOL):
             fail(f"[dist] fsdp outside the tolerance: {cmp[mode]}")
     del trees
+    for mode in DIST_MODES[1:]:     # the disk: 1.4 GB a run
+        shutil.rmtree(os.path.join(root, mode))
     main_launches = {k: sum(runs[m]["launches"][k] for m in DIST_MODES
                             if m != "single") for k in want}
 
@@ -3874,10 +4317,48 @@ def phase_dist(tmp: str):
           + f"; peak in that process {tm['peak_gib']:.2f} GiB "
           f"(four models); {smi_line()}", flush=True)
 
-    # --- two ranks on this card under gloo: dp, the gathered RSA, and
-    # tensor parallelism (its run and its block check) ---
+    # --- the MoE ViT in dp at world size 1 (the chain's last CLI, one
+    # epoch) against epoch 0 of phase moe's run alone, bit for bit (that
+    # epoch alone here when phase moe did not run) ---
+    from vit_project_torch.cli import vit_train as train_main
+    from vit_project_torch.ckpt import serialization as ser
+    moe_alone = os.path.join(tmp, "moe", "moe_a")
+    if not os.path.isdir(moe_alone):
+        moe_alone = os.path.join(root, "moe_alone")
+        _cli(train_main.main, _moe_args(data) + [
+            "--epochs", "1", "--output_dir", moe_alone],
+            os.path.join(root, "moe_alone.log"))
+    moe_dp = os.path.join(root, "moe_dp")
+    alone = ser.load(os.path.join(moe_alone, "checkpoint_epoch_000.pth"))
+    moe_exact = _read_rows(os.path.join(moe_dp, "training_metrics.csv")) \
+        == _read_rows(os.path.join(moe_alone, "training_metrics.csv"))[:2] \
+        and all(_trees_equal(a, b) for a, b in zip(
+            _ckpt_trees(moe_dp), (alone["params"], alone["opt_state"])))
+    del alone
+    moe_want = {k: v * MOE_STEPS // MOE_EPOCHS
+                for k, v in MOE_PER_STEP.items()}
+    moe_want["flash3_fwd"] += 12
+    print(f"[dist] MoE (--moe_experts {MOE_EXPERTS} --fused_dw) under "
+          f"torchrun, world size 1 (backend {moe_rep['backend']}): "
+          f"{moe_rep['s']:.1f} s, launches "
+          + ", ".join(f"{k} {moe_rep['launches'][k]}" for k in sorted(
+              moe_want))
+          + f"; against the run alone: "
+          f"{'bit-equal rows and checkpoints' if moe_exact else 'DIFFERS'}",
+          flush=True)
+    if not moe_exact or moe_rep["backend"] != "nccl" or any(
+            moe_rep["launches"][k] != v for k, v in moe_want.items()):
+        fail(f"[dist] MoE dp at world size 1: bit-equal {moe_exact}, "
+             f"{moe_rep}")
+    for d in (moe_dp, moe_alone):
+        shutil.rmtree(d)
+
+    # --- two ranks on this card under gloo: dp, the gathered RSA, tensor
+    # parallelism (its run and its block check) and expert parallelism (its
+    # run and its step) ---
     gloo_out = os.path.join(root, "gloo_dp")
     tp_out = os.path.join(root, "gloo_tp")
+    ep_out = os.path.join(root, "gloo_ep")
     tp_args = ["--data_path", data, "--batch_size", str(TP_BATCH),
                "--epochs", str(DIST_EPOCHS), "--num_workers", "8", "--lr",
                DIST_LR]
@@ -3888,7 +4369,9 @@ def phase_dist(tmp: str):
         "--output_csv", os.path.join(root, "rsa_gloo.csv"), *things_args,
         "--device", "cuda:0", "--then", train_cli, *tp_args, "--device",
         "cuda:0", "--tp_devices", "2", "--output_dir", tp_out, "--then",
-        "tp_check"], nproc=2)
+        "tp_check", "--then", train_cli, *tp_args, "--device", "cuda:0",
+        "--moe_experts", str(MOE_EXPERTS), "--ep_devices", "2",
+        "--output_dir", ep_out, "--then", "ep_check"], nproc=2)
     g_rsa = [rep["then"][0] for rep in g]
     g_rows = _read_rows(os.path.join(gloo_out, "training_metrics.csv"))
     got = np.array([[float(v) for v in r[1:]] for r in g_rows[1:]])
@@ -3914,17 +4397,25 @@ def phase_dist(tmp: str):
             and rho_diff <= DIST_RHO_ATOL):
         fail(f"[dist] gloo 2-rank run outside the tolerance: losses "
              f"{g_loss}, accuracy {g_acc}, rho {rho_diff}")
+    shutil.rmtree(gloo_out)
     tp = _check_tp(root, train_cli, tp_args, tp_out,
                    [rep["then"][1] for rep in g],
                    [rep["then"][2] for rep in g])
+    ep = _check_ep(root, train_cli, tp_args, ep_out,
+                   [rep["then"][3] for rep in g],
+                   [rep["then"][4] for rep in g])
+    for d in ("single", "gloo_tp", "tp_one", "tp_resumed", "gloo_ep",
+              "ep_one"):
+        shutil.rmtree(os.path.join(root, d))
     RESULTS["dist"] = {
         "runs": runs, "compare": cmp, "rsa": rsa_rep, "cell": cell_rep,
-        "time_modes": tm, "step_ms": step_ms, "gloo": g, "gloo_rsa": g_rsa,
+        "time_modes": tm, "step_ms": step_ms, "moe_dp": moe_rep,
+        "moe_dp_bit_equal": moe_exact, "gloo": g, "gloo_rsa": g_rsa,
         "gloo_rows": g_rows[1:], "gloo_loss_rel": g_loss,
         "gloo_acc_diff": g_acc, "gloo_rho_diff": rho_diff, "tp": tp,
-        "seconds": time.time() - t_phase}
+        "ep": ep, "seconds": time.time() - t_phase}
     print(f"[dist] phase {time.time() - t_phase:.1f} s", flush=True)
-    return {**main_launches, "tp": tp["launches"]}
+    return {**main_launches, "tp": tp["launches"], "ep": ep["launches"]}
 
 
 def _check_tp(root: str, train_cli: str, tp_args: list, tp_out: str,
@@ -3950,12 +4441,8 @@ def _check_tp(root: str, train_cli: str, tp_args: list, tp_out: str,
     _cli(train_main, tp_args + ["--output_dir", one],
          os.path.join(root, "tp_one.log"))
     resumed = os.path.join(root, "tp_resumed")
-    os.makedirs(resumed)
-    shutil.copyfile(os.path.join(tp_out, "checkpoint_epoch_000.pth"),
-                    os.path.join(resumed, "checkpoint_latest.pth"))
     tp_rows = _read_rows(os.path.join(tp_out, "training_metrics.csv"))
-    with open(os.path.join(resumed, "training_metrics.csv"), "w") as f:
-        f.write("\n".join(",".join(r) for r in tp_rows[:2]) + "\n")
+    _resume_from_epoch0(tp_out, resumed, tp_rows)
     _cli(train_main, tp_args + ["--output_dir", resumed],
          os.path.join(root, "tp_resumed.log"))
 
@@ -4019,6 +4506,77 @@ def _check_tp(root: str, train_cli: str, tp_args: list, tp_out: str,
             "step_ms": step_ms, "loss_rel": loss_rel, "acc_diff": acc_diff,
             "tree_rel": tree_rel, "resumed_loss_rel": res_loss,
             "resumed_acc_diff": res_acc,
+            "launches": {k: runs[0]["launches"][k] for k in want}}
+
+
+def _check_ep(root: str, train_cli: str, ep_args: list, ep_out: str,
+              runs: list, checks: list) -> dict:
+    """Phase dist's expert-parallel checks on the gloo launch's reports
+    (`runs`: each rank's cli.vit_train --moe_experts 8 --ep_devices 2;
+    `checks`: each rank's _ep_check) against one process in this process
+    on the same data (the MoE run without --ep_devices): the rows within
+    TP_LOSS_RTOL and DIST_ACC_ATOL, the checkpoint's parameters within
+    DIST_PARAM_RTOL and its momentum within TP_MOMENTUM_RTOL."""
+    import importlib
+    train_main = importlib.import_module(train_cli).main
+    want = {"flash3_fwd": 12 * (TP_STEPS + TP_VAL_BATCHES),
+            "flash3_bwd": 12 * TP_STEPS}
+    for rep in runs:
+        got = {k: v for k, v in rep["launches"].items() if v}
+        if rep["backend"] != "gloo" or got != want:
+            fail(f"[dist] ep rank {rep['rank']}: backend {rep['backend']}, "
+                 f"launches {got}, want {want}")
+    one = os.path.join(root, "ep_one")
+    _cli(train_main, ep_args + ["--moe_experts", str(MOE_EXPERTS),
+                                "--output_dir", one],
+         os.path.join(root, "ep_one.log"))
+    rows = _read_rows(os.path.join(ep_out, "training_metrics.csv"))
+    one_rows = _read_rows(os.path.join(one, "training_metrics.csv"))
+    got = np.array([[float(v) for v in r[1:]] for r in rows[1:]])
+    ref = np.array([[float(v) for v in r[1:]] for r in one_rows[1:]])
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        fail(f"[dist] ep rows {rows} against {one_rows}")
+    loss_rel = float(np.abs(got[:, :2] / ref[:, :2] - 1).max())
+    acc_diff = float(np.abs(got[:, 2] - ref[:, 2]).max())
+    ta, tb = _ckpt_trees(ep_out), _ckpt_trees(one)
+    tree_rel = [_rel_tree_diff(a, b) for a, b in zip(ta, tb)]
+    exact = rows == one_rows and all(_trees_equal(a, b)
+                                     for a, b in zip(ta, tb))
+    del ta, tb
+    step_ms = [statistics.mean(x for t in c["turns"] for x in t)
+               for c in checks]
+    per_step = [{k: c["per_step"][k] for k in ("flash3_fwd", "flash3_bwd")}
+                for c in checks]
+    print(f"[dist] ep 2 ranks, gloo, one card (--moe_experts {MOE_EXPERTS} "
+          f"--ep_devices 2, batch {TP_BATCH}, "
+          f"{checks[0]['experts_here']} experts a MoE block a rank): "
+          f"{runs[0]['s']:.1f} s, peak "
+          f"{max(r['peak_gib'] for r in runs):.2f} GiB a rank, launches "
+          f"flash3_fwd {runs[0]['launches']['flash3_fwd']} flash3_bwd "
+          f"{runs[0]['launches']['flash3_bwd']} a rank; a step's launches "
+          f"{per_step}; ms a step "
+          + ", ".join(f"rank {r} {ms:.2f}" for r, ms in enumerate(step_ms))
+          + "; rows " + "; ".join(",".join(r) for r in rows[1:])
+          + f"; against one process: "
+          + ("bit-equal rows and checkpoints" if exact else
+             f"losses {loss_rel:.3e} relative, accuracy {acc_diff:.3f} "
+             f"points, parameters {tree_rel[0]:.3e} / momentum "
+             f"{tree_rel[1]:.3e} of their largest")
+          + f" (bounds {TP_LOSS_RTOL}, {DIST_ACC_ATOL:.3f}, "
+          f"{DIST_PARAM_RTOL}, {TP_MOMENTUM_RTOL}); {smi_line()}",
+          flush=True)
+    if per_step != [{"flash3_fwd": 12, "flash3_bwd": 12}] * 2 or \
+            [c["experts_here"] for c in checks] != [MOE_EXPERTS // 2] * 2:
+        fail(f"[dist] an ep step launched {per_step}, experts "
+             f"{[c['experts_here'] for c in checks]}")
+    if not (loss_rel <= TP_LOSS_RTOL and acc_diff <= DIST_ACC_ATOL
+            and tree_rel[0] <= DIST_PARAM_RTOL
+            and tree_rel[1] <= TP_MOMENTUM_RTOL):
+        fail(f"[dist] ep outside the tolerance of one process: losses "
+             f"{loss_rel}, accuracy {acc_diff}, trees {tree_rel}")
+    return {"runs": runs, "checks": checks, "rows": rows[1:],
+            "step_ms": step_ms, "loss_rel": loss_rel, "acc_diff": acc_diff,
+            "tree_rel": tree_rel, "bit_equal": exact,
             "launches": {k: runs[0]["launches"][k] for k in want}}
 
 
@@ -4437,12 +4995,142 @@ def _dist_drift(lrs: list) -> int:
     return 0
 
 
+DWDB_DRIFT_BATCH = 64
+
+
+def _dwdb_drift(steps: int, report_path: str | None = None) -> int:
+    """``--dwdb_drift [STEPS [REPORT]]``, run alone: where the batch-64 drift of a
+    ``--fused_dw`` run from a plain one comes from. ViT-B/16 in bf16 from
+    the seeded weights of ``run_vit_training``, on the first `steps`
+    batches of 64 of phase vit_train's ImageFolder (its training loader,
+    seed 0), SGD at lr DIST_LR, trained three ways in one process, each
+    from its own parameters and momentum:
+
+    - "fused": every dense layer's dW and db from the dW+db kernel (f32);
+    - "f32": the same backward with the kernel's plain version,
+      ``fused_dw.dw_db_reference`` (x^T g and the row sum in f32), in its
+      place, so at step 1 the two differ only by the kernel's order of
+      summation;
+    - "plain": the plain autograd backward (``--fused_dw`` off), whose dW
+      and db come out of cuBLAS in bf16 and are then cast to f32.
+
+    Prints, from step 1, each run's loss against "fused" and, leaf by leaf
+    over every dense weight and bias (qkv, proj, fc1, fc2 of each block and
+    the head), the largest |difference| of the gradients over the largest
+    |gradient| of the "fused" run, with the worst leaf; step 1's against
+    DWDB_TOLERANCE (the kernel phase's dW+db bound). Writes every number
+    to REPORT (JSON) when given; no result line. Exits 1 when step 1's
+    kernel gradients leave the bound."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    from vit_project_torch.core.configs import ViTTrainConfig
+    from vit_project_torch.data.packed import make_loader
+    from vit_project_torch.models import vit as vvit
+    from vit_project_torch.ops import fused_dw as vfdw
+    from vit_project_torch.train import vit_loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = os.path.join(ROOT, "vit_project_torch", "_build",
+                       f"dwdb-{os.getpid()}")
+    os.makedirs(tmp)
+    report = {"card": smi_line(), "batch": DWDB_DRIFT_BATCH, "lr": DIST_LR,
+              "tolerance": DWDB_TOLERANCE, "steps": []}
+    try:
+        phase_build()
+        data = os.path.join(tmp, "imagenet")
+        _write_image_folder(data, np.random.RandomState(SEED))
+        vit_cfg = vvit.VIT_CONFIGS["vit_base_patch16_224"]
+        loader = make_loader(os.path.join(data, "train"), DWDB_DRIFT_BATCH,
+                             train=True, seed=SEED, size=224, workers=8,
+                             drop_last=True)
+        runs = {}
+        for name in ("fused", "f32", "plain"):
+            cfg = ViTTrainConfig(data_path=data, output_dir=tmp,
+                                 batch_size=DWDB_DRIFT_BATCH,
+                                 compute_dtype="bfloat16",
+                                 fused_dw=name != "plain", random_seed=SEED)
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            model = vvit.init_vit_params(vvit.empty_vit(vit_cfg, "cuda"), gen)
+            trainer = vit_loop.ViTTrainer(vit_cfg, cfg, model, "cuda")
+            runs[name] = (trainer, trainer.init_momentum())
+        names = [n for n, _ in runs["fused"][0].model.named_parameters()]
+        dense = [i for i, n in enumerate(names) if re.search(
+            r"(qkv|proj|fc1|fc2)\.(weight|bias)$|^head\.", n)]
+        kernel_dw_db = vfdw.dw_db
+        lr = float(DIST_LR)
+        for step, (images, labels) in enumerate(loader.epoch(0), start=1):
+            if step > steps:
+                break
+            out = {}
+            for name, (trainer, momentum) in runs.items():
+                imgs, lbls = trainer.place(images, labels)
+                params = [p for _, p in trainer.model.named_parameters()]
+                if name == "f32":
+                    vfdw.dw_db = vfdw.dw_db_reference
+                try:
+                    loss, grads = trainer.batch_grads(params, imgs, lbls)
+                finally:
+                    vfdw.dw_db = kernel_dw_db
+                out[name] = (float(loss), grads)
+                with torch.no_grad():      # the step's update, as step() does
+                    bufs = [momentum[n] for n in names]
+                    upd = torch._foreach_mul(params, trainer.cfg.weight_decay)
+                    torch._foreach_add_(upd, grads)
+                    torch._foreach_mul_(bufs, trainer.cfg.momentum)
+                    torch._foreach_add_(bufs, upd)
+                    torch._foreach_sub_(params, torch._foreach_mul(bufs, lr))
+            ref_loss, ref = out["fused"]
+            line = {"step": step, "loss_fused": ref_loss}
+            for name in ("f32", "plain"):
+                loss, grads = out[name]
+                rel = {names[i]: ((grads[i] - ref[i]).abs().max()
+                                  / ref[i].abs().max().clamp_min(1e-30)).item()
+                       for i in dense}
+                worst = max(rel, key=rel.get)
+                line[name] = {"loss_diff": loss - ref_loss,
+                              "loss_rel": abs(loss / ref_loss - 1),
+                              "grad_rel_max": rel[worst], "worst_leaf": worst,
+                              "grad_rel_median": statistics.median(
+                                  rel.values()),
+                              "grad_rel": rel}
+                print(f"[dwdb_drift] step {step} {name} vs fused: loss "
+                      f"{loss:.6f} vs {ref_loss:.6f} (diff "
+                      f"{loss - ref_loss:+.3e})"
+                      f"; dense-leaf gradients max |diff| / max |fused| "
+                      f"{rel[worst]:.3e} ({worst}), median "
+                      f"{line[name]['grad_rel_median']:.3e} over {len(rel)} "
+                      f"leaves", flush=True)
+            report["steps"].append(line)
+        first = report["steps"][0]
+        verdict = ("agree" if first["f32"]["grad_rel_max"] <= DWDB_TOLERANCE
+                   else "DISAGREE")
+        report["step1_kernel_vs_f32"] = verdict
+        print(f"[dwdb_drift] step 1: the kernel's gradients and its plain f32 "
+              f"version's {verdict} within {DWDB_TOLERANCE} "
+              f"({first['f32']['grad_rel_max']:.3e}); the plain autograd "
+              f"backward's differ by {first['plain']['grad_rel_max']:.3e}",
+              flush=True)
+        print(smi_line(), flush=True)
+        if report_path:
+            os.makedirs(os.path.dirname(os.path.abspath(report_path)),
+                        exist_ok=True)
+            with open(report_path, "w") as f:
+                json.dump(report, f, indent=1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0 if report.get("step1_kernel_vs_f32") == "agree" else 1
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--dist_worker"]:      # a process of phase dist
         return _dist_worker(argv[1], argv[2:])
     if argv[:1] == ["--dist_drift"]:       # DIST_LR's measurement
         return _dist_drift((argv[1:] or ["0.1,0.01,0.001"])[0].split(","))
+    if argv[:1] == ["--dwdb_drift"]:       # the fused dW+db's drift at 64
+        return _dwdb_drift(int((argv[1:] or ["8"])[0]),
+                           (argv[2:] or [None])[0])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma list of phases to run (default: all)")
@@ -4470,34 +5158,47 @@ def main(argv=None) -> int:
           flush=True)
     peaks = PEAKS["PCIe" if "PCIe" in smi else "SXM"]
     RESULTS["card"] = smi
-    phase_build()
-    rows = phase_kernel(peaks) if "kernel" in phases else []
-    ops_launches = phase_ops() if "ops" in phases else None
+    t_script = time.time()
+    phase_s = RESULTS["phase_s"] = {}
+
+    def timed(name, fn, *a):
+        t0 = time.time()
+        try:
+            return fn(*a)
+        finally:
+            phase_s[name] = time.time() - t0
+            print(f"[timing] {name} {phase_s[name]:.1f} s (script "
+                  f"{time.time() - t_script:.1f} s)", flush=True)
+    timed("build", phase_build)
+    rows = timed("kernel", phase_kernel, peaks) if "kernel" in phases else []
+    ops_launches = timed("ops", phase_ops) if "ops" in phases else None
     serve_launches = train_launches = vit_launches = sweep_launches = None
     forks_launches = grid_launches = serve_vit_launches = None
-    dist_launches = clip_dist_launches = None
+    dist_launches = clip_dist_launches = moe_launches = None
     tmp = os.path.join(ROOT, "vit_project_torch", "_build",
                        f"smoke-{os.getpid()}")
     os.makedirs(tmp, exist_ok=True)
     try:
         if "serve" in phases:
-            serve_launches = phase_serve(tmp)
+            serve_launches = timed("serve", phase_serve, tmp)
         if "train" in phases:
-            train_launches = phase_train(tmp)
+            train_launches = timed("train", phase_train, tmp)
         if "vit_train" in phases:
-            vit_launches = phase_vit_train(tmp)
+            vit_launches = timed("vit_train", phase_vit_train, tmp)
+        if "moe" in phases:
+            moe_launches = timed("moe", phase_moe, tmp)
         if "vit_grid" in phases:
-            grid_launches = phase_vit_grid(tmp)
+            grid_launches = timed("vit_grid", phase_vit_grid, tmp)
         if "serve_vit" in phases:
-            serve_vit_launches = phase_serve_vit(tmp)
+            serve_vit_launches = timed("serve_vit", phase_serve_vit, tmp)
         if "dist" in phases:
-            dist_launches = phase_dist(tmp)
+            dist_launches = timed("dist", phase_dist, tmp)
         if "clip_dist" in phases:
-            clip_dist_launches = phase_clip_dist(tmp)
+            clip_dist_launches = timed("clip_dist", phase_clip_dist, tmp)
         if "sweep" in phases or "forks" in phases:
-            sweep_launches, ctx = phase_sweep(tmp)
+            sweep_launches, ctx = timed("sweep", phase_sweep, tmp)
             if "forks" in phases:
-                forks_launches = phase_forks(ctx)
+                forks_launches = timed("forks", phase_forks, ctx)
             del ctx
         _CLIP_FIXTURE.clear()
         torch.cuda.empty_cache()
@@ -4529,6 +5230,12 @@ def main(argv=None) -> int:
     def dist_tp(name):
         return dist_launches and dist_launches["tp"][name]
 
+    def dist_ep(name):
+        return dist_launches and dist_launches["ep"][name]
+
+    def moe(name):
+        return moe_launches and moe_launches[name]
+
     def clip_dist(name):
         return clip_dist_launches and clip_dist_launches[name]
 
@@ -4549,7 +5256,8 @@ def main(argv=None) -> int:
                "vit_train": vit("flash3_fwd"),
                "vit_grid": grid("flash3_fwd"), "sweep": sweep("flash3_fwd"),
                "forks": forks("flash3_fwd"), "dist": dist("flash3_fwd"),
-               "dist_tp": dist_tp("flash3_fwd"),
+               "dist_tp": dist_tp("flash3_fwd"), "moe": moe("flash3_fwd"),
+               "dist_ep": dist_ep("flash3_fwd"),
                "clip_dist": clip_dist("flash3_fwd")},
               [r["max_abs_err_o"] for r in rows
                if r["kernel"] == "flash3_fwd"],
@@ -4563,7 +5271,8 @@ def main(argv=None) -> int:
                "vit_train": vit("flash3_bwd"),
                "vit_grid": grid("flash3_bwd"), "sweep": sweep("flash3_bwd"),
                "forks": forks("flash3_bwd"), "dist": dist("flash3_bwd"),
-               "dist_tp": dist_tp("flash3_bwd"),
+               "dist_tp": dist_tp("flash3_bwd"), "moe": moe("flash3_bwd"),
+               "dist_ep": dist_ep("flash3_bwd"),
                "clip_dist": clip_dist("flash3_bwd")},
               [r["max_abs_err"] for r in rows
                if r["kernel"] == "flash3_bwd"],
@@ -4572,7 +5281,8 @@ def main(argv=None) -> int:
               "[64, 257, 3072], H=16; launches: the training run"),
         entry("dw_db", "vit_project_torch/csrc/dw_db.cu",
               "vit_project_tpu/ops/fused_dw.py:41", vit("dw_db"),
-              {"vit_train": vit("dw_db"), "dist": dist("dw_db")},
+              {"vit_train": vit("dw_db"), "dist": dist("dw_db"),
+               "moe": moe("dw_db")},
               [r["max_abs_err"] for r in rows if r["kernel"] == "dw_db"],
               row_of("dw_db", "fc1"),
               "ViT-B/16 step at batch 256, bfloat16, fc1: x [50432, 768], "

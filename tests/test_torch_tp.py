@@ -172,7 +172,7 @@ def _worker(spec_path, launch):
     images, labels = trainer.place(*next(iter(loader.epoch(0))))
     named = list(model.named_parameters())
     _, grads = trainer.batch_grads([p for _, p in named], images, labels)
-    tp_names = set(trainer.tp_names())
+    tp_names = set(trainer.shard_names())
     for kind in ("whole", "shard"):
         flat = torch.cat([g.reshape(-1) for (n, _), g in zip(named, grads)
                           if (n in tp_names) == (kind == "shard")])

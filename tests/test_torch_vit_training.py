@@ -610,12 +610,26 @@ def test_cli_profile_dir_writes_a_trace_of_the_first_epoch(imagenet,
 
 # -- refusals -------------------------------------------------------------------
 
+# the modes ported since these cases were written, and what each now does
+# in JAX's words: ep without a MoE model, and a train config whose expert
+# count disagrees with the explicit (dense) model config
+PORTED_MODES = {"ep_devices": "ep_devices > 1 needs a MoE model",
+                "moe_experts": "moe_experts disagrees"}
+
+
 @pytest.mark.parametrize("field,value", [
     ("pp_stages", 2), ("sp_devices", 2), ("sp_ring", True), ("ep_devices", 2),
     ("pp_stages", 4), ("moe_experts", 4)])
 def test_unported_modes_are_refused_by_name(imagenet, tmp_path, field, value):
+    """The unported modes raise by name; the ported ep and MoE fields
+    (tests/test_torch_moe.py, tests/test_torch_ep.py) raise JAX's
+    refusals of these configurations instead."""
     cfg = dataclasses.replace(_tiny(TTrainConfig, imagenet,
                                     str(tmp_path / "x")), **{field: value})
+    if field in PORTED_MODES:
+        with pytest.raises(ValueError, match=PORTED_MODES[field]):
+            tloop.run_vit_training(cfg, vit_cfg=TTINY, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=field):
         tloop.run_vit_training(cfg, vit_cfg=TTINY, device="cpu")
 
@@ -623,10 +637,22 @@ def test_unported_modes_are_refused_by_name(imagenet, tmp_path, field, value):
 @pytest.mark.parametrize("flag", [["--sp_devices", "2"],
                                   ["--moe_experts", "2"]])
 def test_cli_refuses_unported_flags(imagenet, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcli.main(["--data_path", imagenet, "--output_dir",
-                   str(tmp_path / "x"), "--backbone", "test-tiny",
-                   "--device", "cpu", *flag])
+    """--sp_devices is refused by name; --moe_experts (ported) trains a
+    tiny MoE epoch on the CPU, its block 1 a MoE of 2 experts."""
+    argv = ["--data_path", imagenet, "--output_dir", str(tmp_path / "x"),
+            "--backbone", "test-tiny", "--device", "cpu", *flag]
+    if flag[0] != "--moe_experts":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tcli.main(argv)
+        return
+    tcli.main(argv + ["--epochs", "1", "--batch_size", "8", "--num_workers",
+                      "2", "--compute_dtype", "float32"])
+    rows = _metrics(str(tmp_path / "x"))
+    assert [r.split(",")[0] for r in rows[1:]] == ["0"]
+    ck = tckpt.load_checkpoint(tckpt.latest_checkpoint(str(tmp_path / "x")))
+    assert np.asarray(ck["params"]["blocks"][1]["moe"]["fc1_w"]).shape == \
+        (2, 32, 128)
+    assert "moe" not in ck["params"]["blocks"][0]
 
 
 @pytest.mark.parametrize("flags,words", [
@@ -650,16 +676,26 @@ def test_other_unported_paths_are_refused_by_name(imagenet, tmp_path):
     model = tvit.empty_vit(TTINY, "cpu")
     imgs = torch.zeros(1, 32, 32, 3)
     for kw, name in ((dict(seq_shard=object()), "seq_shard"),
-                     (dict(ring_attn=True), "ring_attn"),
-                     (dict(with_aux=True), "with_aux")):
+                     (dict(ring_attn=True), "ring_attn")):
         with pytest.raises(NotImplementedError, match=name):
             tvit.vit_classify(model, imgs, **kw)
+    # with_aux (ported with the MoE blocks): (logits, aux), 0.0 for a dense
+    # model, as JAX's vit_classify
+    tvit.init_vit_params(model, torch.Generator().manual_seed(0))
+    logits, aux = tvit.vit_classify(model, imgs, with_aux=True)
+    assert logits.shape == (1, 3) and aux.dtype == torch.float32
+    assert float(aux) == 0.0
     # JAX's head_shard is a GSPMD pin; the port's tensor parallelism takes
     # its model group as tp= instead, and has no such argument
     with pytest.raises(TypeError, match="head_shard"):
         tvit.vit_classify(model, imgs, head_shard=object())
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tvit.empty_vit(dataclasses.replace(TTINY, moe_experts=2), "cpu")
+    # a MoE ViT (ported): its MoE blocks hold the experts, and ring
+    # attention with them is refused in JAX's words
+    moe = tvit.empty_vit(dataclasses.replace(TTINY, moe_experts=2), "cpu")
+    assert [hasattr(b, "moe") for b in moe.blocks] == [False, True]
+    with pytest.raises(ValueError, match="ring_attn does not compose with "
+                                         "MoE blocks"):
+        tvit.vit_classify(moe, imgs, seq_shard=object(), ring_attn=True)
     os.makedirs(tmp_path / "pod" / "checkpoint_latest.orbax")
     with pytest.raises(NotImplementedError, match="orbax"):
         tckpt.latest_checkpoint(str(tmp_path / "pod"))

@@ -7,9 +7,11 @@ rank joins the process group (NCCL on its card, cuda:LOCAL_RANK; gloo with
 --device cpu) and trains data-parallel: dp by default, --zero1 shards the
 momentum, --fsdp the parameters and the momentum (FSDP2); --tp_devices T
 shards the blocks over model groups of T consecutive ranks (Megatron
-tensor parallelism; the ranks of a group read the same data). --batch_size
-is the global batch. Flags of the JAX CLI whose features are not ported
-yet (sequence, pipeline and expert parallelism, MoE) are accepted and
+tensor parallelism; the ranks of a group read the same data); with
+--moe_experts N every other block's MLP is a MoE of N experts, and
+--ep_devices E shards them over expert groups of E consecutive ranks.
+--batch_size is the global batch. Flags of the JAX CLI whose features are
+not ported yet (sequence and pipeline parallelism) are accepted and
 refused by the training loop at any value but their default. --fused_dw
 (no JAX flag; JAX's ViTTrainConfig field) routes the dense layers' dW and
 db through the fused kernel, one process only. --profile_dir writes a
@@ -22,10 +24,14 @@ the run (run it again to resume).
       --data_path imagenet/ --output_dir runs/vit_b16 --batch_size 512
   torchrun --nproc_per_node 4 -m vit_project_torch.cli.vit_train \\
       --data_path imagenet/ --output_dir runs/vit_b16_tp --tp_devices 2
+  torchrun --nproc_per_node 4 -m vit_project_torch.cli.vit_train \\
+      --data_path imagenet/ --output_dir runs/vit_moe --moe_experts 8 \\
+      --ep_devices 2
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 
 from ..core.configs import ViTTrainConfig
@@ -97,13 +103,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sp_ring", action="store_true",
                    help="ring attention with --sp_devices (not ported yet)")
     p.add_argument("--moe_experts", type=int, default=0,
-                   help="MoE MLPs (not ported yet)")
+                   help="replace every other block's MLP with a Switch "
+                        "top-1 MoE of N experts (ops/moe.py; "
+                        "beyond-reference model variant)")
     p.add_argument("--moe_topk", type=int, default=1, choices=[1, 2],
-                   help="MoE routing (with --moe_experts)")
+                   help="MoE routing: 1 = Switch top-1, 2 = GShard top-2 "
+                        "(combine weights renormalized over the pair)")
     p.add_argument("--moe_capacity", type=float, default=1.25,
-                   help="MoE capacity factor (with --moe_experts)")
+                   help="per-expert capacity factor (scaled by topk "
+                        "GShard-style; over-capacity tokens are dropped "
+                        "onto the residual)")
     p.add_argument("--ep_devices", type=int, default=1,
-                   help="expert parallelism (not ported yet)")
+                   help="expert parallelism: shard the MoE expert FFNs over "
+                        "N ranks of a ('data','expert') mesh (needs "
+                        "--moe_experts and torchrun); 1 = off")
     p.add_argument("--keep_last", type=int, default=0,
                    help="delete per-epoch checkpoints older than the last N "
                         "after each save (0 = keep all, the default — sweep "
@@ -128,6 +141,10 @@ def main(argv=None):
     from ..models.vit import VIT_CONFIGS
     args = build_parser().parse_args(argv)
     vit_cfg = VIT_CONFIGS[args.backbone]
+    if args.moe_experts > 0:
+        vit_cfg = dataclasses.replace(vit_cfg, moe_experts=args.moe_experts,
+                                      moe_topk=args.moe_topk,
+                                      moe_capacity=args.moe_capacity)
     cfg = ViTTrainConfig(
         data_path=args.data_path, output_dir=args.output_dir,
         batch_size=args.batch_size, epochs=args.epochs, lr=args.lr,

@@ -141,9 +141,9 @@ class ViTTrainConfig:
     random_seed: int = 0
     compute_dtype: str = "bfloat16"  # AMP-equivalent; bf16 needs no GradScaler
     image_size: int = 224
-    profile_dir: Optional[str] = None  # profiler trace of the first epoch
-                                       # (not ported yet)
-    use_native_loader: bool = False    # C++ decode core (not ported yet)
+    profile_dir: Optional[str] = None  # torch.profiler trace of the first
+                                       # epoch (core/profiling.py)
+    use_native_loader: bool = False    # C++ decode core (data/fastimage.py)
     data_echo: int = 1                 # yield each decoded train batch N times
                                        # (mitigation when host decode cannot
                                        # feed the device step rate)
@@ -165,8 +165,8 @@ class ViTTrainConfig:
     tp_devices: int = 1  # tensor parallelism: ranks in a model group
     sp_devices: int = 1  # sequence parallelism (not ported yet)
     sp_ring: bool = False  # ring attention with sp_devices (not ported yet)
-    ep_devices: int = 1  # expert parallelism (not ported yet)
-    moe_experts: int = 0  # MoE MLPs (not ported yet)
+    ep_devices: int = 1  # expert parallelism: ranks in an expert group
+    moe_experts: int = 0  # MoE MLPs in every other block (ops/moe.py)
     moe_topk: int = 1     # 1 = Switch top-1 routing, 2 = GShard top-2
     moe_capacity: float = 1.25  # per-expert capacity factor
     moe_aux_weight: float = 0.01  # weight of the MoE load-balance loss

@@ -186,8 +186,13 @@ def vit_state_dict_from_jax(tree: dict, patch: int) -> dict:
         for ours, name in (("ln1", "norm1"), ("ln2", "norm2")):
             sd[p + name + ".weight"] = _np(b[ours]["scale"])
             sd[p + name + ".bias"] = _np(b[ours]["bias"])
-        for ours, name in (("qkv", "attn.qkv"), ("out", "attn.proj"),
-                           ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2")):
+        dense = (("qkv", "attn.qkv"), ("out", "attn.proj"))
+        if "moe" in b:      # JAX's orientation and names, under "moe."
+            for k, v in b["moe"].items():
+                sd[p + "moe." + k] = _np(v)
+        else:
+            dense += (("fc1", "mlp.fc1"), ("fc2", "mlp.fc2"))
+        for ours, name in dense:
             sd[p + name + ".weight"] = np.ascontiguousarray(
                 _np(b[ours + "_w"]).T)
             sd[p + name + ".bias"] = _np(b[ours + "_b"])
@@ -200,7 +205,8 @@ def vit_state_dict_from_jax(tree: dict, patch: int) -> dict:
 
 def vit_jax_from_state_dict(sd: dict) -> dict:
     """timm-named {name: tensor or array} (the classifier's parameters or
-    its momentum) -> the JAX package's ViT tree of float32 numpy arrays."""
+    its momentum) -> the JAX package's ViT tree of float32 numpy arrays. A
+    MoE block's ``blocks.{i}.moe.<leaf>`` become its ``"moe"`` sub-tree."""
     layers = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
 
     def ln(prefix):
@@ -213,15 +219,23 @@ def vit_jax_from_state_dict(sd: dict) -> dict:
     blocks = []
     for i in range(layers):
         p = f"blocks.{i}."
-        blocks.append({
+        block = {
             "ln1": ln(p + "norm1"),
             "qkv_w": t(p + "attn.qkv.weight"), "qkv_b": _np(sd[p + "attn.qkv.bias"]),
             "out_w": t(p + "attn.proj.weight"),
             "out_b": _np(sd[p + "attn.proj.bias"]),
             "ln2": ln(p + "norm2"),
-            "fc1_w": t(p + "mlp.fc1.weight"), "fc1_b": _np(sd[p + "mlp.fc1.bias"]),
-            "fc2_w": t(p + "mlp.fc2.weight"), "fc2_b": _np(sd[p + "mlp.fc2.bias"]),
-        })
+        }
+        if p + "moe.router_w" in sd:
+            block["moe"] = {k: _np(sd[p + "moe." + k]) for k in (
+                "router_w", "fc1_w", "fc1_b", "fc2_w", "fc2_b")}
+        else:
+            block.update({
+                "fc1_w": t(p + "mlp.fc1.weight"),
+                "fc1_b": _np(sd[p + "mlp.fc1.bias"]),
+                "fc2_w": t(p + "mlp.fc2.weight"),
+                "fc2_b": _np(sd[p + "mlp.fc2.bias"])})
+        blocks.append(block)
     pos = _np(sd["pos_embed"])
     tree = {
         "patch_w": np.ascontiguousarray(_np(sd["patch_embed.proj.weight"])
@@ -269,6 +283,8 @@ def _load_jax_quantized_blocks(blocks, jax_blocks) -> None:
     classifier's or a tower's), each as a ``QuantizedWeight`` on its slot's
     device with q transposed to [out, in]; float leaves are left alone."""
     for blk, jb in zip(blocks, jax_blocks):
+        if "moe" in jb:                # JAX leaves MoE blocks float
+            continue
         device = next(blk.parameters()).device
         for (module, attr), key in zip(vquant.block_weight_slots(blk),
                                        _JAX_QKEYS):

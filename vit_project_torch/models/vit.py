@@ -56,8 +56,15 @@ op runs on the rank's own heads, [B, S, 3D/T] with H/T heads; JAX's tp
 forward takes its XLA einsum path there (a pallas_call has no GSPMD rule),
 and attention is independent per head, so the function is the same.
 
-MoE blocks, ring attention and sequence sharding are not ported yet and
-are refused by name.
+MoE blocks (``cfg.moe_experts`` > 0, ``ops/moe.py``): the last block of
+each ``moe_every`` group holds a ``MoEMlp`` in the place of its MLP, and
+``classifier_block`` runs it after norm2; with ``with_aux`` the blocks
+return (x, aux) and ``vit_encode`` / ``vit_classify`` sum aux over them.
+Under expert parallelism (``moe_groups``) each rank holds its experts;
+the rest of the block is whole on every rank.
+
+Ring attention and sequence sharding are not ported yet and are refused by
+name.
 """
 from __future__ import annotations
 
@@ -71,8 +78,10 @@ from torch import nn
 
 from ..ops import attention as vattn
 from ..ops import dora as vdora
+from ..ops import moe as vmoe
 from ..ops import nn as vnn
 from ..ops import quant as vquant
+from ..parallel import dist
 
 
 @dataclass(frozen=True)
@@ -90,11 +99,22 @@ class ViTConfig:
                                   # default (timm's is the exact erf GELU)
     out_dim: Optional[int] = None  # CLIP projection dim (768 for ViT-L/14)
     num_classes: Optional[int] = None  # classifier head (timm path)
-    moe_experts: int = 0          # MoE MLPs (not ported yet)
+    # Mixture-of-Experts (ops/moe.py): > 0 replaces the dense MLP of every
+    # `moe_every`-th block with a MoE of this many experts; 0 = dense
+    moe_experts: int = 0
+    moe_every: int = 2             # Switch default: every other block
+    moe_capacity: float = 1.25     # per-expert capacity factor
+    moe_topk: int = 1              # 1 = Switch routing, 2 = GShard top-2
 
     @property
     def seq_len(self) -> int:
         return (self.image_size // self.patch) ** 2 + 1
+
+    def is_moe_block(self, i: int) -> bool:
+        """MoE goes in the LAST block of each `moe_every` group (JAX's
+        rule: Switch's odd depths for moe_every=2)."""
+        return (self.moe_experts > 0
+                and i % self.moe_every == self.moe_every - 1)
 
 
 # the CLIP visual tower's flags (models/clip.py builds its towers with them)
@@ -525,21 +545,30 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, width: int, mlp_ratio: int):
+    """A classifier block: ``mlp`` (dense) or, with `moe_experts`, ``moe``
+    (``ops.moe.MoEMlp``) after norm2."""
+
+    def __init__(self, width: int, mlp_ratio: int, moe_experts: int = 0):
         super().__init__()
         self.norm1 = nn.LayerNorm(width)
         self.attn = Attention(width)
         self.norm2 = nn.LayerNorm(width)
-        self.mlp = Mlp(width, width * mlp_ratio)
+        if moe_experts:
+            self.moe = vmoe.MoEMlp(width, width * mlp_ratio, moe_experts)
+        else:
+            self.mlp = Mlp(width, width * mlp_ratio)
 
     def forward(self, x: torch.Tensor, heads: int, *, act,
-                fused_dw: bool = False, tp=None) -> torch.Tensor:
+                fused_dw: bool = False, tp=None, with_aux: bool = False,
+                moe: dict | None = None):
         """``classifier_block`` on this block (through the module call, so
         FSDP2's hooks gather a sharded block's parameters around it), or
         ``classifier_block_tp`` over the model group `tp`."""
         if tp is not None:
-            return classifier_block_tp(self, x, heads, act=act, group=tp)
-        return classifier_block(self, x, heads, act=act, fused_dw=fused_dw)
+            y = classifier_block_tp(self, x, heads, act=act, group=tp)
+            return (y, _no_aux(y)) if with_aux else y
+        return classifier_block(self, x, heads, act=act, fused_dw=fused_dw,
+                                with_aux=with_aux, moe=moe)
 
 
 class PatchEmbed(nn.Module):
@@ -554,8 +583,6 @@ class VisionTransformerClassifier(nn.Module):
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
-        if cfg.moe_experts:
-            _not_ported("a MoE ViT (moe_experts > 0)")
         if cfg.num_classes is None:
             raise ValueError("the classifier needs cfg.num_classes")
         self.cfg = cfg
@@ -563,8 +590,10 @@ class VisionTransformerClassifier(nn.Module):
         self.cls_token = nn.Parameter(torch.empty(1, 1, cfg.width))
         self.pos_embed = nn.Parameter(torch.empty(1, cfg.seq_len, cfg.width))
         self.norm_pre = nn.LayerNorm(cfg.width) if cfg.pre_norm else None
-        self.blocks = nn.ModuleList(Block(cfg.width, cfg.mlp_ratio)
-                                    for _ in range(cfg.layers))
+        self.blocks = nn.ModuleList(
+            Block(cfg.width, cfg.mlp_ratio,
+                  cfg.moe_experts if cfg.is_moe_block(i) else 0)
+            for i in range(cfg.layers))
         self.norm = nn.LayerNorm(cfg.width)
         self.head = nn.Linear(cfg.width, cfg.num_classes)
 
@@ -592,8 +621,10 @@ def init_vit_params(model: VisionTransformerClassifier,
     """Random weights in place, with the distributions of the JAX package's
     init_vit_params: truncated normals of std 0.02 (cut at two deviations)
     for the patch, block and head weights and the CLS and position
-    embeddings, unit LayerNorms, zero biases. The numbers differ from JAX's:
-    a test that compares the two packages converts one set of weights."""
+    embeddings, unit LayerNorms, zero biases; a MoE block's router and
+    expert weights as JAX's init_moe_mlp draws them (the same normals, zero
+    biases). The numbers differ from JAX's: a test that compares the two
+    packages converts one set of weights."""
     def tn(p):
         p.copy_(vnn.trunc_normal(p.shape, 0.02, generator=generator,
                                  device=p.device))
@@ -607,7 +638,12 @@ def init_vit_params(model: VisionTransformerClassifier,
                           else [])
     for blk in model.blocks:
         lns += [blk.norm1, blk.norm2]
-        for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
+        dense = [blk.attn.qkv, blk.attn.proj]
+        if hasattr(blk, "moe"):
+            vmoe.init_moe_mlp(blk.moe, tn)
+        else:
+            dense += [blk.mlp.fc1, blk.mlp.fc2]
+        for lin in dense:
             tn(lin.weight)
             lin.bias.zero_()
     for ln in lns:
@@ -624,15 +660,24 @@ def _activation(cfg: ViTConfig):
     return vnn.gelu_tanh if cfg.gelu_approx else vnn.gelu
 
 
+def _no_aux(x: torch.Tensor) -> torch.Tensor:
+    """A dense block's aux term (JAX's jnp.zeros((), f32))."""
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def classifier_block(blk: Block, x: torch.Tensor, heads: int, *, act,
-                     fused_dw: bool = False) -> torch.Tensor:
+                     fused_dw: bool = False, with_aux: bool = False,
+                     moe: dict | None = None):
     """Pre-norm block on x [B, S, D] in the compute dtype, as the JAX block's
     fused-kernel branch computes it: the 1/sqrt(dh) score scale multiplies
     the q columns of the one packed projection (weight and bias, in f32, as
     JAX's colscale does), the [B, S, 3D] result goes whole to the packed
-    flash attention op, then the output projection and the MLP. With
-    `fused_dw` every dense layer here takes (dW, db) from the fused
-    kernel. Int8 weights (serving) take the quantized branch."""
+    flash attention op, then the output projection and the MLP, or in a MoE
+    block ``ops.moe.moe_mlp`` (`moe`: its capacity_factor, topk and
+    groups). With `fused_dw` every dense layer here takes (dW, db) from the
+    fused kernel (the expert FFNs are batched products). Int8 weights
+    (serving) take the quantized branch; MoE blocks stay float. With
+    `with_aux` the result is (x, aux), aux 0 for a dense block."""
     h = vnn.layer_norm(x, blk.norm1.weight, blk.norm1.bias)
     D = h.shape[-1]
     if vquant.is_quantized(blk.attn.qkv.weight):
@@ -649,42 +694,15 @@ def classifier_block(blk: Block, x: torch.Tensor, heads: int, *, act,
                   fused_dw=fused_dw)
     x = x + o
     h = vnn.layer_norm(x, blk.norm2.weight, blk.norm2.bias)
-    h = vnn.mlp(h, _wt(blk.mlp.fc1.weight), blk.mlp.fc1.bias,
-                _wt(blk.mlp.fc2.weight), blk.mlp.fc2.bias, act=act,
-                fused_dw=fused_dw)
-    return x + h
-
-
-class _CopyToModel(torch.autograd.Function):
-    """Megatron's f: the identity forward; the backward sums the gradient
-    over the model group (each rank's shard contributed one part of it)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous()
-        tdist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-class _ReduceFromModel(torch.autograd.Function):
-    """Megatron's g: the forward sums the ranks' partial products over the
-    model group; the backward is the identity (every rank's part gets the
-    whole gradient)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        x = x.clone(memory_format=torch.contiguous_format)
-        tdist.all_reduce(x, group=group)
-        return x
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
+    if hasattr(blk, "moe"):
+        h, aux = vmoe.moe_mlp(h, blk.moe, act=act, **(moe or {}))
+    else:
+        h = vnn.mlp(h, _wt(blk.mlp.fc1.weight), blk.mlp.fc1.bias,
+                    _wt(blk.mlp.fc2.weight), blk.mlp.fc2.bias, act=act,
+                    fused_dw=fused_dw)
+        aux = _no_aux(h) if with_aux else None
+    x = x + h
+    return (x, aux) if with_aux else x
 
 
 def classifier_block_tp(blk: Block, x: torch.Tensor, heads: int, *, act,
@@ -699,7 +717,7 @@ def classifier_block_tp(blk: Block, x: torch.Tensor, heads: int, *, act,
     backward, in the same order on every rank."""
     T = tdist.get_world_size(group)
     h = vnn.layer_norm(x, blk.norm1.weight, blk.norm1.bias)
-    h = _CopyToModel.apply(h, group)
+    h = dist.CopyToGroup.apply(h, group)
     dl = blk.attn.qkv.weight.shape[0] // 3                   # D / T
     colscale = torch.ones(3 * dl, dtype=torch.float32, device=h.device)
     colscale[:dl] = 1.0 / ((h.shape[-1] // heads) ** 0.5)
@@ -707,19 +725,24 @@ def classifier_block_tp(blk: Block, x: torch.Tensor, heads: int, *, act,
     b = blk.attn.qkv.bias * colscale
     qkv = vnn.dense(h, w.t(), b)                               # [B, S, 3D/T]
     o = vattn.flash_mha_packed_qkv(qkv, num_heads=heads // T)
-    o = _ReduceFromModel.apply(vnn.dense(o, blk.attn.proj.weight.t()), group)
+    o = dist.ReduceFromGroup.apply(vnn.dense(o, blk.attn.proj.weight.t()),
+                                   group)
     x = x + (o + blk.attn.proj.bias.to(o.dtype))
     h = vnn.layer_norm(x, blk.norm2.weight, blk.norm2.bias)
-    h = _CopyToModel.apply(h, group)
+    h = dist.CopyToGroup.apply(h, group)
     h = act(vnn.dense(h, blk.mlp.fc1.weight.t(), blk.mlp.fc1.bias))
-    h = _ReduceFromModel.apply(vnn.dense(h, blk.mlp.fc2.weight.t()), group)
+    h = dist.ReduceFromGroup.apply(vnn.dense(h, blk.mlp.fc2.weight.t()), group)
     return x + (h + blk.mlp.fc2.bias.to(h.dtype))
 
 
-def _refuse_parallel(seq_shard=None, ring_attn=False, with_aux=False):
+def _refuse_parallel(cfg: ViTConfig, seq_shard=None, ring_attn=False):
+    if ring_attn and cfg.moe_experts > 0:
+        raise ValueError(
+            "ring_attn does not compose with MoE blocks: ring padding "
+            "tokens would compete for expert capacity and pollute the "
+            "aux loss — use the gather sp path (no padding)")
     for name, given in (("seq_shard (sequence parallelism)", seq_shard),
-                        ("ring_attn (ring attention)", ring_attn),
-                        ("with_aux (the MoE load-balance loss)", with_aux)):
+                        ("ring_attn (ring attention)", ring_attn)):
         if given:
             _not_ported(name)
 
@@ -751,48 +774,69 @@ def vit_embed(model: VisionTransformerClassifier, images: torch.Tensor, *,
 def vit_encode(model: VisionTransformerClassifier, images: torch.Tensor, *,
                input_norm: tuple | None = None, compute_dtype=torch.float32,
                remat: bool = False, fused_dw: bool = False, tp=None,
-               **parallel) -> torch.Tensor:
+               moe_groups: vmoe.MoEGroups | None = None,
+               with_aux: bool = False, **parallel):
     """images [B, H, W, 3] -> tokens [B, S, width] after the final LayerNorm
-    (timm's forward_features contract).
+    (timm's forward_features contract); with `with_aux`, (tokens, the sum of
+    the MoE blocks' load-balance losses), 0.0 for a dense model.
 
     `remat=True` recomputes each block's forward in the backward
     (torch.utils.checkpoint) instead of holding its activations: peak memory
     drops from O(layers) to O(1) block activations for ~1/3 more work; the
     gradients are the same numbers (under `tp` the recomputed forward
-    repeats its all-reduces, on every rank of the group alike).
+    repeats its all-reduces, and a MoE block its routing and aux, on every
+    rank of the group alike).
 
     `tp` (a model group) runs each block tensor-parallel on the model's
     shards (``classifier_block_tp``); the stem, the final LayerNorm and
-    the head run whole on every rank."""
-    _refuse_parallel(**parallel)
+    the head run whole on every rank. `moe_groups` places the MoE blocks'
+    rows and experts across ranks (``ops.moe.MoEGroups``)."""
     cfg = model.cfg
+    _refuse_parallel(cfg, **parallel)
     act = _activation(cfg)
     if tp is not None and fused_dw:
         raise ValueError("fused_dw is a single-chip path; disable it under "
                          "tensor parallelism")
+    if tp is not None and cfg.moe_experts:
+        raise ValueError("tp_devices does not compose with MoE blocks: the "
+                         "expert FFNs shard over 'expert', not 'model' (use "
+                         "ep_devices)")
     x = vit_embed(model, images, input_norm=input_norm,
                   compute_dtype=compute_dtype, fused_dw=fused_dw)
+    moe = dict(capacity_factor=cfg.moe_capacity, topk=cfg.moe_topk,
+               groups=moe_groups)
+    aux_total = _no_aux(x)
     for blk in model.blocks:
+        kw = dict(act=act, fused_dw=fused_dw, tp=tp, with_aux=with_aux,
+                  moe=moe)
         if remat and torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(
-                blk, x, cfg.heads, act=act, fused_dw=fused_dw, tp=tp,
-                use_reentrant=False)
+            out = torch.utils.checkpoint.checkpoint(
+                blk, x, cfg.heads, use_reentrant=False, **kw)
         else:
-            x = blk(x, cfg.heads, act=act, fused_dw=fused_dw, tp=tp)
-    return vnn.layer_norm(x, model.norm.weight, model.norm.bias)
+            out = blk(x, cfg.heads, **kw)
+        if with_aux:
+            x, aux = out
+            aux_total = aux_total + aux
+        else:
+            x = out
+    out = vnn.layer_norm(x, model.norm.weight, model.norm.bias)
+    return (out, aux_total) if with_aux else out
 
 
 def vit_classify(model: VisionTransformerClassifier, images: torch.Tensor, *,
                  input_norm: tuple | None = None, compute_dtype=torch.float32,
                  remat: bool = False, fused_dw: bool = False,
-                 **parallel) -> torch.Tensor:
-    """Classifier logits [B, num_classes] in f32 from the CLS token."""
+                 with_aux: bool = False, **parallel):
+    """Classifier logits [B, num_classes] in f32 from the CLS token; with
+    `with_aux`, (logits, the MoE load-balance loss)."""
     tokens = vit_encode(model, images, input_norm=input_norm,
                         compute_dtype=compute_dtype, remat=remat,
-                        fused_dw=fused_dw, **parallel)
+                        fused_dw=fused_dw, with_aux=with_aux, **parallel)
+    if with_aux:
+        tokens, aux = tokens
     logits = vnn.dense(tokens[:, 0], model.head.weight.t(), model.head.bias,
-                       fused_dw=fused_dw)
-    return logits.float()
+                       fused_dw=fused_dw).float()
+    return (logits, aux) if with_aux else logits
 
 
 def forward_features(model: VisionTransformerClassifier, images: torch.Tensor,

@@ -126,6 +126,8 @@ def _quantize_slot(module: nn.Module, attr: str) -> None:
 
 def _quantize_blocks(blocks) -> None:
     for blk in blocks:
+        if hasattr(blk, "moe"):    # as JAX: expert dispatch has no int8 path
+            continue
         for module, attr in block_weight_slots(blk):
             _quantize_slot(module, attr)
 
@@ -137,7 +139,8 @@ def quantize_vit_blocks(model):
     new tree; a ViT-L-sized copy is not worth its memory here). Everything
     else (patch embed, positions and CLS, LayerNorms, biases, head and
     projections) stays float: together ~2% of the forward, and the
-    LayerNorms and softmax need the precision. Returns the model."""
+    LayerNorms and softmax need the precision. MoE blocks are left float
+    whole, as JAX leaves them. Returns the model."""
     _quantize_blocks(model.blocks if hasattr(model, "blocks")
                      else model.transformer.resblocks)
     return model

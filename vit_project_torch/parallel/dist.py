@@ -198,6 +198,39 @@ def check_replicas_equal(tensors: list, what: str, group=None) -> None:
                            f"rank {src}")
 
 
+class CopyToGroup(torch.autograd.Function):
+    """Megatron's f: the identity forward; the backward sums the gradient
+    over `group` (each rank's part of the layer after it contributed one
+    part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        tdist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class ReduceFromGroup(torch.autograd.Function):
+    """Megatron's g: the forward sums the ranks' partial results over
+    `group`; the backward is the identity (every rank's part gets the
+    whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone(memory_format=torch.contiguous_format)
+        tdist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def primary_values(values: list) -> list:
     """Rank 0's `values` (floats) on every rank: a decision that steers
     collectives then reads the same numbers everywhere, even where the

@@ -7,9 +7,10 @@ one process per card, and each rank holds its own share. So:
 - ``make_mesh(n_data)`` is a 1-D ``("data",)`` DeviceMesh over the ranks
   of the default group (FSDP2 takes it); ``make_mesh(n_model=T)`` is JAX's
   2-D ``("data", "model")`` mesh of shape (W/T, T) over W ranks,
-  row-major, so each model group is T consecutive ranks. ``n_stage`` (the
-  pipeline) and ``n_expert`` (MoE) raise: they come with later slices of
-  the port.
+  row-major, so each model group is T consecutive ranks;
+  ``make_mesh(n_expert=ep)`` is ("data", "expert") the same way.
+  ``n_stage`` (the pipeline) raises: it comes with a later slice of the
+  port.
 - ``shard_batch`` and ``replicate`` have no counterpart: each rank's loader
   reads its own strided shard of the global batch (``num_shards`` = the
   data axis, ``shard_id`` = the rank's place on it), and parameters are
@@ -23,6 +24,10 @@ one process per card, and each rank holds its own share. So:
   Megatron placement on the port's flat state: a model rank holds whole
   heads of q, k and v (the head-aligned layout), fc1's output rows and
   the input columns of the attention output and fc2.
+- ``shard_vit_params_ep`` / ``unshard_vit_params_ep`` are JAX's expert
+  placement on the flat state: an expert rank holds its E / ep experts of
+  each MoE block's stacked expert leaves (sliced on E); the router and
+  every dense leaf stay whole.
 - ``zero1_sharding`` and ``fsdp_sharding`` keep JAX's placement rules as
   predicates on one tensor: shard its leading axis over the ranks when the
   world size divides it. The ZeRO-1 momentum (``train/vit_loop.py``)
@@ -43,38 +48,39 @@ import torch
 
 from . import dist
 
-_LATER = {"n_stage": "the pipeline (port slice 9, item 13)",
-          "n_expert": "MoE expert parallelism (port slice 9, item 13)"}
-
-
 def make_mesh(n_data: int | None = None, n_model: int = 1, n_stage: int = 1,
               n_expert: int = 1, device_type: str | None = None):
     """A DeviceMesh over the default group's ranks (one device per rank):
-    ("data",) over all of them, or with `n_model` > 1 ("data", "model") of
-    shape (W / n_model, n_model). `n_data`, when given, must be the data
-    axis that leaves. `device_type` defaults to where the default group's
-    collectives run."""
+    ("data",) over all of them, or with `n_model` (`n_expert`) > 1
+    ("data", "model") (("data", "expert")) of shape (W / n, n). `n_data`,
+    when given, must be the data axis that leaves. `device_type` defaults
+    to where the default group's collectives run."""
     from torch.distributed.device_mesh import init_device_mesh
-    for name, size in (("n_stage", n_stage), ("n_expert", n_expert)):
-        if size > 1:
-            raise NotImplementedError(
-                f"make_mesh({name}={size}): {_LATER[name]} is not ported to "
-                f"vit_project_torch yet; the port's mesh is ('data',) or "
-                f"('data', 'model')")
+    if n_stage > 1:
+        raise NotImplementedError(
+            f"make_mesh(n_stage={n_stage}): the pipeline (port slice 9, "
+            f"item 13) is not ported to vit_project_torch yet; the port's "
+            f"mesh is ('data',), ('data', 'model') or ('data', 'expert')")
+    extra = [(a, n) for a, n in (("model", n_model), ("expert", n_expert))
+             if n > 1]
+    if len(extra) > 1:
+        raise ValueError("at most one of n_model/n_stage/n_expert may be > 1 "
+                         f"(got {[a for a, _ in extra]})")
+    axis, n = extra[0] if extra else ("model", 1)
     world = dist.world_size()
-    if world % n_model != 0:
-        raise ValueError(f"model axis ({n_model}) must divide the device "
+    if world % n != 0:
+        raise ValueError(f"{axis} axis ({n}) must divide the device "
                          f"count ({world})")
-    if n_data is not None and n_data * n_model != world:
-        raise ValueError(f"n_data ({n_data}) x n_model ({n_model}) must equal "
+    if n_data is not None and n_data * n != world:
+        raise ValueError(f"n_data ({n_data}) x n_{axis} ({n}) must equal "
                          f"the number of ranks ({world}): one device per rank")
     if device_type is None:
         device_type = dist.collective_device().type
-    if n_model == 1:
+    if n == 1:
         return init_device_mesh(device_type, (world,),
                                 mesh_dim_names=("data",))
-    return init_device_mesh(device_type, (world // n_model, n_model),
-                            mesh_dim_names=("data", "model"))
+    return init_device_mesh(device_type, (world // n, n),
+                            mesh_dim_names=("data", axis))
 
 
 # the tensor-parallel block leaves: name within a block -> (axis, parts).
@@ -139,6 +145,42 @@ def unshard_vit_params_tp(shards: list) -> dict:
         y = y.reshape(n_model, parts, -1, *y.shape[2:]).transpose(0, 1)
         out[name] = y.reshape(-1, *y.shape[3:]).movedim(0, axis).contiguous()
     return out
+
+
+# the expert-parallel leaves: a MoE block's stacked expert FFN tensors
+_EXPERT_LEAF = re.compile(r"blocks\.\d+\.moe\.(fc1_w|fc1_b|fc2_w|fc2_b)")
+
+
+def ep_layout(name: str) -> bool:
+    """True for an expert leaf of the classifier (sliced on its leading
+    expert axis under expert parallelism), False for a leaf every rank
+    holds whole (the routers among them)."""
+    return _EXPERT_LEAF.fullmatch(name) is not None
+
+
+def shard_vit_params_ep(state: dict, n_expert: int, index: int) -> dict:
+    """Expert rank `index`'s share of the classifier's flat state {name:
+    tensor} (parameters or momentum) over `n_expert` ranks: each expert
+    leaf's experts [index * E / n_expert, (index + 1) * E / n_expert), in
+    new memory; every other leaf as it is (the same tensor)."""
+    out = {}
+    for name, x in state.items():
+        if not ep_layout(name):
+            out[name] = x
+            continue
+        if x.shape[0] % n_expert != 0:
+            raise ValueError(f"expert axis ({n_expert}) must divide the "
+                             f"expert count ({x.shape[0]})")
+        out[name] = x.chunk(n_expert)[index].clone()
+    return out
+
+
+def unshard_vit_params_ep(shards: list) -> dict:
+    """The flat state from every expert rank's share (`shards[j]` is
+    ``shard_vit_params_ep(state, len(shards), j)``): the inverse, bit for
+    bit. The whole leaves are taken from rank 0's share."""
+    return {name: (torch.cat([s[name] for s in shards]) if ep_layout(name)
+                   else x) for name, x in shards[0].items()}
 
 
 def _divides(x, n: int) -> bool:

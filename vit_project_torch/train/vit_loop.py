@@ -47,7 +47,8 @@ each with the update arithmetic above on the same numbers:
 
 - dp: one all-reduce of the flattened gradients, divided by the world
   size (DDP's arithmetic; the gradients come from ``torch.autograd.grad``,
-  which DDP's reducer would not see, so the trainer issues the collective);
+  which DDP's reducer would not see, so the trainer issues the collective;
+  a data axis of one skips it);
 - ``zero1``: as dp, but each rank keeps the momentum rows of its share of
   every leaf whose leading axis the world size divides (JAX's
   ``zero1_sharding``; others whole), updates those rows of the parameters
@@ -73,9 +74,28 @@ data axis. Checkpoints gather the shards over the model group into the
 flat layout, so dp, tp, one process and the JAX package resume each
 other's files.
 
+MoE (``moe_experts`` > 0, ``ops/moe.py``): the loss adds
+``moe_aux_weight`` times the blocks' summed load-balance loss (JAX's
+Switch term). Over the data axis every MoE layer routes as JAX's does on
+the global batch: capacity, queue order and aux are global (one all-gather
+of per-image expert counts a layer), and the data axis's mean of the
+gradients is JAX's. The global batch is the data ranks' images
+interleaved, as the strided shards deal them, so with ``grad_accum`` G > 1
+the union of the ranks' g-th chunks is the global batch's g-th contiguous
+microbatch, JAX's.
+
+Expert parallelism, ``ep`` (``ep_devices`` = ep > 1, under torchrun with W
+ranks): JAX's ("data", "expert") mesh of shape (W/ep, ep), row-major.
+Each rank holds its expert rank's E / ep experts of every MoE block and of
+their momentum (``parallel/mesh.shard_vit_params_ep``) and the rest whole;
+the data shards by the data rank (an expert group reads one shard), and
+each rank routes the group's tokens, runs its own experts and sums the
+group's outputs (``ops/moe.py``). Gradients are averaged over the data
+group only; checkpoints gather the experts into the flat layout.
+
 ``fused_dw`` is refused with more than one process, as JAX refuses it on a
-multi-device mesh. Pipeline, sequence and expert parallelism and MoE are
-not ported yet and are refused by name.
+multi-device mesh. Pipeline and sequence parallelism are not ported yet
+and are refused by name.
 """
 from __future__ import annotations
 
@@ -92,6 +112,7 @@ from ..core.device import resolve_device
 from ..data.imagenet import normalize_imagenet
 from ..models import convert as vconvert
 from ..models import vit as vvit
+from ..ops import moe as vmoe
 from ..ops import rsa as vrsa
 from ..parallel import dist
 from ..parallel import mesh as vmesh
@@ -104,24 +125,25 @@ IMAGE_PERTURBATIONS = ("gaussian", "uniform_gray")
 
 # ViTTrainConfig fields whose features are not ported yet, with the value
 # that leaves them off
-_UNPORTED = (("pp_stages", 1), ("sp_devices", 1), ("sp_ring", False),
-             ("ep_devices", 1), ("moe_experts", 0))
+_UNPORTED = (("pp_stages", 1), ("sp_devices", 1), ("sp_ring", False))
 
 
 def train_mode(cfg: ViTTrainConfig, grouped: bool,
-               heads: int | None = None) -> str:
+               heads: int | None = None, moe: bool | None = None) -> str:
     """"single" (no process group), "dp", "zero1", "fsdp" (fsdp wins over
-    zero1: its shards hold the momentum too, as JAX's) or "tp". Raises on
-    the combinations JAX refuses (in its words; `heads`, when given, must
-    divide over tp_devices), before the refusal of what is not ported."""
+    zero1: its shards hold the momentum too, as JAX's), "tp" or "ep".
+    Raises on the combinations JAX refuses (in its words; `heads`, when
+    given, must divide over tp_devices; `moe`, whether the model has MoE
+    blocks, defaults to cfg.moe_experts > 0), before the refusal of what is
+    not ported."""
+    moe = cfg.moe_experts > 0 if moe is None else moe
     sharded = cfg.zero1 or cfg.fsdp
-    tp = cfg.tp_devices > 1
-    if sum((cfg.pp_stages > 1, cfg.sp_devices > 1, cfg.ep_devices > 1,
-            tp)) > 1:
+    tp, ep = cfg.tp_devices > 1, cfg.ep_devices > 1
+    if sum((cfg.pp_stages > 1, cfg.sp_devices > 1, ep, tp)) > 1:
         raise ValueError("pp_stages / sp_devices / ep_devices / tp_devices "
                          "each need the whole second mesh axis; enable at "
                          "most one")
-    if tp and cfg.moe_experts:
+    if tp and moe:
         raise ValueError("tp_devices does not compose with MoE blocks: the "
                          "expert FFNs shard over 'expert', not 'model' (use "
                          "ep_devices)")
@@ -129,9 +151,29 @@ def train_mode(cfg: ViTTrainConfig, grouped: bool,
         raise ValueError(f"tp_devices ({cfg.tp_devices}) must divide the "
                          f"model heads ({heads}) for head-aligned qkv "
                          f"sharding")
+    if ep and not moe:
+        raise ValueError("ep_devices > 1 needs a MoE model "
+                         "(vit_cfg.moe_experts > 0)")
+    if cfg.pp_stages > 1 and moe:
+        raise ValueError("MoE blocks are not supported on the pipeline "
+                         "path (the GPipe schedule drops the aux loss)")
+    if cfg.sp_ring and moe:
+        raise ValueError(
+            "sp_ring does not compose with MoE blocks: the ring pads the "
+            "token stream, and padded tokens would compete for expert "
+            "capacity and pollute the aux loss (a second token-mixing "
+            "channel) — use the gather sp path (sp_ring=False), which "
+            "never pads")
     if sharded and cfg.pp_stages > 1:
         raise ValueError("zero1/fsdp shard over the 'data' axis of the dp "
                          "mesh; they do not compose with pp_stages")
+    if sharded and ep:
+        raise ValueError(
+            "zero1/fsdp do not compose with ep_devices: their step "
+            "constraints would pin the expert-sharded FFN weights "
+            "to the 'data' layout (defeating expert parallelism) and "
+            "reshard the momentum between 'expert' and 'data' every "
+            "step")
     if sharded and tp:
         raise ValueError(
             "zero1/fsdp do not compose with tp_devices: their "
@@ -148,14 +190,19 @@ def train_mode(cfg: ViTTrainConfig, grouped: bool,
                 "tp_devices shards the blocks over the ranks of a process "
                 "group: launch with torchrun (--nproc_per_node tp_devices "
                 "or a multiple of it)")
+        if ep:
+            raise ValueError(
+                "ep_devices shards the experts over the ranks of a process "
+                "group: launch with torchrun (--nproc_per_node ep_devices "
+                "or a multiple of it)")
         return "single"
     if cfg.fused_dw and dist.world_size() > 1:
         # JAX: the kernel has no GSPMD rule, so a sharded mesh would
         # all-gather its operands to one device
         raise ValueError("fused_dw is a single-chip path; disable it with "
                          f"{dist.world_size()} processes")
-    if tp:
-        return "tp"
+    if tp or ep:
+        return "tp" if tp else "ep"
     return "fsdp" if cfg.fsdp else "zero1" if cfg.zero1 else "dp"
 
 
@@ -201,34 +248,56 @@ class ViTTrainer:
                  distributed: bool | None = None):
         grouped = dist.is_initialized() if distributed is None \
             else distributed
-        self.mode = train_mode(train_cfg, grouped, vit_cfg.heads)
+        if model.cfg != vit_cfg:
+            # JAX's trainer has one config; the port's forward reads the
+            # model's, so the two must be the same
+            raise ValueError(f"vit_cfg {vit_cfg} is not the model's config "
+                             f"{model.cfg}")
+        self.moe = vit_cfg.moe_experts > 0
+        self.mode = train_mode(train_cfg, grouped, vit_cfg.heads, self.moe)
         self.world = dist.world_size() if grouped else 1
         self.rank = dist.rank() if grouped else 0
         self.vit_cfg = vit_cfg
         self.cfg = train_cfg
         self.model = model
         self.device = torch.device(device)
-        # the data axis: every rank, except under tp, where it is the
-        # mesh's "data" dimension (a model group reads one shard)
+        # the data axis: every rank, except under tp and ep, where it is
+        # the mesh's "data" dimension (a model or expert group reads one
+        # shard)
         self.n_data, self.data_rank, self.data_group = \
             self.world, self.rank, None
-        self.tp_group = None
-        if self.mode == "tp":
-            n_model = train_cfg.tp_devices
-            mesh = vmesh.make_mesh(n_model=n_model)
-            self.tp_group = mesh.get_group("model")
+        self.tp_group = self.ep_group = None
+        if self.mode in ("tp", "ep"):
+            tp = self.mode == "tp"
+            n = train_cfg.tp_devices if tp else train_cfg.ep_devices
+            axis = "model" if tp else "expert"
+            mesh = vmesh.make_mesh(**{f"n_{axis}": n})
             self.data_group = mesh.get_group("data")
-            self.n_data = self.world // n_model
+            self.n_data = self.world // n
             self.data_rank = mesh.get_local_rank("data")
-            self.model_rank = mesh.get_local_rank("model")
-            local = vmesh.shard_vit_params_tp(
-                dict(model.named_parameters()), n_model, self.model_rank,
-                heads=vit_cfg.heads)
+            index = mesh.get_local_rank(axis)
+            named = dict(model.named_parameters())
+            if tp:
+                self.tp_group, self.model_rank = mesh.get_group(axis), index
+                local = vmesh.shard_vit_params_tp(named, n, index,
+                                                  heads=vit_cfg.heads)
+            else:
+                self.ep_group, self.expert_rank = mesh.get_group(axis), index
+                local = vmesh.shard_vit_params_ep(named, n, index)
             with torch.no_grad():
-                for name in self.tp_names():
+                for name in self.shard_names():
                     owner, leaf = name.rsplit(".", 1)
                     setattr(model.get_submodule(owner), leaf,
                             torch.nn.Parameter(local[name]))
+        # where the MoE layers' rows and experts live (none: one process, or
+        # a data axis of one without ep, where no collective runs)
+        self.moe_groups = None
+        if self.moe and (self.n_data > 1 or self.ep_group is not None):
+            self.moe_groups = vmoe.MoEGroups(
+                data=self.data_group, n_data=self.n_data,
+                data_rank=self.data_rank, expert=self.ep_group,
+                n_expert=train_cfg.ep_devices if self.ep_group else 1,
+                expert_rank=self.expert_rank if self.ep_group else 0)
         if self.mode == "fsdp":
             from torch.distributed.fsdp import fully_shard
             data_mesh = vmesh.make_mesh(device_type=self.device.type)
@@ -245,19 +314,28 @@ class ViTTrainer:
     # -- steps ----------------------------------------------------------------
 
     def logits(self, images: torch.Tensor, remat: bool = False,
-               input_norm: tuple | None = IMAGENET_NORM):
+               input_norm: tuple | None = IMAGENET_NORM,
+               with_aux: bool = False):
         """f32 logits of raw 0..255 images (the normalization folded into
-        the patch matrix), or of normalized images with input_norm=None."""
+        the patch matrix), or of normalized images with input_norm=None;
+        with `with_aux`, (logits, the MoE load-balance loss)."""
         return self.model(images, input_norm=input_norm,
                           compute_dtype=self.compute_dtype, remat=remat,
-                          fused_dw=self.fused_dw, tp=self.tp_group)
+                          fused_dw=self.fused_dw, tp=self.tp_group,
+                          moe_groups=self.moe_groups, with_aux=with_aux)
 
     def loss(self, images: torch.Tensor, labels: torch.Tensor,
              input_norm: tuple | None = IMAGENET_NORM):
-        """Mean cross-entropy on f32 logits."""
-        logp = torch.log_softmax(
-            self.logits(images, self.cfg.remat, input_norm), -1)
-        return -logp.gather(1, labels[:, None].long())[:, 0].mean()
+        """Mean cross-entropy on f32 logits, plus moe_aux_weight times the
+        load-balance loss of a MoE model (JAX's Switch term)."""
+        out = self.logits(images, self.cfg.remat, input_norm,
+                          with_aux=self.moe)
+        logits, aux = out if self.moe else (out, None)
+        logp = torch.log_softmax(logits, -1)
+        loss = -logp.gather(1, labels[:, None].long())[:, 0].mean()
+        if self.moe:
+            loss = loss + self.cfg.moe_aux_weight * aux
+        return loss
 
     def batch_grads(self, params: list, images, labels,
                     input_norm: tuple | None = IMAGENET_NORM):
@@ -321,25 +399,31 @@ class ViTTrainer:
         if self.mode == "fsdp":
             self.model.reshard()
 
-    def tp_names(self) -> list:
-        """The names of the tensor-parallel leaves (``mesh.TP_LEAVES``)."""
+    def shard_names(self) -> list:
+        """The names of the leaves split over the second mesh axis: the
+        tensor-parallel leaves (``mesh.TP_LEAVES``) under tp, the expert
+        leaves (``mesh.ep_layout``) under ep; none otherwise."""
+        layout = {"tp": vmesh.tp_layout, "ep": vmesh.ep_layout}.get(
+            self.mode)
         return [n for n, _ in self.model.named_parameters()
-                if vmesh.tp_layout(n)]
+                if layout and layout(n)]
 
     def check_replicas(self, momentum: dict) -> None:
-        """Under tp, raise unless the data group's ranks hold equal shards
-        and the model group's equal whole leaves, of the parameters and of
-        `momentum` (the trainer's layout) alike."""
-        if self.mode != "tp":
+        """Under tp and ep, raise unless the data group's ranks hold equal
+        shards and the model (expert) group's equal whole leaves, of the
+        parameters and of `momentum` (the trainer's layout) alike."""
+        if self.mode not in ("tp", "ep"):
             return
-        tp = set(self.tp_names())
+        split = set(self.shard_names())
+        what = ("tensor-parallel shards" if self.mode == "tp"
+                else "expert shards")
         for st in (dict(self.model.named_parameters()), momentum):
-            dist.check_replicas_equal([t for n, t in st.items() if n in tp],
-                                      "tensor-parallel shards",
-                                      self.data_group)
             dist.check_replicas_equal(
-                [t for n, t in st.items() if n not in tp], "whole leaves",
-                self.tp_group)
+                [t for n, t in st.items() if n in split], what,
+                self.data_group)
+            dist.check_replicas_equal(
+                [t for n, t in st.items() if n not in split], "whole leaves",
+                self.tp_group or self.ep_group)
 
     def init_momentum(self, full: dict | None = None) -> dict:
         """The momentum in this mode's layout, from `full` (every leaf
@@ -347,11 +431,14 @@ class ViTTrainer:
         this rank's rows of the leaves ``zero1_sharding`` splits under
         zero1; DTensors sharded as FSDP2 shards the parameters under
         fsdp; the model rank's shards of the tensor-parallel leaves under
-        tp."""
+        tp; the expert rank's experts under ep."""
         named = dict(self.model.named_parameters())
         if self.mode == "tp" and full is not None:
             return vmesh.shard_vit_params_tp(full, self.cfg.tp_devices,
                                              self.model_rank)
+        if self.mode == "ep" and full is not None:
+            return vmesh.shard_vit_params_ep(full, self.cfg.ep_devices,
+                                             self.expert_rank)
         if self.mode == "fsdp":
             out = {}
             for n, p in named.items():
@@ -379,15 +466,15 @@ class ViTTrainer:
     @torch.no_grad()
     def full_state(self, momentum: dict) -> tuple[dict, dict]:
         """(parameters, momentum) by name with every leaf whole, on the
-        device; a collective under zero1, fsdp and tp, which every rank
+        device; a collective under zero1, fsdp, tp and ep, which every rank
         makes (the checkpoint trees)."""
         self._reshard()
         named = dict(self.model.named_parameters())
         if self.mode == "fsdp":
             return ({n: p.full_tensor() for n, p in named.items()},
                     {n: m.full_tensor() for n, m in momentum.items()})
-        if self.mode == "tp":
-            return self._unshard_tp(named), self._unshard_tp(momentum)
+        if self.mode in ("tp", "ep"):
+            return self._unshard(named), self._unshard(momentum)
         if self.mode != "zero1":
             return named, momentum
         split = [n for n, p in named.items()
@@ -398,16 +485,19 @@ class ViTTrainer:
             full[n] = r.reshape(named[n].shape)
         return named, full
 
-    def _unshard_tp(self, state: dict) -> dict:
+    def _unshard(self, state: dict) -> dict:
         """`state` (parameters or momentum, this rank's shards) with every
-        tensor-parallel leaf gathered over the model group into the flat
-        layout (``mesh.unshard_vit_params_tp``)."""
-        names = self.tp_names()
+        split leaf gathered over the model (expert) group into the flat
+        layout (``mesh.unshard_vit_params_tp`` / ``_ep``)."""
+        names = self.shard_names()
+        tp = self.mode == "tp"
         gathered = self._gather_rows([state[n] for n in names],
-                                     self.tp_group)
-        return vmesh.unshard_vit_params_tp([
+                                     self.tp_group if tp else self.ep_group)
+        unshard = (vmesh.unshard_vit_params_tp if tp
+                   else vmesh.unshard_vit_params_ep)
+        return unshard([
             {**state, **{n: g[t] for n, g in zip(names, gathered)}}
-            for t in range(self.cfg.tp_devices)])
+            for t in range(len(gathered[0]))])
 
     def _gather_rows(self, shards: list, group=None) -> list:
         """Every rank's `shards` (equal shapes on the ranks of `group`, the
@@ -460,7 +550,7 @@ class ViTTrainer:
             params = [p for _, p in named]
             loss, grads = self.batch_grads(params, images_u8, labels,
                                            input_norm)
-            if self.mode != "single":
+            if self.n_data > 1:     # a data axis of one has nothing to sum
                 grads = self._all_reduce_mean(list(grads))
             bufs = [momentum[n] for n, _ in named]
             if self.mode == "zero1":
@@ -512,7 +602,8 @@ class ViTTrainer:
         """CLS embeddings (forward_features, pool='token') of raw 0..255
         images, in the compute dtype."""
         return self.model(images_u8, pool="token", input_norm=IMAGENET_NORM,
-                          compute_dtype=self.compute_dtype, tp=self.tp_group)
+                          compute_dtype=self.compute_dtype, tp=self.tp_group,
+                          moe_groups=self.moe_groups)
 
     # -- epochs ---------------------------------------------------------------
 
@@ -683,7 +774,8 @@ def run_vit_training(cfg: ViTTrainConfig, logger=None,
     train_vit_sgd.py:246-371) on `device` (default: the card; under
     torchrun, the rank's card), data-parallel over the ranks torchrun
     launched (``parallel/dist.setup_distributed``; module docstring), or
-    tensor-parallel with ``tp_devices``.
+    tensor-parallel with ``tp_devices``, or expert-parallel with
+    ``ep_devices``.
 
     Preemption (cfg.preempt_save): a SIGTERM mid-epoch checkpoints {params,
     momentum, scheduler, epoch, batch_idx, running loss} to
@@ -703,22 +795,41 @@ def run_vit_training(cfg: ViTTrainConfig, logger=None,
     from .schedules import CosineAnnealingLRWithWarmup
 
     log = logger.info if logger else print
+    if vit_cfg is not None and cfg.moe_experts and \
+            vit_cfg.moe_experts != cfg.moe_experts:
+        # the two config surfaces could otherwise silently disagree (the
+        # model config wins inside ViTTrainer): the caller picks one
+        raise ValueError(
+            f"moe_experts disagrees between ViTTrainConfig "
+            f"({cfg.moe_experts}) and the explicit vit_cfg "
+            f"({vit_cfg.moe_experts}); set it on the vit_cfg (or pass "
+            f"vit_cfg=None to build one from the train config)")
     dev = resolve_device(dist.local_device(
         "cuda" if device is None else device))
     _, proc_count = dist.setup_distributed(dev)
     vit_cfg = vit_cfg or vvit.ViTConfig(
         patch=16, width=768, layers=12, heads=12, image_size=cfg.image_size,
-        num_classes=cfg.num_classes)
-    mode = train_mode(cfg, dist.is_initialized(), vit_cfg.heads)
-    # the data axis: the ranks, or under tp the mesh's "data" dimension
-    n_data = proc_count // cfg.tp_devices if mode == "tp" else proc_count
+        num_classes=cfg.num_classes, moe_experts=cfg.moe_experts,
+        moe_topk=cfg.moe_topk, moe_capacity=cfg.moe_capacity)
+    mode = train_mode(cfg, dist.is_initialized(), vit_cfg.heads,
+                      vit_cfg.moe_experts > 0)
+    # the data axis: the ranks, or under tp and ep the mesh's "data"
+    # dimension
+    n_data = proc_count // {"tp": cfg.tp_devices,
+                            "ep": cfg.ep_devices}.get(mode, 1)
 
     log("=" * 60)
     log("ViT-Base ImageNet Training (SGD)")
     log("=" * 60)
     log(f"Device: {dev}  processes: {proc_count}  mode: {mode}")
-    if mode == "tp":
-        log(f"Mesh: {n_data} data x {cfg.tp_devices} model")
+    if mode in ("tp", "ep"):
+        log(f"Mesh: {n_data} data x "
+            + (f"{cfg.tp_devices} model" if mode == "tp"
+               else f"{cfg.ep_devices} expert"))
+    if vit_cfg.moe_experts:
+        log(f"MoE: {vit_cfg.moe_experts} experts every {vit_cfg.moe_every} "
+            f"blocks, top-{vit_cfg.moe_topk}, capacity factor "
+            f"{vit_cfg.moe_capacity}, aux weight {cfg.moe_aux_weight}")
     log(f"Global batch size: {cfg.batch_size}")
     log(f"Total epochs: {cfg.epochs}")
     log(f"Optimizer: SGD lr={cfg.lr} momentum={cfg.momentum} "
@@ -770,15 +881,15 @@ def run_vit_training(cfg: ViTTrainConfig, logger=None,
     # the ranks build the parameters from one seed or one checkpoint (DDP
     # would broadcast rank 0's, FSDP2 shards whatever each rank holds)
     dist.check_replicas_equal(list(model.parameters()), "parameters")
-    trainer = ViTTrainer(vit_cfg, cfg, model, dev)   # fsdp, tp: shard model
+    trainer = ViTTrainer(vit_cfg, cfg, model, dev)   # fsdp, tp, ep shard it
     momentum = trainer.init_momentum(momentum)
     trainer.check_replicas(momentum)
 
     # each data rank loads its strided shard and feeds its local batch
     # (reference DistributedSampler + per-rank loaders, train_vit_sgd.py:
-    # 58-66); the ranks of a model group read the same one. make_loader
-    # routes each split to PackedLoader when it is a packed directory
-    # (identical batches either way)
+    # 58-66); the ranks of a model or expert group read the same one.
+    # make_loader routes each split to PackedLoader when it is a packed
+    # directory (identical batches either way)
     local_bs = cfg.batch_size // n_data
     train_loader = make_loader(
         f"{cfg.data_path}/train", local_bs, train=True,
