@@ -115,9 +115,16 @@
    attention, ms a step; one process resumes the tp checkpoint; and
    expert parallelism (``--moe_experts 8 --ep_devices 2``, batch 64, 4
    experts of each MoE block on each rank): the rows and checkpoint
-   within the same tolerance of one process, launches and ms a step. The
-   torchrun chain at world size 1 also trains phase moe's MoE run for one
-   epoch, bit-equal to its epoch 0 alone;
+   within the same tolerance of one process, launches and ms a step; and
+   sequence parallelism (``--sp_devices 2``, batch 64, 99 + 98 of the 197
+   tokens a rank): one epoch in the gather form (12 flash3_fwd and 12
+   flash3_bwd a step on each rank, on the gathered sequence) and a shorter
+   one with ``--sp_ring`` (no attention kernel), each within the stated
+   tolerance of one process on the same data; a block of each form
+   against the same block whole on the plain attention, ms a step of each
+   form in turns, and the gather's bf16 gradient sum against one in f32.
+   The torchrun chain at world size 1 also trains phase moe's MoE run for
+   one epoch, bit-equal to its epoch 0 alone;
 6e. phase `clip_dist`: CLIP-HBA training across ranks as users launch it,
    at full width and depth (ViT-L/14, rank-32 DoRA, bf16, batch 64, 2
    epochs) on THINGS at its real size on disk (the images phase sweep
@@ -129,7 +136,13 @@
    the stated tolerance, one log, no file written by rank 1, peak memory a
    rank; one sequential ``cli.sweep`` run, which restores the baseline's
    AdamW state, over the two gloo ranks within that tolerance of world
-   size 1; ms a step alone
+   size 1; ``cli.baseline --sp_devices 2`` and ``--sp_devices 2
+   --sp_ring`` over the two gloo ranks (the visual tower's 257 tokens as
+   129 + 128) for one epoch of a THINGS subset with the NOD inference set,
+   against the same invocation alone (rows, adapters, AdamW moments, NOD
+   embeddings), and a trainer's steps of each form against the trainer
+   alone (launches, s a step, the trees' differences, beside a planted
+   fault the check must catch); ms a step alone
    and data-parallel in turns; ``cli.sweep --batched_forks 3
    --frozen_cache`` of runs 1, 2 under torchrun against the same
    invocation alone, bit for bit. Phases dist and clip_dist put their
@@ -173,7 +186,10 @@ result. ``--json PATH`` also writes every number to PATH.
 ``--dist_drift [LRS]`` runs no phase: it measures how far two gloo ranks
 (dp at batch 256, tp at 64) drift from one process by learning rate,
 beside a one-process change that should not matter (the reason for
-DIST_LR and the tp bounds). ``--dwdb_drift [STEPS]`` runs no phase
+DIST_LR and the tp bounds). ``--sp_drift [SEEDS [REPORT]]`` runs no
+phase: one epoch at batch 64 from each seed, one process, a one-process
+control (``--fused_dw``) and both sp forms over two gloo ranks (the
+reason for SP_MOMENTUM_RTOL). ``--dwdb_drift [STEPS]`` runs no phase
 either: ViT-B/16 at batch 64 with the dW+db kernel, its f32 plain version
 and the plain autograd backward, step by step from one seed (where that
 change's drift comes from; ``--dwdb_drift 8 report.json`` also writes
@@ -2031,9 +2047,9 @@ def _resume_from_epoch0(src: str, dst: str, rows: list) -> None:
         f.write("\n".join(",".join(r) for r in rows[:2]) + "\n")
 
 
-def _ckpt_trees(out: str):
+def _ckpt_trees(out: str, name: str = "checkpoint_latest.pth"):
     from vit_project_torch.ckpt import serialization as ser
-    ck = ser.load(os.path.join(out, "checkpoint_latest.pth"))
+    ck = ser.load(os.path.join(out, name))
     return ck["params"], ck["opt_state"]
 
 
@@ -3712,9 +3728,12 @@ DIST_RHO_ATOL = 1e-3
 # an all-reduce (a pinned host buffer of that size a rank), 48 a step, 16
 # steps an epoch over the 1,024 train images, 4 validation batches
 TP_BATCH = 64
-TP_TIMED_STEPS = 6
+TP_TIMED_STEPS = 3
 TP_STEPS = 1024 // TP_BATCH * DIST_EPOCHS
 TP_VAL_BATCHES = 256 // TP_BATCH * DIST_EPOCHS
+# the two gloo dp ranks at batch 256 train GLOO_EPOCHS, held to the first
+# row of the run alone (a gloo step's round-trips cost the script's time)
+GLOO_EPOCHS = 1
 # the TP block (the kernels on each rank's 6 heads, [B, 197, 1152]) against
 # the same block whole on the plain attention, bf16, max |err| over the
 # largest |value| of the plain version, for the block's output and for the
@@ -3737,10 +3756,96 @@ TP_LOSS_RTOL = 2e-2
 TP_MOMENTUM_RTOL = 3e-2
 # expert parallelism on the card: two gloo ranks share cuda:0 as one
 # expert group (a data axis of 1), the MoE ViT-B/16 of phase moe at
-# TP_BATCH for DIST_EPOCHS, held to one process on the same data by the tp
-# bounds above. Each MoE block all-reduces its gathered expert outputs
-# [B * 197, 768] bf16 forward and the dispatched tokens' gradient backward
-EP_TIMED_STEPS = 6
+# TP_BATCH for EP_EPOCHS (one: 16 steps), held to one process on the same
+# data by the tp bounds above. Each MoE block all-reduces its gathered
+# expert outputs [B * 197, 768] bf16 forward and the dispatched tokens'
+# gradient backward
+EP_TIMED_STEPS = 3
+EP_EPOCHS = 1
+# sequence parallelism on the card: two gloo ranks share cuda:0 as one
+# model group (a data axis of 1), ViT-B/16 at TP_BATCH with 99 and 98 of
+# the 197 tokens a rank. The gather form all-gathers each block's packed
+# qkv ([64, 99, 2304] bf16, 29 MB a rank) and all-reduces its gradient
+# over the whole sequence (58 MB); the ring sends k and v (9.7 MB) a hop
+# forward, and k, v and their f32 gradients a hop backward: a step is
+# seconds of gloo round-trips on the H100 machine. So the gather form
+# trains one epoch of the tp run's data (SP_STEPS steps, SP_VAL_BATCHES
+# validation batches), held to the epoch-0 checkpoint and row of _check_tp's
+# one-process run (the same computation: epoch 0 trains at the base lr
+# whatever the epoch count), and the ring one epoch of a smaller seeded
+# ImageFolder (SP_TRAIN / SP_VAL images: SP_RING_STEPS steps and one
+# validation batch) against the same invocation in one process; sp_check
+# times 1 + 2 * SP_TIMED_STEPS steps of each form (in turns) on one batch
+SP_TRAIN, SP_VAL = 256, 64
+SP_STEPS = 1024 // TP_BATCH
+SP_VAL_BATCHES = 256 // TP_BATCH
+SP_RING_STEPS = SP_TRAIN // TP_BATCH
+SP_RING_VAL_BATCHES = SP_VAL // TP_BATCH
+SP_TIMED_STEPS = 1
+# two of the ring run's validation images, as DIST_ACC_ATOL is two of 256
+SP_ACC_ATOL = 100 * 2 / SP_VAL
+# the momentum after the gather form's one epoch (16 steps) against one
+# process's, over the largest momentum (the head weight's, every time).
+# After one epoch at batch 64 the momentum differs further than after two
+# (TP_MOMENTUM_RTOL's readings), whatever changed: `--sp_drift 0,1` on an
+# H100 at 700 W measured, from seeds 0 and 1, the one-process control
+# (--fused_dw against the plain dW+db: the same sums in another order) at
+# 3.978e-2 and 1.768e-2, the gather form at 8.168e-2 and 1.849e-2, the
+# ring at 6.118e-2 and 2.329e-2 (losses within 1.658e-2, parameters within
+# 8.185e-4 of their largest). The gather rounds each rank's share of the
+# whole-sequence dqkv to bf16 in the kernel before the sum (the sum itself
+# is the f32 sum rounded once: _sp_check). Allowed: the largest reading
+# with TP_MOMENTUM_RTOL's margin over its own, under a fault's ~1 (the
+# head weight's gradient counted twice)
+SP_MOMENTUM_RTOL = 1.5e-1
+# one block on each rank's tokens (the gather form through the kernels on
+# the whole sequence, the ring in f32 einsums) against the whole block on
+# the plain attention, bf16, max |err| over the largest |value| of the
+# plain version, for the output rows and the gradient of the block's input
+# at the rank's rows: TP_BLOCK_RTOL's reasoning (one bf16 spacing of the
+# attention, the roundings of the block's GEMMs)
+SP_BLOCK_RTOL = 2e-2
+# CLIP-HBA with its visual tower sequence-parallel over the two gloo ranks
+# (ViT-L/14, 129 and 128 of 257 tokens a rank; a gather-form forward moves
+# 24 x 1.6 MB an image through the host). Through cli.baseline: one epoch
+# of a THINGS subset (CLIP_SP_IMAGES images split 80/20: 2 steps at batch
+# CLIP_SP_BATCH, one eval batch; the 48 inference images; CLIP_SP_NOD
+# others as the NOD set) against the same invocation alone. The gather form runs the
+# flash kernels on the whole sequence: its rows within CLIP_DIST_LOSS_RTOL
+# and CLIP_DIST_RHO_ATOL, as the dp ranks are held. The ring computes
+# every block's attention in f32 einsums from bf16 q, k, v where the
+# kernels round p to bf16 (one bf16 spacing, 2^-8 relative, a block, over
+# 24 blocks): CLIP_RING_LOSS_RTOL and CLIP_RING_RHO_ATOL. Both forms'
+# adapters, AdamW moments and NOD embeddings within the bounds below; and _clip_sp_check's CLIP_SP_STEPS trainer steps on as many
+# images of each form against the trainer alone within the same bounds,
+# beside a planted fault the moment bound must catch
+CLIP_SP_IMAGES = 80
+CLIP_SP_NOD = 32
+CLIP_SP_STEPS = 2
+CLIP_SP_BATCH = 32
+CLIP_RING_LOSS_RTOL = 1e-2
+CLIP_RING_RHO_ATOL = 1e-2
+# after 2 AdamW steps, by tower (_adapter_diffs): the adapters' difference
+# over their move from the initial ones in L2 (AdamW's first steps move
+# each element by about lr whatever its gradient's size, so an element
+# whose gradient is near 0 may move either way: the largest difference
+# reads 1.0-1.9 of the largest move in sound runs, and is printed, not
+# bounded), and the moments' largest difference over their largest value.
+# Measured on an H100 at 700 W (PERF.md): adapters 1.247e-3-
+# 2.065e-2 (gather) and 3.197e-2-4.592e-2 (ring), moments 9.948e-4-
+# 2.424e-3 (gather) and 2.348e-3-1.136e-2 (ring), through the CLI and the
+# trainer alike. A gradient scaled by a constant leaves AdamW's steps as
+# they were (the planted fault's adapters read as the gather's) and moves
+# its moments by the scale: the fault's text moments read 1.000 (mu) and
+# 3.001 (nu). Allowed: about twice the largest adapter reading, four times
+# the largest moment reading, twenty times under the fault's
+CLIP_SP_PARAM_RTOL = 1e-1
+CLIP_SP_MOMENT_RTOL = 5e-2
+# the NOD embeddings after the epoch, max |err| over the largest |value|:
+# measured 2.764e-3 (gather) and 1.567e-2 (ring, whose adapters differ
+# further); about three times each
+CLIP_SP_EMB_RTOL = 1e-2
+CLIP_RING_EMB_RTOL = 5e-2
 
 
 class _WriteCounter:
@@ -3856,6 +3961,10 @@ def _dist_worker(report: str, argv: list) -> int:
                 extra = _tp_check()
             elif module == "ep_check":
                 extra = _ep_check()
+            elif module == "sp_check":
+                extra = _sp_check()
+            elif module == "clip_sp_check":
+                extra = _clip_sp_check(args[0])
             else:
                 result = importlib.import_module(module).main(args)
                 extra = {"result": result if isinstance(result, list)
@@ -4046,8 +4155,8 @@ def _tp_check() -> dict:
     tr.step(mom, imgs, lbls, 0.01)
     torch.cuda.synchronize()
     per_step = dict(vattn.LAUNCHES)
-    # a step is ~1.2 s of gloo round-trips on the H100 machine: one turn of
-    # TP_TIMED_STEPS after one unmeasured step
+    # a step is ~1.1-1.4 s of gloo round-trips on the H100 machine: one
+    # turn of TP_TIMED_STEPS after one unmeasured step
     tr.step(mom, imgs, lbls, 0.01)
     ev = [torch.cuda.Event(enable_timing=True)
           for _ in range(TP_TIMED_STEPS + 1)]
@@ -4105,6 +4214,249 @@ def _ep_check() -> dict:
             "experts_here": int(model.blocks[1].moe.fc1_w.shape[0])}
 
 
+def _sp_check() -> dict:
+    """Under two gloo ranks sharing the card (one model group),
+    ViT-B/16's width with sp_devices 2: one block on each rank's tokens in
+    the gather form (the kernels on the gathered [B, 197, 2304]) and in the
+    ring form, each against the same block whole on the plain attention
+    (the output rows and the input gradient at the rank's rows; max |err|
+    over the largest |value|) with its kernel launches; gloo's bf16
+    all-reduce (the gather's backward) against the f32 sum of the same
+    gradients rounded to bf16 once; then a training step of each form: its
+    launches (that step warms the form up), ms a step in turns (gather,
+    ring, ring, gather; SP_TIMED_STEPS a turn, CUDA events) and the peak a
+    step adds over the trainer's resident state, at batch TP_BATCH. The
+    runs' CLIs hold the forms to one process (_check_sp)."""
+    import torch
+    import torch.distributed as tdist
+    from vit_project_torch.core.configs import ViTTrainConfig
+    from vit_project_torch.models import vit as vvit
+    from vit_project_torch.ops import attention as vattn
+    from vit_project_torch.parallel import dist
+    from vit_project_torch.parallel import mesh as vmesh
+    from vit_project_torch.train import vit_loop
+    dev = dist.local_device("cuda:0")        # the card both ranks share
+    vit_cfg = vvit.VIT_CONFIGS["vit_base_patch16_224"]
+    D, H, S = vit_cfg.width, vit_cfg.heads, vit_cfg.seq_len
+    seq = vmesh.seq_sharding(vmesh.make_mesh(n_model=2))
+    lo, hi = seq.bounds(S)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    blk = vvit.Block(D, vit_cfg.mlp_ratio).to(dev)
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            unit = name.startswith("norm") and name.endswith("weight")
+            p.copy_(float(unit) + 0.02 * torch.randn(
+                p.shape, generator=gen, device=dev))
+    x = torch.randn(TP_BATCH, S, D, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16)
+    act = vvit._activation(vit_cfg)
+    kernel_op = vattn.flash_mha_packed_qkv
+    vattn.flash_mha_packed_qkv = \
+        lambda qkv, *, num_heads, causal=False: _plain_packed_qkv(qkv,
+                                                                  num_heads)
+    try:
+        xr = x.clone().requires_grad_(True)
+        y_ref = vvit.classifier_block(blk, xr, H, act=act)
+        y_ref.backward(dy)
+    finally:
+        vattn.flash_mha_packed_qkv = kernel_op
+    y_ref, dx_ref = y_ref[:, lo:hi].float(), xr.grad[:, lo:hi].float()
+    blocks = {}
+    for form in ("gather", "ring"):
+        xs, sp = vvit._seq_parallel_enter(x, seq, form == "ring")
+        xs = xs.clone().requires_grad_(True)
+        vattn.reset_launch_counts()
+        y = vvit.classifier_block(blk, xs, H, act=act, sp=sp)
+        dys = torch.zeros_like(y)
+        dys[:, :hi - lo] = dy[:, lo:hi]
+        y.backward(dys)
+        torch.cuda.synchronize()
+        blocks[form] = {
+            "launches": {k: vattn.LAUNCHES[k]
+                         for k in ("flash3_fwd", "flash3_bwd")},
+            "y_rel_err": ((y[:, :hi - lo].float() - y_ref).abs().max()
+                          / y_ref.abs().max()).item(),
+            "dx_rel_err": ((xs.grad[:, :hi - lo].float() - dx_ref).abs().max()
+                           / dx_ref.abs().max()).item()}
+    del blk, x, dy, xr, y_ref, dx_ref
+    # the gather's backward sums each rank's bf16 dqkv in bf16 (gloo): at
+    # two ranks one rounding of the exact sum, as an f32 sum cast once
+    g = torch.randn((TP_BATCH, S, 3 * D), generator=torch.Generator(
+        device=dev).manual_seed(SEED + 10 + seq.index), device=dev).to(
+        torch.bfloat16)
+    g16, g32 = g.clone(), g.float()
+    tdist.all_reduce(g16, group=seq.group)
+    tdist.all_reduce(g32, group=seq.group)
+    bf16_sum = {"elements": g.numel(),
+                "differ": int((g16 != g32.to(torch.bfloat16)).sum())}
+    del g, g16, g32
+
+    size = vit_cfg.image_size
+    imgs = torch.randint(0, 256, (TP_BATCH, size, size, 3), generator=gen,
+                         device=dev, dtype=torch.uint8)
+    lbls = torch.randint(0, vit_cfg.num_classes, (TP_BATCH,), generator=gen,
+                         device=dev)
+    trainers, per_step, peak_gib = {}, {}, {}
+    for form in ("gather", "ring"):
+        cfg = ViTTrainConfig(batch_size=TP_BATCH, compute_dtype="bfloat16",
+                             sp_devices=2, sp_ring=form == "ring")
+        model = vvit.init_vit_params(
+            vvit.empty_vit(vit_cfg, dev),
+            torch.Generator(device=dev).manual_seed(SEED))
+        tr = vit_loop.ViTTrainer(vit_cfg, cfg, model, dev, distributed=True)
+        trainers[form] = (tr, tr.init_momentum())
+
+    def step(form):
+        tr, mom = trainers[form]
+        tr.step(mom, imgs, lbls, 0.01)
+    for form in ("gather", "ring"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        vattn.reset_launch_counts()
+        step(form)
+        torch.cuda.synchronize()
+        per_step[form] = {k: vattn.LAUNCHES[k]
+                          for k in ("flash3_fwd", "flash3_bwd")}
+        peak_gib[form] = (torch.cuda.max_memory_allocated() - resident) / 2**30
+
+    def turn(form):
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(SP_TIMED_STEPS + 1)]
+        ev[0].record()
+        for i in range(SP_TIMED_STEPS):
+            step(form)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(SP_TIMED_STEPS)]
+    turns = {form: [] for form in ("gather", "ring")}
+    for form in ("gather", "ring", "ring", "gather"):
+        turns[form].append(turn(form))
+    return {"blocks": blocks, "bf16_sum": bf16_sum, "per_step": per_step,
+            "turns": turns, "step_peak_gib": peak_gib, "bounds": [lo, hi]}
+
+
+def _flat_adapters(tree: dict) -> dict:
+    """{(tower, block, name): f64 array} of an adapter tree (the trainable
+    layout: {tower: {block: {name: leaf}}}, tensors or arrays)."""
+    import torch
+    return {(t, int(i), k): (v.detach().double().cpu().numpy()
+                             if torch.is_tensor(v) else np.asarray(
+                                 v, np.float64))
+            for t, blocks in tree.items() for i, leaves in blocks.items()
+            for k, v in leaves.items()}
+
+
+def _adapter_diffs(got: tuple, want: tuple, init: dict) -> dict:
+    """Two CLIP-HBA runs' adapters and AdamW moments ((trainable, mu, nu)
+    each) by tower: the adapters' largest difference over their largest
+    move from `init` ("param"), the same in L2 norms ("param_l2"), and each
+    moment's largest difference over its largest value ("mu", "nu"). AdamW
+    steps by m / sqrt(v), which a gradient scaled by a constant leaves as
+    it was, so the moments are what hold a leaf's gradient to its scale."""
+    base = _flat_adapters(init)
+    out = {}
+    for what, g, w in zip(("param", "mu", "nu"), got, want):
+        fg, fw = _flat_adapters(g), _flat_adapters(w)
+        for tower in sorted({k[0] for k in fw}):
+            keys = [k for k in fw if k[0] == tower]
+            diff = [fg[k] - fw[k] for k in keys]
+            ref = [fw[k] - base[k] if what == "param" else fw[k]
+                   for k in keys]
+            out.setdefault(what, {})[tower] = float(
+                max(np.abs(d).max() for d in diff)
+                / max(np.abs(r).max() for r in ref))
+            if what == "param":
+                out.setdefault("param_l2", {})[tower] = float(
+                    np.sqrt(sum((d ** 2).sum() for d in diff)
+                            / sum((r ** 2).sum() for r in ref)))
+    return out
+
+
+def _clip_sp_check(wpath: str) -> dict:
+    """Under two gloo ranks sharing the card (one model group), CLIP-HBA
+    on ViT-L/14 weights with its visual tower sequence-parallel, the
+    gather and the ring form, beside the trainer alone on the same rank
+    and a planted fault (the gather form with the text adapters' gradient
+    counted twice, as if both model ranks seeded it): CLIP_SP_STEPS train
+    steps each from the same adapters on the same CLIP_SP_BATCH images
+    (each step's loss, the first step's launches, s a step), then each
+    form's adapters and AdamW moments against the trainer alone's
+    (``_adapter_diffs``)."""
+    import torch
+    from vit_project_torch.adapters import dora as adora
+    from vit_project_torch.ckpt import clip_ckpt
+    from vit_project_torch.core.prng import Key
+    from vit_project_torch.data.spose66 import classnames66
+    from vit_project_torch.models import convert as vconvert
+    from vit_project_torch.models import tokenizer as vtok
+    from vit_project_torch.ops import attention as vattn
+    from vit_project_torch.parallel import dist
+    from vit_project_torch.parallel import mesh as vmesh
+    from vit_project_torch.train import clip_loop
+    dev = dist.local_device("cuda:0")        # the card both ranks share
+    model = vconvert.clip_from_state_dict(vconvert.load_torch_state_dict(
+        wpath), dev)
+    cfg = model.cfg
+    init_tr, static, acfg = adora.apply_dora(
+        model, adora.dora_spec(cfg.visual.layers, cfg.text.layers, 2, 1),
+        r=32, alpha=16, dropout=0.1,
+        generator=torch.Generator(device=dev).manual_seed(SWEEP_SEED + 123))
+    prompts = np.minimum(vtok.tokenize(classnames66, context_length=77,
+                                       truncate=True),
+                         cfg.text.vocab_size - 1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    imgs = torch.randint(0, 256, (CLIP_SP_BATCH, 224, 224, 3), generator=gen,
+                         device=dev, dtype=torch.uint8)
+    tgts = torch.rand((CLIP_SP_BATCH, 66), generator=gen, device=dev) * 2
+    mesh = vmesh.make_mesh(n_model=2)
+    out, trees = {}, {}
+    for form in ("one", "gather", "ring", "fault"):
+        tr = clip_loop.ClipHBATrainer(
+            cfg, model, acfg, static, prompts, lr=3e-4,
+            compute_dtype=torch.bfloat16,
+            mesh=None if form == "one" else mesh, sp=form != "one",
+            sp_ring=form == "ring")
+        if form == "fault":
+            reduce_step = tr._all_reduce_step
+
+            def doubled(trainable, loss, ok, reduce_step=reduce_step):
+                res = reduce_step(trainable, loss, ok)
+                for tower, _, _, leaf in adora.trainable_leaves(trainable):
+                    if tower == "text":
+                        leaf.grad.mul_(2)
+                return res
+            tr._all_reduce_step = doubled
+        trainable = adora.make_trainable(init_tr, dev)
+        opt = tr.init_optimizer(trainable)
+        losses, launches = [], None
+        t0 = time.time()
+        for k in range(CLIP_SP_STEPS):
+            vattn.reset_launch_counts()
+            loss, ok = tr.train_step(trainable, opt, imgs, tgts,
+                                     np.arange(CLIP_SP_BATCH),
+                                     Key((SWEEP_SEED, 0, k)),
+                                     batch_size=CLIP_SP_BATCH)
+            if launches is None:
+                torch.cuda.synchronize()
+                launches = {n: vattn.LAUNCHES[n]
+                            for n in ("flash3_fwd", "flash3_bwd")}
+            losses.append(loss if ok else None)
+        torch.cuda.synchronize()
+        step_s = (time.time() - t0) / CLIP_SP_STEPS
+        _, mu, nu = clip_ckpt.adamw_moments(opt, trainable)
+        trees[form] = (trainable, mu, nu)
+        out[form] = {"losses": losses, "launches": launches,
+                     "step_s": step_s}
+        if form != "one":
+            out[form]["against_one"] = _adapter_diffs(
+                trees[form], trees["one"], init_tr)
+            del trees[form]
+        del tr, opt
+    return {"clip_sp": out}
+
+
 def _dist_run(tmp: str, name: str, argv: list, nproc: int | None = 1,
               timeout: int = 600) -> list:
     """`argv` ([--gloo] MODULE ARGS) through _dist_worker: under
@@ -4140,6 +4492,24 @@ def _tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in _tree_leaves(v)]
     return [] if tree is None else [np.asarray(tree)]
+
+
+def _worst_leaves(a, b, k: int = 3) -> list:
+    """The `k` leaves of two trees furthest apart: [(path, max |a - b| over
+    max |b| of the whole tree)]."""
+    def flat(tree, path=""):
+        if isinstance(tree, dict):
+            return [x for key in sorted(tree) for x in flat(
+                tree[key], f"{path}.{key}" if path else str(key))]
+        if isinstance(tree, (list, tuple)):
+            return [x for i, v in enumerate(tree)
+                    for x in flat(v, f"{path}.{i}")]
+        return [] if tree is None else [(path, np.asarray(tree))]
+    fa, fb = flat(a), flat(b)
+    top = max(float(np.abs(y).max()) for _, y in fb)
+    diffs = [(n, float(np.abs(x.astype(np.float64) - y).max()) / top)
+             for (n, x), (_, y) in zip(fa, fb)]
+    return sorted(diffs, key=lambda d: -d[1])[:k]
 
 
 def _rel_tree_diff(a, b) -> float:
@@ -4354,32 +4724,46 @@ def phase_dist(tmp: str):
         shutil.rmtree(d)
 
     # --- two ranks on this card under gloo: dp, the gathered RSA, tensor
-    # parallelism (its run and its block check) and expert parallelism (its
-    # run and its step) ---
+    # parallelism (its run and its block check), expert parallelism (its
+    # run and its step) and sequence parallelism (a run of each form, their
+    # block checks and steps) ---
     gloo_out = os.path.join(root, "gloo_dp")
     tp_out = os.path.join(root, "gloo_tp")
     ep_out = os.path.join(root, "gloo_ep")
+    sp_out = os.path.join(root, "gloo_sp")
+    ring_out = os.path.join(root, "gloo_ring")
+    sp_data = os.path.join(root, "imagenet_sp")
+    _write_image_folder(sp_data, np.random.RandomState(SEED + 6),
+                        train=SP_TRAIN, val=SP_VAL)
+    ring_args = ["--data_path", sp_data, "--batch_size", str(TP_BATCH),
+                 "--epochs", "1", "--num_workers", "8", "--lr", DIST_LR]
     tp_args = ["--data_path", data, "--batch_size", str(TP_BATCH),
                "--epochs", str(DIST_EPOCHS), "--num_workers", "8", "--lr",
                DIST_LR]
     g = _dist_run(root, "gloo", [
         "--gloo", train_cli, *train_args, "--device", "cuda:0",
-        "--output_dir", gloo_out, "--then",
+        "--epochs", str(GLOO_EPOCHS), "--output_dir", gloo_out, "--then",
         "vit_project_torch.cli.vit_rsa_eval", "--checkpoint_dir", single,
         "--output_csv", os.path.join(root, "rsa_gloo.csv"), *things_args,
         "--device", "cuda:0", "--then", train_cli, *tp_args, "--device",
         "cuda:0", "--tp_devices", "2", "--output_dir", tp_out, "--then",
         "tp_check", "--then", train_cli, *tp_args, "--device", "cuda:0",
         "--moe_experts", str(MOE_EXPERTS), "--ep_devices", "2",
-        "--output_dir", ep_out, "--then", "ep_check"], nproc=2)
+        "--output_dir", ep_out, "--epochs", str(EP_EPOCHS), "--then",
+        "ep_check", "--then", train_cli, *tp_args, "--epochs", "1",
+        "--device", "cuda:0", "--sp_devices", "2", "--output_dir", sp_out,
+        "--then", train_cli, *ring_args, "--device", "cuda:0",
+        "--sp_devices", "2", "--sp_ring", "--output_dir", ring_out,
+        "--then", "sp_check"], nproc=2)
     g_rsa = [rep["then"][0] for rep in g]
     g_rows = _read_rows(os.path.join(gloo_out, "training_metrics.csv"))
     got = np.array([[float(v) for v in r[1:]] for r in g_rows[1:]])
-    ref = np.array([[float(v) for v in r[1:]] for r in rows["single"][1:]])
+    ref = np.array([[float(v) for v in r[1:]]
+                    for r in rows["single"][1:1 + GLOO_EPOCHS]])
     g_loss = float(np.abs(got[:, :2] / ref[:, :2] - 1).max())
     g_acc = float(np.abs(got[:, 2] - ref[:, 2]).max())
-    half = {"flash3_fwd": 12 * (DIST_STEPS + DIST_VAL_BATCHES),
-            "flash3_bwd": 12 * DIST_STEPS}
+    half = {"flash3_fwd": 12 * (4 + 1) * GLOO_EPOCHS,
+            "flash3_bwd": 12 * 4 * GLOO_EPOCHS}
     for rep in g:
         if rep["backend"] != "gloo" or any(
                 rep["launches"][k] != v for k, v in half.items()):
@@ -4404,8 +4788,10 @@ def phase_dist(tmp: str):
     ep = _check_ep(root, train_cli, tp_args, ep_out,
                    [rep["then"][3] for rep in g],
                    [rep["then"][4] for rep in g])
+    sp = _check_sp(root, train_cli, ring_args, sp_out, ring_out,
+                   [[rep["then"][k] for rep in g] for k in (5, 6, 7)])
     for d in ("single", "gloo_tp", "tp_one", "tp_resumed", "gloo_ep",
-              "ep_one"):
+              "ep_one", "gloo_sp", "gloo_ring", "ring_one", "imagenet_sp"):
         shutil.rmtree(os.path.join(root, d))
     RESULTS["dist"] = {
         "runs": runs, "compare": cmp, "rsa": rsa_rep, "cell": cell_rep,
@@ -4413,9 +4799,10 @@ def phase_dist(tmp: str):
         "moe_dp_bit_equal": moe_exact, "gloo": g, "gloo_rsa": g_rsa,
         "gloo_rows": g_rows[1:], "gloo_loss_rel": g_loss,
         "gloo_acc_diff": g_acc, "gloo_rho_diff": rho_diff, "tp": tp,
-        "ep": ep, "seconds": time.time() - t_phase}
+        "ep": ep, "sp": sp, "seconds": time.time() - t_phase}
     print(f"[dist] phase {time.time() - t_phase:.1f} s", flush=True)
-    return {**main_launches, "tp": tp["launches"], "ep": ep["launches"]}
+    return {**main_launches, "tp": tp["launches"], "ep": ep["launches"],
+            "sp": sp["launches"]}
 
 
 def _check_tp(root: str, train_cli: str, tp_args: list, tp_out: str,
@@ -4512,15 +4899,17 @@ def _check_tp(root: str, train_cli: str, tp_args: list, tp_out: str,
 def _check_ep(root: str, train_cli: str, ep_args: list, ep_out: str,
               runs: list, checks: list) -> dict:
     """Phase dist's expert-parallel checks on the gloo launch's reports
-    (`runs`: each rank's cli.vit_train --moe_experts 8 --ep_devices 2;
-    `checks`: each rank's _ep_check) against one process in this process
-    on the same data (the MoE run without --ep_devices): the rows within
+    (`runs`: each rank's cli.vit_train --moe_experts 8 --ep_devices 2 for
+    EP_EPOCHS; `checks`: each rank's _ep_check) against one process in
+    this process on the same data (the MoE run without --ep_devices, as
+    long): the rows within
     TP_LOSS_RTOL and DIST_ACC_ATOL, the checkpoint's parameters within
     DIST_PARAM_RTOL and its momentum within TP_MOMENTUM_RTOL."""
     import importlib
     train_main = importlib.import_module(train_cli).main
-    want = {"flash3_fwd": 12 * (TP_STEPS + TP_VAL_BATCHES),
-            "flash3_bwd": 12 * TP_STEPS}
+    steps = 1024 // TP_BATCH * EP_EPOCHS
+    want = {"flash3_fwd": 12 * (steps + 256 // TP_BATCH * EP_EPOCHS),
+            "flash3_bwd": 12 * steps}
     for rep in runs:
         got = {k: v for k, v in rep["launches"].items() if v}
         if rep["backend"] != "gloo" or got != want:
@@ -4528,6 +4917,7 @@ def _check_ep(root: str, train_cli: str, ep_args: list, ep_out: str,
                  f"launches {got}, want {want}")
     one = os.path.join(root, "ep_one")
     _cli(train_main, ep_args + ["--moe_experts", str(MOE_EXPERTS),
+                                "--epochs", str(EP_EPOCHS),
                                 "--output_dir", one],
          os.path.join(root, "ep_one.log"))
     rows = _read_rows(os.path.join(ep_out, "training_metrics.csv"))
@@ -4578,6 +4968,136 @@ def _check_ep(root: str, train_cli: str, ep_args: list, ep_out: str,
             "step_ms": step_ms, "loss_rel": loss_rel, "acc_diff": acc_diff,
             "tree_rel": tree_rel, "bit_equal": exact,
             "launches": {k: runs[0]["launches"][k] for k in want}}
+
+
+def _check_sp(root: str, train_cli: str, ring_args: list, sp_out: str,
+              ring_out: str, reports: list) -> dict:
+    """Phase dist's sequence-parallel checks on the gloo launch's reports
+    (`reports`: each rank's cli.vit_train --sp_devices 2, one epoch of the
+    tp run's data; each rank's --sp_devices 2 --sp_ring, one epoch of the
+    small ImageFolder; each rank's _sp_check). Each run against one
+    process: the gather run against the epoch-0 row and checkpoint of
+    _check_tp's one-process run (losses within TP_LOSS_RTOL, accuracy
+    DIST_ACC_ATOL, parameters DIST_PARAM_RTOL, momentum SP_MOMENTUM_RTOL),
+    the ring run against the same invocation in one process, here (its
+    rows within TP_LOSS_RTOL and SP_ACC_ATOL, its trees within
+    DIST_PARAM_RTOL and TP_MOMENTUM_RTOL); the momentum leaves furthest
+    apart printed. 12 / 12 flash3 launches a step in the gather form and
+    none in the ring's; each form's block within SP_BLOCK_RTOL of the whole
+    plain block; the gather's bf16 gradient sum equal to the f32 sum."""
+    import importlib
+    gather_runs, ring_runs, checks = reports
+    want = {"gather": {"flash3_fwd": 12 * (SP_STEPS + SP_VAL_BATCHES),
+                       "flash3_bwd": 12 * SP_STEPS},
+            "ring": {}}
+    step_want = {"gather": {"flash3_fwd": 12, "flash3_bwd": 12},
+                 "ring": {"flash3_fwd": 0, "flash3_bwd": 0}}
+    block_want = {"gather": {"flash3_fwd": 1, "flash3_bwd": 1},
+                  "ring": {"flash3_fwd": 0, "flash3_bwd": 0}}
+    one = os.path.join(root, "ring_one")
+    _cli(importlib.import_module(train_cli).main,
+         ring_args + ["--output_dir", one], os.path.join(root, "ring_one.log"))
+    refs = {"gather": (os.path.join(root, "tp_one"), "checkpoint_epoch_000.pth",
+                       SP_MOMENTUM_RTOL, DIST_ACC_ATOL),
+            "ring": (one, "checkpoint_latest.pth", TP_MOMENTUM_RTOL,
+                     SP_ACC_ATOL)}
+    problems, res = [], {"forms": {}}
+    for form, out, runs in (("gather", sp_out, gather_runs),
+                            ("ring", ring_out, ring_runs)):
+        ref_dir, ref_ckpt, mom_rtol, acc_atol = refs[form]
+        for rep in runs:
+            got = {k: v for k, v in rep["launches"].items() if v}
+            if rep["backend"] != "gloo" or got != want[form]:
+                problems.append(f"sp {form} rank {rep['rank']}: backend "
+                                f"{rep['backend']}, launches {got}, want "
+                                f"{want[form]}")
+        rows = _read_rows(os.path.join(out, "training_metrics.csv"))
+        got = np.array([[float(v) for v in r[1:]] for r in rows[1:]])
+        ref = np.array([[float(v) for v in r[1:]] for r in _read_rows(
+            os.path.join(ref_dir, "training_metrics.csv"))[1:2]])
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            fail(f"[dist] sp {form} rows {rows} against {ref}")
+        loss_rel = float(np.abs(got[:, :2] / ref[:, :2] - 1).max())
+        acc_diff = float(np.abs(got[:, 2] - ref[:, 2]).max())
+        trees, one_trees = _ckpt_trees(out), _ckpt_trees(ref_dir, ref_ckpt)
+        tree_rel = [_rel_tree_diff(a, b) for a, b in zip(trees, one_trees)]
+        worst = _worst_leaves(trees[1], one_trees[1])
+        del trees, one_trees
+        steps, val = ((SP_STEPS, SP_VAL_BATCHES) if form == "gather"
+                      else (SP_RING_STEPS, SP_RING_VAL_BATCHES))
+        print(f"[dist] sp {form} form, 2 ranks, gloo, one card "
+              f"(cli.vit_train --sp_devices 2"
+              f"{' --sp_ring' if form == 'ring' else ''}, batch {TP_BATCH}, "
+              f"tokens " + " / ".join(f"[{c['bounds'][0]}, {c['bounds'][1]})"
+                                      for c in checks)
+              + f"): {runs[0]['s']:.1f} s for {steps} steps and {val} "
+              f"validation batches, peak "
+              + " / ".join(f"{r['peak_gib']:.2f}" for r in runs)
+              + f" GiB a rank, launches a rank flash3_fwd "
+              f"{runs[0]['launches']['flash3_fwd']} flash3_bwd "
+              f"{runs[0]['launches']['flash3_bwd']}; rows "
+              + "; ".join(",".join(r) for r in rows[1:])
+              + f"; against one process: losses {loss_rel:.3e} relative, "
+              f"accuracy {acc_diff:.3f} points, parameters {tree_rel[0]:.3e}"
+              f" / momentum {tree_rel[1]:.3e} of their largest (bounds "
+              f"{TP_LOSS_RTOL}, {acc_atol:.3f}, {DIST_PARAM_RTOL}, "
+              f"{mom_rtol}; the momentum leaves furthest apart, over the "
+              f"largest momentum: " + ", ".join(f"{n} {v:.3e}"
+                                                for n, v in worst)
+              + ")", flush=True)
+        if not (loss_rel <= TP_LOSS_RTOL and acc_diff <= acc_atol
+                and tree_rel[0] <= DIST_PARAM_RTOL
+                and tree_rel[1] <= mom_rtol):
+            problems.append(f"sp {form} run outside the tolerance of one "
+                            f"process: losses {loss_rel}, accuracy "
+                            f"{acc_diff}, trees {tree_rel}")
+        step_ms = [statistics.mean(x for t in c["turns"][form] for x in t)
+                   for c in checks]
+        blocks = [c["blocks"][form] for c in checks]
+        per_step = [c["per_step"][form] for c in checks]
+        res["forms"][form] = {
+            "runs": runs, "rows": rows[1:], "loss_rel": loss_rel,
+            "acc_diff": acc_diff, "tree_rel": tree_rel,
+            "worst_momentum": worst, "step_ms": step_ms, "blocks": blocks,
+            "per_step": per_step,
+            "step_peak_gib": [c["step_peak_gib"][form] for c in checks]}
+        print(f"[dist] sp {form} form, trainer steps on one batch: a step's "
+              f"launches {per_step}; ms a step in turns (gather, ring, "
+              f"ring, gather; {SP_TIMED_STEPS} a turn) "
+              + ", ".join(f"rank {r} {ms:.2f} (turns "
+                          + ", ".join(f"{statistics.mean(t):.2f}"
+                                      for t in c["turns"][form]) + ")"
+                          for r, (ms, c) in enumerate(zip(step_ms, checks)))
+              + "; a step's peak over the trainers' state "
+              + " / ".join(f"{c['step_peak_gib'][form]:.2f}"
+                           for c in checks)
+              + " GiB; block against the whole plain block: "
+              + "; ".join(f"rank {r} y {b['y_rel_err']:.3e}, dx "
+                          f"{b['dx_rel_err']:.3e}, launches {b['launches']}"
+                          for r, b in enumerate(blocks))
+              + f" (tol {SP_BLOCK_RTOL}); {smi_line()}", flush=True)
+        for b in blocks:
+            if b["launches"] != block_want[form] or not (
+                    b["y_rel_err"] <= SP_BLOCK_RTOL
+                    and b["dx_rel_err"] <= SP_BLOCK_RTOL):
+                problems.append(f"sp {form} block: {b}")
+        if per_step != [step_want[form]] * 2:
+            problems.append(f"an sp {form} step launched {per_step}")
+    sums = [c["bf16_sum"] for c in checks]
+    print(f"[dist] sp gather backward: gloo's bf16 all-reduce of a "
+          f"[{TP_BATCH}, 197, 2304] gradient against the f32 sum rounded "
+          f"to bf16 once: " + "; ".join(
+              f"rank {r} {s_['differ']} of {s_['elements']} elements differ"
+              for r, s_ in enumerate(sums)), flush=True)
+    if any(s_["differ"] for s_ in sums):
+        problems.append(f"the bf16 gradient sum differs from the f32 sum: "
+                        f"{sums}")
+    res["bf16_sum"] = sums
+    if problems:
+        fail("[dist] " + "; ".join(problems))
+    res["launches"] = {k: gather_runs[0]["launches"][k]
+                       for k in ("flash3_fwd", "flash3_bwd")}
+    return res
 
 
 CLIP_DIST_EPOCHS = 2
@@ -4727,8 +5247,8 @@ def phase_clip_dist(tmp: str):
     fx = _clip_fixture(tmp)
     # targets as the train phase draws them (U[0, 2) a dimension), so the
     # losses sit near 0.7 and a relative bound means something
-    data = _write_things_csvs(root, fx["names"], np.random.RandomState(
-        SEED + 4).rand(len(fx["names"]), 66) * 2)
+    targets = np.random.RandomState(SEED + 4).rand(len(fx["names"]), 66) * 2
+    data = _write_things_csvs(root, fx["names"], targets)
     args = ["--csv_file", data["csv_file"], "--img_dir", fx["img_dir"],
             "--inference_csv_file", data["inference_csv_file"],
             "--RDM48_triplet_dir", data["RDM48_triplet_dir"],
@@ -4763,6 +5283,33 @@ def phase_clip_dist(tmp: str):
         i = argv.index("--batched_forks")
         return argv[:argv.index("--training_order")] + [
             "--training_order", "2", *argv[i + 3:]]
+    # the visual tower sequence-parallel through cli.baseline: one epoch
+    # of a THINGS subset with the NOD inference set
+    sub = os.path.join(root, "sp_things")
+    os.makedirs(sub)
+    keep = list(range(CLIP_SP_IMAGES)) + list(range(1806, 1854))
+    sub_data = _write_things_csvs(sub, [fx["names"][i] for i in keep],
+                                  targets[keep], n_train=CLIP_SP_IMAGES)
+    # NOD-style names (category, then an index) linked to other images:
+    # the run's category-RDM archive needs more than one category
+    nod_dir, nod_names = os.path.join(sub, "nod"), []
+    os.makedirs(nod_dir)
+    for j in range(CLIP_SP_NOD):
+        nod_names.append(f"nod{j % 4}_{j:02d}.jpg")
+        os.link(os.path.join(fx["img_dir"], fx["names"][CLIP_SP_IMAGES + j]),
+                os.path.join(nod_dir, nod_names[-1]))
+    nod_csv = os.path.join(sub, "nod.csv")
+    with open(nod_csv, "w") as f:
+        f.write("\n".join(["image_name"] + nod_names) + "\n")
+
+    def sp_argv(out):
+        return ["--csv_file", sub_data["csv_file"], "--img_dir",
+                fx["img_dir"], "--inference_csv_file",
+                sub_data["inference_csv_file"], "--RDM48_triplet_dir",
+                sub_data["RDM48_triplet_dir"], *fx["model_args"],
+                "--batch_size", str(CLIP_SP_BATCH), "--epochs", "1",
+                "--nod_csv_file", nod_csv,
+                "--nod_img_dir", nod_dir, "--output_dir", out]
     sweep_cli_name = "vit_project_torch.cli.sweep"
     runs, files, rows, epoch_s = {}, {}, {}, {}
     forks, resumed = {}, {}
@@ -4776,7 +5323,12 @@ def phase_clip_dist(tmp: str):
         else:
             chain = (["--gloo", base_cli, *argv, "--device", "cuda:0",
                       "--then", sweep_cli_name, *resumed_argv(res_out),
-                      "--device", "cuda:0"]
+                      "--device", "cuda:0", "--then", base_cli,
+                      *sp_argv(os.path.join(root, "sp_gather")),
+                      "--device", "cuda:0", "--sp_devices", "2", "--then",
+                      base_cli, *sp_argv(os.path.join(root, "sp_ring")),
+                      "--device", "cuda:0", "--sp_devices", "2",
+                      "--sp_ring", "--then", "clip_sp_check", fx["wpath"]]
                      if nproc == 2 else
                      [base_cli, *argv, "--then", sweep_cli_name,
                       *forks_argv(os.path.join(root, "forks_dp1")), "--then",
@@ -4787,7 +5339,11 @@ def phase_clip_dist(tmp: str):
                 forks["forks_dp1"], res, tm = reps[0].pop("then")
                 resumed[name] = [res]
             else:
-                resumed[name] = [rep.pop("then")[0] for rep in reps]
+                thens = [rep.pop("then") for rep in reps]
+                resumed[name] = [t[0] for t in thens]
+                sp_runs = {"gather": [t[1] for t in thens],
+                           "ring": [t[2] for t in thens]}
+                clip_sp = [t[3] for t in thens]
             for rep in resumed[name]:
                 if rep["result"] != [] or rep["writes"]:
                     fail(f"[clip_dist] resumed sweep run {name} rank "
@@ -4872,6 +5428,19 @@ def phase_clip_dist(tmp: str):
         fail(f"[clip_dist] the resumed run over 2 gloo ranks outside the "
              f"tolerance: losses {r_loss}, rho {r_rho}")
 
+    # --- the visual tower sequence-parallel over the two gloo ranks (the
+    # gloo2 launch's last three modules): each form's cli.baseline run
+    # against the same invocation alone (here), and its trainer steps
+    # against the trainer alone ---
+    sp_alone = os.path.join(root, "sp_alone")
+    sp_ref = _alone("sp_alone", baseline_cli.main, sp_argv(sp_alone), root)
+    sp_ref.pop("text")
+    sp_res = {"trainer": _clip_sp_report(clip_sp),
+              "runs": _check_clip_sp_runs(root, sp_runs, sp_ref, fx)}
+    sp_res["launches"] = sp_res["runs"]["launches"]
+    for d in ("sp_gather", "sp_ring", "sp_alone", "sp_things"):
+        shutil.rmtree(os.path.join(root, d))
+
     # --- ms a step, alone and dp at world size 1, in turns (the dp1
     # launch) ---
     want_step = {"flash3_fwd": 36, "flash3_bwd": 1}
@@ -4915,32 +5484,248 @@ def phase_clip_dist(tmp: str):
         "step_ms": step_ms, "time_modes": tm, "forks": forks,
         "resumed": resumed, "resumed_rows": res_rows,
         "resumed_loss_rel": r_loss, "resumed_rho_diff": r_rho,
-        "seconds": time.time() - t_phase}
+        "sp": sp_res, "seconds": time.time() - t_phase}
     print(f"[clip_dist] phase {time.time() - t_phase:.1f} s", flush=True)
-    return {k: sum(r["launches"][k] for name in ("dp1", "gloo2")
-                   for r in runs[name] + resumed[name])
-            + forks["forks_dp1"]["launches"][k]
-            for k in ("flash3_fwd", "flash3_bwd")}
+    return {**{k: sum(r["launches"][k] for name in ("dp1", "gloo2")
+                      for r in runs[name] + resumed[name])
+               + forks["forks_dp1"]["launches"][k]
+               for k in ("flash3_fwd", "flash3_bwd")},
+            "sp": sp_res["launches"]}
 
 
-def _dist_drift(lrs: list) -> int:
-    """``--dist_drift [LRS]``, run alone: how far the distributed runs drift
-    from one process, by learning rate (the measurement behind DIST_LR and
-    the tolerances of phase dist). On phase vit_train's seeded
-    ImageFolder, ViT-B/16 in bf16 for 2 epochs, each run ``cli.vit_train``
-    in its own process (``--dist_worker``), at each learning rate: at
-    batch 256 one process with ``--fused_dw`` (the reference), one with
-    the plain dW+db (the same arithmetic summed in another order: the
-    spread of a change that should not matter), and two dp ranks under
-    gloo sharing the card (128 images a rank, the plain dW+db); at
-    TP_BATCH one process with the plain dW+db (the reference, as phase
-    dist's tp check), one with ``--fused_dw``, and ``--tp_devices 2`` over
-    two gloo ranks. Prints each run's rows, then against its batch's
-    reference the largest relative loss difference, the accuracy
-    difference and each checkpoint tree's largest difference over its
-    largest value (parameters, momentum), and the card's name and power
-    limit; no result line."""
+def _clip_sp_report(reps: list) -> dict:
+    """clip_dist's sequence-parallel trainer check on each rank's
+    _clip_sp_check: a step's launches (36 / 1 in the gather form, the
+    whole image sequence through the kernels; 12 / 0 in the ring's, the
+    text tower alone), each step's loss against the trainer alone's within
+    CLIP_DIST_LOSS_RTOL (gather) and CLIP_RING_LOSS_RTOL (ring), both
+    forms' adapters and moments within CLIP_SP_PARAM_RTOL and
+    CLIP_SP_MOMENT_RTOL, and the planted fault's moments beyond it."""
+    want = {"one": {"flash3_fwd": 36, "flash3_bwd": 1},
+            "gather": {"flash3_fwd": 36, "flash3_bwd": 1},
+            "ring": {"flash3_fwd": 12, "flash3_bwd": 0},
+            "fault": {"flash3_fwd": 36, "flash3_bwd": 1}}
+    loss_rtol = {"gather": CLIP_DIST_LOSS_RTOL, "ring": CLIP_RING_LOSS_RTOL,
+                 "fault": CLIP_DIST_LOSS_RTOL}
+    res = {"ranks": reps, "compare": {}}
+    problems = []
+    for rep in reps:
+        got = rep["clip_sp"]
+        for form in want:
+            if got[form]["launches"] != want[form] or None in \
+                    got[form]["losses"]:
+                problems.append(f"{form} rank {rep['rank']}: {got[form]}")
+        for form in ("gather", "ring", "fault"):
+            d = got[form]["against_one"]
+            c = {**d, "loss_rel": float(np.abs(
+                     np.array(got[form]["losses"])
+                     / np.array(got["one"]["losses"]) - 1).max()),
+                 "param_l2_max": max(d["param_l2"].values()),
+                 "moment": max(max(d["mu"].values()),
+                               max(d["nu"].values()))}
+            res["compare"].setdefault(form, []).append(c)
+            within = (c["loss_rel"] <= loss_rtol[form]
+                      and c["param_l2_max"] <= CLIP_SP_PARAM_RTOL
+                      and c["moment"] <= CLIP_SP_MOMENT_RTOL)
+            if within != (form != "fault"):
+                problems.append(f"{form} rank {rep['rank']}: "
+                                + ("outside" if form != "fault" else
+                                   "the planted fault within")
+                                + f" the tolerance of the trainer alone: "
+                                f"{c}")
+    r0 = reps[0]["clip_sp"]
+    print(f"[clip_dist] CLIP-HBA visual sp trainer over 2 gloo ranks "
+          f"(ViT-L/14, tokens 129 + 128, batch {CLIP_SP_BATCH}, "
+          f"{CLIP_SP_STEPS} steps): "
+          + "; ".join(
+              f"{form} s a step {r0[form]['step_s']:.3f}, launches "
+              f"{r0[form]['launches']}, losses "
+              + ", ".join(f"{x:.6f}" for x in r0[form]["losses"])
+              for form in want)
+          + "; against alone, rank 0 / 1: "
+          + "; ".join(f"{form} losses "
+                      + " / ".join(f"{c['loss_rel']:.3e}" for c in cs)
+                      + ", adapters (L2 over the move; largest over the "
+                      "largest move) "
+                      + " / ".join(
+                          ", ".join(f"{t} {c['param_l2'][t]:.3e} "
+                                    f"{c['param'][t]:.3e}"
+                                    for t in sorted(c["param"]))
+                          for c in cs)
+                      + ", mu " + " / ".join(
+                          ", ".join(f"{t} {v:.3e}"
+                                    for t, v in sorted(c["mu"].items()))
+                          for c in cs)
+                      + ", nu " + " / ".join(
+                          ", ".join(f"{t} {v:.3e}"
+                                    for t, v in sorted(c["nu"].items()))
+                          for c in cs)
+                      for form, cs in res["compare"].items())
+          + f" (bounds losses {CLIP_DIST_LOSS_RTOL} gather, "
+          f"{CLIP_RING_LOSS_RTOL} ring; adapters {CLIP_SP_PARAM_RTOL}, "
+          f"moments {CLIP_SP_MOMENT_RTOL}; the fault (text gradient "
+          f"twice) must exceed them); {smi_line()}", flush=True)
+    if problems:
+        fail("[clip_dist] sp trainer: " + "; ".join(problems))
+    return res
+
+
+def _clip_run_trees(out: str, spec: dict) -> tuple:
+    """(rows, (adapters, mu, nu), NOD embeddings, files) of a one-epoch
+    cli.baseline run in `out`."""
+    import pandas as pd
+    from vit_project_torch.adapters import dora as adora
+    from vit_project_torch.ckpt import serialization as ser
+
+    def find(prefix):
+        return next(os.path.join(d, n) for d, _, ns in os.walk(out)
+                    for n in ns if n.startswith(prefix))
+    state = ser.load(find("epoch1_random_states"))["optimizer_state"][0]
+    adapters = adora.from_reference_names(
+        ser.load_flat(find("epoch1_dora_params")), spec)
+    emb = pd.read_csv(find("nod_embeddings_epoch1")).iloc[:, 1:].to_numpy()
+    return (_read_rows(find("training_res_")),
+            (adapters, state.mu, state.nu), emb,
+            sorted(_run_files(out)))
+
+
+def _check_clip_sp_runs(root: str, sp_runs: dict, ref_rep: dict,
+                        fx: dict) -> dict:
+    """clip_dist's sequence-parallel runs: each rank's cli.baseline
+    --sp_devices 2 (gather) and --sp_ring report (`sp_runs`), and their
+    trees, against the same invocation alone (`ref_rep`, its tree in
+    root/sp_alone): the same files (rank 1 writes none), launches (the
+    gather's those of the run alone, the ring's its text tower's, a third
+    of the forwards' and no backward), rows (losses within
+    CLIP_DIST_LOSS_RTOL / CLIP_RING_LOSS_RTOL, rho within
+    CLIP_DIST_RHO_ATOL / CLIP_RING_RHO_ATOL), adapters and moments within
+    CLIP_SP_PARAM_RTOL and CLIP_SP_MOMENT_RTOL (``_adapter_diffs``) and
+    the NOD embeddings within CLIP_SP_EMB_RTOL / CLIP_RING_EMB_RTOL."""
+    from vit_project_torch.adapters import dora as adora
+    cfg = fx["cfg"]
+    spec = adora.dora_spec(cfg.visual.layers, cfg.text.layers, 2, 1)
+    ref_rows, ref_trees, ref_emb, ref_files = _clip_run_trees(
+        os.path.join(root, "sp_alone"), spec)
+    ref_l = {k: v for k, v in ref_rep["launches"].items() if v}
+    want = {"gather": ref_l,
+            "ring": {"flash3_fwd": ref_l["flash3_fwd"] // 3}}
+    bounds = {"gather": (CLIP_DIST_LOSS_RTOL, CLIP_DIST_RHO_ATOL,
+                         CLIP_SP_EMB_RTOL),
+              "ring": (CLIP_RING_LOSS_RTOL, CLIP_RING_RHO_ATOL,
+                       CLIP_RING_EMB_RTOL)}
+    problems, res = [], {"alone": ref_rep, "alone_rows": ref_rows[1:]}
+    for form, reps in sp_runs.items():
+        rows, trees, emb, files = _clip_run_trees(
+            os.path.join(root, f"sp_{form}"), spec)
+        for rep in reps:
+            got = {k: v for k, v in rep["launches"].items() if v}
+            if got != want[form] or rep["backend"] != "gloo" \
+                    or rep["writes"] or rep["result"] is not None:
+                problems.append(f"{form} rank {rep['rank']}: launches "
+                                f"{got} (want {want[form]}), backend "
+                                f"{rep['backend']}, writes "
+                                f"{rep['writes']}")
+        if files != ref_files:
+            problems.append(f"{form}: files {files}, alone {ref_files}")
+        g = np.array([[float(v) for v in r[1:5]] for r in rows[1:]])
+        w = np.array([[float(v) for v in r[1:5]] for r in ref_rows[1:]])
+        c = {"loss_rel": float(np.abs(g[:, :2] / w[:, :2] - 1).max()),
+             "rho_diff": float(np.abs(g[:, 2] - w[:, 2]).max()),
+             "emb_rel": float(np.abs(emb - ref_emb).max()
+                              / np.abs(ref_emb).max()),
+             **_adapter_diffs(trees, ref_trees, fx["init_tr"])}
+        c["param_l2_max"] = max(c["param_l2"].values())
+        c["moment"] = max(max(c["mu"].values()), max(c["nu"].values()))
+        res[form] = {"reports": reps, "rows": rows[1:], **c}
+        print(f"[clip_dist] cli.baseline --sp_devices 2"
+              f"{' --sp_ring' if form == 'ring' else ''} over 2 gloo ranks, "
+              f"one epoch of {CLIP_SP_IMAGES} THINGS images and "
+              f"{CLIP_SP_NOD} NOD: {reps[0]['s']:.1f} s (alone "
+              f"{ref_rep['s']:.1f}), peak "
+              + " / ".join(f"{r['peak_gib']:.2f}" for r in reps)
+              + f" GiB a rank, launches a rank {reps[0]['launches']['flash3_fwd']}"
+              f" / {reps[0]['launches']['flash3_bwd']} (alone "
+              f"{ref_l}); rows " + "; ".join(",".join(r) for r in rows[1:])
+              + f"; against alone: losses {c['loss_rel']:.3e} relative, rho "
+              f"{c['rho_diff']:.3e}, NOD embeddings {c['emb_rel']:.3e}, "
+              f"adapters (L2 over the move; largest over the largest move) "
+              + ", ".join(f"{t} {c['param_l2'][t]:.3e} {c['param'][t]:.3e}"
+                          for t in sorted(c["param"]))
+              + ", mu " + ", ".join(f"{t} {v:.3e}"
+                                    for t, v in sorted(c["mu"].items()))
+              + ", nu " + ", ".join(f"{t} {v:.3e}"
+                                    for t, v in sorted(c["nu"].items()))
+              + f" (bounds {bounds[form][0]}, {bounds[form][1]}, "
+              f"{bounds[form][2]}, {CLIP_SP_PARAM_RTOL}, "
+              f"{CLIP_SP_MOMENT_RTOL}); same files, rank 1 wrote none",
+              flush=True)
+        if not (c["loss_rel"] <= bounds[form][0]
+                and c["rho_diff"] <= bounds[form][1]
+                and c["emb_rel"] <= bounds[form][2]
+                and c["param_l2_max"] <= CLIP_SP_PARAM_RTOL
+                and c["moment"] <= CLIP_SP_MOMENT_RTOL):
+            problems.append(f"{form} outside the tolerance of the run "
+                            f"alone: {c}")
+    if problems:
+        fail("[clip_dist] sp runs: " + "; ".join(problems))
+    res["launches"] = {k: sum(sp_runs[f][0]["launches"][k]
+                              for f in ("gather", "ring"))
+                       for k in ("flash3_fwd", "flash3_bwd")}
+    return res
+
+
+def _drift_runs(tmp: str, label: str, args: list, runs) -> dict:
+    """Each of `runs` ((name, extra flags, nproc or None), the first the
+    reference) as ``cli.vit_train ARGS EXTRA`` in its own process
+    (``--dist_worker``; nproc: that many gloo ranks sharing the card).
+    Prints each run's rows, then against the reference the largest
+    relative loss difference, the accuracy difference and each checkpoint
+    tree's largest difference over its largest value (parameters,
+    momentum). Returns {name: those three numbers and the trees'}."""
+    train = "vit_project_torch.cli.vit_train"
+    rows, trees, out = {}, {}, {}
+    for name, extra, nproc in runs:
+        tag = f"{label}_{name}".replace(" ", "_")
+        run_dir = os.path.join(tmp, tag)
+        argv = (["--gloo"] if nproc else []) + [
+            train, *args, *extra, "--output_dir", run_dir]
+        _dist_run(tmp, tag, argv, nproc=nproc)
+        rows[name] = np.array([[float(v) for v in r[1:]] for r in _read_rows(
+            os.path.join(run_dir, "training_metrics.csv"))[1:]])
+        trees[name] = _ckpt_trees(run_dir)
+        shutil.rmtree(run_dir)
+        print(f"[drift] {label} {name}: rows "
+              + "; ".join(",".join(f"{v:.6f}" for v in r)
+                          for r in rows[name]), flush=True)
+    ref = runs[0][0]
+    for name, _, _ in runs[1:]:
+        got, want = rows[name], rows[ref]
+        rel = [_rel_tree_diff(a, b) for a, b in zip(trees[name], trees[ref])]
+        out[name] = {"loss_rel": float(np.abs(got[:, :2] / want[:, :2]
+                                              - 1).max()),
+                     "acc_diff": float(np.abs(got[:, 2] - want[:, 2]).max()),
+                     "tree_rel": rel,
+                     "worst_momentum": _worst_leaves(trees[name][1],
+                                                     trees[ref][1])}
+        print(f"[drift] {label} {name} against {ref}: losses "
+              f"{out[name]['loss_rel']:.3e} relative, accuracy "
+              f"{out[name]['acc_diff']:.4f} points, trees {rel[0]:.3e} "
+              f"(parameters) / {rel[1]:.3e} (momentum) of their largest; "
+              f"the momentum leaves furthest apart "
+              + ", ".join(f"{n} {v:.3e}"
+                          for n, v in out[name]["worst_momentum"]),
+              flush=True)
+    return out
+
+
+def _drift_main(body) -> int:
+    """Run `body(tmp, data)` alone on the card: the kernels built, phase
+    vit_train's seeded ImageFolder written to `data`; then the card's name
+    and power limit. No result line."""
     import torch
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -4951,48 +5736,66 @@ def _dist_drift(lrs: list) -> int:
         phase_build()
         data = os.path.join(tmp, "imagenet")
         _write_image_folder(data, np.random.RandomState(SEED))
-        train = "vit_project_torch.cli.vit_train"
-        gloo = ["--device", "cuda:0"]
-        batches = ((256, (("fused", ["--fused_dw"], None), ("plain", [], None),
-                          ("gloo", gloo, 2))),
-                   (TP_BATCH, (("plain", [], None),
-                               ("fused", ["--fused_dw"], None),
-                               ("tp", gloo + ["--tp_devices", "2"], 2))))
-        for lr in lrs:
-            for batch, runs in batches:
-                args = ["--data_path", data, "--batch_size", str(batch),
-                        "--epochs", "2", "--num_workers", "8", "--lr", lr]
-                rows, trees = {}, {}
-                for name, extra, nproc in runs:
-                    tag = f"{name}_{batch}_{lr}"
-                    out = os.path.join(tmp, tag)
-                    argv = (["--gloo"] if nproc else []) + [
-                        train, *args, *extra, "--output_dir", out]
-                    _dist_run(tmp, tag, argv, nproc=nproc)
-                    rows[name] = np.array([[float(v) for v in r[1:]] for r in
-                                           _read_rows(os.path.join(
-                                               out, "training_metrics.csv"))[1:]])
-                    trees[name] = _ckpt_trees(out)
-                    print(f"[drift] lr {lr} batch {batch} {name}: rows "
-                          + "; ".join(",".join(f"{v:.6f}" for v in r)
-                                      for r in rows[name]), flush=True)
-                ref = runs[0][0]
-                for name, _, _ in runs[1:]:
-                    got, want = rows[name], rows[ref]
-                    rel = [_rel_tree_diff(a, b)
-                           for a, b in zip(trees[name], trees[ref])]
-                    print(f"[drift] lr {lr} batch {batch} {name} against "
-                          f"{ref}: losses "
-                          f"{np.abs(got[:, :2] / want[:, :2] - 1).max():.3e} "
-                          f"relative, accuracy "
-                          f"{np.abs(got[:, 2] - want[:, 2]).max():.4f} "
-                          f"points, trees {rel[0]:.3e} (parameters) / "
-                          f"{rel[1]:.3e} (momentum) of their largest",
-                          flush=True)
+        body(tmp, data)
         print(smi_line(), flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return 0
+
+
+def _dist_drift(lrs: list) -> int:
+    """``--dist_drift [LRS]``, run alone: how far the distributed runs drift
+    from one process, by learning rate (the measurement behind DIST_LR and
+    the tolerances of phase dist). On phase vit_train's seeded
+    ImageFolder, ViT-B/16 in bf16 for 2 epochs, at each learning rate: at
+    batch 256 one process with ``--fused_dw`` (the reference), one with
+    the plain dW+db (the same arithmetic summed in another order: the
+    spread of a change that should not matter), and two dp ranks under
+    gloo sharing the card (128 images a rank, the plain dW+db); at
+    TP_BATCH one process with the plain dW+db (the reference, as phase
+    dist's tp check), one with ``--fused_dw``, and ``--tp_devices 2`` over
+    two gloo ranks (``_drift_runs``)."""
+    gloo = ["--device", "cuda:0"]
+
+    def body(tmp, data):
+        for lr in lrs:
+            for batch, runs in (
+                    (256, (("fused", ["--fused_dw"], None),
+                           ("plain", [], None), ("gloo", gloo, 2))),
+                    (TP_BATCH, (("plain", [], None),
+                                ("fused", ["--fused_dw"], None),
+                                ("tp", gloo + ["--tp_devices", "2"], 2)))):
+                _drift_runs(tmp, f"lr {lr} batch {batch}", [
+                    "--data_path", data, "--batch_size", str(batch),
+                    "--epochs", "2", "--num_workers", "8", "--lr", lr], runs)
+    return _drift_main(body)
+
+
+def _sp_drift(seeds: list, report_path: str | None) -> int:
+    """``--sp_drift [SEEDS [REPORT]]``, run alone: the measurement behind
+    SP_MOMENTUM_RTOL. At TP_BATCH and lr DIST_LR, one epoch (16 steps) of
+    phase vit_train's ImageFolder from each ``--random_seed``: one process
+    with the plain dW+db (the reference, as phase dist's sp check), one
+    with ``--fused_dw`` (the control: the same arithmetic summed in
+    another order), and ``--sp_devices 2`` over two gloo ranks sharing the
+    card in the gather form and with ``--sp_ring`` (``_drift_runs``).
+    REPORT gets every number as JSON."""
+    gloo = ["--device", "cuda:0", "--sp_devices", "2"]
+    found = {}
+
+    def body(tmp, data):
+        for seed in seeds:
+            found[seed] = _drift_runs(tmp, f"seed {seed}", [
+                "--data_path", data, "--batch_size", str(TP_BATCH),
+                "--epochs", "1", "--num_workers", "8", "--lr", DIST_LR,
+                "--random_seed", seed],
+                (("plain", [], None), ("fused", ["--fused_dw"], None),
+                 ("gather", gloo, 2), ("ring", gloo + ["--sp_ring"], 2)))
+    rc = _drift_main(body)
+    if report_path:
+        with open(report_path, "w") as f:
+            json.dump({"card": smi_line(), "seeds": found}, f)
+    return rc
 
 
 DWDB_DRIFT_BATCH = 64
@@ -5128,6 +5931,9 @@ def main(argv=None) -> int:
         return _dist_worker(argv[1], argv[2:])
     if argv[:1] == ["--dist_drift"]:       # DIST_LR's measurement
         return _dist_drift((argv[1:] or ["0.1,0.01,0.001"])[0].split(","))
+    if argv[:1] == ["--sp_drift"]:         # SP_MOMENTUM_RTOL's measurement
+        return _sp_drift((argv[1:] or ["0,1"])[0].split(","),
+                         (argv[2:] or [None])[0])
     if argv[:1] == ["--dwdb_drift"]:       # the fused dW+db's drift at 64
         return _dwdb_drift(int((argv[1:] or ["8"])[0]),
                            (argv[2:] or [None])[0])
@@ -5233,6 +6039,12 @@ def main(argv=None) -> int:
     def dist_ep(name):
         return dist_launches and dist_launches["ep"][name]
 
+    def dist_sp(name):
+        return dist_launches and dist_launches["sp"][name]
+
+    def clip_sp(name):
+        return clip_dist_launches and clip_dist_launches["sp"][name]
+
     def moe(name):
         return moe_launches and moe_launches[name]
 
@@ -5258,7 +6070,9 @@ def main(argv=None) -> int:
                "forks": forks("flash3_fwd"), "dist": dist("flash3_fwd"),
                "dist_tp": dist_tp("flash3_fwd"), "moe": moe("flash3_fwd"),
                "dist_ep": dist_ep("flash3_fwd"),
-               "clip_dist": clip_dist("flash3_fwd")},
+               "dist_sp": dist_sp("flash3_fwd"),
+               "clip_dist": clip_dist("flash3_fwd"),
+               "clip_dist_sp": clip_sp("flash3_fwd")},
               [r["max_abs_err_o"] for r in rows
                if r["kernel"] == "flash3_fwd"],
               row_of("flash3_fwd", "image_b256"),
@@ -5273,7 +6087,9 @@ def main(argv=None) -> int:
                "forks": forks("flash3_bwd"), "dist": dist("flash3_bwd"),
                "dist_tp": dist_tp("flash3_bwd"), "moe": moe("flash3_bwd"),
                "dist_ep": dist_ep("flash3_bwd"),
-               "clip_dist": clip_dist("flash3_bwd")},
+               "dist_sp": dist_sp("flash3_bwd"),
+               "clip_dist": clip_dist("flash3_bwd"),
+               "clip_dist_sp": clip_sp("flash3_bwd")},
               [r["max_abs_err"] for r in rows
                if r["kernel"] == "flash3_bwd"],
               row_of("flash3_bwd", "image_b64"),

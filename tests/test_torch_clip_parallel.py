@@ -696,7 +696,10 @@ def test_workers_under_torchrun_raise_before_dispatch(tmp_path, monkeypatch):
 
 
 def test_sequence_parallel_still_raises():
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
+    """Sequence parallelism is ported (tests/test_torch_sp.py); without its
+    ("data", "model") mesh the trainer raises JAX's refusal."""
+    with pytest.raises(ValueError, match=r"sp=True needs a \('data','model'\) "
+                                         r"mesh"):
         tloop.ClipHBATrainer(None, torch.nn.Linear(1, 1), {}, {}, [[0]],
                              lr=1.0, sp=True)
 

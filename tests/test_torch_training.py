@@ -445,11 +445,14 @@ def test_cli_runs_on_the_gpu_unless_told_otherwise(things, monkeypatch):
 
 
 @pytest.mark.parametrize("over,feature", [
-    ({"sp_devices": 2}, "the parallel modes"),
+    ({"sp_devices": 2}, "launch with torchrun"),
 ])
 def test_unported_options_name_their_slice(things, weights, tmp_path, over,
                                            feature):
+    """Sequence parallelism (ported, tests/test_torch_sp.py) shards the
+    visual tower over the ranks of a process group: one process refuses it
+    before writing anything."""
     cfg = _config(things, weights, str(tmp_path), **over)
-    with pytest.raises(NotImplementedError, match=feature):
+    with pytest.raises(ValueError, match=feature):
         tloop.run_behavioral_training(cfg, device="cpu")
     assert not os.path.exists(cfg["training_res_path"])

@@ -611,19 +611,22 @@ def test_cli_profile_dir_writes_a_trace_of_the_first_epoch(imagenet,
 # -- refusals -------------------------------------------------------------------
 
 # the modes ported since these cases were written, and what each now does
-# in JAX's words: ep without a MoE model, and a train config whose expert
-# count disagrees with the explicit (dense) model config
+# in JAX's words: ep without a MoE model, a train config whose expert count
+# disagrees with the explicit (dense) model config, sp in one process (its
+# axis is the ranks of a process group) and sp_ring without sp
 PORTED_MODES = {"ep_devices": "ep_devices > 1 needs a MoE model",
-                "moe_experts": "moe_experts disagrees"}
+                "moe_experts": "moe_experts disagrees",
+                "sp_devices": "launch with torchrun",
+                "sp_ring": "sp_ring needs sp_devices > 1"}
 
 
 @pytest.mark.parametrize("field,value", [
     ("pp_stages", 2), ("sp_devices", 2), ("sp_ring", True), ("ep_devices", 2),
     ("pp_stages", 4), ("moe_experts", 4)])
 def test_unported_modes_are_refused_by_name(imagenet, tmp_path, field, value):
-    """The unported modes raise by name; the ported ep and MoE fields
-    (tests/test_torch_moe.py, tests/test_torch_ep.py) raise JAX's
-    refusals of these configurations instead."""
+    """The unported modes raise by name; the ported ep, MoE and sp fields
+    (tests/test_torch_moe.py, tests/test_torch_ep.py, tests/test_torch_sp.py)
+    raise JAX's refusals of these configurations instead."""
     cfg = dataclasses.replace(_tiny(TTrainConfig, imagenet,
                                     str(tmp_path / "x")), **{field: value})
     if field in PORTED_MODES:
@@ -637,12 +640,13 @@ def test_unported_modes_are_refused_by_name(imagenet, tmp_path, field, value):
 @pytest.mark.parametrize("flag", [["--sp_devices", "2"],
                                   ["--moe_experts", "2"]])
 def test_cli_refuses_unported_flags(imagenet, tmp_path, flag):
-    """--sp_devices is refused by name; --moe_experts (ported) trains a
-    tiny MoE epoch on the CPU, its block 1 a MoE of 2 experts."""
+    """--sp_devices (ported) reaches the training loop, which asks for
+    torchrun in one process; --moe_experts (ported) trains a tiny MoE
+    epoch on the CPU, its block 1 a MoE of 2 experts."""
     argv = ["--data_path", imagenet, "--output_dir", str(tmp_path / "x"),
             "--backbone", "test-tiny", "--device", "cpu", *flag]
     if flag[0] != "--moe_experts":
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(ValueError, match="launch with torchrun"):
             tcli.main(argv)
         return
     tcli.main(argv + ["--epochs", "1", "--batch_size", "8", "--num_workers",
@@ -675,10 +679,10 @@ def test_cli_takes_tp_and_refuses_jaxs_conflicts(imagenet, tmp_path, flags,
 def test_other_unported_paths_are_refused_by_name(imagenet, tmp_path):
     model = tvit.empty_vit(TTINY, "cpu")
     imgs = torch.zeros(1, 32, 32, 3)
-    for kw, name in ((dict(seq_shard=object()), "seq_shard"),
-                     (dict(ring_attn=True), "ring_attn")):
-        with pytest.raises(NotImplementedError, match=name):
-            tvit.vit_classify(model, imgs, **kw)
+    # seq_shard and ring_attn are ported (tests/test_torch_sp.py): the ring
+    # without a sequence layout is refused in JAX's words
+    with pytest.raises(ValueError, match="ring_attn=True needs seq_shard"):
+        tvit.vit_classify(model, imgs, ring_attn=True)
     # with_aux (ported with the MoE blocks): (logits, aux), 0.0 for a dense
     # model, as JAX's vit_classify
     tvit.init_vit_params(model, torch.Generator().manual_seed(0))

@@ -9,10 +9,12 @@ Runs on the GPU unless --device says otherwise; exits 143 when a SIGTERM
 stopped the run at an epoch boundary (resume it in place). Under torchrun
 the run is data-parallel over the ranks (one per GPU, NCCL; `--device cpu`
 takes gloo), `--batch_size` is the global batch and rank 0 writes every
-file:
+file; `--sp_devices N` makes model groups of N consecutive ranks that
+shard the visual tower's tokens (sequence parallelism; `--sp_ring` for
+ring attention), each group reading one data shard:
 
   torchrun --standalone --nproc_per_node 2 -m vit_project_torch.cli.baseline \
-      ... (the flags above)
+      ... (the flags above) [--sp_devices 2 [--sp_ring]]
 
   python -m vit_project_torch.cli.baseline --csv_file spose_train.csv \\
       --img_dir things/ --inference_csv_file spose_val.csv \\
@@ -63,12 +65,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device to train on ('cpu' for tests, gloo "
                         "under torchrun); under torchrun 'cuda' is the "
                         "rank's card")
-    # flags of the JAX CLI whose features the port of the parallel modes
-    # brings: accepted with their defaults, refused by the loop otherwise
     p.add_argument("--sp_devices", type=int, default=1,
-                   help="sequence parallelism (not ported yet)")
+                   help="sequence parallelism of the visual tower under "
+                        "torchrun: each image's tokens sharded over model "
+                        "groups of N consecutive ranks (gather form); the "
+                        "text tower runs whole on every rank")
     p.add_argument("--sp_ring", action="store_true",
-                   help="ring attention with --sp_devices (not ported yet)")
+                   help="with --sp_devices: ring attention (k/v rotate "
+                        "around the sequence shards) instead of the "
+                        "gather")
     p.add_argument("--remat", action="store_true",
                    help="recompute each block in the backward "
                         "(torch.utils.checkpoint): memory for ~1/3 more "

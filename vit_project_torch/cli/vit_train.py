@@ -9,10 +9,13 @@ momentum, --fsdp the parameters and the momentum (FSDP2); --tp_devices T
 shards the blocks over model groups of T consecutive ranks (Megatron
 tensor parallelism; the ranks of a group read the same data); with
 --moe_experts N every other block's MLP is a MoE of N experts, and
---ep_devices E shards them over expert groups of E consecutive ranks.
---batch_size is the global batch. Flags of the JAX CLI whose features are
-not ported yet (sequence and pipeline parallelism) are accepted and
-refused by the training loop at any value but their default. --fused_dw
+--ep_devices E shards them over expert groups of E consecutive ranks;
+--sp_devices N shards each image's tokens over model groups of N
+consecutive ranks (sequence parallelism: the gather form on the flash
+kernels, or ring attention with --sp_ring). --batch_size is the global
+batch. The JAX CLI's pipeline flags (--pp_stages, --pp_micro) are not
+ported yet: accepted, and refused by the training loop at any value but
+their default. --fused_dw
 (no JAX flag; JAX's ViTTrainConfig field) routes the dense layers' dW and
 db through the fused kernel, one process only. --profile_dir writes a
 torch.profiler trace of the first epoch. Exits 143 when a SIGTERM stopped
@@ -27,6 +30,9 @@ the run (run it again to resume).
   torchrun --nproc_per_node 4 -m vit_project_torch.cli.vit_train \\
       --data_path imagenet/ --output_dir runs/vit_moe --moe_experts 8 \\
       --ep_devices 2
+  torchrun --nproc_per_node 2 -m vit_project_torch.cli.vit_train \\
+      --data_path imagenet/ --output_dir runs/vit_sp --sp_devices 2 \\
+      [--sp_ring]
 """
 from __future__ import annotations
 
@@ -99,9 +105,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "asynchronously, beside validation "
                         "(core/hostcopy.py)")
     p.add_argument("--sp_devices", type=int, default=1,
-                   help="sequence parallelism (not ported yet)")
+                   help="sequence parallelism: each image's tokens sharded "
+                        "over the 'model' axis of a ('data','model') mesh; "
+                        "attention gathers the packed qkv along the "
+                        "sequence (the flash kernels on the whole "
+                        "sequence); checkpoints stay flat")
     p.add_argument("--sp_ring", action="store_true",
-                   help="ring attention with --sp_devices (not ported yet)")
+                   help="with --sp_devices: ring attention (k/v rotate "
+                        "around the sequence shards, one hop a step) "
+                        "instead of the gather")
     p.add_argument("--moe_experts", type=int, default=0,
                    help="replace every other block's MLP with a Switch "
                         "top-1 MoE of N experts (ops/moe.py; "

@@ -53,9 +53,8 @@ class ClipRunConfig:
     remat: bool = False                    # recompute each block in the
                                            # backward
     sp_devices: int = 1                    # >1: visual-tower sequence
-                                           # parallelism (not ported yet)
+                                           # parallelism (torchrun)
     sp_ring: bool = False                  # with sp_devices: ring attention
-                                           # (not ported yet)
     host_prefetch: bool = True             # asynchronous copy-out of the
                                            # per-epoch checkpoint trees
                                            # (core/hostcopy.py)
@@ -163,8 +162,8 @@ class ViTTrainConfig:
     zero1: bool = False  # shard the SGD momentum over the ranks
     fsdp: bool = False   # shard params and momentum over the ranks
     tp_devices: int = 1  # tensor parallelism: ranks in a model group
-    sp_devices: int = 1  # sequence parallelism (not ported yet)
-    sp_ring: bool = False  # ring attention with sp_devices (not ported yet)
+    sp_devices: int = 1  # sequence parallelism: ranks in a model group
+    sp_ring: bool = False  # ring attention with sp_devices
     ep_devices: int = 1  # expert parallelism: ranks in an expert group
     moe_experts: int = 0  # MoE MLPs in every other block (ops/moe.py)
     moe_topk: int = 1     # 1 = Switch top-1 routing, 2 = GShard top-2

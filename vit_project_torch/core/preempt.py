@@ -19,8 +19,6 @@ import signal
 import sys
 import threading
 
-PARALLEL_MODES = "the port of the parallel modes"
-
 
 def exit_if_undispatched(guard) -> None:
     """Shared epilogue of the batched sweep and lengths CLIs: exit 143 when a

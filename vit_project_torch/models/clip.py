@@ -226,13 +226,16 @@ def encode_image(model: CLIP, images: torch.Tensor, *,
                  adapter_cfg: dict | None = None,
                  dropout_key: vdora.DropoutKey | None = None,
                  deterministic: bool = True,
-                 remat: bool = False) -> torch.Tensor:
-    """images [B, H, W, 3] (normalized, NHWC) -> [B, embed_dim] f32."""
+                 remat: bool = False, seq_shard=None,
+                 ring_attn: bool = False) -> torch.Tensor:
+    """images [B, H, W, 3] (normalized, NHWC) -> [B, embed_dim] f32;
+    `seq_shard` / `ring_attn` as ``models.vit.clip_visual_encode``."""
     return vvit.clip_visual_encode(model.visual, images,
                                    compute_dtype=compute_dtype,
                                    adapters=adapters, adapter_cfg=adapter_cfg,
                                    dropout_key=dropout_key,
-                                   deterministic=deterministic, remat=remat)
+                                   deterministic=deterministic, remat=remat,
+                                   seq_shard=seq_shard, ring_attn=ring_attn)
 
 
 def _scores(model: CLIP, img: torch.Tensor, txt: torch.Tensor) -> torch.Tensor:
@@ -250,14 +253,17 @@ def clip_hba_forward(model: CLIP, images: torch.Tensor,
                      adapter_cfg: dict | None = None,
                      dropout_key: vdora.DropoutKey | None = None,
                      deterministic: bool = True,
-                     remat: bool = False) -> torch.Tensor:
+                     remat: bool = False, seq_shard=None,
+                     ring_attn: bool = False) -> torch.Tensor:
     """images -> [B, n_prompts] scores (the CLIPHBA contract): the logit
     scale times the cosine similarity of each image and prompt embedding.
 
     adapters = {"visual": {idx: dora}, "text": {idx: dora}}
     (adapters/dora.py assemble); `dropout_key` splits into a vision and a
     text stream, as the JAX forward splits its key. `remat` recomputes every
-    block of both towers in the backward."""
+    block of both towers in the backward. `seq_shard` / `ring_attn` run the
+    VISUAL tower sequence-parallel (the text tower is 66 x 77 tokens, whole
+    on every rank)."""
     adapters = adapters or {}
     kv = kt = None
     if dropout_key is not None:
@@ -265,7 +271,8 @@ def clip_hba_forward(model: CLIP, images: torch.Tensor,
     img = encode_image(model, images, compute_dtype=compute_dtype,
                        adapters=adapters.get("visual"),
                        adapter_cfg=adapter_cfg, dropout_key=kv,
-                       deterministic=deterministic, remat=remat)
+                       deterministic=deterministic, remat=remat,
+                       seq_shard=seq_shard, ring_attn=ring_attn)
     txt = encode_text(model, prompt_tokens, compute_dtype=compute_dtype,
                       adapters=adapters.get("text"), adapter_cfg=adapter_cfg,
                       dropout_key=kt, deterministic=deterministic,

@@ -63,8 +63,33 @@ return (x, aux) and ``vit_encode`` / ``vit_classify`` sum aux over them.
 Under expert parallelism (``moe_groups``) each rank holds its experts;
 the rest of the block is whole on every rank.
 
-Ring attention and sequence sharding are not ported yet and are refused by
-name.
+Sequence parallelism (``seq_shard``, a model group's
+``parallel/mesh.SeqShard``; the classifier and the CLIP visual tower):
+each rank of the group runs the stem whole, keeps its tokens ``bounds(S)``
+(GSPMD's ragged split) and runs every per-token layer (LayerNorms,
+projections, MLP) on them alone. Two forms of the attention, which is the
+only token-mixing op:
+
+- the gather form (the default): each rank gathers the packed, prescaled
+  qkv of the group along S (``parallel/dist.GatherSeq``), runs the packed
+  flash op on the whole sequence and keeps its own rows of the output;
+  the gather's backward sums the whole-sequence dqkv over the group. Every
+  rank does the whole sequence's attention (n times the FLOPs of its
+  share). A MoE block gathers its input the same way, routes the whole
+  sequence (so capacity and queue order are one process's) and keeps its
+  rows;
+- the ring form (``ring_attn``): the stem's tokens are padded to n *
+  ceil(S / n) (``parallel/ring.pad_seq``), each rank takes its block and
+  the attention is ``parallel/ring.ring_attention_bshd`` on its q, k, v
+  [B, S_pad/n, H, dh] (unscaled, as JAX's einsum path has them), k/v
+  rotating around the group. No attention kernel runs there.
+
+At the end of the trunk each rank drops its padding and the group's
+tokens are gathered (``GatherSeq``) into the whole [B, S, D], which every
+rank returns. The gathers' backward sums over the group, so a loss on
+those tokens must be differentiated on one rank of the group only (the
+trainers seed model rank 0's loss with 1 and the others' with 0); every
+rank still runs every backward collective.
 """
 from __future__ import annotations
 
@@ -82,6 +107,7 @@ from ..ops import moe as vmoe
 from ..ops import nn as vnn
 from ..ops import quant as vquant
 from ..parallel import dist
+from ..parallel import ring as vring
 
 
 @dataclass(frozen=True)
@@ -242,25 +268,62 @@ def _quantized_qkv(h: torch.Tensor, wq, b: torch.Tensor,
     return qkv
 
 
+@dataclass(frozen=True)
+class SeqParallel:
+    """A sequence-parallel trunk's context for its blocks: the layout
+    `seq`, the real token count `S` and the form (`ring`; the gather form
+    otherwise). Built by ``_seq_parallel_enter``."""
+    seq: object
+    S: int
+    ring: bool
+
+    def bounds(self) -> tuple[int, int]:
+        return self.seq.bounds(self.S)
+
+
+def _attention(qkv: torch.Tensor, heads: int, sp: SeqParallel | None,
+               causal: bool = False) -> torch.Tensor:
+    """The attention core on a packed qkv [B, s, 3D] -> [B, s, D]: the
+    packed flash op (q lanes prescaled), or under `sp` the gather form on
+    the whole sequence (prescaled) or the ring (unscaled q)."""
+    if sp is None:
+        return vattn.flash_mha_packed_qkv(qkv, num_heads=heads, causal=causal)
+    B, s, D3 = qkv.shape
+    if sp.ring:
+        q, k, v = qkv.view(B, s, 3, heads, D3 // (3 * heads)).unbind(2)
+        o = vring.ring_attention_bshd(q, k, v, sp.seq, s_valid=sp.S,
+                                      causal=causal)
+        return o.reshape(B, s, D3 // 3)
+    lo, hi = sp.bounds()
+    full = dist.GatherSeq.apply(qkv, sp.seq, sp.S)
+    return vattn.flash_mha_packed_qkv(full, num_heads=heads,
+                                      causal=causal)[:, lo:hi]
+
+
 def block_forward(blk: ResidualAttentionBlock, x: torch.Tensor, *,
                   adapter: dict | None = None,
                   adapter_cfg: dict | None = None,
                   dropout_key: vdora.DropoutKey | None = None,
-                  deterministic: bool = True) -> torch.Tensor:
+                  deterministic: bool = True,
+                  sp: SeqParallel | None = None) -> torch.Tensor:
     """Pre-norm transformer block on x [B, S, D] (x.dtype is the compute
     dtype). Attention goes through the packed flash op; with `adapter`
     ({trainable, buffers}) the out_proj is the DoRA layer instead. Int8
-    weights (serving) take the quantized branch."""
+    weights (serving) take the quantized branch. Under `sp` x holds this
+    rank's tokens (module docstring)."""
     h = vnn.layer_norm(x, blk.ln_1.weight, blk.ln_1.bias)
     dh = h.shape[-1] // blk.heads
+    ring = sp is not None and sp.ring
     if vquant.is_quantized(blk.attn.in_proj_weight):
         qkv = _quantized_qkv(h, blk.attn.in_proj_weight,
                              blk.attn.in_proj_bias, dh)
+    elif ring:
+        qkv = vnn.dense(h, blk.attn.in_proj_weight.t(),
+                        blk.attn.in_proj_bias)
     else:
         w, b = _prescaled_in_proj(blk.attn, dh, h.dtype)
         qkv = vnn.dense(h, w.t(), b)                              # [B, S, 3D]
-    o = vattn.flash_mha_packed_qkv(qkv, num_heads=blk.heads,
-                                   causal=blk.causal)
+    o = _attention(qkv, blk.heads, sp, causal=blk.causal)
     if adapter is not None:
         o = vdora.dora_linear(
             o, adapter["trainable"], adapter["buffers"],
@@ -280,7 +343,8 @@ def run_blocks(transformer: Transformer, x: torch.Tensor, *,
                adapters: dict | None = None, adapter_cfg: dict | None = None,
                dropout_key: vdora.DropoutKey | None = None,
                deterministic: bool = True, start: int = 0,
-               stop: int | None = None, remat: bool = False) -> torch.Tensor:
+               stop: int | None = None, remat: bool = False,
+               sp: SeqParallel | None = None) -> torch.Tensor:
     """Blocks [start, stop) of `transformer` on x; block i takes adapters[i]
     (if any) and the dropout stream dropout_key.fold_in(i), with i the
     absolute index, so a split tower draws the masks of the whole one.
@@ -297,7 +361,7 @@ def run_blocks(transformer: Transformer, x: torch.Tensor, *,
         if ad is not None and dropout_key is not None:
             dk = dropout_key.fold_in(i)
         kw = dict(adapter=ad, adapter_cfg=adapter_cfg, dropout_key=dk,
-                  deterministic=deterministic)
+                  deterministic=deterministic, sp=sp)
         if remat and torch.is_grad_enabled():
             x = torch.utils.checkpoint.checkpoint(
                 block_forward, blocks[i], x, use_reentrant=False, **kw)
@@ -439,14 +503,21 @@ def clip_visual_encode(visual: VisionTransformer, images: torch.Tensor, *,
                        adapter_cfg: dict | None = None,
                        dropout_key: vdora.DropoutKey | None = None,
                        deterministic: bool = True,
-                       remat: bool = False) -> torch.Tensor:
+                       remat: bool = False, seq_shard=None,
+                       ring_attn: bool = False) -> torch.Tensor:
     """CLIP visual tower: images [B, H, W, 3] (normalized, NHWC) ->
-    [B, out_dim] f32. `adapters` maps block index -> {trainable, buffers}."""
+    [B, out_dim] f32. `adapters` maps block index -> {trainable, buffers}.
+    `seq_shard` / `ring_attn`: sequence parallelism, gather or ring form
+    (module docstring)."""
+    _seq_parallel_checks(visual.cfg, seq_shard, ring_attn,
+                         [b.attn.in_proj_weight
+                          for b in visual.transformer.resblocks])
     x = _clip_visual_stem(visual, images, compute_dtype=compute_dtype)
+    x, sp = _seq_parallel_enter(x, seq_shard, ring_attn)
     x = run_blocks(visual.transformer, x, adapters=adapters,
                    adapter_cfg=adapter_cfg, dropout_key=dropout_key,
-                   deterministic=deterministic, remat=remat)
-    return _clip_visual_out(visual, x)
+                   deterministic=deterministic, remat=remat, sp=sp)
+    return _clip_visual_out(visual, _seq_parallel_exit(x, sp))
 
 
 def clip_visual_prefix(visual: VisionTransformer, images: torch.Tensor, *,
@@ -525,11 +596,6 @@ def clip_visual_suffix_forks(visual: VisionTransformer, hidden: torch.Tensor,
 
 # -- the timm-style classifier -------------------------------------------------
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported to vit_project_torch "
-                              f"yet (the JAX package has it)")
-
-
 class Attention(nn.Module):
     def __init__(self, width: int):
         super().__init__()
@@ -560,7 +626,7 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, heads: int, *, act,
                 fused_dw: bool = False, tp=None, with_aux: bool = False,
-                moe: dict | None = None):
+                moe: dict | None = None, sp: SeqParallel | None = None):
         """``classifier_block`` on this block (through the module call, so
         FSDP2's hooks gather a sharded block's parameters around it), or
         ``classifier_block_tp`` over the model group `tp`."""
@@ -568,7 +634,7 @@ class Block(nn.Module):
             y = classifier_block_tp(self, x, heads, act=act, group=tp)
             return (y, _no_aux(y)) if with_aux else y
         return classifier_block(self, x, heads, act=act, fused_dw=fused_dw,
-                                with_aux=with_aux, moe=moe)
+                                with_aux=with_aux, moe=moe, sp=sp)
 
 
 class PatchEmbed(nn.Module):
@@ -667,7 +733,7 @@ def _no_aux(x: torch.Tensor) -> torch.Tensor:
 
 def classifier_block(blk: Block, x: torch.Tensor, heads: int, *, act,
                      fused_dw: bool = False, with_aux: bool = False,
-                     moe: dict | None = None):
+                     moe: dict | None = None, sp: SeqParallel | None = None):
     """Pre-norm block on x [B, S, D] in the compute dtype, as the JAX block's
     fused-kernel branch computes it: the 1/sqrt(dh) score scale multiplies
     the q columns of the one packed projection (weight and bias, in f32, as
@@ -677,25 +743,38 @@ def classifier_block(blk: Block, x: torch.Tensor, heads: int, *, act,
     groups). With `fused_dw` every dense layer here takes (dW, db) from the
     fused kernel (the expert FFNs are batched products). Int8 weights
     (serving) take the quantized branch; MoE blocks stay float. With
-    `with_aux` the result is (x, aux), aux 0 for a dense block."""
+    `with_aux` the result is (x, aux), aux 0 for a dense block. Under `sp`
+    x holds this rank's tokens (module docstring)."""
     h = vnn.layer_norm(x, blk.norm1.weight, blk.norm1.bias)
     D = h.shape[-1]
+    ring = sp is not None and sp.ring
     if vquant.is_quantized(blk.attn.qkv.weight):
         qkv = _quantized_qkv(h, blk.attn.qkv.weight, blk.attn.qkv.bias,
                              D // heads)
+    elif ring:
+        qkv = vnn.dense(h, blk.attn.qkv.weight.t(), blk.attn.qkv.bias,
+                        fused_dw=fused_dw)
     else:
         colscale = torch.ones(3 * D, dtype=torch.float32, device=h.device)
         colscale[:D] = 1.0 / ((D // heads) ** 0.5)
         w = blk.attn.qkv.weight * colscale[:, None]          # [3D, D]
         b = blk.attn.qkv.bias * colscale
         qkv = vnn.dense(h, w.t(), b, fused_dw=fused_dw)      # [B, S, 3D]
-    o = vattn.flash_mha_packed_qkv(qkv, num_heads=heads)
+    o = _attention(qkv, heads, sp)
     o = vnn.dense(o, _wt(blk.attn.proj.weight), blk.attn.proj.bias,
                   fused_dw=fused_dw)
     x = x + o
     h = vnn.layer_norm(x, blk.norm2.weight, blk.norm2.bias)
     if hasattr(blk, "moe"):
-        h, aux = vmoe.moe_mlp(h, blk.moe, act=act, **(moe or {}))
+        if sp is not None:
+            # the gather form: route the whole sequence, keep this rank's
+            # rows (the ring is refused with MoE blocks)
+            lo, hi = sp.bounds()
+            h, aux = vmoe.moe_mlp(dist.GatherSeq.apply(h, sp.seq, sp.S),
+                                  blk.moe, act=act, **(moe or {}))
+            h = h[:, lo:hi]
+        else:
+            h, aux = vmoe.moe_mlp(h, blk.moe, act=act, **(moe or {}))
     else:
         h = vnn.mlp(h, _wt(blk.mlp.fc1.weight), blk.mlp.fc1.bias,
                     _wt(blk.mlp.fc2.weight), blk.mlp.fc2.bias, act=act,
@@ -735,16 +814,47 @@ def classifier_block_tp(blk: Block, x: torch.Tensor, heads: int, *, act,
     return x + (h + blk.mlp.fc2.bias.to(h.dtype))
 
 
-def _refuse_parallel(cfg: ViTConfig, seq_shard=None, ring_attn=False):
+def _seq_parallel_checks(cfg: ViTConfig, seq_shard, ring_attn: bool,
+                         qkv_weights) -> None:
+    """JAX's sp / ring argument checks, shared by both trunks, and the
+    port's refusal of int8 weights (a serving path; sp is training's)."""
+    if ring_attn and seq_shard is None:
+        raise ValueError("ring_attn=True needs seq_shard (the sequence-"
+                         "parallel mesh constraint)")
+    if seq_shard is not None and any(map(vquant.is_quantized, qkv_weights)):
+        raise ValueError("seq_shard (sequence parallelism) takes float "
+                         "weights: int8 weights are a serving path")
     if ring_attn and cfg.moe_experts > 0:
         raise ValueError(
             "ring_attn does not compose with MoE blocks: ring padding "
             "tokens would compete for expert capacity and pollute the "
             "aux loss — use the gather sp path (no padding)")
-    for name, given in (("seq_shard (sequence parallelism)", seq_shard),
-                        ("ring_attn (ring attention)", ring_attn)):
-        if given:
-            _not_ported(name)
+
+
+def _seq_parallel_enter(x: torch.Tensor, seq_shard, ring_attn: bool):
+    """The top of a sequence-parallel block stack: this rank's tokens of
+    the stem's x [B, S, D] (for the ring, its block of the sequence
+    zero-padded by ``pad_seq``: padded keys are masked, padded rows
+    dropped at the end), and the blocks' context. (x, None) without
+    `seq_shard`."""
+    if seq_shard is None:
+        return x, None
+    S = x.shape[1]
+    lo, hi = seq_shard.bounds(S)
+    if ring_attn:
+        x, _ = vring.pad_seq(x, seq_shard.n)
+        lo = seq_shard.index * seq_shard.shard_len(S)
+        hi = lo + seq_shard.shard_len(S)
+    return x[:, lo:hi], SeqParallel(seq_shard, S, ring_attn)
+
+
+def _seq_parallel_exit(x: torch.Tensor, sp: SeqParallel | None):
+    """The whole [B, S, D] from the group's shards (this rank's padding
+    dropped), on every rank; x itself without `sp`."""
+    if sp is None:
+        return x
+    lo, hi = sp.bounds()
+    return dist.GatherSeq.apply(x[:, :hi - lo], sp.seq, sp.S)
 
 
 def vit_embed(model: VisionTransformerClassifier, images: torch.Tensor, *,
@@ -775,7 +885,8 @@ def vit_encode(model: VisionTransformerClassifier, images: torch.Tensor, *,
                input_norm: tuple | None = None, compute_dtype=torch.float32,
                remat: bool = False, fused_dw: bool = False, tp=None,
                moe_groups: vmoe.MoEGroups | None = None,
-               with_aux: bool = False, **parallel):
+               with_aux: bool = False, seq_shard=None,
+               ring_attn: bool = False):
     """images [B, H, W, 3] -> tokens [B, S, width] after the final LayerNorm
     (timm's forward_features contract); with `with_aux`, (tokens, the sum of
     the MoE blocks' load-balance losses), 0.0 for a dense model.
@@ -790,9 +901,15 @@ def vit_encode(model: VisionTransformerClassifier, images: torch.Tensor, *,
     `tp` (a model group) runs each block tensor-parallel on the model's
     shards (``classifier_block_tp``); the stem, the final LayerNorm and
     the head run whole on every rank. `moe_groups` places the MoE blocks'
-    rows and experts across ranks (``ops.moe.MoEGroups``)."""
+    rows and experts across ranks (``ops.moe.MoEGroups``).
+
+    `seq_shard` (``parallel/mesh.seq_sharding``) runs the blocks and the
+    final LayerNorm sequence-parallel on this rank's tokens, in the gather
+    form or with `ring_attn` the ring form, and returns the gathered
+    tokens (module docstring)."""
     cfg = model.cfg
-    _refuse_parallel(cfg, **parallel)
+    _seq_parallel_checks(cfg, seq_shard, ring_attn,
+                         [b.attn.qkv.weight for b in model.blocks])
     act = _activation(cfg)
     if tp is not None and fused_dw:
         raise ValueError("fused_dw is a single-chip path; disable it under "
@@ -803,12 +920,13 @@ def vit_encode(model: VisionTransformerClassifier, images: torch.Tensor, *,
                          "ep_devices)")
     x = vit_embed(model, images, input_norm=input_norm,
                   compute_dtype=compute_dtype, fused_dw=fused_dw)
+    x, sp = _seq_parallel_enter(x, seq_shard, ring_attn)
     moe = dict(capacity_factor=cfg.moe_capacity, topk=cfg.moe_topk,
                groups=moe_groups)
     aux_total = _no_aux(x)
     for blk in model.blocks:
         kw = dict(act=act, fused_dw=fused_dw, tp=tp, with_aux=with_aux,
-                  moe=moe)
+                  moe=moe, sp=sp)
         if remat and torch.is_grad_enabled():
             out = torch.utils.checkpoint.checkpoint(
                 blk, x, cfg.heads, use_reentrant=False, **kw)
@@ -819,7 +937,8 @@ def vit_encode(model: VisionTransformerClassifier, images: torch.Tensor, *,
             aux_total = aux_total + aux
         else:
             x = out
-    out = vnn.layer_norm(x, model.norm.weight, model.norm.bias)
+    out = _seq_parallel_exit(
+        vnn.layer_norm(x, model.norm.weight, model.norm.bias), sp)
     return (out, aux_total) if with_aux else out
 
 

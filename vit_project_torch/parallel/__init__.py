@@ -1,2 +1,3 @@
-"""Multi-process data parallelism over ``torch.distributed`` (counterpart of
-the JAX package's parallel/)."""
+"""Multi-process parallelism over ``torch.distributed``: the data, tensor,
+expert and sequence axes and ring attention (counterpart of the JAX
+package's parallel/)."""

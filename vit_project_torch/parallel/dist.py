@@ -14,6 +14,13 @@ caller passes (``group``: a tensor-parallel run's data or model group,
 from its DeviceMesh, ``parallel/mesh.make_mesh``), on tensors on the
 backend's device (the card for NCCL, the CPU for gloo; gloo's all-reduce
 also takes a card's tensors, through the host).
+
+Sequence parallelism's two token collectives over a model group
+(``parallel/mesh.SeqShard``): ``GatherSeq``, the all-gather of the ranks'
+token shards along S, and ``ring_shift`` / ``RingHop``, the hop of ring
+attention (each rank sends to the next rank of the group and receives from
+the one before). Under gloo a card's tensors go through host buffers for
+both (the arithmetic stays on the card); NCCL takes them where they are.
 """
 from __future__ import annotations
 
@@ -229,6 +236,81 @@ class ReduceFromGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+def _via_host(t: torch.Tensor, group) -> bool:
+    """gloo moves a card's tensor through a host copy of it."""
+    return t.is_cuda and tdist.get_backend(group) == "gloo"
+
+
+class GatherSeq(torch.autograd.Function):
+    """The whole sequence from the model group's token shards: x [B, s_t,
+    ...], this rank's tokens ``seq.bounds(S)``, -> [B, S, ...] on every
+    rank. The ragged shards pad to ``seq.shard_len(S)`` for one all-gather,
+    and the padding is trimmed. Each rank's consumer of the whole sequence
+    reads it for its own part of the work, so the backward sums the
+    gradient of the whole sequence over the group (an all-reduce: gloo has
+    no reduce-scatter) and keeps this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, seq, S):
+        ctx.seq, ctx.S = seq, S
+        per = seq.shard_len(S)
+        if x.shape[1] != per:
+            pad = x.new_zeros((x.shape[0], per - x.shape[1], *x.shape[2:]))
+            x = torch.cat([x, pad], dim=1)
+        host = _via_host(x, seq.group)
+        rows = all_gather_rows(x.cpu() if host else x, seq.group)
+        out = rows.movedim(0, 1).reshape(x.shape[0], seq.n * per,
+                                         *x.shape[2:])[:, :S]
+        return out.to(x.device) if host else out.contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        tdist.all_reduce(g, group=ctx.seq.group)
+        lo, hi = ctx.seq.bounds(ctx.S)
+        return g[:, lo:hi], None, None
+
+
+def ring_shift(tensors: list, seq, step: int = 1) -> list:
+    """Ring attention's hop: `tensors` sent to model rank index + `step` of
+    the group, and the same shapes received from index - `step`, as one
+    byte buffer a hop (one send and one receive, whatever the dtypes)."""
+    to = tdist.get_global_rank(seq.group, (seq.index + step) % seq.n)
+    frm = tdist.get_global_rank(seq.group, (seq.index - step) % seq.n)
+    parts = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
+    buf = torch.cat(parts)
+    host = _via_host(buf, seq.group)
+    send = buf.cpu() if host else buf
+    recv = torch.empty_like(send)
+    for w in tdist.batch_isend_irecv([
+            tdist.P2POp(tdist.isend, send, to, seq.group),
+            tdist.P2POp(tdist.irecv, recv, frm, seq.group)]):
+        w.wait()
+    recv = recv.to(buf.device)
+    out, off = [], 0
+    for t, p in zip(tensors, parts):
+        part = recv[off:off + p.numel()]
+        if off % t.element_size():      # a view needs an aligned start
+            part = part.clone()
+        off += p.numel()
+        out.append(part.view(t.dtype).view(t.shape))
+    return out
+
+
+class RingHop(torch.autograd.Function):
+    """``ring_shift`` of one tensor one step on, differentiable: the
+    backward sends the gradient one step back."""
+
+    @staticmethod
+    def forward(ctx, x, seq):
+        ctx.seq = seq
+        return ring_shift([x], seq)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return ring_shift([g], ctx.seq, step=-1)[0], None
 
 
 def primary_values(values: list) -> list:

@@ -1,5 +1,6 @@
 """The device mesh and the sharding rules (counterpart of the parts of the
-JAX package's parallel/mesh.py that data and tensor parallelism use).
+JAX package's parallel/mesh.py that data, tensor, expert and sequence
+parallelism use).
 
 JAX drives a mesh from one process and places arrays on it; the port runs
 one process per card, and each rank holds its own share. So:
@@ -11,6 +12,11 @@ one process per card, and each rank holds its own share. So:
   ``make_mesh(n_expert=ep)`` is ("data", "expert") the same way.
   ``n_stage`` (the pipeline) raises: it comes with a later slice of the
   port.
+- ``seq_sharding(mesh)`` is JAX's sequence-parallel layout as the port
+  holds it: the model group, its size n and this rank's index
+  (``SeqShard``), whose ``bounds(S)`` give the rank's tokens. The split is
+  GSPMD's ragged one, ceil(S / n) tokens a rank with the last shard short
+  (ViT-B/16's 197 tokens are 99 + 98 over 2 ranks).
 - ``shard_batch`` and ``replicate`` have no counterpart: each rank's loader
   reads its own strided shard of the global batch (``num_shards`` = the
   data axis, ``shard_id`` = the rank's place on it), and parameters are
@@ -42,6 +48,7 @@ one process per card, and each rank holds its own share. So:
 from __future__ import annotations
 
 import re
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -81,6 +88,37 @@ def make_mesh(n_data: int | None = None, n_model: int = 1, n_stage: int = 1,
                                 mesh_dim_names=("data",))
     return init_device_mesh(device_type, (world // n, n),
                             mesh_dim_names=("data", axis))
+
+
+@dataclass(frozen=True)
+class SeqShard:
+    """A model group's sequence layout: the process group `group`, its
+    size `n` and this rank's `index` in it. Rank t holds tokens
+    ``bounds(S)`` of a sequence of S, ceil(S / n) of them (the last rank's
+    shard short, or empty), so every shard pads to ``shard_len(S)``."""
+    group: object
+    n: int
+    index: int
+
+    def shard_len(self, S: int) -> int:
+        return -(-S // self.n)
+
+    def bounds(self, S: int) -> tuple[int, int]:
+        per = self.shard_len(S)
+        lo = min(self.index * per, S)
+        return lo, min(lo + per, S)
+
+
+def seq_sharding(mesh) -> SeqShard:
+    """Sequence parallelism's layout on a ("data", "model") mesh: tokens
+    over the "model" axis (Megatron-SP rides the tensor-parallel axis),
+    batch over "data" (each model group reads one data shard)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if "model" not in names:
+        raise ValueError("sequence parallelism needs a ('data','model') mesh "
+                         f"(make_mesh(n_model=...)); got {names}")
+    return SeqShard(mesh.get_group("model"), mesh.size(names.index("model")),
+                    mesh.get_local_rank("model"))
 
 
 # the tensor-parallel block leaves: name within a block -> (axis, parts).

@@ -50,8 +50,19 @@ NaN guard skips a step on every rank together. AdamW runs replicated: the
 ranks start equal (``dist.check_replicas_equal``) and stay equal. Eval splits
 each batch the same way and all-reduces its sum; the RSA, the dumps and
 the frozen-prefix caches run whole on every rank. The primary writes every
-file, and the ranks meet at a barrier after each epoch's writes. The
-sequence-parallel modes raise: they come with a later slice of the port.
+file, and the ranks meet at a barrier after each epoch's writes.
+
+Sequence parallelism (``sp``, ``sp_ring``; ``run_behavioral_training``'s
+``sp_devices``) runs the visual tower of every forward sequence-parallel
+on a ``("data", "model")`` mesh (``models/vit.py``: the gather form on the
+flash kernels, or ring attention); the text tower runs whole on every
+rank. The data axis splits each batch as above (a model group's ranks
+hold the same rows); only model rank 0 differentiates its loss (the
+others seed theirs with 0 and run every backward collective), so the
+step's all-reduce over every rank sums the visual adapters' token shares
+and counts the text adapters once. Eval sums over the data group. Every
+rank draws the same DoRA dropout mask (it is drawn on the weight, from the
+step's key). The frozen-prefix cache is refused, as JAX refuses it.
 """
 from __future__ import annotations
 
@@ -72,7 +83,6 @@ from ..core import csvio, hostcopy
 from ..core.configs import ClipRunConfig
 from ..core.device import resolve_device
 from ..core.logs import setup_logger
-from ..core.preempt import PARALLEL_MODES
 from ..core.prng import Key, batch_perturb_key, perturb_base_key
 from ..core.profiling import EpochTimer
 from ..data import things as dthings
@@ -83,6 +93,7 @@ from ..models import tokenizer as vtok
 from ..models import vit as vvit
 from ..ops import rsa as vrsa
 from ..parallel import dist
+from ..parallel import mesh as vmesh
 from ..perturb import injectors, windows
 
 # eval runs the whole test set as one batch while it stays under this many
@@ -102,11 +113,6 @@ def make_optimizer(params, lr: float) -> torch.optim.AdamW:
                              weight_decay=0.01)
 
 
-def _unported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it comes with "
-                               f"{where}")
-
-
 class ClipHBATrainer:
     """The frozen CLIP, the adapters' static half, the prompts, and the
     train / eval / RSA steps, on the full tower or from the frozen-prefix
@@ -119,13 +125,27 @@ class ClipHBATrainer:
                  dist_mean: float = 0.0, dist_std: float = 1.0, mesh=None,
                  remat: bool = False, sp: bool = False,
                  sp_ring: bool = False):
-        if sp or sp_ring:
-            raise _unported("sequence-parallel training (sp, sp_ring)",
-                            PARALLEL_MODES)
-        # a ("data",) mesh over the group's ranks: data-parallel steps
+        # sequence parallelism of the visual tower (gather form; sp_ring
+        # upgrades it to ring attention) needs a ("data", "model") mesh
+        if sp_ring and not sp:
+            raise ValueError("sp_ring needs sp=True")
+        if sp and mesh is None:
+            raise ValueError("sp=True needs a ('data','model') mesh "
+                             "(make_mesh(n_model=...)); got mesh=None")
+        self.seq_shard = vmesh.seq_sharding(mesh) if sp else None
+        self.sp_ring = sp_ring
+        # the data axis (a ("data",) mesh's ranks, or a ("data", "model")
+        # mesh's "data" dimension), which splits each batch: its size
+        # `world`, this rank's place `rank` and its group (None: all ranks)
         self.mesh = mesh
-        self.world = dist.world_size() if mesh is not None else 1
-        self.rank = dist.rank() if mesh is not None else 0
+        self.world, self.rank, self.data_group = 1, 0, None
+        if mesh is not None:
+            self.world = mesh.size(0)
+            self.rank = mesh.get_local_rank("data")
+            if sp:
+                self.data_group = mesh.get_group("data")
+        # under sp only model rank 0 counts its loss (module docstring)
+        self.counts_loss = not sp or self.seq_shard.index == 0
         self.cfg = clip_cfg
         self.model = model.requires_grad_(False)
         self.device = next(model.parameters()).device
@@ -174,6 +194,11 @@ class ClipHBATrainer:
         """Frozen-prefix activations [N, S, width] in the compute dtype for a
         resident uint8 image set, built in chunks (bounds the build's
         activation memory)."""
+        if self.seq_shard is not None:
+            raise ValueError(
+                "frozen_cache is incompatible with sequence parallelism: "
+                "the cache holds full-S activations, which defeats sp's "
+                "token sharding (and the sp forward has no prefix split)")
         n_vis, _ = self.suffix_sizes()
         cache = None
         for s in range(0, imgs_dev.shape[0], chunk):
@@ -216,7 +241,8 @@ class ClipHBATrainer:
             self.model, images, self.prompts,
             compute_dtype=self.compute_dtype, adapters=adapters,
             adapter_cfg=self.acfg, dropout_key=dropout_key,
-            deterministic=deterministic, remat=self.remat)
+            deterministic=deterministic, remat=self.remat,
+            seq_shard=self.seq_shard, ring_attn=self.sp_ring)
 
     def perturb(self, perturb_type: str, key: Key | None,
                 images: torch.Tensor, targets: torch.Tensor,
@@ -232,7 +258,7 @@ class ClipHBATrainer:
 
     def _local_rows(self, x):
         """This rank's contiguous block of a batch every rank holds whole
-        (JAX's ``_local_rows``: rank k owns rows [k*w, (k+1)*w))."""
+        (JAX's ``_local_rows``: data rank k owns rows [k*w, (k+1)*w))."""
         if self.world == 1:
             return x
         if len(x) % self.world != 0:
@@ -244,7 +270,7 @@ class ClipHBATrainer:
 
     def _prep_idx(self, idx, batch_size: int):
         """An index batch padded to the data-parallel width, batch_size
-        rounded up to a multiple of the world size, with its valid mask
+        rounded up to a multiple of the data axis, with its valid mask
         (JAX's ``_prep_idx``), as this rank's block: (idx [w] int64, valid
         [w] float32). The padding indexes row 0."""
         n = len(idx)
@@ -300,13 +326,16 @@ class ClipHBATrainer:
                          ok: torch.Tensor):
         """The global step from this rank's share: one all-reduce (sum) of
         the adapters' gradients, flattened, with the loss and this rank's
-        non-finite flag. Returns (the global loss, ok on every rank)."""
+        non-finite flag. Returns (the global loss, ok on every rank). Under
+        sp the sum runs over every rank too (the model group's shares of
+        the visual gradients), and the loss counts on model rank 0 only."""
         leaves = [leaf for *_, leaf in adora.trainable_leaves(trainable)]
         flat = torch.cat(
             [(leaf.grad if leaf.grad is not None
               else torch.zeros_like(leaf)).reshape(-1).float()
              for leaf in leaves]
-            + [loss.detach().reshape(1).float(), (~ok).float().reshape(1)])
+            + [loss.detach().reshape(1).float() * float(self.counts_loss),
+               (~ok).float().reshape(1)])
         dist.all_reduce_sum(flat)
         for leaf, g in zip(leaves, flat[:-2].split([leaf.numel()
                                                     for leaf in leaves])):
@@ -332,7 +361,8 @@ class ClipHBATrainer:
         row_mse = torch.mean((preds - targets) ** 2, dim=-1)
         # this rank's share of the global batch's mean (one process: all)
         loss = torch.sum(row_mse) / n if n else torch.sum(row_mse) * 0.0
-        loss.backward()
+        loss.backward(torch.ones_like(loss) if self.counts_loss
+                      else torch.zeros_like(loss))
         ok = (torch.isfinite(loss) & torch.all(torch.isfinite(targets))
               & torch.all(torch.isfinite(preds)))
         if self.mesh is not None:
@@ -382,9 +412,9 @@ class ClipHBATrainer:
         `eval_batch_size` (eval has no cross-batch dependence). With
         `cache` (the set's frozen-prefix activations) only the adapted
         suffix runs. Each rank runs its block of every batch
-        (``eval_idx_mats`` widened to a multiple of the world size, as
+        (``eval_idx_mats`` widened to a multiple of the data axis, as
         JAX's, and ``_local_rows``) and the sum of the row MSEs is
-        all-reduced before the division."""
+        all-reduced over the data group before the division."""
         cached = cache is not None
         src = cache if cached else imgs_dev
         idx_mat, valid_mat = (
@@ -402,7 +432,7 @@ class ClipHBATrainer:
             total += torch.sum(torch.mean((preds - tgts_dev[rows]) ** 2,
                                           dim=-1))
         if self.mesh is not None:
-            dist.all_reduce_sum(total)
+            dist.all_reduce_sum(total, self.data_group)
         return float(total) / n
 
     @torch.no_grad()
@@ -695,21 +725,24 @@ def train_model(trainer: ClipHBATrainer, trainable: dict,
             trainable, inf_imgs_dev, reference_rdm, cache=inf_cache)
         log(f"Behavioral RSA Correlation & p-value: {rho:.4f}, {p_value:.4f}")
 
+        # the second per-epoch inference set (the reference runs produced
+        # nod_embeddings_epochN.csv dumps; SURVEY.md section 0): the
+        # primary's to write, every rank's to compute under sp (its forward
+        # is collective)
+        nod_emb = None
+        if nod_imgs_dev is not None and nod_dump_dir is not None and (
+                primary or trainer.seq_shard is not None):
+            nod_emb = trainer.infer_in_chunks(trainable, nod_imgs_dev,
+                                              len(nod_images), cache=nod_cache)
         # the host-side files come from the primary alone: every rank holds
         # the same replicated state, and two writers of one file would race
         if primary:
             if dump_dir is not None:
                 dump_embeddings(dump_dir, epoch + 1, emb, inference_names,
                                 prefix="things_48")
-            if nod_imgs_dev is not None and nod_dump_dir is not None:
-                # the second per-epoch inference set (the reference runs
-                # produced nod_embeddings_epochN.csv dumps; SURVEY.md
-                # section 0)
-                dump_embeddings(nod_dump_dir, epoch + 1,
-                                trainer.infer_in_chunks(
-                                    trainable, nod_imgs_dev, len(nod_images),
-                                    cache=nod_cache),
-                                nod_names, prefix="nod")
+            if nod_emb is not None:
+                dump_embeddings(nod_dump_dir, epoch + 1, nod_emb, nod_names,
+                                prefix="nod")
 
             # checkpoints BEFORE the CSV row: a crash between the two
             # leaves "checkpoint without row" (the epoch is retrained on
@@ -903,10 +936,19 @@ def build_run_assets(cfg: ClipRunConfig, logger, device):
         acfg=acfg)
 
 
-def _refuse_unported(cfg: ClipRunConfig) -> None:
-    if cfg.sp_devices > 1 or cfg.sp_ring:
-        raise _unported("sequence parallelism (sp_devices, sp_ring)",
-                        PARALLEL_MODES)
+def _check_sp(cfg: ClipRunConfig) -> None:
+    """The sequence-parallel run's refusals, before anything is written:
+    JAX's, and a mesh that needs a process group."""
+    if cfg.sp_ring and cfg.sp_devices <= 1:
+        raise ValueError("sp_ring needs sp=True")
+    if cfg.sp_devices > 1 and not dist.is_initialized():
+        raise ValueError(
+            "sp_devices shards the visual tower's tokens over the ranks of "
+            "a process group: launch with torchrun (--nproc_per_node "
+            "sp_devices or a multiple of it)")
+    if cfg.sp_devices > 1 and dist.world_size() % cfg.sp_devices != 0:
+        raise ValueError(f"sp_devices ({cfg.sp_devices}) must divide the "
+                         f"device count ({dist.world_size()})")
 
 
 def run_behavioral_training(config, preempt_guard=None, device=None) -> dict:
@@ -926,7 +968,7 @@ def run_behavioral_training(config, preempt_guard=None, device=None) -> dict:
     `preempt_guard` injects a prebuilt guard (tests use stubs)."""
     cfg = (config if isinstance(config, ClipRunConfig)
            else ClipRunConfig.from_dict(config))
-    _refuse_unported(cfg)
+    _check_sp(cfg)
     device = resolve_device(device)
 
     log_dir = os.path.dirname(cfg.checkpoint_path) or "."
@@ -967,10 +1009,18 @@ def run_behavioral_training(config, preempt_guard=None, device=None) -> dict:
     trainable = adora.make_trainable(trainable, device)
 
     # data-parallel over the group's ranks (the reference's cuda == -1
-    # DataParallel path, ref :1174-1176; JAX's data mesh, :1160-1163)
+    # DataParallel path, ref :1174-1176; JAX's data mesh, :1160-1163);
+    # sp_devices > 1 carves a "model" axis out of them for the visual
+    # tower's sequence parallelism (gather form, or ring with sp_ring)
     mesh = None
-    if dist.is_initialized():
-        from ..parallel import mesh as vmesh
+    sp = cfg.sp_devices > 1
+    if sp:
+        mesh = vmesh.make_mesh(n_data=dist.world_size() // cfg.sp_devices,
+                               n_model=cfg.sp_devices)
+        logger.info(f"Using {dist.world_size() // cfg.sp_devices}x"
+                    f"{cfg.sp_devices} (data x sequence) mesh"
+                    + (" with ring attention" if cfg.sp_ring else ""))
+    elif dist.is_initialized():
         mesh = vmesh.make_mesh()
         logger.info(f"Using {dist.world_size()} devices (data-parallel "
                     f"mesh)")
@@ -980,7 +1030,8 @@ def run_behavioral_training(config, preempt_guard=None, device=None) -> dict:
         compute_dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16"
         else torch.float32,
         perturb_distribution=cfg.perturb_distribution,
-        dist_mean=a.mean, dist_std=a.std, mesh=mesh, remat=cfg.remat)
+        dist_mean=a.mean, dist_std=a.std, mesh=mesh, remat=cfg.remat,
+        sp=sp, sp_ring=cfg.sp_ring)
     optimizer = trainer.init_optimizer(trainable)
 
     # random-state restore (ref :1184-1201)
@@ -1030,8 +1081,10 @@ def run_behavioral_training(config, preempt_guard=None, device=None) -> dict:
     dump_dir = cfg.inference_dump_dir if cfg.dump_inference_embeddings \
         else None
     nod_images = nod_names = None
+    # its dumps are the primary's (every rank embeds it under sp, whose
+    # forward is collective)
     if cfg.nod_csv_file and os.path.exists(cfg.nod_csv_file) \
-            and dist.is_primary():     # its dumps are the primary's
+            and (dist.is_primary() or cfg.sp_devices > 1):
         nod_names = read_image_names(cfg.nod_csv_file)
         nod_images = dthings.decode_images(cfg.nod_img_dir or cfg.img_dir,
                                            nod_names,

@@ -146,6 +146,13 @@ class _Setup:
 
     def __init__(self, base_config: dict, logger, group_size: int = 1,
                  device=None):
+        if base_config.get("sp_devices", 1) > 1:
+            raise ValueError(
+                "batched multi-fork execution does not compose with "
+                "sequence parallelism: the fork axis is vmapped/mesh-sharded "
+                "and the per-fork token-sharding constraints are not "
+                "validated under that batching — run sp forks sequentially "
+                "or via --workers")
         self.log = logger.info if logger else print
         self.device = resolve_device(device)
         self.vmap_factor = per_chip_forks(group_size)

@@ -93,9 +93,24 @@ each rank routes the group's tokens, runs its own experts and sums the
 group's outputs (``ops/moe.py``). Gradients are averaged over the data
 group only; checkpoints gather the experts into the flat layout.
 
+Sequence parallelism, ``sp`` (``sp_devices`` = n > 1, under torchrun with
+W ranks; ``sp_ring`` for ring attention): JAX's ("data", "model") mesh of
+shape (W/n, n), as tp's. Every rank holds the whole model; a model group
+reads one data shard (by the data rank, as tp), and each of its ranks runs
+the trunk on its tokens (``models/vit.py``: the gather form on the flash
+kernels, or the ring). The head and the loss see the gathered tokens on
+every rank; only model rank 0 differentiates its loss (the others seed
+theirs with 0 and still run every backward collective), so each leaf's
+gradient is counted once: the trunk's are the ranks' token shares, the
+head's model rank 0's. One all-reduce over every rank, divided by the data
+axis, then sums them over the model group and averages them over the data
+group. ``zero1`` splits the momentum over the data axis (JAX's
+``zero1_sharding`` on "data"; the model group holds equal shares);
+``grad_accum`` and ``remat`` compose as they do alone. Checkpoints are
+the flat layout.
+
 ``fused_dw`` is refused with more than one process, as JAX refuses it on a
-multi-device mesh. Pipeline and sequence parallelism are not ported yet
-and are refused by name.
+multi-device mesh. The pipeline is not ported yet and is refused by name.
 """
 from __future__ import annotations
 
@@ -125,21 +140,22 @@ IMAGE_PERTURBATIONS = ("gaussian", "uniform_gray")
 
 # ViTTrainConfig fields whose features are not ported yet, with the value
 # that leaves them off
-_UNPORTED = (("pp_stages", 1), ("sp_devices", 1), ("sp_ring", False))
+_UNPORTED = (("pp_stages", 1),)
 
 
 def train_mode(cfg: ViTTrainConfig, grouped: bool,
                heads: int | None = None, moe: bool | None = None) -> str:
     """"single" (no process group), "dp", "zero1", "fsdp" (fsdp wins over
-    zero1: its shards hold the momentum too, as JAX's), "tp" or "ep".
+    zero1: its shards hold the momentum too, as JAX's), "tp", "ep" or
+    "sp" (zero1 under sp is the trainer's ``zero1`` flag).
     Raises on the combinations JAX refuses (in its words; `heads`, when
     given, must divide over tp_devices; `moe`, whether the model has MoE
     blocks, defaults to cfg.moe_experts > 0), before the refusal of what is
     not ported."""
     moe = cfg.moe_experts > 0 if moe is None else moe
     sharded = cfg.zero1 or cfg.fsdp
-    tp, ep = cfg.tp_devices > 1, cfg.ep_devices > 1
-    if sum((cfg.pp_stages > 1, cfg.sp_devices > 1, ep, tp)) > 1:
+    tp, ep, sp = cfg.tp_devices > 1, cfg.ep_devices > 1, cfg.sp_devices > 1
+    if sum((cfg.pp_stages > 1, sp, ep, tp)) > 1:
         raise ValueError("pp_stages / sp_devices / ep_devices / tp_devices "
                          "each need the whole second mesh axis; enable at "
                          "most one")
@@ -157,6 +173,9 @@ def train_mode(cfg: ViTTrainConfig, grouped: bool,
     if cfg.pp_stages > 1 and moe:
         raise ValueError("MoE blocks are not supported on the pipeline "
                          "path (the GPipe schedule drops the aux loss)")
+    if cfg.sp_ring and not sp:
+        raise ValueError("sp_ring needs sp_devices > 1 (ring attention "
+                         "rotates k/v around the sequence shards)")
     if cfg.sp_ring and moe:
         raise ValueError(
             "sp_ring does not compose with MoE blocks: the ring pads the "
@@ -179,6 +198,11 @@ def train_mode(cfg: ViTTrainConfig, grouped: bool,
             "zero1/fsdp do not compose with tp_devices: their "
             "zero1_sharding constraints would re-layout the model-sharded "
             "block weights to the 'data' axis every step")
+    if cfg.fsdp and sp:
+        raise ValueError(
+            "fsdp does not compose with sp_devices: fsdp's attention "
+            "pin is sequence-replicated and defeats the "
+            "sequence-sharded attention path")
     refuse_unported(cfg)
     if not grouped:
         if sharded:
@@ -195,14 +219,19 @@ def train_mode(cfg: ViTTrainConfig, grouped: bool,
                 "ep_devices shards the experts over the ranks of a process "
                 "group: launch with torchrun (--nproc_per_node ep_devices "
                 "or a multiple of it)")
+        if sp:
+            raise ValueError(
+                "sp_devices shards the tokens over the ranks of a process "
+                "group: launch with torchrun (--nproc_per_node sp_devices "
+                "or a multiple of it)")
         return "single"
     if cfg.fused_dw and dist.world_size() > 1:
         # JAX: the kernel has no GSPMD rule, so a sharded mesh would
         # all-gather its operands to one device
         raise ValueError("fused_dw is a single-chip path; disable it with "
                          f"{dist.world_size()} processes")
-    if tp or ep:
-        return "tp" if tp else "ep"
+    if tp or ep or sp:
+        return "tp" if tp else "ep" if ep else "sp"
     return "fsdp" if cfg.fsdp else "zero1" if cfg.zero1 else "dp"
 
 
@@ -261,29 +290,37 @@ class ViTTrainer:
         self.cfg = train_cfg
         self.model = model
         self.device = torch.device(device)
-        # the data axis: every rank, except under tp and ep, where it is
-        # the mesh's "data" dimension (a model or expert group reads one
+        # the data axis: every rank, except under tp, ep and sp, where it
+        # is the mesh's "data" dimension (a model or expert group reads one
         # shard)
         self.n_data, self.data_rank, self.data_group = \
             self.world, self.rank, None
-        self.tp_group = self.ep_group = None
-        if self.mode in ("tp", "ep"):
-            tp = self.mode == "tp"
-            n = train_cfg.tp_devices if tp else train_cfg.ep_devices
-            axis = "model" if tp else "expert"
+        self.tp_group = self.ep_group = self.seq_shard = None
+        self.ring = self.mode == "sp" and bool(train_cfg.sp_ring)
+        self.zero1 = self.mode == "zero1" or (self.mode == "sp"
+                                              and train_cfg.zero1)
+        self.model_rank = 0
+        if self.mode in ("tp", "ep", "sp"):
+            n = {"tp": train_cfg.tp_devices, "ep": train_cfg.ep_devices,
+                 "sp": train_cfg.sp_devices}[self.mode]
+            axis = "expert" if self.mode == "ep" else "model"
             mesh = vmesh.make_mesh(**{f"n_{axis}": n})
             self.data_group = mesh.get_group("data")
             self.n_data = self.world // n
             self.data_rank = mesh.get_local_rank("data")
             index = mesh.get_local_rank(axis)
             named = dict(model.named_parameters())
-            if tp:
+            local = None
+            if self.mode == "tp":
                 self.tp_group, self.model_rank = mesh.get_group(axis), index
                 local = vmesh.shard_vit_params_tp(named, n, index,
                                                   heads=vit_cfg.heads)
-            else:
+            elif self.mode == "ep":
                 self.ep_group, self.expert_rank = mesh.get_group(axis), index
                 local = vmesh.shard_vit_params_ep(named, n, index)
+            else:
+                self.seq_shard = vmesh.seq_sharding(mesh)
+                self.model_rank = index
             with torch.no_grad():
                 for name in self.shard_names():
                     owner, leaf = name.rsplit(".", 1)
@@ -322,7 +359,8 @@ class ViTTrainer:
         return self.model(images, input_norm=input_norm,
                           compute_dtype=self.compute_dtype, remat=remat,
                           fused_dw=self.fused_dw, tp=self.tp_group,
-                          moe_groups=self.moe_groups, with_aux=with_aux)
+                          moe_groups=self.moe_groups, with_aux=with_aux,
+                          seq_shard=self.seq_shard, ring_attn=self.ring)
 
     def loss(self, images: torch.Tensor, labels: torch.Tensor,
              input_norm: tuple | None = IMAGENET_NORM):
@@ -337,6 +375,15 @@ class ViTTrainer:
             loss = loss + self.cfg.moe_aux_weight * aux
         return loss
 
+    def _grad(self, loss: torch.Tensor, params: list):
+        """d loss / d params. Under sp only model rank 0 counts its loss
+        (the others seed it with 0, so their gradients are their tokens'
+        share of what rank 0's loss asks of them, and every backward
+        collective still runs on every rank)."""
+        counted = self.mode != "sp" or self.model_rank == 0
+        seed = torch.ones_like(loss) if counted else torch.zeros_like(loss)
+        return torch.autograd.grad(loss, params, grad_outputs=seed)
+
     def batch_grads(self, params: list, images, labels,
                     input_norm: tuple | None = IMAGENET_NORM):
         """(loss, grads) of the batch; with grad_accum = G > 1 the batch is
@@ -346,7 +393,7 @@ class ViTTrainer:
         G = self.cfg.grad_accum
         if G == 1:
             loss = self.loss(images, labels, input_norm)
-            return loss.detach(), torch.autograd.grad(loss, params)
+            return loss.detach(), self._grad(loss, params)
         B = images.shape[0]
         if B % G != 0:
             raise ValueError(f"grad_accum ({G}) must divide the global batch "
@@ -355,7 +402,7 @@ class ViTTrainer:
         acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         for img_g, lbl_g in zip(images.chunk(G), labels.chunk(G)):
             loss = self.loss(img_g, lbl_g, input_norm)
-            grads = torch.autograd.grad(loss, params)
+            grads = self._grad(loss, params)
             total = total + loss.detach()
             acc = [a + g for a, g in zip(acc, grads)]
         return total / G, [a / G for a in acc]
@@ -385,9 +432,12 @@ class ViTTrainer:
 
     def _all_reduce_mean(self, grads: list) -> list:
         """The data axis's mean of every gradient: one all-reduce of them
-        all, flattened, over the data group, then a division by its size."""
+        all, flattened, over the data group, then a division by its size.
+        Under sp the all-reduce runs over every rank, so it also sums each
+        model group's shares."""
+        group = None if self.mode == "sp" else self.data_group
         flat = dist.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]),
-                                   self.data_group)
+                                   group)
         flat.div_(self.n_data)
         return [f.view_as(g) for f, g in
                 zip(flat.split([g.numel() for g in grads]), grads)]
@@ -411,7 +461,15 @@ class ViTTrainer:
     def check_replicas(self, momentum: dict) -> None:
         """Under tp and ep, raise unless the data group's ranks hold equal
         shards and the model (expert) group's equal whole leaves, of the
-        parameters and of `momentum` (the trainer's layout) alike."""
+        parameters and of `momentum` (the trainer's layout) alike. Under sp
+        every rank holds the parameters and the model group's ranks their
+        data rank's momentum."""
+        if self.mode == "sp":
+            dist.check_replicas_equal(list(self.model.parameters()),
+                                      "parameters")
+            dist.check_replicas_equal(list(momentum.values()), "momentum",
+                                      self.seq_shard.group)
+            return
         if self.mode not in ("tp", "ep"):
             return
         split = set(self.shard_names())
@@ -427,9 +485,9 @@ class ViTTrainer:
 
     def init_momentum(self, full: dict | None = None) -> dict:
         """The momentum in this mode's layout, from `full` (every leaf
-        whole, on the device; zeros when None): whole in single and dp;
-        this rank's rows of the leaves ``zero1_sharding`` splits under
-        zero1; DTensors sharded as FSDP2 shards the parameters under
+        whole, on the device; zeros when None): whole in single, dp and sp;
+        the data rank's rows of the leaves ``zero1_sharding`` splits under
+        zero1 (sp's too); DTensors sharded as FSDP2 shards the parameters under
         fsdp; the model rank's shards of the tensor-parallel leaves under
         tp; the expert rank's experts under ep."""
         named = dict(self.model.named_parameters())
@@ -457,10 +515,11 @@ class ViTTrainer:
             return out
         if full is None:
             full = sgd_init(named)
-        if self.mode != "zero1":
+        if not self.zero1:
             return full
-        return {n: (vmesh.shard_rows(full[n], self.world, self.rank).clone()
-                    if vmesh.zero1_sharding(self.world, p) else full[n])
+        return {n: (vmesh.shard_rows(full[n], self.n_data,
+                                     self.data_rank).clone()
+                    if vmesh.zero1_sharding(self.n_data, p) else full[n])
                 for n, p in named.items()}
 
     @torch.no_grad()
@@ -475,11 +534,12 @@ class ViTTrainer:
                     {n: m.full_tensor() for n, m in momentum.items()})
         if self.mode in ("tp", "ep"):
             return self._unshard(named), self._unshard(momentum)
-        if self.mode != "zero1":
+        if not self.zero1:
             return named, momentum
         split = [n for n, p in named.items()
-                 if vmesh.zero1_sharding(self.world, p)]
-        rows = self._gather_rows([momentum[n] for n in split])
+                 if vmesh.zero1_sharding(self.n_data, p)]
+        rows = self._gather_rows([momentum[n] for n in split],
+                                 self.data_group)
         full = dict(momentum)
         for n, r in zip(split, rows):
             full[n] = r.reshape(named[n].shape)
@@ -550,14 +610,17 @@ class ViTTrainer:
             params = [p for _, p in named]
             loss, grads = self.batch_grads(params, images_u8, labels,
                                            input_norm)
-            if self.n_data > 1:     # a data axis of one has nothing to sum
+            # a data axis of one has nothing to sum, except sp's model group
+            if self.n_data > 1 or self.mode == "sp":
                 grads = self._all_reduce_mean(list(grads))
             bufs = [momentum[n] for n, _ in named]
-            if self.mode == "zero1":
-                split = [vmesh.zero1_sharding(self.world, p) for _, p in named]
-                params = [vmesh.shard_rows(p.detach(), self.world, self.rank)
+            if self.zero1:
+                split = [vmesh.zero1_sharding(self.n_data, p)
+                         for _, p in named]
+                params = [vmesh.shard_rows(p.detach(), self.n_data,
+                                           self.data_rank)
                           if s else p for p, s in zip(params, split)]
-                grads = [vmesh.shard_rows(g, self.world, self.rank)
+                grads = [vmesh.shard_rows(g, self.n_data, self.data_rank)
                          if s else g for g, s in zip(grads, split)]
         with torch.no_grad():
             upd = torch._foreach_mul(params, self.cfg.weight_decay)
@@ -565,11 +628,13 @@ class ViTTrainer:
             torch._foreach_mul_(bufs, self.cfg.momentum)
             torch._foreach_add_(bufs, upd)                  # m * buf + ...
             torch._foreach_sub_(params, torch._foreach_mul(bufs, lr))
-            if self.mode == "zero1":
-                # every rank updated its rows: gather them everywhere
+            if self.zero1:
+                # every rank updated its rows: gather them over the data
+                # axis
                 mine = [p for p, s in zip(params, split) if s]
                 full = [p for (_, p), s in zip(named, split) if s]
-                for p, rows in zip(full, self._gather_rows(mine)):
+                for p, rows in zip(full, self._gather_rows(mine,
+                                                           self.data_group)):
                     p.view_as(rows).copy_(rows)
         if self.mode == "fsdp":
             for _, p in named:
@@ -603,7 +668,8 @@ class ViTTrainer:
         images, in the compute dtype."""
         return self.model(images_u8, pool="token", input_norm=IMAGENET_NORM,
                           compute_dtype=self.compute_dtype, tp=self.tp_group,
-                          moe_groups=self.moe_groups)
+                          moe_groups=self.moe_groups,
+                          seq_shard=self.seq_shard, ring_attn=self.ring)
 
     # -- epochs ---------------------------------------------------------------
 
@@ -815,17 +881,19 @@ def run_vit_training(cfg: ViTTrainConfig, logger=None,
                       vit_cfg.moe_experts > 0)
     # the data axis: the ranks, or under tp and ep the mesh's "data"
     # dimension
-    n_data = proc_count // {"tp": cfg.tp_devices,
-                            "ep": cfg.ep_devices}.get(mode, 1)
+    n_data = proc_count // {"tp": cfg.tp_devices, "ep": cfg.ep_devices,
+                            "sp": cfg.sp_devices}.get(mode, 1)
 
     log("=" * 60)
     log("ViT-Base ImageNet Training (SGD)")
     log("=" * 60)
     log(f"Device: {dev}  processes: {proc_count}  mode: {mode}")
-    if mode in ("tp", "ep"):
+    if mode in ("tp", "ep", "sp"):
         log(f"Mesh: {n_data} data x "
-            + (f"{cfg.tp_devices} model" if mode == "tp"
-               else f"{cfg.ep_devices} expert"))
+            + {"tp": f"{cfg.tp_devices} model",
+               "ep": f"{cfg.ep_devices} expert",
+               "sp": f"{cfg.sp_devices} sequence"
+               + (" (ring attention)" if cfg.sp_ring else "")}[mode])
     if vit_cfg.moe_experts:
         log(f"MoE: {vit_cfg.moe_experts} experts every {vit_cfg.moe_every} "
             f"blocks, top-{vit_cfg.moe_topk}, capacity factor "
