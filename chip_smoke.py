@@ -35,6 +35,19 @@
    answer, that each dispatched chunk launched the attention kernel 36 times
    (24 image + 12 text blocks), that the served scores agree with the same
    model running the plain attention, and times served images/s;
+4b. phase `serve_rn`: writes seeded random CLIP RN50 weights (OpenAI format,
+   fp16 floats, int64 BatchNorm counters, running statistics away from 0
+   and 1) and a folder of 264 JPEGs, builds the engine through
+   ``cli.serve.build_clip_engine`` (``--pos_embedding auto``: off for
+   RN50) and streams the folder through it at buckets 256 and 8 (12
+   flash3_fwd launches a chunk, the text tower's blocks); holds the bf16
+   scores against the same weights in f32 on the plain attention, and the
+   f32 engine with the kernel against that plain path; shows that
+   ``--pos_embedding on`` changes the scores; times images/s at 8 and 256
+   and the forward at 256 from inputs on the card with its device ms by
+   group (conv, gemm, attention, other) and peak memory; int8's images/s
+   and error against bf16; and one bucket-8 chunk of RN50x64 (448 px, text
+   width 1024, 16 heads) in f32 against its plain path;
 5. phase `train`: trains seeded random CLIP ViT-L/14 weights with rank-32
    DoRA (bf16 compute, batch 64, lr 3e-4) on synthetic THINGS data of the
    real size, held in memory, through ``ClipHBATrainer`` and ``train_model``
@@ -67,8 +80,9 @@
    profile by kernel group;
 6b. phase `vit_grid`: the measurement grid through the CLIs' ``main``, at
    ViT-B/16's full width and depth (bf16, batch 256, SGD, fused_dw off as
-   the grid's CLIs run it): writes the seeded ImageFolder and 48 THINGS
-   JPEGs with an RDM, packs the ImageFolder with ``cli.pack``, trains a
+   the grid's CLIs run it): takes phase vit_train's seeded ImageFolder
+   (writes it when that phase did not run) and writes 48 THINGS JPEGs with
+   an RDM, packs the ImageFolder with ``cli.pack``, trains a
    2-epoch baseline with ``cli.vit_train --use_native_loader`` (and once
    with PIL decode, for its images/s), writes ``rsa_results.csv`` with
    ``cli.vit_rsa_eval`` and runs ``cli.vit_measure`` at perturb epoch 1
@@ -126,12 +140,14 @@
    The torchrun chain at world size 1 also trains phase moe's MoE run for
    one epoch, bit-equal to its epoch 0 alone;
 6e. phase `clip_dist`: CLIP-HBA training across ranks as users launch it,
-   at full width and depth (ViT-L/14, rank-32 DoRA, bf16, batch 64, 2
+   at full width (ViT-L/14's widths with its image tower cut to
+   CLIP_FIXTURE_BLOCKS of 24 blocks, rank-32 DoRA, bf16, batch 64, 2
    epochs) on THINGS at its real size on disk (the images phase sweep
    reuses, here with random targets): ``cli.baseline`` alone and under
    ``torchrun --standalone --nproc_per_node 1`` (NCCL: the data-parallel
-   step at world size 1), each counting its launches from 0 (36 flash3_fwd
-   and 1 flash3_bwd a step, 36 an eval and an RSA), rows, DoRA and
+   step at world size 1), each counting its launches from 0 (CLIP_FULL_FWD
+   flash3_fwd and 1 flash3_bwd a step, CLIP_FULL_FWD an eval and an RSA),
+   rows, DoRA and
    random-state pickles bit-equal; two gloo ranks sharing the card within
    the stated tolerance, one log, no file written by rank 1, peak memory a
    rank; one sequential ``cli.sweep`` run, which restores the baseline's
@@ -151,7 +167,8 @@
    a process costs ~20 s to start;
 7. phase `sweep`: writes THINGS at its real size to disk (1,806 training
    and 48 inference JPEGs at 224^2, whose targets are the initial model's
-   own predictions) and seeded random ViT-L/14 weights, and drives the
+   own predictions) and seeded random ViT-L/14 weights (its image tower cut
+   to CLIP_FIXTURE_BLOCKS blocks), and drives the
    paradigm CLIs through their ``main``: a 3-epoch ``cli.baseline``,
    ``cli.sweep`` runs 1, 2 and 3 for each of the four perturbation kinds
    with ``--frozen_cache`` and for random_target without it, a repeated fork,
@@ -173,8 +190,8 @@
    against phase sweep's solo rows (the cached-vs-full tolerance), the
    checkpoints written without the copy-out byte for byte against those
    written with it, one flash3_bwd per lock-step batch over each
-   invocation, and a lock-step's launches at R = 1, 2, 3 (36/1 full, 3/1
-   cached); it times a lock-step batch at R = 1, 2, 4, 8, cached and full
+   invocation, and a lock-step's launches at R = 1, 2, 3 (CLIP_FULL_FWD/1
+   full, 3/1 cached); it times a lock-step batch at R = 1, 2, 4, 8, cached and full
    in turns, with peak memory at R = 8, and the batched invocations
    against the sequential ones;
 8. prints one JSON line of kernel numbers, the nvidia-smi line, and last
@@ -286,7 +303,7 @@ SEED = 0
 RESULTS: dict = {}
 ALL_PHASES = ("kernel", "ops", "serve", "train", "vit_train", "moe",
               "vit_grid",
-              "serve_vit", "dist", "clip_dist", "sweep", "forks")
+              "serve_vit", "serve_rn", "dist", "clip_dist", "sweep", "forks")
 
 
 def fail(msg: str) -> None:
@@ -335,13 +352,16 @@ def attention_cases():
     tower at buckets 8, 32 and 256, and the 66 causal text prompts; the
     ViT-B/16 step; a ViT-B/16 RSA chunk (compute_rsa_score's batch of 8,
     72 of a grid cell's 132 forward launches); the image tower of a
-    lock-step of 8 batched forks (8 x 64 rows); and one rank's 6 heads of
-    the ViT-B/16 step under --tp_devices 2 (phase dist, batch 64)."""
+    lock-step of 8 batched forks (8 x 64 rows); one rank's 6 heads of
+    the ViT-B/16 step under --tp_devices 2 (phase dist, batch 64); and the
+    RN towers' text prompts (phase serve_rn): width 512, 8 heads (RN50,
+    RN101) and width 1024, 16 heads (RN50x64)."""
     return [("image_b8", 8, 257, 16, False), ("image_b32", 32, 257, 16, False),
             ("image_b256", 256, 257, 16, False), ("text_66", 66, 77, 12, True),
             ("vit_b256", 256, 197, 12, False), ("vit_b8", 8, 197, 12, False),
             ("image_b512", 512, 257, 16, False),
-            ("vit_tp2_b64", 64, 197, 6, False)]
+            ("vit_tp2_b64", 64, 197, 6, False),
+            ("text_rn50", 66, 77, 8, True), ("text_rn50x64", 66, 77, 16, True)]
 
 
 def bwd_cases():
@@ -1146,6 +1166,19 @@ def phase_kernel_fwd(peaks):
     return rows
 
 
+def _plain_attention(fn):
+    """fn() with the packed attention op swapped for its plain version."""
+    from vit_project_torch.ops import attention as vattn
+    served = vattn.flash_mha_packed_qkv
+    vattn.flash_mha_packed_qkv = (
+        lambda qkv, *, num_heads, causal=False:
+        vattn.flash_mha_packed_qkv_reference(qkv, num_heads, causal)[0])
+    try:
+        return fn()
+    finally:
+        vattn.flash_mha_packed_qkv = served
+
+
 def _post(port: int, arr: np.ndarray) -> np.ndarray:
     buf = io.BytesIO()
     np.save(buf, arr)
@@ -1278,14 +1311,7 @@ def phase_serve(tmp: str):
     # the same model with the attention op swapped for its plain version
     x8 = pre(seq_in[2])
     kernel_scores = eng(x8)
-    swapped = vattn.flash_mha_packed_qkv
-    vattn.flash_mha_packed_qkv = (
-        lambda qkv, *, num_heads, causal=False:
-        vattn.flash_mha_packed_qkv_reference(qkv, num_heads, causal)[0])
-    try:
-        plain_scores = eng(x8)
-    finally:
-        vattn.flash_mha_packed_qkv = swapped
+    plain_scores = _plain_attention(lambda: eng(x8))
     # bf16 activations: the two attention versions round p differently (up
     # to one bf16 spacing of o per call, 36 calls feeding the residual
     # streams), so the scores differ by a few bf16 roundings of the
@@ -1538,15 +1564,7 @@ def phase_serve_vit(tmp: str):
                                    input_norm=vit_loop.IMAGENET_NORM,
                                    compute_dtype=torch.bfloat16).float()
     tok = tokens()
-    swapped = vattn.flash_mha_packed_qkv
-    vattn.flash_mha_packed_qkv = (
-        lambda qkv, *, num_heads, causal=False:
-        vattn.flash_mha_packed_qkv_reference(qkv, num_heads, causal)[0])
-    try:
-        plain = eng(x8)
-        tok_plain = tokens()
-    finally:
-        vattn.flash_mha_packed_qkv = swapped
+    plain, tok_plain = _plain_attention(lambda: (eng(x8), tokens()))
     kernel_err = float(np.abs(outs[1] - plain).max() / np.abs(plain).max())
     patch_err = float((tok - tok_plain)[:, 1:].abs().max()
                       / tok_plain[:, 1:].abs().max())
@@ -1787,6 +1805,271 @@ def phase_serve_vit(tmp: str):
     RESULTS["serve_vit"] = res
     for d in ("vit_serve_ckpt", "vit_artifact", "vit_tr"):
         shutil.rmtree(os.path.join(tmp, d), ignore_errors=True)
+    return launches
+
+
+# the serve_rn phase: CLIP RN50 from an OpenAI-format .pt through the CLI's
+# builder, a JPEG folder streamed at buckets 256 and 8 (12 flash3_fwd a
+# chunk: the text tower; the conv trunk and the attention pool have no TPU
+# kernel), bf16 and f32 against f32 on the plain attention, the positions
+# on against off, int8, and one RN50x64 chunk
+SERVE_RN_BUCKETS = "8,256"
+SERVE_RN_IMAGES = 264                   # a 256-image chunk, then an 8-image
+SERVE_RN_CHUNKS = 2
+# bf16 serving against the same weights in f32 on the plain attention:
+# |bf16 - f32| / |f32| over the scores (Frobenius norms). Every conv output,
+# BatchNorm and pool of the 16 bottlenecks is rounded to bf16 (2^-8
+# relative) and the scores are the logit scale (~14.3) times cosines of the
+# rounded embeddings (the CPU tests see 7.3e-3 of the largest embedding
+# value through a 5-bottleneck tower, tests/test_torch_resnet.py)
+SERVE_RN_BF16_RTOL = 5e-2
+# f32 with the kernel against f32 on the plain attention, max |diff| of the
+# scores: the two attentions differ by up to TOLERANCE["float32"]["o"] (1e-5)
+# an element; through 12 text blocks, the projection and the logit scale
+# that stays under 1e-4 (the conv trunk and the pool run the same calls)
+SERVE_RN_F32_ATOL = 1e-4
+# --pos_embedding on against off (auto, for RN50): the scores must move
+SERVE_RN_POS_MIN = 1e-3
+
+
+def _off_identity_bn_(visual, gen) -> None:
+    """Seeded BatchNorm leaves away from identity, so that a swapped or
+    ignored mean / var mapping changes the scores: scales U(0.25, 0.75)
+    (the init's bn3 scale is 0, which would make each block its shortcut),
+    biases N(0, 0.05), means N(0, 0.2), variances U(0.5, 2), counters 1000
+    (an int64 buffer no forward reads)."""
+    import torch
+    with torch.no_grad():
+        for m in visual.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.25, 0.75, generator=gen)
+                m.bias.normal_(0.0, 0.05, generator=gen)
+                m.running_mean.normal_(0.0, 0.2, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+                m.num_batches_tracked.fill_(1000)
+
+
+def _random_rn(name: str):
+    """Seeded random CLIP `name` (an RN tower) on the card, f32."""
+    import torch
+    from vit_project_torch.models import clip as vclip
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = vclip.init_clip_weights_(
+        vclip.empty_clip(vclip.CLIP_CONFIGS[name], "cuda"), gen)
+    _off_identity_bn_(model.visual, gen)
+    return model
+
+
+def _write_jpegs(root: str, n: int, rs: np.random.RandomState) -> None:
+    """n JPEGs at 256 x 320: smooth seeded colour fields plus noise."""
+    from PIL import Image
+    os.makedirs(root, exist_ok=True)
+    for i in range(n):
+        low = Image.fromarray(rs.randint(0, 256, (4, 5, 3), np.uint8))
+        img = np.asarray(low.resize((320, 256), Image.BILINEAR), np.int16)
+        img = np.clip(img + rs.randint(-24, 25, img.shape), 0, 255)
+        Image.fromarray(img.astype(np.uint8)).save(
+            os.path.join(root, f"{i:04d}.jpg"), quality=90)
+
+
+def phase_serve_rn(tmp: str):
+    import torch
+    from vit_project_torch.cli import serve as cli
+    from vit_project_torch.models import clip as vclip
+    from vit_project_torch.models import convert as vconvert
+    from vit_project_torch.models import resnet as vresnet
+    from vit_project_torch.ops import attention as vattn
+    from vit_project_torch.ops import quant as vquant
+    from vit_project_torch.serve import clip_hba_engine
+
+    res: dict = {}
+    t0 = time.time()
+    model = _random_rn("RN50")
+    n_params = sum(p.numel() for p in model.parameters())
+    wpath = os.path.join(tmp, "RN50-random.pt")
+    torch.save({k: v.half().cpu() if v.is_floating_point() else v.cpu()
+                for k, v in model.state_dict().items()}, wpath)
+    del model
+    jdir = os.path.join(tmp, "rn_jpegs")
+    _write_jpegs(jdir, SERVE_RN_IMAGES, np.random.RandomState(SEED))
+    out_csv = os.path.join(tmp, "rn_scores.csv")
+
+    def rn_args(*extra):
+        return cli.parse_args(["--clip_weights", wpath,
+                               "--allow_hash_tokenizer", "--pos_embedding",
+                               "auto", "--buckets", SERVE_RN_BUCKETS,
+                               "--images", jdir, "--out", out_csv, *extra])
+    args = rn_args()
+    eng, size, norm = cli.build_clip_engine(args)
+    visual = eng.model.visual
+    if (not isinstance(visual, vresnet.ModifiedResNet) or size != 224
+            or eng.use_pos_embedding is not False
+            or visual.conv1.weight.dtype != torch.bfloat16
+            or visual.bn1.num_batches_tracked.dtype != torch.int64
+            or not visual.layer1[0].conv2.weight.is_contiguous(
+                memory_format=torch.channels_last)):
+        fail(f"RN50 engine: tower {type(visual).__name__}, {size} px, "
+             f"positions {eng.use_pos_embedding}, conv weights "
+             f"{visual.conv1.weight.dtype} (channels_last expected), "
+             f"counters {visual.bn1.num_batches_tracked.dtype}")
+    print(f"[serve_rn] RN50 engine ({n_params / 1e6:.1f}M parameters, "
+          f"OpenAI-format fp16 .pt, bf16 weights, --pos_embedding auto -> "
+          f"off, buckets {eng.buckets}) and {SERVE_RN_IMAGES} JPEGs built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    # --- the main path: counts from 0, the folder streamed, counts read ---
+    paths = cli.collect_images(jdir)
+    vattn.reset_launch_counts()
+    t0 = time.perf_counter()
+    reader = cli.batched_reader(paths, eng.buckets[-1], size, normalize=norm)
+    scores = np.concatenate(list(eng.map_stream(reader, depth=args.depth)))
+    stream_s = time.perf_counter() - t0
+    launches = vattn.LAUNCHES["flash3_fwd"]
+    cli.write_outputs(paths, scores, args)
+    if launches != 12 * SERVE_RN_CHUNKS:
+        fail(f"flash3_fwd launched {launches} times over {SERVE_RN_CHUNKS} "
+             f"chunks, expected 12 per chunk")
+    if scores.shape != (SERVE_RN_IMAGES, 66) or not np.all(
+            np.isfinite(scores)):
+        fail(f"bad RN50 scores: shape {scores.shape}, finite "
+             f"{np.all(np.isfinite(scores))}")
+    with open(out_csv) as f:
+        n_rows = sum(1 for _ in f) - 1
+    print(f"[serve_rn] streamed {SERVE_RN_IMAGES} JPEGs (buckets 256 and 8, "
+          f"decode included) in {stream_s:.2f} s, "
+          f"{SERVE_RN_IMAGES / stream_s:.1f} images/s; scores [n, 66], "
+          f"finite, {n_rows} CSV rows; flash3_fwd launches {launches} = 12 "
+          f"x {SERVE_RN_CHUNKS} chunks", flush=True)
+
+    # the same weights in f32: the engine with the kernel and on the plain
+    # attention; the bf16 scores against the plain f32 ones
+    x = next(cli.batched_reader(paths, 256, size, normalize=norm))
+    m32 = vconvert.clip_from_state_dict(
+        vconvert.load_torch_state_dict(wpath), "cuda")
+    feng = clip_hba_engine(m32, eng.prompt_tokens.cpu().numpy(),
+                           compute_dtype=torch.float32,
+                           use_pos_embedding=False,
+                           buckets=eng.buckets, device="cuda")
+    f_kernel = feng(x)
+    f_plain = _plain_attention(lambda: feng(x))
+    bf_err = _rel_norm(scores[:256], f_plain)
+    f_err = float(np.abs(f_kernel - f_plain).max())
+    print(f"[serve_rn] 256 images: bf16 served vs f32 plain |diff| / |f32| "
+          f"{bf_err:.3e} (tol {SERVE_RN_BF16_RTOL}; max |diff| "
+          f"{float(np.abs(scores[:256] - f_plain).max()):.3e}, max |score| "
+          f"{float(np.abs(f_plain).max()):.3f}); f32 kernel vs f32 plain max "
+          f"|diff| {f_err:.3e} (tol {SERVE_RN_F32_ATOL})", flush=True)
+    if not bf_err <= SERVE_RN_BF16_RTOL:
+        fail(f"bf16 RN50 scores differ from f32 plain by {bf_err}")
+    if not f_err <= SERVE_RN_F32_ATOL:
+        fail(f"f32 RN50 scores with the kernel differ from plain by {f_err}")
+    del feng, m32
+    torch.cuda.empty_cache()
+
+    # --pos_embedding on against auto (off)
+    on, _, _ = cli.build_clip_engine(rn_args("--pos_embedding", "on"))
+    pos_diff = float(np.abs(on(x[:8]) - scores[:8]).max())
+    print(f"[serve_rn] --pos_embedding on vs auto (off): max |score diff| "
+          f"{pos_diff:.3e} over 8 images (must exceed {SERVE_RN_POS_MIN})",
+          flush=True)
+    if not on.use_pos_embedding or not pos_diff > SERVE_RN_POS_MIN:
+        fail(f"--pos_embedding on did not change the scores ({pos_diff})")
+    del on
+    torch.cuda.empty_cache()
+
+    # images/s (host arrays in, scores out), the forward from inputs on
+    # the card, its device time by group, peak memory
+    torch.cuda.reset_peak_memory_stats()
+    ips = {}
+    for b, reps in ((8, 20), (256, 5)):
+        call_s = _call_s(eng, x[:b], reps)
+        ips[b] = b / call_s
+    with torch.inference_mode():
+        xd = eng._place(x)
+        fwd = _wall_ms(lambda: eng._fn(eng.model, xd), 5)
+        prof = _profile(lambda: eng._fn(eng.model, xd))
+        text_ms = _wall_ms(lambda: vclip.encode_text(
+            eng.model, eng.prompt_tokens, compute_dtype=torch.bfloat16), 20)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[serve_rn] bucket 8: {ips[8]:.1f} images/s; bucket 256: "
+          f"{ips[256]:.1f} images/s ({256 / ips[256] * 1e3:.2f} ms a call); "
+          f"forward at 256 from inputs on the card {fwd:.2f} ms (text tower "
+          f"alone {text_ms:.2f} ms); peak device memory {peak:.2f} GiB",
+          flush=True)
+    if prof:
+        print(f"[serve_rn] forward at 256, device ms by group: "
+              + ", ".join(f"{g} {v:.2f}" for g, v in
+                          prof["ms_per_call"].items())
+              + f"; idle share {prof['idle_share']:.3f}; top other "
+              f"{prof['top_other_ms']}", flush=True)
+
+    # int8: the text tower's blocks quantize, the RN tower stays float
+    qeng, _, _ = cli.build_clip_engine(rn_args("--quantize", "int8"))
+    if any(vquant.is_quantized(m) for m in qeng.model.visual.modules()) or \
+            not vquant.is_quantized(
+                qeng.model.transformer.resblocks[0].attn.in_proj_weight):
+        fail("int8 RN50: the RN tower must stay float and the text blocks "
+             "quantize")
+    vattn.reset_launch_counts()
+    q256 = qeng(x)
+    q_launches = vattn.LAUNCHES["flash3_fwd"]
+    q_err = _rel_norm(q256, scores[:256])
+    bf_s, q_s = _in_turns(lambda r: _call_s(eng, x, r),
+                          lambda r: _call_s(qeng, x, r))
+    print(f"[serve_rn] int8 (text blocks): flash3_fwd launches {q_launches}; "
+          f"|int8 - bf16| / |bf16| over 256 images {q_err:.4f} (tol "
+          f"{INT8_CLIP_RTOL}); bucket 256 in turns: bf16 {256 / bf_s:.1f} "
+          f"images/s, int8 {256 / q_s:.1f}", flush=True)
+    if q_launches != 12 or not q_err <= INT8_CLIP_RTOL:
+        fail(f"int8 RN50: {q_launches} launches, error {q_err}")
+    prompts = eng.prompt_tokens.cpu().numpy()   # every RN tower's context
+    res.update(launches=launches, chunks=SERVE_RN_CHUNKS,
+               stream_images_per_s=SERVE_RN_IMAGES / stream_s,
+               bf16_vs_f32_plain_rel=bf_err, f32_kernel_vs_plain=f_err,
+               pos_on_vs_off=pos_diff,
+               images_per_s={str(k): v for k, v in ips.items()},
+               forward_ms_256=fwd, text_tower_ms=text_ms, profile_256=prof,
+               peak_mem_gib=peak, int8_vs_bf16_rel=q_err,
+               images_per_s_256_in_turns={"bf16": 256 / bf_s,
+                                          "int8": 256 / q_s})
+    del eng, qeng, xd
+    torch.cuda.empty_cache()
+
+    # RN50x64: one bucket-8 chunk in f32, the kernel against plain
+    t0 = time.time()
+    m64 = _random_rn("RN50x64")
+    cfg64 = m64.cfg
+    e64 = clip_hba_engine(
+        m64, prompts, compute_dtype=torch.float32,
+        use_pos_embedding=cli.auto_use_pos_embedding(cfg64), buckets=(8,),
+        device="cuda")
+    x64 = np.random.RandomState(SEED).randn(
+        8, cfg64.visual.image_size, cfg64.visual.image_size, 3).astype(
+            np.float32)
+    vattn.reset_launch_counts()
+    t1 = time.perf_counter()
+    s64 = e64(x64)
+    chunk_s = time.perf_counter() - t1
+    l64 = vattn.LAUNCHES["flash3_fwd"]
+    p64 = _plain_attention(lambda: e64(x64))
+    err64 = float(np.abs(s64 - p64).max())
+    n64 = sum(p.numel() for p in m64.parameters())
+    print(f"[serve_rn] RN50x64 ({n64 / 1e6:.1f}M parameters, "
+          f"{cfg64.visual.image_size} px, text width "
+          f"{cfg64.text.width}, {cfg64.text.heads} heads) f32 bucket 8: "
+          f"flash3_fwd launches {l64}; kernel vs plain max |diff| "
+          f"{err64:.3e} (tol {SERVE_RN_F32_ATOL}); first chunk "
+          f"{chunk_s:.2f} s; phase part {time.time() - t0:.1f} s", flush=True)
+    if l64 != 12 or not np.all(np.isfinite(s64)) or \
+            not err64 <= SERVE_RN_F32_ATOL:
+        fail(f"RN50x64: {l64} launches, kernel vs plain {err64}")
+    res["rn50x64"] = {"launches": l64, "kernel_vs_plain": err64,
+                      "first_chunk_s": chunk_s}
+    RESULTS["serve_rn"] = res
+    del e64, m64
+    torch.cuda.empty_cache()
+    shutil.rmtree(jdir, ignore_errors=True)
+    os.remove(wpath)
     return launches
 
 
@@ -2089,6 +2372,10 @@ def _profile(fn, steps: int = 3):
         name = e.key.lower()
         group = ("dw_db" if "dw_db" in name or "sum_splits" in name
                  else "attention" if "attn_" in name
+                 else "conv" if any(k in name for k in (
+                     "fprop", "implicit", "winograd", "convolve", "cudnn",
+                     "conv2d", "nhwc")) or ("conv" in name
+                                           and "convert" not in name)
                  else "gemm" if any(k in name for k in (
                      "gemm", "nvjet", "xmma", "cutlass", "cublas"))
                  else "other")
@@ -2659,6 +2946,14 @@ def phase_moe(tmp: str):
     return {k: launches[k] for k in want}
 
 
+# the CLIP fixture of phases clip_dist, sweep and forks: ViT-L/14's widths,
+# text tower and adapted blocks (the last 2 image blocks, the last text
+# block), with its image tower cut from 24 blocks to CLIP_FIXTURE_BLOCKS so
+# that the CLIs' many invocations load and run half of it (the script's time
+# limit); a full-tower forward launches flash3_fwd CLIP_FULL_FWD times
+CLIP_FIXTURE_BLOCKS = 12
+CLIP_FULL_FWD = CLIP_FIXTURE_BLOCKS + 12
+
 # the sweep phase: the perturbation kinds, and the target kinds (they change
 # only the targets, so their forks train from the frozen-prefix cache in
 # every epoch)
@@ -2792,8 +3087,9 @@ _CLIP_FIXTURE: dict = {}
 
 
 def _clip_fixture(tmp: str) -> dict:
-    """THINGS at its real size on disk and seeded random ViT-L/14 weights,
-    written once and shared by phases clip_dist and sweep: the weights in
+    """THINGS at its real size on disk and seeded random ViT-L/14 weights
+    (CLIP_FIXTURE_BLOCKS image blocks), written once and shared by phases
+    clip_dist and sweep: the weights in
     OpenAI's layout (loaded back the way the CLIs load them), rank-32 DoRA
     from SWEEP_SEED, a trainer on them, 1,806 + 48 JPEGs whose targets are
     the initial model's predictions, the CSVs and the RDM, and the CLIs'
@@ -2811,7 +3107,8 @@ def _clip_fixture(tmp: str) -> dict:
     t0 = time.time()
     root = os.path.join(tmp, "clip_things")
     os.makedirs(root)
-    cfg = vclip.CLIP_VIT_L14
+    cfg = dataclasses.replace(vclip.CLIP_VIT_L14, visual=dataclasses.replace(
+        vclip.CLIP_VIT_L14.visual, layers=CLIP_FIXTURE_BLOCKS))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     model = vclip.init_clip_weights_(vclip.empty_clip(cfg, "cuda"), gen)
     wpath = os.path.join(root, "ViT-L-14-random.pt")
@@ -2850,8 +3147,8 @@ def _clip_fixture(tmp: str) -> dict:
     print(f"[things] THINGS-sized fixture on disk (1,806 train / 48 "
           f"inference JPEGs at 224^2; targets = the initial model's "
           f"predictions, mean across-image std {_CLIP_FIXTURE['spread']:.3f})"
-          f" and ViT-L/14 weights written in {_CLIP_FIXTURE['seconds']:.1f} "
-          f"s", flush=True)
+          f" and ViT-L/14 weights ({CLIP_FIXTURE_BLOCKS} image blocks) "
+          f"written in {_CLIP_FIXTURE['seconds']:.1f} s", flush=True)
     return _CLIP_FIXTURE
 
 
@@ -3032,9 +3329,9 @@ def phase_sweep(tmp: str):
         step(1, cached)
         per_step[label] = launches()
     trainer.remat = False
-    want = {"full": {"flash3_fwd": 36, "flash3_bwd": 1},
+    want = {"full": {"flash3_fwd": CLIP_FULL_FWD, "flash3_bwd": 1},
             "cached": {"flash3_fwd": 3, "flash3_bwd": 1},
-            "full_remat": {"flash3_fwd": 39, "flash3_bwd": 1},
+            "full_remat": {"flash3_fwd": CLIP_FULL_FWD + 3, "flash3_bwd": 1},
             "cached_remat": {"flash3_fwd": 6, "flash3_bwd": 1}}
     if per_step != want:
         fail(f"launches a step {per_step}, expected {want}")
@@ -3047,8 +3344,9 @@ def phase_sweep(tmp: str):
             times[label].append((time.perf_counter() - t0) * 1e3)
     step_ms = {k: statistics.median(v) for k, v in times.items()}
     print(f"[sweep] launches a step (flash3_fwd, flash3_bwd): full tower "
-          f"36, 1; cached 3, 1; with remat 39, 1 and 6, 1 (one more forward "
-          f"for each of the 3 adapted blocks)", flush=True)
+          f"{CLIP_FULL_FWD}, 1; cached 3, 1; with remat {CLIP_FULL_FWD + 3}, "
+          f"1 and 6, 1 (one more forward for each of the 3 adapted blocks)",
+          flush=True)
     print(f"[sweep] a step, median of 20 in turns: full tower "
           f"{step_ms['full']:.2f} ms, cached {step_ms['cached']:.2f} ms "
           f"({step_ms['full'] / step_ms['cached']:.2f}x); prefix cache of "
@@ -3241,13 +3539,14 @@ def phase_forks(ctx):
             per_r[f"{label}_R{R}"] = launches()
             if not all(oks) or not all(np.isfinite(losses)):
                 fail(f"lock-step at R={R} {label}: {losses} {oks}")
-    want = {f"{label}_R{R}": {"flash3_fwd": 36 if label == "full" else 3,
-                              "flash3_bwd": 1}
+    want = {f"{label}_R{R}": {"flash3_fwd": CLIP_FULL_FWD if label == "full"
+                              else 3, "flash3_bwd": 1}
             for R in (1, 2, 3) for label in ("full", "cached")}
     if per_r != want:
         fail(f"launches a lock-step {per_r}, expected {want}")
     print(f"[forks] launches a lock-step batch (flash3_fwd, flash3_bwd) at "
-          f"R = 1, 2, 3: full tower 36, 1; cached 3, 1", flush=True)
+          f"R = 1, 2, 3: full tower {CLIP_FULL_FWD}, 1; cached 3, 1",
+          flush=True)
 
     # the solo step (R = "solo") in the same turns, as the yardstick
     solo_tr = adora.make_trainable(ctx["init_tr"], "cuda")
@@ -3393,8 +3692,9 @@ def phase_vit_grid(tmp: str):
         fail("the native decoder (native/libfastimage.so) does not load")
     print(f"[vit_grid] native decoder loaded; libjpeg: {_loaded_jpeg_lib()}",
           flush=True)
-    folder = os.path.join(root, "imagenet")
-    _write_image_folder(folder, np.random.RandomState(SEED))
+    folder = os.path.join(tmp, "imagenet")   # phase vit_train's, if it ran
+    if not os.path.isdir(folder):
+        _write_image_folder(folder, np.random.RandomState(SEED))
     rs = np.random.RandomState(SEED + 1)
     img_dir, names, _ = _write_things(root, rs, n_train=0)
     things = _write_things_csvs(root, names, rs.randn(len(names), 66),
@@ -3405,9 +3705,11 @@ def phase_vit_grid(tmp: str):
                     "--src", folder, "--out", packed], cwd=ROOT, check=True,
                    capture_output=True, text=True)
     pack_s = time.time() - t0
-    print(f"[vit_grid] fixture written in {t0 - t_phase:.1f} s (8 classes, "
-          f"1,024 train / 256 val JPEGs at 256^2; 48 THINGS JPEGs and an "
-          f"RDM); `cli.pack` {pack_s:.2f} s for both splits", flush=True)
+    print(f"[vit_grid] fixture ready in {t0 - t_phase:.1f} s (phase "
+          f"vit_train's ImageFolder, written here if that phase did not run: "
+          f"8 classes, 1,024 train / 256 val JPEGs at 256^2; 48 THINGS JPEGs "
+          f"and an RDM); `cli.pack` {pack_s:.2f} s for both splits",
+          flush=True)
     things_args = ["--things_csv", things["inference_csv_file"],
                    "--things_img_dir", img_dir,
                    "--things_rdm_path", things["RDM48_triplet_dir"]]
@@ -3601,15 +3903,8 @@ def phase_vit_grid(tmp: str):
     if counts()["flash3_fwd"] != 12 * GRID_RSA_CHUNKS:
         fail(f"compute_rsa_score launched {counts()}")
     emb_kernel = embeddings()
-    swapped = vattn.flash_mha_packed_qkv
-    vattn.flash_mha_packed_qkv = (
-        lambda qkv, *, num_heads, causal=False:
-        vattn.flash_mha_packed_qkv_reference(qkv, num_heads, causal)[0])
-    try:
-        rho_plain, _ = trainer.compute_rsa_score(things_u8, rdm)
-        emb_plain = embeddings()
-    finally:
-        vattn.flash_mha_packed_qkv = swapped
+    (rho_plain, _), emb_plain = _plain_attention(
+        lambda: (trainer.compute_rsa_score(things_u8, rdm), embeddings()))
     if not (torch.isfinite(emb_kernel).all() and emb_kernel.shape == (
             len(things_u8), vit_cfg.width)):
         fail(f"CLS embeddings: shape {tuple(emb_kernel.shape)} or "
@@ -3806,16 +4101,17 @@ SP_MOMENTUM_RTOL = 1.5e-1
 # attention, the roundings of the block's GEMMs)
 SP_BLOCK_RTOL = 2e-2
 # CLIP-HBA with its visual tower sequence-parallel over the two gloo ranks
-# (ViT-L/14, 129 and 128 of 257 tokens a rank; a gather-form forward moves
-# 24 x 1.6 MB an image through the host). Through cli.baseline: one epoch
-# of a THINGS subset (CLIP_SP_IMAGES images split 80/20: 2 steps at batch
+# (the fixture's ViT-L/14, 129 and 128 of 257 tokens a rank; a gather-form
+# forward moves CLIP_FIXTURE_BLOCKS x 1.6 MB an image through the host).
+# Through cli.baseline: one epoch of a THINGS subset (CLIP_SP_IMAGES images split 80/20: 2 steps at batch
 # CLIP_SP_BATCH, one eval batch; the 48 inference images; CLIP_SP_NOD
 # others as the NOD set) against the same invocation alone. The gather form runs the
 # flash kernels on the whole sequence: its rows within CLIP_DIST_LOSS_RTOL
 # and CLIP_DIST_RHO_ATOL, as the dp ranks are held. The ring computes
 # every block's attention in f32 einsums from bf16 q, k, v where the
 # kernels round p to bf16 (one bf16 spacing, 2^-8 relative, a block, over
-# 24 blocks): CLIP_RING_LOSS_RTOL and CLIP_RING_RHO_ATOL. Both forms'
+# the image blocks; the bounds below were measured over 24):
+# CLIP_RING_LOSS_RTOL and CLIP_RING_RHO_ATOL. Both forms'
 # adapters, AdamW moments and NOD embeddings within the bounds below; and _clip_sp_check's CLIP_SP_STEPS trainer steps on as many
 # images of each form against the trainer alone within the same bounds,
 # beside a planted fault the moment bound must catch
@@ -5103,10 +5399,11 @@ def _check_sp(root: str, train_cli: str, ring_args: list, sp_out: str,
 CLIP_DIST_EPOCHS = 2
 # 1,444 training images at batch 64: 22 full batches and one of 36
 CLIP_DIST_STEPS = 23 * CLIP_DIST_EPOCHS
-# 36 flash3_fwd a full-tower forward (24 image blocks, 12 text): each step,
-# and the eval (the 362 test images as one batch) and the RSA before
-# training and after each epoch; one flash3_bwd a step (image block 23)
-CLIP_DIST_WANT = {"flash3_fwd": 36 * (CLIP_DIST_STEPS
+# CLIP_FULL_FWD flash3_fwd a full-tower forward (the fixture's image
+# blocks, 12 text): each step, and the eval (the 362 test images as one
+# batch) and the RSA before training and after each epoch; one flash3_bwd a
+# step (the last image block)
+CLIP_DIST_WANT = {"flash3_fwd": CLIP_FULL_FWD * (CLIP_DIST_STEPS
                                       + 2 * (CLIP_DIST_EPOCHS + 1)),
                   "flash3_bwd": CLIP_DIST_STEPS}
 # two gloo ranks (32 rows a rank, bf16) against the run alone (64 rows):
@@ -5228,8 +5525,8 @@ def _epoch_train_s(text: str, n_train: int) -> list:
 
 
 def phase_clip_dist(tmp: str):
-    """CLIP-HBA training across ranks as users launch it, at full width and
-    depth (ViT-L/14, rank-32 DoRA, bf16, batch 64, 2 epochs, THINGS-sized
+    """CLIP-HBA training across ranks as users launch it, at full width
+    (the fixture's ViT-L/14, rank-32 DoRA, bf16, batch 64, 2 epochs, THINGS-sized
     images with random targets): cli.baseline alone against cli.baseline
     under torchrun at world size 1 (NCCL, the data-parallel step) and under
     two gloo ranks on this card; one sequential cli.sweep run, which
@@ -5443,13 +5740,14 @@ def phase_clip_dist(tmp: str):
 
     # --- ms a step, alone and dp at world size 1, in turns (the dp1
     # launch) ---
-    want_step = {"flash3_fwd": 36, "flash3_bwd": 1}
+    want_step = {"flash3_fwd": CLIP_FULL_FWD, "flash3_bwd": 1}
     if any(v != want_step for v in tm["per_step"].values()):
         fail(f"[clip_dist] a step launched {tm['per_step']}")
     # medians: a step is host-bound enough that a turn can catch a stall
     step_ms = {m: statistics.median(x for t in v for x in t)
                for m, v in tm["turns"].items()}
-    print(f"[clip_dist] a step launches flash3_fwd 36, flash3_bwd 1 alone "
+    print(f"[clip_dist] a step launches flash3_fwd {CLIP_FULL_FWD}, "
+          f"flash3_bwd 1 alone "
           f"and dp; ms a step in turns (one, dp, dp, one; 10 steps a turn), "
           f"median of 20: "
           + "; ".join(f"{m} {step_ms[m]:.2f} (turn means "
@@ -5495,16 +5793,16 @@ def phase_clip_dist(tmp: str):
 
 def _clip_sp_report(reps: list) -> dict:
     """clip_dist's sequence-parallel trainer check on each rank's
-    _clip_sp_check: a step's launches (36 / 1 in the gather form, the
-    whole image sequence through the kernels; 12 / 0 in the ring's, the
+    _clip_sp_check: a step's launches (CLIP_FULL_FWD / 1 in the gather
+    form, the whole image sequence through the kernels; 12 / 0 in the
+    ring's, the
     text tower alone), each step's loss against the trainer alone's within
     CLIP_DIST_LOSS_RTOL (gather) and CLIP_RING_LOSS_RTOL (ring), both
     forms' adapters and moments within CLIP_SP_PARAM_RTOL and
     CLIP_SP_MOMENT_RTOL, and the planted fault's moments beyond it."""
-    want = {"one": {"flash3_fwd": 36, "flash3_bwd": 1},
-            "gather": {"flash3_fwd": 36, "flash3_bwd": 1},
-            "ring": {"flash3_fwd": 12, "flash3_bwd": 0},
-            "fault": {"flash3_fwd": 36, "flash3_bwd": 1}}
+    full = {"flash3_fwd": CLIP_FULL_FWD, "flash3_bwd": 1}
+    want = {"one": full, "gather": full,
+            "ring": {"flash3_fwd": 12, "flash3_bwd": 0}, "fault": full}
     loss_rtol = {"gather": CLIP_DIST_LOSS_RTOL, "ring": CLIP_RING_LOSS_RTOL,
                  "fault": CLIP_DIST_LOSS_RTOL}
     res = {"ranks": reps, "compare": {}}
@@ -5535,7 +5833,8 @@ def _clip_sp_report(reps: list) -> dict:
                                 f"{c}")
     r0 = reps[0]["clip_sp"]
     print(f"[clip_dist] CLIP-HBA visual sp trainer over 2 gloo ranks "
-          f"(ViT-L/14, tokens 129 + 128, batch {CLIP_SP_BATCH}, "
+          f"(ViT-L/14 widths, {CLIP_FIXTURE_BLOCKS} image blocks, tokens 129 + "
+          f"128, batch {CLIP_SP_BATCH}, "
           f"{CLIP_SP_STEPS} steps): "
           + "; ".join(
               f"{form} s a step {r0[form]['step_s']:.3f}, launches "
@@ -5607,8 +5906,8 @@ def _check_clip_sp_runs(root: str, sp_runs: dict, ref_rep: dict,
     ref_rows, ref_trees, ref_emb, ref_files = _clip_run_trees(
         os.path.join(root, "sp_alone"), spec)
     ref_l = {k: v for k, v in ref_rep["launches"].items() if v}
-    want = {"gather": ref_l,
-            "ring": {"flash3_fwd": ref_l["flash3_fwd"] // 3}}
+    want = {"gather": ref_l,      # the ring form: the 12 text blocks alone
+            "ring": {"flash3_fwd": ref_l["flash3_fwd"] * 12 // CLIP_FULL_FWD}}
     bounds = {"gather": (CLIP_DIST_LOSS_RTOL, CLIP_DIST_RHO_ATOL,
                          CLIP_SP_EMB_RTOL),
               "ring": (CLIP_RING_LOSS_RTOL, CLIP_RING_RHO_ATOL,
@@ -5981,6 +6280,7 @@ def main(argv=None) -> int:
     serve_launches = train_launches = vit_launches = sweep_launches = None
     forks_launches = grid_launches = serve_vit_launches = None
     dist_launches = clip_dist_launches = moe_launches = None
+    serve_rn_launches = None
     tmp = os.path.join(ROOT, "vit_project_torch", "_build",
                        f"smoke-{os.getpid()}")
     os.makedirs(tmp, exist_ok=True)
@@ -5997,6 +6297,8 @@ def main(argv=None) -> int:
             grid_launches = timed("vit_grid", phase_vit_grid, tmp)
         if "serve_vit" in phases:
             serve_vit_launches = timed("serve_vit", phase_serve_vit, tmp)
+        if "serve_rn" in phases:
+            serve_rn_launches = timed("serve_rn", phase_serve_rn, tmp)
         if "dist" in phases:
             dist_launches = timed("dist", phase_dist, tmp)
         if "clip_dist" in phases:
@@ -6064,6 +6366,7 @@ def main(argv=None) -> int:
         entry("flash3_fwd", "vit_project_torch/csrc/flash3_fwd.cu",
               "vit_project_tpu/ops/attention.py:465", serve_launches,
               {"serve": serve_launches, "serve_vit": serve_vit_launches,
+               "serve_rn": serve_rn_launches,
                "train": train_launches and train_launches["flash3_fwd"],
                "vit_train": vit("flash3_fwd"),
                "vit_grid": grid("flash3_fwd"), "sweep": sweep("flash3_fwd"),
@@ -6128,6 +6431,13 @@ def main(argv=None) -> int:
             row_of(name, "vit_b256"),
             f"ViT-B/16 residual stream at batch 256, bfloat16, {shape}, f32 "
             f"scale and bias; launches: the ops run"))
+    # the RN towers' text shapes of row 1 (phase serve_rn's text blocks)
+    kernels[0]["rn_text_rows"] = [
+        {k: r.get(k) for k in ("case", "dtype", "shape", "heads", "ms",
+                               "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "max_abs_err_o")}
+        for r in rows if r["kernel"] == "flash3_fwd"
+        and r["case"].startswith("text_rn")]
     RESULTS["kernels"] = kernels
     if opts.json:
         os.makedirs(os.path.dirname(os.path.abspath(opts.json)), exist_ok=True)

@@ -15,14 +15,15 @@ AOT serving artifact (--export_dir) or serves one (--from_export).
   python -m vit_project_torch.cli.serve --clip_weights ViT-L-14.pt \\
       --dora_checkpoint runs/epoch10_dora.pth --bpe_vocab bpe.txt.gz \\
       --images things/ --out scores.csv
+  # CLIP-HBA scores of a ModifiedResNet tower (no adapters; --pos_embedding
+  # auto leaves the attention pool's positions off for RN50 geometry only)
+  python -m vit_project_torch.cli.serve --clip_weights RN50.pt \\
+      --bpe_vocab bpe.txt.gz --images things/ --out scores.csv
   # an int8 artifact, then serving it with no model code
   python -m vit_project_torch.cli.serve --model vit_base_patch16_224 \\
       --checkpoint ckpt.pth --quantize int8 --export_dir art/
   python -m vit_project_torch.cli.serve --from_export art/ \\
       --images val/ --out preds.csv
-
-The ModifiedResNet CLIP towers (and with them --pos_embedding) are not
-ported yet: their checkpoints are refused when the weights are read.
 """
 from __future__ import annotations
 
@@ -101,9 +102,24 @@ def build_vit_engine(args):
     return eng, cfg.image_size, None
 
 
+def auto_use_pos_embedding(clip_cfg) -> bool:
+    """The --pos_embedding auto rule: the reference CLIPHBA turns
+    pos_embedding off only when its backbone is 'RN50'; RN101 and the
+    RN50xN towers keep it on, as the ViT towers do. The weights are known
+    by their geometry (the config is inferred from shapes; there is no
+    backbone name here). A plain OpenAI RN50 checkpoint wants
+    --pos_embedding on instead."""
+    from ..models import resnet as vresnet
+    from ..models.clip import is_resnet
+    return not (is_resnet(clip_cfg)
+                and clip_cfg.visual.layers == vresnet.RN50.layers
+                and clip_cfg.visual.width == vresnet.RN50.width)
+
+
 def build_clip_engine(args):
     """(engine, image_size, (mean, std)) from the CLI arguments. The engine
-    carries ``adapter_params``, the DoRA parameter count baked into it."""
+    carries ``adapter_params``, the DoRA parameter count baked into it, and
+    ``use_pos_embedding``, the --pos_embedding rule's outcome."""
     from ..adapters import dora as adora
     from ..ckpt import clip_ckpt
     from ..core.configs import THINGS_MEAN, THINGS_STD
@@ -111,6 +127,7 @@ def build_clip_engine(args):
     from ..data.spose66 import SPOSE_DIMENSIONS_66
     from ..models import convert as vconvert
     from ..models import tokenizer as vtok
+    from ..models.clip import is_resnet
     from ..serve import clip_hba_engine
     device = resolve_device(args.device)
     tok = vtok.default_tokenizer(args.bpe_vocab)
@@ -121,6 +138,11 @@ def build_clip_engine(args):
             "scores. --allow_hash_tokenizer overrides (testing only).")
     sd = vconvert.load_torch_state_dict(args.clip_weights)
     clip_cfg = vconvert.clip_config_from_state_dict(sd)
+    if args.dora_checkpoint and is_resnet(clip_cfg):
+        raise SystemExit(
+            "--dora_checkpoint needs a ViT visual tower (DoRA surgery "
+            "targets transformer resblocks; the reference's RN50 path "
+            "has no DoRA either)")
     model = vconvert.clip_from_state_dict(sd, device, clip_cfg)
     del sd
     prompts = vtok.tokenize(
@@ -145,11 +167,15 @@ def build_clip_engine(args):
         n_adapter = adora.count_trainable_parameters(trainable)
         print(f"baking {n_adapter} DoRA parameters (rank {args.rank})",
               flush=True)
+    use_pos = (auto_use_pos_embedding(clip_cfg) if args.pos_embedding == "auto"
+               else args.pos_embedding == "on")
     eng = clip_hba_engine(model, prompts, trainable=trainable, static=static,
                           alpha=args.dora_alpha, r=args.rank,
+                          use_pos_embedding=use_pos,
                           buckets=args.bucket_list, param_dtype=args.dtype,
                           quantize=args.quantize, device=device)
     eng.adapter_params = n_adapter
+    eng.use_pos_embedding = use_pos
     return eng, clip_cfg.visual.image_size, (THINGS_MEAN, THINGS_STD)
 
 
@@ -239,6 +265,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dora_checkpoint", help="trained DoRA adapters to bake")
     ap.add_argument("--bpe_vocab")
     ap.add_argument("--allow_hash_tokenizer", action="store_true")
+    ap.add_argument("--pos_embedding", choices=["auto", "on", "off"],
+                    default="auto",
+                    help="attnpool/CLS positional embedding: 'auto' = the "
+                    "reference CLIPHBA convention (on for ViT towers, off "
+                    "for RN — cvpr_..._baseline.py:757-758); 'on' restores "
+                    "stock OpenAI semantics when serving a plain RN .pt")
     ap.add_argument("--vision_layers", type=int, default=2)
     ap.add_argument("--transformer_layers", type=int, default=1)
     ap.add_argument("--rank", type=int, default=8)

@@ -1,6 +1,9 @@
 """CLIP image+text towers and the CLIP-HBA prompt-similarity head.
 
-Counterpart of the JAX package's models/clip.py (ViT visual towers only).
+Counterpart of the JAX package's models/clip.py. The visual tower is a ViT
+(``models/vit.py``) or a ModifiedResNet (``models/resnet.py``, the RN50
+family, which serves and converts but takes no adapters, no sequence
+parallelism, no frozen-prefix split and no fork axis, as in JAX).
 ``CLIP`` holds the parameters under OpenAI CLIP's state-dict names, so an
 OpenAI checkpoint (or one converted from the JAX package by
 ``models.convert.clip_state_dict_from_jax_params``) loads with
@@ -24,7 +27,9 @@ from torch import nn
 
 from ..ops import dora as vdora
 from ..ops import nn as vnn
+from . import resnet as vresnet
 from . import vit as vvit
+from .resnet import ResNetConfig
 from .vit import CLIP_VISUAL_FLAGS, ViTConfig
 
 
@@ -39,7 +44,7 @@ class TextConfig:
 
 @dataclass(frozen=True)
 class CLIPConfig:
-    visual: ViTConfig
+    visual: ViTConfig | ResNetConfig   # transformer or ModifiedResNet tower
     text: TextConfig
     embed_dim: int
 
@@ -59,14 +64,44 @@ CLIP_VIT_L14_336 = CLIPConfig(
     text=TextConfig(width=768, layers=12, heads=12),
     embed_dim=768)
 
+# the ModifiedResNet family: OpenAI build_model's geometry (attention-pool
+# heads = width * 32 // 64, text heads = text width // 64; the input grows
+# with the tower, 288 / 384 / 448 px for x4 / x16 / x64)
+CLIP_RN50 = CLIPConfig(visual=vresnet.RN50,
+                       text=TextConfig(width=512, layers=12, heads=8),
+                       embed_dim=1024)
+CLIP_RN101 = CLIPConfig(visual=vresnet.RN101,
+                        text=TextConfig(width=512, layers=12, heads=8),
+                        embed_dim=512)
+CLIP_RN50x4 = CLIPConfig(
+    visual=ResNetConfig(layers=(4, 6, 10, 6), width=80, heads=40,
+                        image_size=288, out_dim=640),
+    text=TextConfig(width=640, layers=12, heads=10),
+    embed_dim=640)
+CLIP_RN50x16 = CLIPConfig(
+    visual=ResNetConfig(layers=(6, 8, 18, 8), width=96, heads=48,
+                        image_size=384, out_dim=768),
+    text=TextConfig(width=768, layers=12, heads=12),
+    embed_dim=768)
+CLIP_RN50x64 = CLIPConfig(
+    visual=ResNetConfig(layers=(3, 15, 36, 10), width=128, heads=64,
+                        image_size=448, out_dim=1024),
+    text=TextConfig(width=1024, layers=12, heads=16),
+    embed_dim=1024)
 
-# random-init backbones by name: every ViT entry of the JAX package's
-# CLIP_CONFIGS, test-tiny included (its RN50 family is not ported)
+
+# random-init backbones by name: every entry of the JAX package's
+# CLIP_CONFIGS (every name OpenAI ships), test-tiny included
 CLIP_CONFIGS = {
     "ViT-L/14": CLIP_VIT_L14,
     "ViT-B/32": CLIP_VIT_B32,
     "ViT-B/16": CLIP_VIT_B16,
     "ViT-L/14@336px": CLIP_VIT_L14_336,
+    "RN50": CLIP_RN50,
+    "RN101": CLIP_RN101,
+    "RN50x4": CLIP_RN50x4,
+    "RN50x16": CLIP_RN50x16,
+    "RN50x64": CLIP_RN50x64,
     "test-tiny": CLIPConfig(
         visual=ViTConfig(patch=32, width=32, layers=2, heads=2,
                          image_size=224, out_dim=16, **CLIP_VISUAL_FLAGS),
@@ -88,8 +123,13 @@ def tiny_clip_config(width=32, layers=2, heads=2, patch=16, image_size=32,
         embed_dim=embed_dim)
 
 
+def is_resnet(cfg: CLIPConfig) -> bool:
+    """Whether the visual tower is a ModifiedResNet."""
+    return isinstance(cfg.visual, ResNetConfig)
+
+
 class CLIP(nn.Module):
-    """Parameters of a ViT CLIP under OpenAI's names. Build it with
+    """Parameters of a CLIP under OpenAI's names. Build it with
     ``empty_clip`` (no init work) and fill it from a state dict or with
     ``init_clip_weights_``."""
 
@@ -97,7 +137,8 @@ class CLIP(nn.Module):
         super().__init__()
         self.cfg = cfg
         t = cfg.text
-        self.visual = vvit.VisionTransformer(cfg.visual)
+        self.visual = (vresnet.ModifiedResNet(cfg.visual) if is_resnet(cfg)
+                       else vvit.VisionTransformer(cfg.visual))
         self.transformer = vvit.Transformer(t.width, t.layers, t.heads,
                                             causal=True)
         self.token_embedding = nn.Embedding(t.vocab_size, t.width)
@@ -109,10 +150,14 @@ class CLIP(nn.Module):
 
 
 def empty_clip(cfg: CLIPConfig, device) -> CLIP:
-    """A CLIP whose parameters are allocated on `device` and not initialized
-    (built on the meta device, so no init kernels run at ViT-L size)."""
+    """A CLIP whose parameters and buffers are allocated on `device` and not
+    initialized (built on the meta device, so no init kernels run at ViT-L
+    size). An RN tower's conv weights are laid out channels_last, as its
+    activations are (models/resnet.py)."""
     with torch.device("meta"):
         model = CLIP(cfg)
+        if is_resnet(cfg):
+            model.visual.to(memory_format=torch.channels_last)
     return model.to_empty(device=device).eval()
 
 
@@ -121,8 +166,9 @@ def init_clip_weights_(model: CLIP, generator: torch.Generator) -> CLIP:
     """Random weights in place, with the JAX package's init distributions
     (init_clip_params): truncated normals of std 0.02 for dense weights and
     embeddings, unit LayerNorms, zero biases, width^-0.5 projections and a
-    logit scale of log(1/0.07). The numbers differ from JAX's: a test that
-    compares the two packages converts one set of weights instead."""
+    logit scale of log(1/0.07); an RN tower as
+    ``resnet.init_resnet_weights_``. The numbers differ from JAX's: a test
+    that compares the two packages converts one set of weights instead."""
     def tn(p, std):
         nn.init.trunc_normal_(p, std=std, a=-2 * std, b=2 * std,
                               generator=generator)
@@ -140,14 +186,19 @@ def init_clip_weights_(model: CLIP, generator: torch.Generator) -> CLIP:
                 b.zero_()
 
     v = model.visual
-    tn(v.conv1.weight, 0.02)
-    tn(v.class_embedding, 0.02)
-    tn(v.positional_embedding, 0.02)
-    blocks(v.transformer)
-    for ln in (v.ln_pre, v.ln_post, model.ln_final):
-        ln.weight.fill_(1.0)
-        ln.bias.zero_()
-    tn(v.proj, model.cfg.visual.width ** -0.5)
+    if is_resnet(model.cfg):
+        vresnet.init_resnet_weights_(v, generator)
+    else:
+        tn(v.conv1.weight, 0.02)
+        tn(v.class_embedding, 0.02)
+        tn(v.positional_embedding, 0.02)
+        blocks(v.transformer)
+        for ln in (v.ln_pre, v.ln_post):
+            ln.weight.fill_(1.0)
+            ln.bias.zero_()
+        tn(v.proj, model.cfg.visual.width ** -0.5)
+    model.ln_final.weight.fill_(1.0)
+    model.ln_final.bias.zero_()
     model.token_embedding.weight.normal_(0.0, 0.02, generator=generator)
     model.positional_embedding.normal_(0.0, 0.01, generator=generator)
     blocks(model.transformer)
@@ -221,21 +272,62 @@ def encode_text_suffix(model: CLIP, hidden: torch.Tensor, eot: torch.Tensor,
     return _text_out(model, x, eot)
 
 
+# the JAX package's refusals for an RN tower, in its words
+_RN_ADAPTERS = ("DoRA adapters target transformer resblocks; the RN50 tower "
+                "has none (the reference's RN50 path uses the finetune "
+                "unfreezers instead, adapters/finetune.py)")
+_RN_SEQ_PARALLEL = ("sequence parallelism applies to transformer towers; the "
+                    "RN trunk is a conv pyramid")
+_RN_PREFIX = ("frozen-prefix caching applies to transformer visual towers; "
+              "the RN trunk is a conv pyramid")
+
+
+def _refuse_resnet(model: CLIP, message: str) -> None:
+    if is_resnet(model.cfg):
+        raise ValueError(message)
+
+
 def encode_image(model: CLIP, images: torch.Tensor, *,
                  compute_dtype=torch.float32, adapters: dict | None = None,
                  adapter_cfg: dict | None = None,
                  dropout_key: vdora.DropoutKey | None = None,
                  deterministic: bool = True,
+                 use_pos_embedding: bool = True,
                  remat: bool = False, seq_shard=None,
                  ring_attn: bool = False) -> torch.Tensor:
     """images [B, H, W, 3] (normalized, NHWC) -> [B, embed_dim] f32;
-    `seq_shard` / `ring_attn` as ``models.vit.clip_visual_encode``."""
+    `seq_shard` / `ring_attn` as ``models.vit.clip_visual_encode``.
+    `use_pos_embedding` is the reference CLIPHBA's pos_embedding flag: False
+    skips the visual tower's learned positions (the ViT's, or the RN
+    attention pool's). An RN tower refuses adapters and sequence
+    parallelism."""
+    if is_resnet(model.cfg):
+        if adapters:
+            raise ValueError(_RN_ADAPTERS)
+        if seq_shard is not None or ring_attn:
+            raise ValueError(_RN_SEQ_PARALLEL)
+        return vresnet.resnet_encode(model.visual, images,
+                                     use_pos_embedding=use_pos_embedding,
+                                     compute_dtype=compute_dtype, remat=remat)
     return vvit.clip_visual_encode(model.visual, images,
                                    compute_dtype=compute_dtype,
                                    adapters=adapters, adapter_cfg=adapter_cfg,
                                    dropout_key=dropout_key,
-                                   deterministic=deterministic, remat=remat,
-                                   seq_shard=seq_shard, ring_attn=ring_attn)
+                                   deterministic=deterministic,
+                                   use_pos_embedding=use_pos_embedding,
+                                   remat=remat, seq_shard=seq_shard,
+                                   ring_attn=ring_attn)
+
+
+def clip_visual_prefix(model: CLIP, images: torch.Tensor, *, n_suffix: int,
+                       use_pos_embedding: bool = True,
+                       compute_dtype=torch.float32) -> torch.Tensor:
+    """``models.vit.clip_visual_prefix`` of a ViT tower (the trainer's
+    frozen-prefix cache); an RN tower has no block split and is refused."""
+    _refuse_resnet(model, _RN_PREFIX)
+    return vvit.clip_visual_prefix(model.visual, images, n_suffix=n_suffix,
+                                   use_pos_embedding=use_pos_embedding,
+                                   compute_dtype=compute_dtype)
 
 
 def _scores(model: CLIP, img: torch.Tensor, txt: torch.Tensor) -> torch.Tensor:
@@ -253,6 +345,7 @@ def clip_hba_forward(model: CLIP, images: torch.Tensor,
                      adapter_cfg: dict | None = None,
                      dropout_key: vdora.DropoutKey | None = None,
                      deterministic: bool = True,
+                     use_pos_embedding: bool = True,
                      remat: bool = False, seq_shard=None,
                      ring_attn: bool = False) -> torch.Tensor:
     """images -> [B, n_prompts] scores (the CLIPHBA contract): the logit
@@ -261,9 +354,10 @@ def clip_hba_forward(model: CLIP, images: torch.Tensor,
     adapters = {"visual": {idx: dora}, "text": {idx: dora}}
     (adapters/dora.py assemble); `dropout_key` splits into a vision and a
     text stream, as the JAX forward splits its key. `remat` recomputes every
-    block of both towers in the backward. `seq_shard` / `ring_attn` run the
-    VISUAL tower sequence-parallel (the text tower is 66 x 77 tokens, whole
-    on every rank)."""
+    block of both towers in the backward (each stage of an RN tower).
+    `seq_shard` / `ring_attn` run the VISUAL tower sequence-parallel (the
+    text tower is 66 x 77 tokens, whole on every rank). `use_pos_embedding`
+    as ``encode_image`` (the text tower always adds its positions)."""
     adapters = adapters or {}
     kv = kt = None
     if dropout_key is not None:
@@ -271,7 +365,8 @@ def clip_hba_forward(model: CLIP, images: torch.Tensor,
     img = encode_image(model, images, compute_dtype=compute_dtype,
                        adapters=adapters.get("visual"),
                        adapter_cfg=adapter_cfg, dropout_key=kv,
-                       deterministic=deterministic, remat=remat,
+                       deterministic=deterministic,
+                       use_pos_embedding=use_pos_embedding, remat=remat,
                        seq_shard=seq_shard, ring_attn=ring_attn)
     txt = encode_text(model, prompt_tokens, compute_dtype=compute_dtype,
                       adapters=adapters.get("text"), adapter_cfg=adapter_cfg,
@@ -293,7 +388,8 @@ def clip_hba_suffix_forward(model: CLIP, vis_hidden: torch.Tensor,
     encode_text_prefix(prompt_tokens). Only the adapted suffix blocks and
     the heads run. The dropout key splits into (vision, text) and folds the
     absolute block index as clip_hba_forward does, so a cached step draws
-    the full-tower step's masks."""
+    the full-tower step's masks. ViT towers only."""
+    _refuse_resnet(model, _RN_PREFIX)
     adapters = adapters or {}
     kv = kt = None
     if dropout_key is not None:
@@ -364,7 +460,8 @@ def clip_hba_forward_forks(model: CLIP, images: torch.Tensor,
     run once for shared inputs (the prompts always), and only the adapted
     out_proj (one product a fork) and the scores are per fork.
     `dropout_keys` holds each fork's batch key; fork f draws the masks of
-    its solo step."""
+    its solo step. ViT towers only: the fork axis carries adapters."""
+    _refuse_resnet(model, _RN_ADAPTERS)
     adapters = adapters or {}
     kv, kt = _split_keys(dropout_keys)
     img, img_forked = vvit.clip_visual_encode_forks(
@@ -392,7 +489,8 @@ def clip_hba_suffix_forward_forks(model: CLIP, vis_hidden: torch.Tensor,
     """clip_hba_forward_forks from the frozen-prefix caches: `vis_hidden`
     [R*B, S, width] (each fork's rows) or, with `forked=False`, [B, S,
     width] shared; the text prefix (`txt_hidden`, `txt_eot`) is every
-    fork's. -> [R, B, n_prompts]."""
+    fork's. -> [R, B, n_prompts]. ViT towers only."""
+    _refuse_resnet(model, _RN_PREFIX)
     adapters = adapters or {}
     kv, kt = _split_keys(dropout_keys)
     img, img_forked = vvit.clip_visual_suffix_forks(

@@ -13,7 +13,11 @@ The DoRA adapter trees cross between the packages through
 ``adapters_from_jax`` and ``adapters_to_jax``; the optimizer state through
 ``ckpt/clip_ckpt.py``.
 
-ViT visual towers only; the ModifiedResNet family is not ported yet.
+Both visual tower families: a ViT, or a ModifiedResNet (the RN50 family,
+``models/resnet.py``) whose convs are OIHW in both layouts (JAX's trees hold
+HWIO) and whose BatchNorms carry their running statistics; their
+``num_batches_tracked`` counters, which no forward reads, may be absent from
+a state dict (JAX's reader ignores them) and are then filled with zeros.
 
 The ViT classifier crosses as timm-named {name: tensor} maps
 (``VisionTransformerClassifier.state_dict()`` names): ``vit_state_dict_from_jax``
@@ -33,7 +37,8 @@ import numpy as np
 import torch
 
 from ..ops import quant as vquant
-from .clip import CLIP, CLIPConfig, TextConfig, empty_clip
+from .clip import CLIP, CLIPConfig, TextConfig, empty_clip, is_resnet
+from .resnet import ResNetConfig
 from .vit import (CLIP_VISUAL_FLAGS, ViTConfig, VisionTransformerClassifier,
                   empty_vit)
 
@@ -43,23 +48,36 @@ _ARCHIVE_METADATA = ("input_resolution", "context_length", "vocab_size")
 
 def load_torch_state_dict(path: str) -> dict:
     """Load a torch checkpoint (jit archive or plain state dict) into
-    {name: float32 CPU tensor}, without the archive's integer metadata."""
+    {name: CPU tensor}, floats as float32 and integer buffers (BatchNorm's
+    counters) as they are, without the archive's integer metadata."""
     try:
         sd = torch.jit.load(path, map_location="cpu").eval().state_dict()
     except RuntimeError:
         sd = torch.load(path, map_location="cpu", weights_only=True)
         if isinstance(sd, dict) and "state_dict" in sd:
             sd = sd["state_dict"]
-    return {k: v.detach().float() for k, v in sd.items()
-            if k not in _ARCHIVE_METADATA}
+    return {k: v.detach().float() if v.is_floating_point() else v.detach()
+            for k, v in sd.items() if k not in _ARCHIVE_METADATA}
+
+
+def _rn_visual_config(sd: dict, embed_dim: int) -> ResNetConfig:
+    """OpenAI build_model's ResNet shape inference. heads = width * 32 / 64,
+    at least 1 (only a test-size width is below 2)."""
+    counts = tuple(
+        len({k.split(".")[2] for k in sd if k.startswith(f"visual.layer{b}.")})
+        for b in (1, 2, 3, 4))
+    width = sd["visual.layer1.0.conv1.weight"].shape[0]
+    grid = int(round(
+        (sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5))
+    return ResNetConfig(layers=counts, width=width,
+                        heads=max(1, width * 32 // 64), image_size=grid * 32,
+                        out_dim=embed_dim)
 
 
 def clip_config_from_state_dict(sd: dict) -> CLIPConfig:
     """Infer the architecture from checkpoint shapes, as OpenAI's
-    build_model does (heads = width / 64)."""
-    if "visual.proj" not in sd:
-        raise ValueError("only ViT CLIP checkpoints are supported (this one "
-                         "has no visual.proj: a ModifiedResNet tower)")
+    build_model does (heads = width / 64); a checkpoint without
+    ``visual.proj`` holds a ModifiedResNet tower."""
     embed_dim = sd["text_projection"].shape[1]
     text_width = sd["ln_final.weight"].shape[0]
     text_layers = len({k.split(".")[2] for k in sd
@@ -68,6 +86,9 @@ def clip_config_from_state_dict(sd: dict) -> CLIPConfig:
                       heads=max(1, text_width // 64),
                       vocab_size=sd["token_embedding.weight"].shape[0],
                       context_length=sd["positional_embedding"].shape[0])
+    if "visual.proj" not in sd:
+        return CLIPConfig(visual=_rn_visual_config(sd, embed_dim), text=text,
+                          embed_dim=embed_dim)
     vision_width = sd["visual.conv1.weight"].shape[0]
     patch = sd["visual.conv1.weight"].shape[-1]
     grid = int(round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5))
@@ -82,10 +103,14 @@ def clip_config_from_state_dict(sd: dict) -> CLIPConfig:
 
 
 def clip_from_state_dict(sd: dict, device, cfg: CLIPConfig | None = None) -> CLIP:
-    """A ``CLIP`` on `device` holding the state dict's weights (strict load).
+    """A ``CLIP`` on `device` holding the state dict's weights (strict load,
+    but for BatchNorm counters the state dict lacks, which start at 0).
     `cfg` defaults to the one the shapes imply."""
     model = empty_clip(cfg or clip_config_from_state_dict(sd), device)
-    model.load_state_dict(sd, strict=True)
+    counters = {k: torch.zeros((), dtype=torch.long)
+                for k in model.state_dict()
+                if k.endswith(".num_batches_tracked") and k not in sd}
+    model.load_state_dict({**sd, **counters}, strict=True)
     return model
 
 
@@ -119,20 +144,62 @@ def _clip_block_out(sd, prefix, b):
     sd[prefix + ".mlp.c_proj.bias"] = _t(b["fc2_b"])
 
 
+def _oihw(w) -> torch.Tensor:
+    """A JAX HWIO conv kernel -> torch's OIHW."""
+    return _t(np.transpose(np.asarray(w, np.float32), (3, 2, 0, 1)))
+
+
+def _rn_bn_out(sd, prefix, p):
+    """The four BatchNorm leaves and torch's int64 counter at 0."""
+    sd[prefix + ".weight"] = _t(p["scale"])
+    sd[prefix + ".bias"] = _t(p["bias"])
+    sd[prefix + ".running_mean"] = _t(p["mean"])
+    sd[prefix + ".running_var"] = _t(p["var"])
+    sd[prefix + ".num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+
+
+def _rn_visual_out(sd, v, cfg: ResNetConfig):
+    """A JAX ModifiedResNet tree -> OpenAI names (JAX
+    clip_state_dict_from_params' RN branch)."""
+    for i in (1, 2, 3):
+        sd[f"visual.conv{i}.weight"] = _oihw(v["stem"][f"conv{i}"])
+        _rn_bn_out(sd, f"visual.bn{i}", v["stem"][f"bn{i}"])
+    for b, n in enumerate(cfg.layers, start=1):
+        for i in range(n):
+            prefix, p = f"visual.layer{b}.{i}", v[f"layer{b}"][i]
+            for c in (1, 2, 3):
+                sd[f"{prefix}.conv{c}.weight"] = _oihw(p[f"conv{c}"])
+                _rn_bn_out(sd, f"{prefix}.bn{c}", p[f"bn{c}"])
+            if "down_conv" in p:     # the shortcut's pool is the unnamed -1
+                sd[prefix + ".downsample.0.weight"] = _oihw(p["down_conv"])
+                _rn_bn_out(sd, prefix + ".downsample.1", p["down_bn"])
+    ap = v["attnpool"]
+    sd["visual.attnpool.positional_embedding"] = _t(ap["pos"])
+    for nm in ("q", "k", "v", "c"):
+        sd[f"visual.attnpool.{nm}_proj.weight"] = _t(
+            np.asarray(ap[f"{nm}_w"]).T)
+        sd[f"visual.attnpool.{nm}_proj.bias"] = _t(ap[f"{nm}_b"])
+
+
 def clip_state_dict_from_jax_params(tree: dict, cfg: CLIPConfig) -> dict:
     """The JAX package's CLIP parameter tree (arrays convertible with
-    np.asarray) -> OpenAI-format {name: float32 tensor} for ``CLIP``."""
+    np.asarray) -> OpenAI-format {name: tensor} for ``CLIP``: float32, and
+    an RN tower's BatchNorm counters int64 zeros."""
     sd: dict = {}
     v = tree["visual"]
-    sd["visual.conv1.weight"] = torch.from_numpy(patch_matrix_to_conv_kernel(
-        np.asarray(v["patch_w"], np.float32), cfg.visual.patch))
-    sd["visual.class_embedding"] = _t(v["cls"])
-    sd["visual.positional_embedding"] = _t(v["pos"])
-    _ln_out(sd, "visual.ln_pre", v["ln_pre"])
-    for i, b in enumerate(v["blocks"]):
-        _clip_block_out(sd, f"visual.transformer.resblocks.{i}", b)
-    _ln_out(sd, "visual.ln_post", v["norm"])
-    sd["visual.proj"] = _t(v["proj"])
+    if is_resnet(cfg):
+        _rn_visual_out(sd, v, cfg.visual)
+    else:
+        sd["visual.conv1.weight"] = torch.from_numpy(
+            patch_matrix_to_conv_kernel(np.asarray(v["patch_w"], np.float32),
+                                        cfg.visual.patch))
+        sd["visual.class_embedding"] = _t(v["cls"])
+        sd["visual.positional_embedding"] = _t(v["pos"])
+        _ln_out(sd, "visual.ln_pre", v["ln_pre"])
+        for i, b in enumerate(v["blocks"]):
+            _clip_block_out(sd, f"visual.transformer.resblocks.{i}", b)
+        _ln_out(sd, "visual.ln_post", v["norm"])
+        sd["visual.proj"] = _t(v["proj"])
     t = tree["text"]
     sd["token_embedding.weight"] = _t(t["token_embedding"])
     sd["positional_embedding"] = _t(t["pos"])
@@ -312,12 +379,14 @@ def vit_from_jax(tree: dict, cfg: ViTConfig,
 
 def clip_from_jax(tree: dict, cfg: CLIPConfig, device) -> CLIP:
     """A ``CLIP`` on `device` from the JAX package's CLIP tree, float or
-    with int8 block weights in either tower."""
+    with int8 block weights in either transformer tower (an RN tower is
+    float: JAX quantizes only transformer blocks)."""
     model = clip_from_state_dict(
         clip_state_dict_from_jax_params(_dequantized_jax_tree(tree), cfg),
         device, cfg)
-    _load_jax_quantized_blocks(model.visual.transformer.resblocks,
-                              tree["visual"]["blocks"])
+    if not is_resnet(cfg):
+        _load_jax_quantized_blocks(model.visual.transformer.resblocks,
+                                  tree["visual"]["blocks"])
     _load_jax_quantized_blocks(model.transformer.resblocks,
                               tree["text"]["blocks"])
     return model

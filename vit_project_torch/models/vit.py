@@ -477,15 +477,18 @@ def check_suffix(adapters: dict | None, start: int, layers: int,
 
 
 def _clip_visual_stem(visual: VisionTransformer, images: torch.Tensor, *,
+                      use_pos_embedding: bool = True,
                       compute_dtype=torch.float32) -> torch.Tensor:
-    """Patch embed + CLS + positions + ln_pre; images NHWC."""
+    """Patch embed + CLS + (unless `use_pos_embedding` is False) positions
+    + ln_pre; images NHWC."""
     cfg = visual.cfg
     x = images.to(compute_dtype)
     w = vnn.conv_kernel_to_patch_matrix(visual.conv1.weight)
     x = vnn.patch_embed(x, w, None, cfg.patch)
     cls = visual.class_embedding.to(x.dtype).expand(x.shape[0], 1, cfg.width)
     x = torch.cat([cls, x], dim=1)
-    x = x + visual.positional_embedding.to(x.dtype)
+    if use_pos_embedding:
+        x = x + visual.positional_embedding.to(x.dtype)
     return vnn.layer_norm(x, visual.ln_pre.weight, visual.ln_pre.bias)
 
 
@@ -503,16 +506,20 @@ def clip_visual_encode(visual: VisionTransformer, images: torch.Tensor, *,
                        adapter_cfg: dict | None = None,
                        dropout_key: vdora.DropoutKey | None = None,
                        deterministic: bool = True,
+                       use_pos_embedding: bool = True,
                        remat: bool = False, seq_shard=None,
                        ring_attn: bool = False) -> torch.Tensor:
     """CLIP visual tower: images [B, H, W, 3] (normalized, NHWC) ->
     [B, out_dim] f32. `adapters` maps block index -> {trainable, buffers}.
-    `seq_shard` / `ring_attn`: sequence parallelism, gather or ring form
-    (module docstring)."""
+    `use_pos_embedding` is the reference CLIPHBA's pos_embedding flag (True
+    for its ViT runs): False skips the learned positions. `seq_shard` /
+    `ring_attn`: sequence parallelism, gather or ring form (module
+    docstring)."""
     _seq_parallel_checks(visual.cfg, seq_shard, ring_attn,
                          [b.attn.in_proj_weight
                           for b in visual.transformer.resblocks])
-    x = _clip_visual_stem(visual, images, compute_dtype=compute_dtype)
+    x = _clip_visual_stem(visual, images, use_pos_embedding=use_pos_embedding,
+                          compute_dtype=compute_dtype)
     x, sp = _seq_parallel_enter(x, seq_shard, ring_attn)
     x = run_blocks(visual.transformer, x, adapters=adapters,
                    adapter_cfg=adapter_cfg, dropout_key=dropout_key,
@@ -521,7 +528,7 @@ def clip_visual_encode(visual: VisionTransformer, images: torch.Tensor, *,
 
 
 def clip_visual_prefix(visual: VisionTransformer, images: torch.Tensor, *,
-                       n_suffix: int,
+                       n_suffix: int, use_pos_embedding: bool = True,
                        compute_dtype=torch.float32) -> torch.Tensor:
     """The frozen prefix of the CLIP visual tower: the stem and the first
     `layers - n_suffix` blocks -> hidden tokens [B, S, width] in the compute
@@ -533,7 +540,8 @@ def clip_visual_prefix(visual: VisionTransformer, images: torch.Tensor, *,
     (train/clip_loop.py build_prefix_cache)."""
     layers = visual.cfg.layers
     check_suffix(None, 0, layers, n_suffix, "visual")
-    x = _clip_visual_stem(visual, images, compute_dtype=compute_dtype)
+    x = _clip_visual_stem(visual, images, use_pos_embedding=use_pos_embedding,
+                          compute_dtype=compute_dtype)
     return run_blocks(visual.transformer, x, stop=layers - n_suffix)
 
 

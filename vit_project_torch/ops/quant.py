@@ -150,7 +150,10 @@ def quantize_vit_blocks(model):
 def quantize_clip_blocks(model):
     """``quantize_vit_blocks`` on BOTH towers of a CLIP (the text tower's
     blocks share the visual block layout). Bake adapters first
-    (adapters.dora.bake), then quantize the baked model. Returns it."""
-    quantize_vit_blocks(model.visual)
+    (adapters.dora.bake), then quantize the baked model. A ModifiedResNet
+    visual tower has no transformer blocks and stays float: only the text
+    tower quantizes, as in JAX. Returns the model."""
+    if hasattr(model.visual, "transformer"):
+        quantize_vit_blocks(model.visual)
     _quantize_blocks(model.transformer.resblocks)
     return model

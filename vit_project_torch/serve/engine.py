@@ -214,7 +214,8 @@ def vit_features_engine(model: vvit.VisionTransformerClassifier, *,
 
 def clip_hba_engine(model: vclip.CLIP, prompt_tokens, *, trainable=None,
                     static=None, alpha: int = 16, r: int = 8,
-                    compute_dtype=torch.bfloat16, buckets=DEFAULT_BUCKETS,
+                    compute_dtype=torch.bfloat16,
+                    use_pos_embedding: bool = True, buckets=DEFAULT_BUCKETS,
                     param_dtype=None, quantize: str | None = None,
                     device=None) -> InferenceEngine:
     """Serve CLIP-HBA behavioral scores [B, n_prompts].
@@ -225,8 +226,9 @@ def clip_hba_engine(model: vclip.CLIP, prompt_tokens, *, trainable=None,
     [n_prompts, context] are fixed at build and re-encoded on every call, as
     the JAX forward does. quantize="int8" quantizes both towers' blocks
     after the bake (the adapted out_proj is the weight that gets the int8
-    treatment). Runs on `device` (default CUDA; raises without a GPU unless
-    device='cpu')."""
+    treatment; an RN visual tower stays float). `use_pos_embedding` is the
+    reference CLIPHBA's pos_embedding flag (off for its RN50 runs). Runs on
+    `device` (default CUDA; raises without a GPU unless device='cpu')."""
     if (trainable is None) != (static is None):
         raise ValueError("pass both trainable and static, or neither")
     device = resolve_device(device)
@@ -240,7 +242,8 @@ def clip_hba_engine(model: vclip.CLIP, prompt_tokens, *, trainable=None,
 
     def apply_fn(m, images):
         return vclip.clip_hba_forward(m, images, tok,
-                                      compute_dtype=compute_dtype)
+                                      compute_dtype=compute_dtype,
+                                      use_pos_embedding=use_pos_embedding)
     eng = InferenceEngine(apply_fn, model, buckets=buckets,
                           param_dtype=param_dtype, device=device)
     eng.prompt_tokens = tok

@@ -90,7 +90,6 @@ from ..data.spose66 import classnames66
 from ..models import clip as vclip
 from ..models import convert as vconvert
 from ..models import tokenizer as vtok
-from ..models import vit as vvit
 from ..ops import rsa as vrsa
 from ..parallel import dist
 from ..parallel import mesh as vmesh
@@ -202,8 +201,8 @@ class ClipHBATrainer:
         n_vis, _ = self.suffix_sizes()
         cache = None
         for s in range(0, imgs_dev.shape[0], chunk):
-            h = vvit.clip_visual_prefix(
-                self.model.visual,
+            h = vclip.clip_visual_prefix(
+                self.model,
                 dthings.normalize_uint8(imgs_dev[s:s + chunk]),
                 n_suffix=n_vis, compute_dtype=self.compute_dtype)
             if cache is None:
@@ -840,6 +839,19 @@ def read_image_names(csv_file: str) -> list[str]:
     return [r[col] for r in rows[1:]]
 
 
+def _refuse_rn_backbone(cfg: ClipRunConfig, clip_cfg) -> None:
+    """The DoRA pipeline is ViT-only, as the reference's is (its
+    apply_dora_to_ViT targets visual.transformer.resblocks): refuse an RN
+    tower before any dataset is read, in the JAX package's words."""
+    if vclip.is_resnet(clip_cfg):
+        raise ValueError(
+            f"backbone {cfg.backbone!r} resolves to a ModifiedResNet visual "
+            "tower; the CLIP-HBA DoRA training pipeline is ViT-only (so is "
+            "the reference's — apply_dora_to_ViT targets "
+            "visual.transformer.resblocks). Use cli.serve / encode paths "
+            "for RN towers.")
+
+
 def build_run_assets(cfg: ClipRunConfig, logger, device):
     """Everything a CLIP-HBA run needs before any training state exists:
     the frozen model on `device` and its config, decoded datasets, split
@@ -853,6 +865,7 @@ def build_run_assets(cfg: ClipRunConfig, logger, device):
     if loaded_pretrained:
         sd = vconvert.load_torch_state_dict(cfg.clip_weights)
         clip_cfg = vconvert.clip_config_from_state_dict(sd)
+        _refuse_rn_backbone(cfg, clip_cfg)
         model = vconvert.clip_from_state_dict(sd, device, clip_cfg)
         del sd
         logger.info(f"Loaded CLIP weights from {cfg.clip_weights}")
@@ -862,6 +875,7 @@ def build_run_assets(cfg: ClipRunConfig, logger, device):
                 f"unsupported backbone {cfg.backbone!r}; supported: "
                 f"{sorted(vclip.CLIP_CONFIGS)}")
         clip_cfg = vclip.CLIP_CONFIGS[cfg.backbone]
+        _refuse_rn_backbone(cfg, clip_cfg)
         model = vclip.init_clip_weights_(
             vclip.empty_clip(clip_cfg, device),
             torch.Generator(device=device).manual_seed(cfg.random_seed))
