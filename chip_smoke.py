@@ -138,7 +138,21 @@
    against the same block whole on the plain attention, ms a step of each
    form in turns, and the gather's bf16 gradient sum against one in f32.
    The torchrun chain at world size 1 also trains phase moe's MoE run for
-   one epoch, bit-equal to its epoch 0 alone;
+   one epoch, bit-equal to its epoch 0 alone; both launches end with mesh
+   serving (serve/engine.py ``mesh=``): at world size 1 the dp-meshed
+   ViT-B/16 classifier engine at bucket 256 bit-equal to the engine alone
+   with images/s of both in turns, and on the two gloo ranks the dp engine
+   and the tp engine (``shard_params``, --tp_devices 2's layout) against
+   the engine alone within a stated bf16 bound, 12 flash3_fwd a rank a
+   chunk;
+6f. phase `profile` (after vit_train): the step profiler as a user runs
+   it, ``cli.profile.main(["--batch", "256", "--steps", "3",
+   "--fused_dw"])`` in this process: 12 flash3_fwd, 12 flash3_bwd and 49
+   dw_db launches a step, every bucket of its table, the table's total
+   within PROFILE_TOTAL_RTOL of phase vit_train's profiled step; then
+   ``--memory`` at batch 256 on the card (world size 1): the arguments
+   equal to the parameter, momentum and batch bytes, and the allocator's
+   peak;
 6e. phase `clip_dist`: CLIP-HBA training across ranks as users launch it,
    at full width (ViT-L/14's widths with its image tower cut to
    CLIP_FIXTURE_BLOCKS of 24 blocks, rank-32 DoRA, bf16, batch 64, 2
@@ -301,7 +315,8 @@ LN_TOLERANCE = {"float32": {"dx": 1e-5, "dparams": 1e-4},
 
 SEED = 0
 RESULTS: dict = {}
-ALL_PHASES = ("kernel", "ops", "serve", "train", "vit_train", "moe",
+ALL_PHASES = ("kernel", "ops", "serve", "train", "vit_train", "profile",
+              "moe",
               "vit_grid",
               "serve_vit", "serve_rn", "dist", "clip_dist", "sweep", "forks")
 
@@ -2348,12 +2363,29 @@ def _trees_equal(a, b) -> bool:
     return np.array_equal(np.asarray(a), np.asarray(b))
 
 
+_CONV = ("fprop", "implicit", "winograd", "convolve", "cudnn", "conv2d",
+         "nhwc")
+
+
+def _group_of(name: str) -> str:
+    """cli.profile.bucket_of's short label, and "conv" for the cuDNN
+    convolutions of the RN towers (the step profiler has no conv bucket)."""
+    from vit_project_torch.cli import profile as cli_profile
+    n = name.lower()
+    if "dw_db" not in n and "attn_" not in n and (
+            any(k in n for k in _CONV) or ("conv" in n and "convert" not in n)):
+        return "conv"
+    return cli_profile.bucket_of(name).split(" (")[0]
+
+
 def _profile(fn, steps: int = 3):
     """Device time by kernel group over `steps` calls of `fn` (torch.profiler
-    on the card), and the device's busy share of the host-clock window.
-    Returns None when the profiler saw no device time."""
+    on the card, grouped as cli.profile groups it), and the device's busy
+    share of the host-clock window. Returns None when the profiler saw no
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from vit_project_torch.cli import profile as cli_profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2364,28 +2396,17 @@ def _profile(fn, steps: int = 3):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups: dict = {}
-    others: dict = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = e.self_device_time_total / 1e3 / steps
-        name = e.key.lower()
-        group = ("dw_db" if "dw_db" in name or "sum_splits" in name
-                 else "attention" if "attn_" in name
-                 else "conv" if any(k in name for k in (
-                     "fprop", "implicit", "winograd", "convolve", "cudnn",
-                     "conv2d", "nhwc")) or ("conv" in name
-                                           and "convert" not in name)
-                 else "gemm" if any(k in name for k in (
-                     "gemm", "nvjet", "xmma", "cutlass", "cublas"))
-                 else "other")
+    rest: dict = {}
+    for name, _, us in cli_profile.device_rows(prof.key_averages()):
+        ms = us / 1e3 / steps
+        group = _group_of(name)
         groups[group] = groups.get(group, 0.0) + ms
-        if group == "other":
-            others[e.key[:60]] = others.get(e.key[:60], 0.0) + ms
+        if group in ("elementwise/reduce", "copies", "other"):
+            rest[name[:60]] = rest.get(name[:60], 0.0) + ms
     busy = sum(groups.values())
     if busy == 0:
         return None
-    top = dict(sorted(others.items(), key=lambda kv: -kv[1])[:6])
+    top = dict(sorted(rest.items(), key=lambda kv: -kv[1])[:6])
     return {"ms_per_call": groups, "top_other_ms": top,
             "device_ms_per_call": busy, "wall_ms_per_call": wall_ms / steps,
             "idle_share": max(0.0, 1 - busy * steps / wall_ms)}
@@ -2595,6 +2616,112 @@ def phase_vit_train(tmp: str):
     del res, model, momentum, trainer, p0, m0
     torch.cuda.empty_cache()
     return launches
+
+# the profile phase: the step profiler (cli/profile.py) as a user runs it,
+# at ViT-B/16 batch 256, bf16, --fused_dw, PROFILE_STEPS traced steps after
+# its warm-up step. Its table's total against phase vit_train's profiled
+# step (the same step on another batch of the same size) within
+# PROFILE_TOTAL_RTOL
+PROFILE_STEPS = 3
+PROFILE_PER_STEP = {"flash3_fwd": 12, "flash3_bwd": 12, "dw_db": 49}
+PROFILE_TOTAL_RTOL = 0.15
+
+
+def phase_profile(tmp: str):
+    """``python -m vit_project_torch.cli.profile --batch 256 --steps 3
+    --fused_dw`` in this process (``main``), then ``--memory`` at the same
+    batch (world size 1). Checks the kernels' launches a step, every
+    bucket, the total against phase vit_train's profiled step, and the
+    memory rows: arguments equal to the parameters, momentum and batch
+    bytes counted here, a peak above them."""
+    import contextlib
+    import torch
+    from vit_project_torch.cli import profile as cli_profile
+    from vit_project_torch.models import vit as vvit
+    from vit_project_torch.ops import attention as vattn
+    from vit_project_torch.ops import fused_dw as vfdw
+
+    t0 = time.time()
+    raw = os.path.join(tmp, "profile_raw.json")
+    argv = ["--batch", "256", "--steps", str(PROFILE_STEPS), "--fused_dw",
+            "--raw", raw]
+    out = io.StringIO()
+    vattn.reset_launch_counts()
+    vfdw.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        rc = cli_profile.main(argv)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in {**vattn.LAUNCHES, **vfdw.LAUNCHES}.items()
+                if k in PROFILE_PER_STEP}
+    trace_s = time.time() - t0
+    for line in out.getvalue().splitlines():
+        print(f"[profile] {line}", flush=True)
+    with open(raw) as f:
+        rows = [(r["name"], r["count"], r["self_device_us"])
+                for r in json.load(f)]
+    table, _ = cli_profile.summarize(rows, PROFILE_STEPS)
+    total = sum(v["ms"] for v in table.values())
+    # the CLI's warm-up step and its traced steps
+    want = {k: v * (PROFILE_STEPS + 1) for k, v in PROFILE_PER_STEP.items()}
+    if rc != 0 or launches != want:
+        fail(f"[profile] rc {rc}, launches {launches}, want {want}")
+    if any(v["ms"] < 0 for v in table.values()) or not total > 0:
+        fail(f"[profile] buckets {table}")
+    by_bucket = {b.split(" (")[0]: v["ms"] for b, v in table.items()}
+    other = sorted(((us / 1e3 / PROFILE_STEPS, n) for n, _, us in rows
+                    if cli_profile.bucket_of(n) == cli_profile.BUCKETS[6]),
+                   reverse=True)[:4]
+    ref = (RESULTS.get("vit_train") or {}).get("profile")
+    rel = None
+    if ref is not None:
+        rel = total / ref["device_ms_per_call"] - 1
+        print(f"[profile] table total {total:.2f} device ms a step against "
+              f"phase vit_train's profiled step {ref['device_ms_per_call']:.2f}"
+              f": {rel:+.3%} (bound {PROFILE_TOTAL_RTOL:.0%})", flush=True)
+        if not abs(rel) <= PROFILE_TOTAL_RTOL:
+            fail(f"[profile] total {total} against {ref}")
+    else:
+        print("[profile] total not compared: phase vit_train did not run",
+              flush=True)
+    print(f"[profile] launches over {PROFILE_STEPS + 1} steps (the warm-up "
+          f"and the traced): " + ", ".join(f"{k} {v}" for k, v in
+                                           launches.items())
+          + "; largest of 'other': " + ("; ".join(
+              f"{n[:70]} {ms:.3f}" for ms, n in other) or "none")
+          + f"; {trace_s:.1f} s", flush=True)
+
+    # --memory on the card: one real step of the dp trainer, world size 1
+    torch.cuda.empty_cache()
+    t1 = time.time()
+    raw_mem = os.path.join(tmp, "profile_memory.json")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_profile.main(["--memory", "--batch", "256", "--raw",
+                               raw_mem])
+    for line in out.getvalue().splitlines():
+        print(f"[profile] {line}", flush=True)
+    with open(raw_mem) as f:
+        mem = json.load(f)
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in vvit.VisionTransformerClassifier(
+            vvit.VIT_CONFIGS["vit_base_patch16_224"]).parameters())
+    want_args = 2 * 4 * n_params + 256 * (224 * 224 * 3 + 8)
+    print(f"[profile] --memory: arguments {mem['arguments']:,} bytes "
+          f"(parameters and momentum 2 x 4 x {n_params:,}, batch 256 uint8 "
+          f"images and int64 labels: {want_args:,}); peak allocated "
+          f"{mem['peak_allocated'] / 2**30:.3f} GiB, reserved "
+          f"{mem['peak_reserved'] / 2**30:.3f} GiB; {time.time() - t1:.1f} s"
+          f"; {smi_line()}", flush=True)
+    if rc != 0 or mem["n_ranks"] != 1 or mem["arguments"] != want_args or \
+            not mem["peak_allocated"] > want_args:
+        fail(f"[profile] --memory {mem}, want arguments {want_args}")
+    RESULTS["profile"] = {"launches": launches, "table": table,
+                          "by_bucket_ms": by_bucket, "total_ms": total,
+                          "against_vit_train": rel, "top_other": other,
+                          "trace_s": trace_s, "memory": mem}
+    torch.cuda.empty_cache()
+    return launches
+
 
 # the MoE phase: ViT-B/16 with 8 experts in every other block (6 MoE
 # blocks), on phase vit_train's ImageFolder at batch 256, lr DIST_LR (the
@@ -4259,6 +4386,8 @@ def _dist_worker(report: str, argv: list) -> int:
                 extra = _ep_check()
             elif module == "sp_check":
                 extra = _sp_check()
+            elif module == "serve_mesh":
+                extra = _serve_mesh()
             elif module == "clip_sp_check":
                 extra = _clip_sp_check(args[0])
             else:
@@ -4508,6 +4637,127 @@ def _ep_check() -> dict:
     turns = [[ev[i].elapsed_time(ev[i + 1]) for i in range(EP_TIMED_STEPS)]]
     return {"per_step": per_step, "turns": turns,
             "experts_here": int(model.blocks[1].moe.fc1_w.shape[0])}
+
+
+# mesh serving (serve/engine.py mesh= / shard_params=) inside phase dist's
+# launches: the ViT-B/16 classifier engine, bf16 weights and compute,
+# seeded random weights, uint8 requests with the ImageNet normalization
+# folded in. At world size 1 under NCCL, bucket SERVE_MESH_BUCKET: the dp
+# engine (its rows and its all-gather over a data axis of one) bit-equal
+# to the engine alone, images/s of both in turns. On the two gloo ranks
+# sharing the card, bucket SERVE_MESH_GLOO_BUCKET (the tp training's
+# TP_BATCH: a tp chunk all-reduces [64, 197, 768] bf16 24 times through
+# the host): the dp engine (32 rows a rank, gathered) and the tp engine
+# (--tp_devices 2's layout: 6 heads a rank through the flash3 kernel)
+# against the engine alone on the same rank, max |err| over the largest
+# |logit|, within SERVE_MESH_GLOO_RTOL. Measured on an H100 at 700 W: dp
+# 0 (bit-equal: the 32-row products take the 64-row ones' kernels), tp
+# 1.512e-2 (each block's two partial products rounded to bf16 before
+# their sum, through 12 blocks), the bound set from it. Two planted tp
+# faults (the partial products left unsummed; the output projection of
+# the other rank's heads) must each read above it
+SERVE_MESH_BUCKET = 256
+SERVE_MESH_GLOO_BUCKET = 64
+SERVE_MESH_REPS = 5
+SERVE_MESH_GLOO_RTOL = 2e-2
+
+
+def _serve_mesh() -> dict:
+    """Under torchrun (NCCL at world size 1, or gloo on two ranks sharing
+    cuda:0): the ViT-B/16 classifier engines over the launch's mesh
+    against the engine alone (module constants above); each engine's
+    flash3_fwd launches for one chunk."""
+    import hashlib
+    import torch
+    import torch.distributed as tdist
+    from vit_project_torch.models import vit as vvit
+    from vit_project_torch.ops import attention as vattn
+    from vit_project_torch.parallel import dist
+    from vit_project_torch.parallel import mesh as vmesh
+    from vit_project_torch.serve import vit_classifier_engine
+    dist.setup_distributed(dist.local_device("cuda"))   # a chain made it
+    gloo = tdist.get_backend() == "gloo"
+    dev = (torch.device("cuda", 0) if gloo else
+           torch.device("cuda", torch.cuda.current_device()))
+    vit_cfg = vvit.VIT_CONFIGS["vit_base_patch16_224"]
+    b = SERVE_MESH_GLOO_BUCKET if gloo else SERVE_MESH_BUCKET
+    side = vit_cfg.image_size
+    imgs = np.random.RandomState(SEED + 7).randint(
+        0, 256, (b, side, side, 3)).astype(np.uint8)
+
+    def engine(**kw):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        model = vvit.init_vit_params(vvit.empty_vit(vit_cfg, dev), gen)
+        return vit_classifier_engine(
+            model, compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+            input_norm=((0.485, 0.456, 0.406), (0.229, 0.224, 0.225)),
+            buckets=(b,), device=dev, **kw)
+
+    def chunk(eng):
+        """One call: its output and the flash3_fwd launches it made."""
+        eng(imgs)                      # warm
+        torch.cuda.synchronize()
+        vattn.reset_launch_counts()
+        out = eng(imgs)
+        torch.cuda.synchronize()
+        return out, vattn.LAUNCHES["flash3_fwd"]
+
+    solo = engine()
+    want, solo_launches = chunk(solo)
+    rep = {"backend": tdist.get_backend(), "world": dist.world_size(),
+           "bucket": b, "launches_solo": solo_launches,
+           "solo_sha": hashlib.sha256(want.tobytes()).hexdigest()}
+    engines = {"dp": engine(mesh=vmesh.make_mesh())}
+    if gloo:
+        engines["tp"] = engine(
+            mesh=vmesh.make_mesh(n_model=2),
+            shard_params=lambda m, st: vmesh.shard_vit_params_tp_mesh(
+                m, st, heads=vit_cfg.heads))
+    for name, eng in engines.items():
+        got, launches = chunk(eng)
+        rep[name] = {
+            "launches": launches, "bit_equal": bool(np.array_equal(got,
+                                                                   want)),
+            "rel_err": float(np.abs(got - want).max() / np.abs(want).max()),
+            "finite": bool(np.isfinite(got).all()),
+            "shape": list(got.shape),
+            "sha": hashlib.sha256(got.tobytes()).hexdigest(),
+            "qkv_rows": int(eng.model.blocks[0].attn.qkv.weight.shape[0])}
+    if gloo:
+        # two planted tp faults, which the bound must reject: every block's
+        # partial products left unsummed (each rank drops the other's), and
+        # the output projection's columns of the other rank's heads
+        def err(got):
+            return float(np.abs(got - want).max() / np.abs(want).max())
+        reduce_op = dist.ReduceFromGroup
+
+        class _Unsummed:
+            apply = staticmethod(lambda x, group: x)
+        dist.ReduceFromGroup = _Unsummed
+        try:
+            rep["fault_unsummed"] = err(engines["tp"](imgs))
+        finally:
+            dist.ReduceFromGroup = reduce_op
+
+        def other_heads_proj(m, st):
+            other = vmesh.shard_vit_params_tp(
+                st, 2, 1 - m.get_local_rank("model"))
+            return {**vmesh.shard_vit_params_tp_mesh(m, st,
+                                                     heads=vit_cfg.heads),
+                    **{k: v for k, v in other.items()
+                       if k.endswith("attn.proj.weight")}}
+        rep["fault_other_heads"] = err(engine(
+            mesh=vmesh.make_mesh(n_model=2),
+            shard_params=other_heads_proj)(imgs))
+        for name, eng in engines.items():
+            rep[name]["call_s"] = _call_s(eng, imgs, reps=3)
+    else:
+        solo_s, dp_s = _in_turns(
+            lambda r: _call_s(solo, imgs, r),
+            lambda r: _call_s(engines["dp"], imgs, r), SERVE_MESH_REPS)
+        rep["solo_images_per_s"] = b / solo_s
+        rep["dp"]["images_per_s"] = b / dp_s
+    return rep
 
 
 def _sp_check() -> dict:
@@ -4879,11 +5129,11 @@ def phase_dist(tmp: str):
               *cell, "--output_csv", os.path.join(root, "cell_dp.csv"),
               "--then", "time_modes", "--then", train_cli,
               *_moe_args(data), "--epochs", "1", "--output_dir",
-              os.path.join(root, "moe_dp")]
+              os.path.join(root, "moe_dp"), "--then", "serve_mesh"]
     first = _dist_run(root, "torchrun", chain)[0]
     steps = [first] + first.pop("then")
     by_mode.update(zip(DIST_MODES[1:], steps[:3]))
-    rsa_rep, cell_rep, tm, moe_rep = steps[3:]
+    rsa_rep, cell_rep, tm, moe_rep, mesh_rep = steps[3:]
     runs, trees, rows = {}, {}, {}
     for mode in DIST_MODES:
         out = os.path.join(root, mode)
@@ -5050,7 +5300,7 @@ def phase_dist(tmp: str):
         "--device", "cuda:0", "--sp_devices", "2", "--output_dir", sp_out,
         "--then", train_cli, *ring_args, "--device", "cuda:0",
         "--sp_devices", "2", "--sp_ring", "--output_dir", ring_out,
-        "--then", "sp_check"], nproc=2)
+        "--then", "sp_check", "--then", "serve_mesh"], nproc=2)
     g_rsa = [rep["then"][0] for rep in g]
     g_rows = _read_rows(os.path.join(gloo_out, "training_metrics.csv"))
     got = np.array([[float(v) for v in r[1:]] for r in g_rows[1:]])
@@ -5086,6 +5336,7 @@ def phase_dist(tmp: str):
                    [rep["then"][4] for rep in g])
     sp = _check_sp(root, train_cli, ring_args, sp_out, ring_out,
                    [[rep["then"][k] for rep in g] for k in (5, 6, 7)])
+    serve_mesh = _check_serve_mesh(mesh_rep, [rep["then"][8] for rep in g])
     for d in ("single", "gloo_tp", "tp_one", "tp_resumed", "gloo_ep",
               "ep_one", "gloo_sp", "gloo_ring", "ring_one", "imagenet_sp"):
         shutil.rmtree(os.path.join(root, d))
@@ -5095,10 +5346,63 @@ def phase_dist(tmp: str):
         "moe_dp_bit_equal": moe_exact, "gloo": g, "gloo_rsa": g_rsa,
         "gloo_rows": g_rows[1:], "gloo_loss_rel": g_loss,
         "gloo_acc_diff": g_acc, "gloo_rho_diff": rho_diff, "tp": tp,
-        "ep": ep, "sp": sp, "seconds": time.time() - t_phase}
+        "ep": ep, "sp": sp, "serve_mesh": serve_mesh,
+        "seconds": time.time() - t_phase}
     print(f"[dist] phase {time.time() - t_phase:.1f} s", flush=True)
     return {**main_launches, "tp": tp["launches"], "ep": ep["launches"],
-            "sp": sp["launches"]}
+            "sp": sp["launches"], "serve_mesh": serve_mesh["launches"]}
+
+
+def _check_serve_mesh(nccl: dict, gloo: list) -> dict:
+    """_serve_mesh's reports: at world size 1 under NCCL the dp engine
+    bit-equal to the engine alone with 12 flash3_fwd a chunk; on each gloo
+    rank the dp and tp engines within SERVE_MESH_GLOO_RTOL of the engine
+    alone, 12 flash3_fwd a chunk, both planted tp faults outside it, and
+    the ranks' outputs the same bits.
+    Returns the numbers, with the flash3_fwd launches that the ranks
+    counted in their meshed chunks summed (one chunk a rank an engine)."""
+    per_chunk = 12
+    dp = nccl["dp"]
+    print(f"[dist] serve_mesh, NCCL world size 1, ViT-B/16 bf16 bucket "
+          f"{nccl['bucket']}: dp engine "
+          f"{'bit-equal to' if dp['bit_equal'] else 'DIFFERS from'} the "
+          f"engine alone, flash3_fwd {dp['launches']} a chunk; images/s in "
+          f"turns: alone {nccl['solo_images_per_s']:.1f}, dp "
+          f"{dp['images_per_s']:.1f}", flush=True)
+    if not (dp["bit_equal"] and dp["launches"] == per_chunk
+            and nccl["launches_solo"] == per_chunk
+            and nccl["backend"] == "nccl"):
+        fail(f"[dist] serve_mesh under NCCL: {nccl}")
+    for rep in gloo:
+        print(f"[dist] serve_mesh, gloo rank {rep['rank']} of 2, bucket "
+              f"{rep['bucket']}: " + "; ".join(
+                  f"{k} {rep[k]['rel_err']:.3e} of the largest logit from "
+                  f"the engine alone (bound {SERVE_MESH_GLOO_RTOL:.0e}), "
+                  f"flash3_fwd {rep[k]['launches']} a chunk, qkv rows "
+                  f"{rep[k]['qkv_rows']}, {rep[k]['call_s']:.3f} s a call"
+                  for k in ("dp", "tp")), flush=True)
+        for k in ("dp", "tp"):
+            r = rep[k]
+            if not (r["finite"] and r["launches"] == per_chunk
+                    and r["rel_err"] <= SERVE_MESH_GLOO_RTOL
+                    and r["shape"] == [rep["bucket"], 1000]):
+                fail(f"[dist] serve_mesh gloo rank {rep['rank']} {k}: {r}")
+        faults = {k: rep[k] for k in ("fault_unsummed", "fault_other_heads")}
+        print(f"[dist] serve_mesh, gloo rank {rep['rank']}: planted tp "
+              "faults " + ", ".join(f"{k[6:]} {v:.3e}"
+                                    for k, v in faults.items())
+              + f" of the largest logit (each must exceed "
+              f"{SERVE_MESH_GLOO_RTOL:.0e})", flush=True)
+        if not all(v > SERVE_MESH_GLOO_RTOL for v in faults.values()):
+            fail(f"[dist] serve_mesh: a planted tp fault within the bound "
+                 f"on gloo rank {rep['rank']}: {faults}")
+    if any(gloo[0][k]["sha"] != gloo[1][k]["sha"] for k in ("dp", "tp")):
+        fail("[dist] serve_mesh: the gloo ranks returned other outputs")
+    if gloo[0]["tp"]["qkv_rows"] != 3 * 768 // 2:
+        fail(f"[dist] serve_mesh: tp rank holds {gloo[0]['tp']} qkv rows")
+    return {"nccl": nccl, "gloo": gloo,
+            "launches": {"flash3_fwd": dp["launches"] + sum(
+                rep[k]["launches"] for rep in gloo for k in ("dp", "tp"))}}
 
 
 def _check_tp(root: str, train_cli: str, tp_args: list, tp_out: str,
@@ -6280,7 +6584,7 @@ def main(argv=None) -> int:
     serve_launches = train_launches = vit_launches = sweep_launches = None
     forks_launches = grid_launches = serve_vit_launches = None
     dist_launches = clip_dist_launches = moe_launches = None
-    serve_rn_launches = None
+    serve_rn_launches = profile_launches = None
     tmp = os.path.join(ROOT, "vit_project_torch", "_build",
                        f"smoke-{os.getpid()}")
     os.makedirs(tmp, exist_ok=True)
@@ -6291,6 +6595,8 @@ def main(argv=None) -> int:
             train_launches = timed("train", phase_train, tmp)
         if "vit_train" in phases:
             vit_launches = timed("vit_train", phase_vit_train, tmp)
+        if "profile" in phases:
+            profile_launches = timed("profile", phase_profile, tmp)
         if "moe" in phases:
             moe_launches = timed("moe", phase_moe, tmp)
         if "vit_grid" in phases:
@@ -6350,6 +6656,12 @@ def main(argv=None) -> int:
     def moe(name):
         return moe_launches and moe_launches[name]
 
+    def profile(name):
+        return profile_launches and profile_launches[name]
+
+    def dist_mesh(name):
+        return dist_launches and dist_launches["serve_mesh"][name]
+
     def clip_dist(name):
         return clip_dist_launches and clip_dist_launches[name]
 
@@ -6375,7 +6687,9 @@ def main(argv=None) -> int:
                "dist_ep": dist_ep("flash3_fwd"),
                "dist_sp": dist_sp("flash3_fwd"),
                "clip_dist": clip_dist("flash3_fwd"),
-               "clip_dist_sp": clip_sp("flash3_fwd")},
+               "clip_dist_sp": clip_sp("flash3_fwd"),
+               "profile": profile("flash3_fwd"),
+               "dist_serve_mesh": dist_mesh("flash3_fwd")},
               [r["max_abs_err_o"] for r in rows
                if r["kernel"] == "flash3_fwd"],
               row_of("flash3_fwd", "image_b256"),
@@ -6392,7 +6706,8 @@ def main(argv=None) -> int:
                "dist_ep": dist_ep("flash3_bwd"),
                "dist_sp": dist_sp("flash3_bwd"),
                "clip_dist": clip_dist("flash3_bwd"),
-               "clip_dist_sp": clip_sp("flash3_bwd")},
+               "clip_dist_sp": clip_sp("flash3_bwd"),
+               "profile": profile("flash3_bwd")},
               [r["max_abs_err"] for r in rows
                if r["kernel"] == "flash3_bwd"],
               row_of("flash3_bwd", "image_b64"),
@@ -6401,7 +6716,7 @@ def main(argv=None) -> int:
         entry("dw_db", "vit_project_torch/csrc/dw_db.cu",
               "vit_project_tpu/ops/fused_dw.py:41", vit("dw_db"),
               {"vit_train": vit("dw_db"), "dist": dist("dw_db"),
-               "moe": moe("dw_db")},
+               "moe": moe("dw_db"), "profile": profile("dw_db")},
               [r["max_abs_err"] for r in rows if r["kernel"] == "dw_db"],
               row_of("dw_db", "fc1"),
               "ViT-B/16 step at batch 256, bfloat16, fc1: x [50432, 768], "

@@ -5,7 +5,9 @@ prints (train_vit_sgd.py:130,159-163). Here:
 - ``trace(logdir)``: a ``torch.profiler`` trace of the host and the card
   (CUDA kernels, the hand-written ones launched through ctypes included)
   around any region, written to `logdir` as a Chrome / TensorBoard trace
-  (``*.pt.trace.json``); nothing when `logdir` is falsy;
+  (``*.pt.trace.json``); nothing when `logdir` is falsy. It yields the
+  profiler, whose ``key_averages()`` the step profiler (cli/profile.py)
+  reads once the region has ended;
 - ``EpochTimer``: per-epoch wall time and images/s for the run logs.
 """
 from __future__ import annotations
@@ -18,9 +20,10 @@ import time
 @contextlib.contextmanager
 def trace(logdir: str | None):
     """torch.profiler trace (CPU and, with a visible GPU, CUDA activity)
-    of the wrapped region into `logdir`, else nothing."""
+    of the wrapped region into `logdir`, else nothing. Yields the profiler
+    (None without `logdir`)."""
     if not logdir:
-        yield
+        yield None
         return
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -30,8 +33,8 @@ def trace(logdir: str | None):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
     with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(logdir)):
-        yield
+                 on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
+        yield prof
 
 
 class EpochTimer:

@@ -30,6 +30,10 @@ one process per card, and each rank holds its own share. So:
   Megatron placement on the port's flat state: a model rank holds whole
   heads of q, k and v (the head-aligned layout), fc1's output rows and
   the input columns of the attention output and fc2.
+  ``shard_vit_params_tp_mesh(mesh, state)`` is the same placement with
+  JAX's signature, for the serving engines' ``shard_params``: this rank's
+  share on the mesh's "model" axis, the state unchanged on a mesh without
+  one (JAX replicates there).
 - ``shard_vit_params_ep`` / ``unshard_vit_params_ep`` are JAX's expert
   placement on the flat state: an expert rank holds its E / ep experts of
   each MoE block's stacked expert leaves (sliced on E); the router and
@@ -165,6 +169,17 @@ def shard_vit_params_tp(state: dict, n_model: int, index: int,
         out[name] = y.reshape(-1, *y.shape[2:]).movedim(0, axis).clone(
             memory_format=torch.contiguous_format)
     return out
+
+
+def shard_vit_params_tp_mesh(mesh, state: dict,
+                             heads: int | None = None) -> dict:
+    """``shard_vit_params_tp`` on this rank's index of `mesh`'s "model"
+    axis; `state` as it is when the mesh has no such axis."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if "model" not in names:
+        return state
+    return shard_vit_params_tp(state, mesh.size(names.index("model")),
+                               mesh.get_local_rank("model"), heads=heads)
 
 
 def unshard_vit_params_tp(shards: list) -> dict:

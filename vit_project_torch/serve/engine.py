@@ -17,6 +17,24 @@ serve/engine.py).
 - int8 serving: ``quantize="int8"`` rewrites every block's four dense
   weights to int8 (ops/quant.py) after the float cast and the bake; the
   engine then casts nothing, so the scales stay float32.
+- mesh serving (``mesh=``, a DeviceMesh from ``parallel/mesh.make_mesh``
+  over the ranks of a torch.distributed group, one device a rank): every
+  rank calls the engine with the same images (the SPMD contract of the
+  trainers). Each padded bucket of b rows is split over the mesh's
+  "data" axis: a rank runs its b / n_data rows on its own device, and
+  one all-gather over the data group returns the whole [b, ...] output
+  on every rank (through host buffers under gloo). Buckets must be
+  multiples of the data axis. The model stays whole on every rank unless
+  ``shard_params(mesh, state)`` replaces that replication: on a ("data",
+  "model") mesh it returns this rank's share of the flat state
+  (``parallel/mesh.shard_vit_params_tp_mesh``: whole heads, Megatron's
+  split), and the ViT engines run each block tensor-parallel over the
+  model group (``models/vit.classifier_block_tp``, the flash3 kernel on
+  the rank's H/T heads). JAX's tp serving takes its XLA attention path
+  instead; the function is the same. ``clip_hba_engine`` serves over a
+  data-parallel mesh only (the port has no tensor-parallel CLIP forward),
+  and int8 weights take no ``shard_params`` (JAX's tp placement fails on
+  them too).
 
 The ViT engines (``vit_classifier_engine``, ``vit_features_engine``) serve
 a ``VisionTransformerClassifier``: logits [B, num_classes] or pooled
@@ -39,6 +57,7 @@ from ..core.device import resolve_device
 from ..models import clip as vclip
 from ..models import vit as vvit
 from ..ops import quant as vquant
+from ..parallel import dist
 
 DEFAULT_BUCKETS = (8, 32, 128, 256)
 
@@ -53,18 +72,37 @@ def _cast_float_leaves(model: torch.nn.Module, dtype) -> torch.nn.Module:
 class InferenceEngine:
     """Bucketed batch inference over ``apply_fn(model, images[B, ...])``,
     which returns a tensor whose leading axis is B. Padding rows are zeros
-    and their outputs are dropped, so apply_fn must be row-independent."""
+    and their outputs are dropped, so apply_fn must be row-independent.
+
+    `mesh` serves over the ranks of a DeviceMesh (module docstring);
+    `shard_params(mesh, state)` takes the model's flat state {name:
+    parameter} and returns this rank's (a tensor that differs from the
+    parameter replaces it), in place of full replication."""
 
     def __init__(self, apply_fn, model: torch.nn.Module, *,
-                 buckets=DEFAULT_BUCKETS, param_dtype=None, device=None):
+                 buckets=DEFAULT_BUCKETS, param_dtype=None, device=None,
+                 mesh=None, shard_params=None):
         buckets = tuple(sorted({int(b) for b in buckets}))
         if not buckets or buckets[0] <= 0:
             raise ValueError(f"buckets must be positive ints, got {buckets}")
+        if shard_params is not None and mesh is None:
+            raise ValueError("shard_params requires a mesh")
+        if mesh is not None:
+            nd = mesh["data"].size()
+            bad = [b for b in buckets if b % nd]
+            if bad:
+                raise ValueError(
+                    f"buckets {bad} are not multiples of the mesh data-axis "
+                    f"size {nd}; padded batches could not be sharded evenly")
         self.buckets = buckets
+        self.mesh = mesh
         self.device = resolve_device(device)
         model = model.to(self.device).eval()
         if param_dtype is not None:
             model = _cast_float_leaves(model, param_dtype)
+        if shard_params is not None:
+            _load_shards(model, shard_params(mesh, dict(
+                model.named_parameters())))
         self.model = model
         self._fn = apply_fn
 
@@ -101,9 +139,28 @@ class InferenceEngine:
         return t.to(self.device)
 
     def _dispatch(self, chunk: np.ndarray) -> torch.Tensor:
-        """Enqueue one padded chunk; returns its (device) output."""
+        """Enqueue one padded chunk; returns its output (on the device, or
+        on the host after a gloo gather)."""
+        if self.mesh is not None:
+            return self._dispatch_mesh(chunk)
         with torch.inference_mode():
             return self._fn(self.model, self._place(chunk))
+
+    def _dispatch_mesh(self, chunk: np.ndarray) -> torch.Tensor:
+        """This rank's rows of the chunk on its device, then every data
+        rank's outputs, in rank order, gathered as bytes (any dtype; the
+        gather moves bits, so the rows are the ranks' own)."""
+        group = self.mesh.get_group("data")
+        n, i = self.mesh["data"].size(), self.mesh.get_local_rank("data")
+        rows = chunk.shape[0] // n
+        with torch.inference_mode():
+            out = self._fn(self.model,
+                           self._place(chunk[i * rows:(i + 1) * rows]))
+            local = out.contiguous().view(-1).view(torch.uint8)
+            if dist._via_host(local, group):
+                local = local.cpu()
+            flat = dist.all_gather_rows(local, group)
+            return flat.view(out.dtype).view(n * rows, *out.shape[1:])
 
     @staticmethod
     def _fetch(out: torch.Tensor, m: int) -> np.ndarray:
@@ -157,6 +214,29 @@ class InferenceEngine:
                 yield done
 
 
+@torch.no_grad()
+def _load_shards(model: torch.nn.Module, local: dict) -> None:
+    """Put each tensor of `local` ({name: tensor}, as ``shard_params``
+    returns it) that is not already the model's parameter in its place."""
+    named = dict(model.named_parameters())
+    for name, t in local.items():
+        if t is not named[name]:
+            owner, leaf = name.rsplit(".", 1)
+            setattr(model.get_submodule(owner), leaf,
+                    torch.nn.Parameter(t.to(named[name].device),
+                                       requires_grad=False))
+
+
+def _tp_group(mesh, shard_params):
+    """The model group the ViT forward runs tensor-parallel over: the
+    mesh's "model" axis when the parameters are sharded over it, else
+    None."""
+    if shard_params is None or mesh is None or \
+            "model" not in (mesh.mesh_dim_names or ()):
+        return None
+    return mesh.get_group("model")
+
+
 def _maybe_quantize(model, quantize, param_dtype, quant_fn):
     """Apply the optional serving quantization: (model, the param_dtype the
     engine should cast to). The float cast runs FIRST, so the scales are
@@ -173,43 +253,61 @@ def _maybe_quantize(model, quantize, param_dtype, quant_fn):
 
 # -- model-specific constructors ----------------------------------------
 
+def _refuse_int8_tp(quantize, shard_params) -> None:
+    if quantize is not None and shard_params is not None:
+        raise ValueError(
+            "quantize='int8' takes no shard_params: the tensor-parallel "
+            "placement splits float weights (JAX's shard_vit_params_tp "
+            "fails on int8 leaves too); serve int8 over a data-parallel "
+            "mesh")
+
+
 def vit_classifier_engine(model: vvit.VisionTransformerClassifier, *,
                           compute_dtype=torch.bfloat16, input_norm=None,
                           buckets=DEFAULT_BUCKETS, param_dtype=None,
                           quantize: str | None = None,
-                          device=None) -> InferenceEngine:
+                          device=None, mesh=None,
+                          shard_params=None) -> InferenceEngine:
     """Serve ViT classifier logits [B, num_classes] (models.vit.vit_classify)
     on `device` (default CUDA). quantize="int8" rewrites every block's dense
-    weights to int8 (ops/quant.py), in place."""
+    weights to int8 (ops/quant.py), in place. `mesh` / `shard_params`:
+    data- and tensor-parallel serving (module docstring)."""
+    _refuse_int8_tp(quantize, shard_params)
     model = model.to(resolve_device(device))
     model, param_dtype = _maybe_quantize(model, quantize, param_dtype,
                                          vquant.quantize_vit_blocks)
+    tp = _tp_group(mesh, shard_params)
 
     def apply_fn(m, images):
         return vvit.vit_classify(m, images, input_norm=input_norm,
-                                 compute_dtype=compute_dtype)
+                                 compute_dtype=compute_dtype, tp=tp)
     return InferenceEngine(apply_fn, model, buckets=buckets,
-                           param_dtype=param_dtype, device=device)
+                           param_dtype=param_dtype, device=device, mesh=mesh,
+                           shard_params=shard_params)
 
 
 def vit_features_engine(model: vvit.VisionTransformerClassifier, *,
                         pool: str = "token", compute_dtype=torch.bfloat16,
                         input_norm=None, buckets=DEFAULT_BUCKETS,
                         param_dtype=None, quantize: str | None = None,
-                        device=None) -> InferenceEngine:
+                        device=None, mesh=None,
+                        shard_params=None) -> InferenceEngine:
     """Serve pooled ViT embeddings [B, width] (models.vit.forward_features:
     pool "token" is the CLS token, "avg" the mean of the patch tokens).
-    quantize as in vit_classifier_engine."""
+    quantize, mesh and shard_params as in vit_classifier_engine."""
+    _refuse_int8_tp(quantize, shard_params)
     model = model.to(resolve_device(device))
     model, param_dtype = _maybe_quantize(model, quantize, param_dtype,
                                          vquant.quantize_vit_blocks)
+    tp = _tp_group(mesh, shard_params)
 
     def apply_fn(m, images):
         return vvit.forward_features(m, images, pool=pool,
                                      input_norm=input_norm,
-                                     compute_dtype=compute_dtype)
+                                     compute_dtype=compute_dtype, tp=tp)
     return InferenceEngine(apply_fn, model, buckets=buckets,
-                           param_dtype=param_dtype, device=device)
+                           param_dtype=param_dtype, device=device, mesh=mesh,
+                           shard_params=shard_params)
 
 
 def clip_hba_engine(model: vclip.CLIP, prompt_tokens, *, trainable=None,
@@ -217,7 +315,8 @@ def clip_hba_engine(model: vclip.CLIP, prompt_tokens, *, trainable=None,
                     compute_dtype=torch.bfloat16,
                     use_pos_embedding: bool = True, buckets=DEFAULT_BUCKETS,
                     param_dtype=None, quantize: str | None = None,
-                    device=None) -> InferenceEngine:
+                    device=None, mesh=None,
+                    shard_params=None) -> InferenceEngine:
     """Serve CLIP-HBA behavioral scores [B, n_prompts].
 
     Trained adapters (trainable + static, as adapters.dora.apply_dora and a
@@ -228,7 +327,15 @@ def clip_hba_engine(model: vclip.CLIP, prompt_tokens, *, trainable=None,
     after the bake (the adapted out_proj is the weight that gets the int8
     treatment; an RN visual tower stays float). `use_pos_embedding` is the
     reference CLIPHBA's pos_embedding flag (off for its RN50 runs). Runs on
-    `device` (default CUDA; raises without a GPU unless device='cpu')."""
+    `device` (default CUDA; raises without a GPU unless device='cpu').
+    `mesh` serves data-parallel; `shard_params` is refused: the port has no
+    tensor-parallel CLIP forward."""
+    if shard_params is not None:
+        raise ValueError(
+            "clip_hba_engine takes no shard_params: vit_project_torch has "
+            "no tensor-parallel CLIP forward (models/clip.py runs both "
+            "towers whole on every rank); serve CLIP over a data-parallel "
+            "mesh (mesh= alone)")
     if (trainable is None) != (static is None):
         raise ValueError("pass both trainable and static, or neither")
     device = resolve_device(device)
@@ -245,6 +352,6 @@ def clip_hba_engine(model: vclip.CLIP, prompt_tokens, *, trainable=None,
                                       compute_dtype=compute_dtype,
                                       use_pos_embedding=use_pos_embedding)
     eng = InferenceEngine(apply_fn, model, buckets=buckets,
-                          param_dtype=param_dtype, device=device)
+                          param_dtype=param_dtype, device=device, mesh=mesh)
     eng.prompt_tokens = tok
     return eng

@@ -84,7 +84,15 @@ def export_serving(engine: InferenceEngine, example_shape: tuple,
 
     example_shape is ONE example's shape, e.g. (224, 224, 3); bucket B is
     exported at input [B, *example_shape] of `input_dtype` (the dtype
-    requests arrive in: fixed at export, enforced by a cast at serving)."""
+    requests arrive in: fixed at export, enforced by a cast at serving).
+
+    An engine built over a mesh is refused, as the JAX package refuses it:
+    its forward holds this rank's shard of the batch and its collectives;
+    serve across ranks with the live engine."""
+    if engine.mesh is not None:
+        raise ValueError("AOT export supports single-device engines only "
+                         "(a meshed export pins the exporting host's device "
+                         "assignment into the artifact)")
     os.makedirs(out_dir, exist_ok=True)
     params = _params(engine.model)
     program = _Program(_Served(engine._fn, engine.model))
@@ -126,6 +134,7 @@ class AotEngine(InferenceEngine):
         # apply_fn, that is the point of the artifact
         self.buckets = tuple(sorted(programs))
         self.device = device
+        self.mesh = None
         self.params = params
         self.manifest = dict(manifest)
         self._programs = programs
