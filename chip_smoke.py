@@ -368,14 +368,17 @@ def attention_cases():
     ViT-B/16 step; a ViT-B/16 RSA chunk (compute_rsa_score's batch of 8,
     72 of a grid cell's 132 forward launches); the image tower of a
     lock-step of 8 batched forks (8 x 64 rows); one rank's 6 heads of
-    the ViT-B/16 step under --tp_devices 2 (phase dist, batch 64); and the
-    RN towers' text prompts (phase serve_rn): width 512, 8 heads (RN50,
-    RN101) and width 1024, 16 heads (RN50x64)."""
+    the ViT-B/16 step under --tp_devices 2 (phase dist, batch 64); a
+    microbatch of the ViT-B/16 step under --pp_stages 2 --pp_micro 4 (phase
+    dist, batch 64: 16 images); and the RN towers' text prompts (phase
+    serve_rn): width 512, 8 heads (RN50, RN101) and width 1024, 16 heads
+    (RN50x64)."""
     return [("image_b8", 8, 257, 16, False), ("image_b32", 32, 257, 16, False),
             ("image_b256", 256, 257, 16, False), ("text_66", 66, 77, 12, True),
             ("vit_b256", 256, 197, 12, False), ("vit_b8", 8, 197, 12, False),
             ("image_b512", 512, 257, 16, False),
             ("vit_tp2_b64", 64, 197, 6, False),
+            ("vit_pp_mb16", 16, 197, 12, False),
             ("text_rn50", 66, 77, 8, True), ("text_rn50x64", 66, 77, 16, True)]
 
 
@@ -384,12 +387,14 @@ def bwd_cases():
     path: the image tower at the training batch of 64, and the 66 causal
     text prompts (reached when a text block below the last is adapted), the
     ViT-B/16 training step (batch 256, S=197, 12 heads), the image
-    tower of a lock-step of 8 batched forks (8 x 64 rows), and one rank's
-    6 heads of the ViT-B/16 step under --tp_devices 2 (batch 64)."""
+    tower of a lock-step of 8 batched forks (8 x 64 rows), one rank's
+    6 heads of the ViT-B/16 step under --tp_devices 2 (batch 64), and a
+    microbatch of it under --pp_stages 2 --pp_micro 4 (16 images)."""
     return [("image_b64", 64, 257, 16, False), ("text_66", 66, 77, 12, True),
             ("vit_b256", 256, 197, 12, False),
             ("image_b512", 512, 257, 16, False),
-            ("vit_tp2_b64", 64, 197, 6, False)]
+            ("vit_tp2_b64", 64, 197, 6, False),
+            ("vit_pp_mb16", 16, 197, 12, False)]
 
 
 def _random_qkv(B, S, H, dtype, seed=SEED):
@@ -1674,7 +1679,9 @@ def phase_serve_vit(tmp: str):
     torch.cuda.empty_cache()
 
     # an artifact: --export_dir through the CLI, --from_export in a fresh
-    # process, its outputs against the live engine's on the same requests
+    # process, its outputs against the live engine's on the same requests.
+    # The process (imports, CUDA and the load: most of its half minute)
+    # runs beside the rest of the phase and is checked at its end
     art = os.path.join(tmp, "vit_artifact")
     t0 = time.time()
     if cli.main(["--model", "vit_base_patch16_224", "--checkpoint", ckpt,
@@ -1686,42 +1693,18 @@ def phase_serve_vit(tmp: str):
     req_path = os.path.join(tmp, "vit_requests.npz")
     out_path = os.path.join(tmp, "vit_artifact_outputs.npz")
     np.savez(req_path, **{f"r{i}": pre(a) for i, a in enumerate(reqs)})
-    t0 = time.time()
-    proc = subprocess.run(
-        [sys.executable, "-c", _FROM_EXPORT, ROOT, art, req_path, out_path],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
-    sub_s = time.time() - t0
-    if proc.returncode != 0:
-        fail(f"--from_export process failed:\n{proc.stderr[-3000:]}")
-    sub = json.loads(proc.stdout.strip().splitlines()[-1])
-    got = np.load(out_path)
-    same = all(np.array_equal(got[f"r{i}"], o) for i, o in enumerate(outs))
-    worst = max(float(np.abs(got[f"r{i}"] - o).max())
-                for i, o in enumerate(outs))
-    print(f"[serve_vit] artifact: exported buckets {sub['buckets']} in "
-          f"{export_s:.1f} s; files {sizes} ({sum(sizes.values()) / 2**20:.1f}"
-          f" MiB, parameters {n_params * 2 / 2**20:.1f} MiB in bf16); fresh "
-          f"process {sub_s:.1f} s (ready {sub['load_s']:.2f} s from start, "
-          f"of which imports and CUDA init {sub['import_s']:.2f} s; "
-          f"first requests {sub['first_requests_s']:.2f} s, warm 256-image "
-          f"call {sub['warm_call_s'] * 1e3:.2f} ms); flash3_fwd launches "
-          f"{sub['launches']} = 12 x {SERVE_VIT_CHUNKS} chunks; outputs "
-          f"equal to the live engine's: {same} (max |diff| {worst:.3e})",
-          flush=True)
-    if sub["launches"] != 12 * SERVE_VIT_CHUNKS:
-        fail(f"the artifact launched flash3_fwd {sub['launches']} times, "
-             f"expected 12 per chunk")
-    if not same:
-        fail(f"the artifact's outputs differ from the live engine's "
-             f"(max |diff| {worst})")
-    if sizes["params.pth"] < n_params * 2 or any(
-            v > sizes["params.pth"] / 20 for k, v in sizes.items()
-            if k.startswith("bucket_")):
-        fail(f"the weights are not stored once: {sizes}")
-    res["artifact"] = {"export_s": export_s, "files": sizes,
-                       "process_s": sub_s, **sub}
-    del eng, outs
+    art_log = {k: os.path.join(tmp, f"vit_artifact.{k}")
+               for k in ("out", "err")}
+    with open(art_log["out"], "w") as fo, open(art_log["err"], "w") as fe:
+        art_job = {"name": "from_export", "t0": time.time(),
+                   "proc": subprocess.Popen(
+                       [sys.executable, "-c", _FROM_EXPORT, ROOT, art,
+                        req_path, out_path], cwd=ROOT, stdout=fo,
+                       stderr=fe, start_new_session=True)}
+    _BACKGROUND.append(art_job)
+    del eng
     torch.cuda.empty_cache()
+
 
     # CLIP ViT-L/14 with baked adapters: int8 against bf16, 36 launches a
     # chunk, images/s in turns, and the registered op's dispatch cost
@@ -1817,6 +1800,46 @@ def phase_serve_vit(tmp: str):
     res["trace"] = {"file_mib": os.path.getsize(
         os.path.join(trace_dir, files[0])) / 2**20, "events": len(events),
         "kernel_events": named, "epoch": stats[0]}
+    try:
+        rc = art_job["proc"].wait(
+            timeout=max(1.0, art_job["t0"] + 600 - time.time()))
+    except subprocess.TimeoutExpired:
+        rc = "still running after 600 s"
+    _dist_stop(art_job)
+    if rc != 0:
+        with open(art_log["err"]) as f:
+            fail(f"--from_export process failed ({rc}):\n{f.read()[-3000:]}")
+    # its seconds: from its start to the outputs it writes last
+    sub_s = os.path.getmtime(out_path) - art_job["t0"]
+    with open(art_log["out"]) as f:
+        sub = json.loads(f.read().strip().splitlines()[-1])
+    got = np.load(out_path)
+    same = all(np.array_equal(got[f"r{i}"], o) for i, o in enumerate(outs))
+    worst = max(float(np.abs(got[f"r{i}"] - o).max())
+                for i, o in enumerate(outs))
+    print(f"[serve_vit] artifact: exported buckets {sub['buckets']} in "
+          f"{export_s:.1f} s; files {sizes} ({sum(sizes.values()) / 2**20:.1f}"
+          f" MiB, parameters {n_params * 2 / 2**20:.1f} MiB in bf16); fresh "
+          f"process {sub_s:.1f} s (ready {sub['load_s']:.2f} s from start, "
+          f"of which imports and CUDA init {sub['import_s']:.2f} s; "
+          f"first requests {sub['first_requests_s']:.2f} s, warm 256-image "
+          f"call {sub['warm_call_s'] * 1e3:.2f} ms); flash3_fwd launches "
+          f"{sub['launches']} = 12 x {SERVE_VIT_CHUNKS} chunks; outputs "
+          f"equal to the live engine's: {same} (max |diff| {worst:.3e})",
+          flush=True)
+    if sub["launches"] != 12 * SERVE_VIT_CHUNKS:
+        fail(f"the artifact launched flash3_fwd {sub['launches']} times, "
+             f"expected 12 per chunk")
+    if not same:
+        fail(f"the artifact's outputs differ from the live engine's "
+             f"(max |diff| {worst})")
+    if sizes["params.pth"] < n_params * 2 or any(
+            v > sizes["params.pth"] / 20 for k, v in sizes.items()
+            if k.startswith("bucket_")):
+        fail(f"the weights are not stored once: {sizes}")
+    res["artifact"] = {"export_s": export_s, "files": sizes,
+                       "process_s": sub_s, **sub}
+    del outs
     RESULTS["serve_vit"] = res
     for d in ("vit_serve_ckpt", "vit_artifact", "vit_tr"):
         shutil.rmtree(os.path.join(tmp, d), ignore_errors=True)
@@ -4269,6 +4292,38 @@ CLIP_SP_MOMENT_RTOL = 5e-2
 # further); about three times each
 CLIP_SP_EMB_RTOL = 1e-2
 CLIP_RING_EMB_RTOL = 5e-2
+# pipeline parallelism on the card: two gloo ranks share cuda:0 as one
+# stage group (a data axis of 1), ViT-B/16 at TP_BATCH in PP_MICRO
+# microbatches of 16 images, blocks 0-5 on stage 0 and 6-11 on stage 1.
+# Each step hops 4 microbatch activations [16, 197, 768] bf16 (4.8 MB)
+# forward and their gradients back, through the host; with the bubble
+# ticks skipped a rank launches 6 x 4 flash3_fwd and as many flash3_bwd a
+# step. cli.vit_train --pp_stages 2 --pp_micro 4 trains one epoch of the
+# sp ring run's ImageFolder (SP_RING_STEPS steps, one validation batch),
+# held to the same invocation in one process (ring_one) by the ring run's
+# bounds: its arithmetic differs from one process's only in the GEMMs'
+# shapes (16 x 197 rows where one process has 64 x 197) and in the sum of
+# the weight gradients over the microbatches, less than the ring's f32
+# attention does; and its epoch 0 resumed in one process, its epoch-1 row
+# against the one-process run's own epoch 1
+PP_STAGES, PP_MICRO = 2, 4
+PP_TIMED_STEPS = 3
+# pp_check: one pipelined forward and one pipelined step's gradients
+# (after the stage group's sum) at TP_BATCH against vit_classify and the
+# plain step of the whole model on the same rank, both on the kernels,
+# ||a - b|| over ||b|| (logits; every leaf the rank holds). The attention
+# is per image, so the kernels agree; a GEMM over 16 x 197 rows may take
+# another cuBLAS kernel than over 64 x 197, one bf16 rounding (2^-8 of
+# an element) apart, and through 12 blocks the residual stream sums those
+# roundings (TP_BLOCK_RTOL's reasoning for one block, 2e-2 of the largest
+# value). A weight gradient is 4 microbatch products each rounded to bf16
+# and summed, where the plain step rounds one product of 64 x 197 rows:
+# another rounding on top, hence the larger gradient bound. Written
+# before any chip run. The planted faults (the stage hop's backward
+# sending zeros; the last stage's microbatches pooled in reversed order)
+# read O(1) against them
+PP_LOGITS_RTOL = 2e-2
+PP_GRAD_RTOL = 5e-2
 
 
 class _WriteCounter:
@@ -4386,6 +4441,8 @@ def _dist_worker(report: str, argv: list) -> int:
                 extra = _ep_check()
             elif module == "sp_check":
                 extra = _sp_check()
+            elif module == "pp_check":
+                extra = _pp_check()
             elif module == "serve_mesh":
                 extra = _serve_mesh()
             elif module == "clip_sp_check":
@@ -4883,6 +4940,138 @@ def _sp_check() -> dict:
             "turns": turns, "step_peak_gib": peak_gib, "bounds": [lo, hi]}
 
 
+def _norm_rel(a, b) -> float:
+    """||a - b|| over ||b||, in f64."""
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _pp_check() -> dict:
+    """Under two gloo ranks sharing the card (one stage group), ViT-B/16
+    with pp_stages 2 and pp_micro 4 at batch TP_BATCH: the whole model's
+    logits and one plain step's gradients on this rank alone, then the
+    same model staged (ViTTrainer, the other stage's blocks freed): one
+    pipelined forward and one pipelined step's gradients against them
+    (``_norm_rel``), each with its kernel launches and the attention's
+    packed qkv shapes; two planted faults the bounds must catch (the stage
+    hop's backward sending zeros; the last stage's microbatches pooled in
+    reverse order); the state the rank holds whole and staged; then ms a
+    step over PP_TIMED_STEPS (CUDA events) after one unmeasured step, and
+    the peak a step adds over the trainer's resident state."""
+    import torch
+    from vit_project_torch.core.configs import ViTTrainConfig
+    from vit_project_torch.models import vit as vvit
+    from vit_project_torch.ops import attention as vattn
+    from vit_project_torch.parallel import dist
+    from vit_project_torch.parallel import pipeline as vpp
+    from vit_project_torch.train import vit_loop
+    dev = dist.local_device("cuda:0")        # the card both ranks share
+    vit_cfg = vvit.VIT_CONFIGS["vit_base_patch16_224"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    size = vit_cfg.image_size
+    # each image a tint of its own under noise, so the images' logits
+    # differ (at the random init, i.i.d. noise images' nearly coincide)
+    tint = torch.randint(40, 216, (TP_BATCH, 1, 1, 3), generator=gen,
+                         device=dev)
+    imgs = (tint + torch.randint(-40, 41, (TP_BATCH, size, size, 3),
+                                 generator=gen, device=dev)).to(torch.uint8)
+    lbls = torch.randint(0, vit_cfg.num_classes, (TP_BATCH,), generator=gen,
+                         device=dev)
+    model = vvit.init_vit_params(vvit.empty_vit(vit_cfg, dev),
+                                 torch.Generator(device=dev).manual_seed(SEED))
+    one = vit_loop.ViTTrainer(vit_cfg, ViTTrainConfig(
+        batch_size=TP_BATCH, compute_dtype="bfloat16"), model, dev,
+        distributed=False)
+    with torch.no_grad():
+        ref_logits = one.logits(imgs)
+    named = list(model.named_parameters())
+    ref = dict(zip([n for n, _ in named], one.batch_grads(
+        [p for _, p in named], imgs, lbls)[1]))
+    del one, named
+    torch.cuda.synchronize()
+    held = {"whole_gib": sum(p.numel() * p.element_size()
+                             for p in model.parameters()) / 2**30}
+    cfg = ViTTrainConfig(batch_size=TP_BATCH, compute_dtype="bfloat16",
+                         pp_stages=PP_STAGES, pp_micro=PP_MICRO)
+    tr = vit_loop.ViTTrainer(vit_cfg, cfg, model, dev, distributed=True)
+    held["staged_gib"] = sum(p.numel() * p.element_size()
+                             for p in model.parameters()) / 2**30
+    names = [n for n, _ in model.named_parameters()]
+    shapes = set()
+    kernel_op = vattn.flash_mha_packed_qkv
+
+    def recording(qkv, **kw):
+        shapes.add(tuple(qkv.shape))
+        return kernel_op(qkv, **kw)
+
+    def forward():
+        vattn.reset_launch_counts()
+        logits = tr.logits(imgs)
+        torch.cuda.synchronize()
+        return logits, {k: vattn.LAUNCHES[k]
+                        for k in ("flash3_fwd", "flash3_bwd")}
+
+    def grads():
+        vattn.reset_launch_counts()
+        _, g = tr._pp_grads(imgs, lbls, vit_loop.IMAGENET_NORM)
+        torch.cuda.synchronize()
+        return (torch.cat([x.reshape(-1) for x in g]),
+                {k: vattn.LAUNCHES[k] for k in ("flash3_fwd", "flash3_bwd")})
+    want = torch.cat([ref[n].reshape(-1) for n in names])
+    vattn.flash_mha_packed_qkv = recording
+    try:
+        logits, fwd_launches = forward()
+        g, step_launches = grads()
+    finally:
+        vattn.flash_mha_packed_qkv = kernel_op
+    res = {"stage": tr.stages.index, "held": held,
+           "qkv_shapes": sorted(list(x) for x in shapes),
+           "forward": {"launches": fwd_launches,
+                       "logits_rel": _norm_rel(logits, ref_logits)},
+           "step": {"launches": step_launches, "grad_rel": _norm_rel(g, want),
+                    "leaves": len(names)}}
+    # the faults: the gradient hops back as zeros; the last stage pools its
+    # microbatches in reverse order (each only for its measurement)
+    send, fwd_schedule = vpp.dist.stage_send, vpp._forward
+
+    def zeros_back(t, group, to, tag):
+        return send(torch.zeros_like(t) if to < tr.stages.index else t,
+                    group, to, tag)
+
+    def reversed_micro(*a, **k):
+        stem, ins, outs = fwd_schedule(*a, **k)
+        return stem, ins, outs[::-1]
+    vpp.dist.stage_send = zeros_back
+    try:
+        res["fault_zero_hop_grad_rel"] = _norm_rel(grads()[0], want)
+    finally:
+        vpp.dist.stage_send = send
+    vpp._forward = reversed_micro
+    try:
+        res["fault_order_logits_rel"] = _norm_rel(forward()[0], ref_logits)
+    finally:
+        vpp._forward = fwd_schedule
+    del ref, want, g, logits, ref_logits
+    mom = tr.init_momentum()
+    tr.step(mom, imgs, lbls, 0.01)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(PP_TIMED_STEPS + 1)]
+    ev[0].record()
+    for i in range(PP_TIMED_STEPS):
+        tr.step(mom, imgs, lbls, 0.01)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    res["step_ms"] = [ev[i].elapsed_time(ev[i + 1])
+                      for i in range(PP_TIMED_STEPS)]
+    res["step_peak_gib"] = (torch.cuda.max_memory_allocated()
+                            - resident) / 2**30
+    res["resident_gib"] = resident / 2**30
+    return res
+
+
 def _flat_adapters(tree: dict) -> dict:
     """{(tower, block, name): f64 array} of an adapter tree (the trainable
     layout: {tower: {block: {name: leaf}}}, tensors or arrays)."""
@@ -5003,12 +5192,17 @@ def _clip_sp_check(wpath: str) -> dict:
     return {"clip_sp": out}
 
 
-def _dist_run(tmp: str, name: str, argv: list, nproc: int | None = 1,
-              timeout: int = 600) -> list:
-    """`argv` ([--gloo] MODULE ARGS) through _dist_worker: under
+# launches started by _dist_start and not yet collected: main() stops any
+# that a failing phase left running
+_BACKGROUND: list = []
+
+
+def _dist_start(tmp: str, name: str, argv: list,
+                nproc: int | None = 1) -> dict:
+    """Start `argv` ([--gloo] MODULE ARGS) through _dist_worker: under
     ``torchrun --standalone --nproc_per_node nproc``, or alone (nproc
-    None). Returns the ranks' reports; on failure prints the output's tail
-    and fails the phase."""
+    None), in a session of its own, its output to a log. Returns the job
+    for _dist_collect."""
     report = os.path.join(tmp, f"{name}.report")
     log = os.path.join(tmp, f"{name}.log")
     me = os.path.abspath(__file__)
@@ -5018,18 +5212,57 @@ def _dist_run(tmp: str, name: str, argv: list, nproc: int | None = 1,
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                         "MASTER_PORT")}
     with open(log, "w") as f:
-        res = subprocess.run(cmd + [me, "--dist_worker", report, *argv],
-                             cwd=ROOT, env=env, stdout=f,
-                             stderr=subprocess.STDOUT, timeout=timeout)
-    if res.returncode != 0:
-        with open(log) as f:
+        proc = subprocess.Popen(cmd + [me, "--dist_worker", report, *argv],
+                                cwd=ROOT, env=env, stdout=f,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    job = {"name": name, "proc": proc, "report": report, "log": log,
+           "nproc": nproc, "t0": time.time()}
+    _BACKGROUND.append(job)
+    return job
+
+
+def _dist_stop(job: dict) -> None:
+    """Kill a launch's whole session (torchrun and its ranks) and reap it."""
+    import signal
+    if job["proc"].poll() is None:
+        try:
+            os.killpg(job["proc"].pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    job["proc"].wait()
+    if job in _BACKGROUND:
+        _BACKGROUND.remove(job)
+
+
+def _dist_collect(job: dict, timeout: int = 600) -> list:
+    """Wait for a _dist_start launch, at most `timeout` s from its start.
+    Returns the ranks' reports; on failure or timeout stops it, prints the
+    output's tail and fails the phase."""
+    try:
+        rc = job["proc"].wait(
+            timeout=max(1.0, job["t0"] + timeout - time.time()))
+    except subprocess.TimeoutExpired:
+        rc = f"nothing: still running after {timeout} s"
+    _dist_stop(job)
+    if rc != 0:
+        with open(job["log"]) as f:
             print(f.read()[-6000:], flush=True)
-        fail(f"[dist] {name} exited {res.returncode}")
-    reports = []
-    for r in range(nproc or 1):
-        with open(f"{report}.rank{r}.json") as f:
+        fail(f"[dist] {job['name']} exited {rc}")
+    reports, paths = [], [f"{job['report']}.rank{r}.json"
+                          for r in range(job["nproc"] or 1)]
+    for path in paths:
+        with open(path) as f:
             reports.append(json.load(f))
+    # the launch's seconds: from its start to its last report
+    job["s"] = max(os.path.getmtime(p) for p in paths) - job["t0"]
     return reports
+
+
+def _dist_run(tmp: str, name: str, argv: list, nproc: int | None = 1,
+              timeout: int = 600) -> list:
+    """_dist_start, then _dist_collect: the ranks' reports."""
+    return _dist_collect(_dist_start(tmp, name, argv, nproc), timeout)
 
 
 def _tree_leaves(tree) -> list:
@@ -5068,20 +5301,12 @@ def _rel_tree_diff(a, b) -> float:
     return diff / max(float(np.abs(y).max()) for y in lb)
 
 
-def phase_dist(tmp: str):
-    """Data parallelism as users launch it: cli.vit_train at ViT-B/16's full
-    width and depth (bf16, global batch 256, fused_dw) alone and under
-    ``torchrun --standalone --nproc_per_node 1`` in dp, --zero1 and --fsdp
-    (NCCL); cli.vit_rsa_eval and one cli.vit_measure cell under torchrun
-    against the same CLIs alone; ms a step per mode in turns; and two ranks
-    under gloo on this one card (dp, the gathered RSA). The torchrun runs
-    share one launch (a chain of the worker's, each CLI counted from 0),
-    and so do the two gloo ones: a process costs ~20 s of start-up."""
-    import pandas as pd
-    from vit_project_torch.cli import vit_measure as measure_cli
-    from vit_project_torch.cli import vit_rsa_eval as rsa_cli
-
-    t_phase = time.time()
+def _dist_prelude(tmp: str) -> dict:
+    """Phase dist's first work, started before phase serve_vit: its
+    fixture, and one process that runs cli.vit_train alone ("single") and
+    cli.vit_rsa_eval on its checkpoint, the runs both of phase dist's
+    launches read. Returns the paths, the arguments and the job."""
+    t0 = time.time()
     root = os.path.join(tmp, "dist")
     os.makedirs(root)
     data = os.path.join(tmp, "imagenet")
@@ -5094,26 +5319,59 @@ def phase_dist(tmp: str):
     things_args = ["--things_csv", things["inference_csv_file"],
                    "--things_img_dir", img_dir,
                    "--things_rdm_path", things["RDM48_triplet_dir"]]
-    print(f"[dist] fixture ready in {time.time() - t_phase:.1f} s (the "
+    print(f"[dist] fixture ready in {time.time() - t0:.1f} s (the "
           f"vit_train ImageFolder; 48 THINGS JPEGs and an RDM); ViT-B/16, "
           f"batch 256, bf16, SGD lr {DIST_LR}, {DIST_EPOCHS} epochs a run",
           flush=True)
-    train_cli = "vit_project_torch.cli.vit_train"
     train_args = ["--data_path", data, "--batch_size", "256", "--epochs",
                   str(DIST_EPOCHS), "--num_workers", "8", "--lr", DIST_LR]
+    single = os.path.join(root, "single")
+    rsa_one = os.path.join(root, "rsa_one.csv")
+    job = _dist_start(root, "single", [
+        "vit_project_torch.cli.vit_train", *train_args, "--fused_dw",
+        "--output_dir", single, "--then", "vit_project_torch.cli.vit_rsa_eval",
+        "--checkpoint_dir", single, "--output_csv", rsa_one, *things_args],
+        nproc=None)
+    return {"root": root, "data": data, "single": single, "rsa_one": rsa_one,
+            "things_args": things_args, "train_args": train_args, "job": job}
 
-    # --- the main path: cli.vit_train alone, then in one torchrun launch
-    # dp, zero1, fsdp, cli.vit_rsa_eval, one cli.vit_measure cell and the
-    # step timing; each CLI's counts start at 0 and are read at its end ---
+
+def phase_dist(tmp: str, pre: dict | None = None):
+    """Data parallelism as users launch it: cli.vit_train at ViT-B/16's full
+    width and depth (bf16, global batch 256, fused_dw) alone and under
+    ``torchrun --standalone --nproc_per_node 1`` in dp, --zero1 and --fsdp
+    (NCCL); cli.vit_rsa_eval and one cli.vit_measure cell under torchrun
+    against the same CLIs alone; ms a step per mode in turns; and two ranks
+    under gloo on this one card (dp, the gathered RSA, tp, ep, sp, mesh
+    serving, pp). The torchrun runs share one launch (a chain of the
+    worker's, each CLI counted from 0), and so do the gloo ones: a process
+    costs ~20 s of start-up. Both launches start once the run alone has
+    written the checkpoint they read, and run beside the rest of this
+    phase and the later phases; the phase returns finish(), which collects
+    and checks them (timed as "dist_gloo"). `pre`: _dist_prelude's, when
+    main started it; made here otherwise."""
+    import pandas as pd
+    import torch
+    from vit_project_torch.cli import vit_measure as measure_cli
+
+    t_phase = time.time()
+    pre = pre or _dist_prelude(tmp)
+    root, data, single, rsa_one = (pre[k] for k in (
+        "root", "data", "single", "rsa_one"))
+    things_args, train_args = pre["things_args"], pre["train_args"]
+    train_cli = "vit_project_torch.cli.vit_train"
+
+    # --- the main path: cli.vit_train alone (the prelude's process, with
+    # cli.vit_rsa_eval on its checkpoint), then in one torchrun launch dp,
+    # zero1, fsdp, cli.vit_rsa_eval, one cli.vit_measure cell and the step
+    # timing; each CLI's counts start at 0 and are read at its end ---
     want = {"dw_db": 49 * DIST_STEPS, "flash3_bwd": 12 * DIST_STEPS,
             "flash3_fwd": 12 * (DIST_STEPS + DIST_VAL_BATCHES)}
-    single = os.path.join(root, "single")
-    by_mode = {"single": _dist_run(root, "single", [
-        train_cli, *train_args, "--fused_dw", "--output_dir", single],
-        nproc=None)[0]}
-    rsa_one = os.path.join(root, "rsa_one.csv")
-    _cli(rsa_cli.main, ["--checkpoint_dir", single, "--output_csv", rsa_one,
-                        *things_args], os.path.join(root, "rsa_one.log"))
+    by_mode = {"single": _dist_collect(pre["job"])[0]}
+    by_mode["single"].pop("then")
+    print(f"[dist] cli.vit_train and cli.vit_rsa_eval alone took "
+          f"{pre['job']['s']:.1f} s beside the phases before this one; "
+          f"{time.time() - t_phase:.1f} s waited for here", flush=True)
     cell = ["--baseline_checkpoint_dir", single, "--baseline_metrics_csv",
             rsa_one, "--data_path", data, *things_args, "--perturb_epochs",
             "1", "--perturbation_types", "gaussian", "--batch_size", "256",
@@ -5130,150 +5388,20 @@ def phase_dist(tmp: str):
               "--then", "time_modes", "--then", train_cli,
               *_moe_args(data), "--epochs", "1", "--output_dir",
               os.path.join(root, "moe_dp"), "--then", "serve_mesh"]
-    first = _dist_run(root, "torchrun", chain)[0]
-    steps = [first] + first.pop("then")
-    by_mode.update(zip(DIST_MODES[1:], steps[:3]))
-    rsa_rep, cell_rep, tm, moe_rep, mesh_rep = steps[3:]
-    runs, trees, rows = {}, {}, {}
-    for mode in DIST_MODES:
-        out = os.path.join(root, mode)
-        rep = by_mode[mode]
-        if rep["launches"] != {**{k: 0 for k in rep["launches"]}, **want}:
-            fail(f"[dist] {mode}: launches {rep['launches']}, want {want}")
-        if rep["backend"] != (None if mode == "single" else "nccl"):
-            fail(f"[dist] {mode}: backend {rep['backend']}")
-        runs[mode] = rep
-        trees[mode] = _ckpt_trees(out)
-        rows[mode] = _read_rows(os.path.join(out, "training_metrics.csv"))
-        print(f"[dist] {mode}: {rep['s']:.1f} s, peak "
-              f"{rep['peak_gib']:.3f} GiB ({rep['start_gib']:.3f} GiB held "
-              f"at its start), launches "
-              + ", ".join(f"{k} {v}" for k, v in sorted(
-                  rep["launches"].items()) if v)
-              + "; rows " + "; ".join(",".join(r) for r in rows[mode][1:]),
-              flush=True)
-    if [r[0] for r in rows["single"][1:]] != [str(e) for e in
-                                               range(DIST_EPOCHS)]:
-        fail(f"[dist] single rows {rows['single']}")
-    for r in rows["single"][1:]:
-        if not all(np.isfinite([float(v) for v in r[1:]])):
-            fail(f"[dist] bad row {r}")
-    cmp = {}
-    for mode in ("dp", "zero1", "fsdp"):
-        exact = rows[mode] == rows["single"] and all(
-            _trees_equal(a, b) for a, b in zip(trees[mode], trees["single"]))
-        got = np.array([[float(v) for v in r[1:]] for r in rows[mode][1:]])
-        ref = np.array([[float(v) for v in r[1:]]
-                        for r in rows["single"][1:]])
-        rel = [_rel_tree_diff(a, b) for a, b in zip(trees[mode],
-                                                    trees["single"])]
-        cmp[mode] = {"bit_equal": exact, "tree_rel_diff": rel,
-                     "loss_rel_diff": float(np.abs(got[:, :2] / ref[:, :2]
-                                                   - 1).max()),
-                     "acc_diff": float(np.abs(got[:, 2] - ref[:, 2]).max())}
-        print(f"[dist] {mode} against single: "
-              + ("bit-equal rows and checkpoints" if exact else
-                 f"losses {cmp[mode]['loss_rel_diff']:.3e} relative, "
-                 f"accuracy {cmp[mode]['acc_diff']:.3f} points, trees "
-                 f"{rel[0]:.3e} / {rel[1]:.3e} of their largest"),
-              flush=True)
-        if mode in ("dp", "zero1") and not exact:
-            fail(f"[dist] {mode} at world size 1 differs from one process")
-        if mode == "fsdp" and not (
-                cmp[mode]["loss_rel_diff"] <= DIST_LOSS_RTOL
-                and cmp[mode]["acc_diff"] <= DIST_ACC_ATOL
-                and max(rel) <= DIST_PARAM_RTOL):
-            fail(f"[dist] fsdp outside the tolerance: {cmp[mode]}")
-    del trees
-    for mode in DIST_MODES[1:]:     # the disk: 1.4 GB a run
-        shutil.rmtree(os.path.join(root, mode))
-    main_launches = {k: sum(runs[m]["launches"][k] for m in DIST_MODES
-                            if m != "single") for k in want}
-
-    # --- the per-epoch RSA and one grid cell: torchrun at world size 1
-    # (above) against the same CLIs alone (in this process) ---
-    _cli(measure_cli.main, cell + ["--output_csv",
-                                   os.path.join(root, "cell_one.csv")],
-         os.path.join(root, "cell_one.log"))
-    same = {}
-    for name in ("rsa", "cell"):
-        with open(os.path.join(root, f"{name}_one.csv"), "rb") as f:
-            one = f.read()
-        with open(os.path.join(root, f"{name}_dp.csv"), "rb") as f:
-            same[name] = f.read() == one
-    print(f"[dist] torchrun world size 1 against one process: "
-          f"cli.vit_rsa_eval {rsa_rep['s']:.1f} s, flash3_fwd "
-          f"{rsa_rep['launches']['flash3_fwd']}, CSV "
-          f"{'equal' if same['rsa'] else 'DIFFERS'}; cli.vit_measure "
-          f"gaussian @ 1 {cell_rep['s']:.1f} s, flash3_fwd "
-          f"{cell_rep['launches']['flash3_fwd']} flash3_bwd "
-          f"{cell_rep['launches']['flash3_bwd']}, CSV "
-          f"{'equal' if same['cell'] else 'DIFFERS'}", flush=True)
-    if not all(same.values()):
-        fail(f"[dist] torchrun CSVs differ from one process: {same}")
-    if rsa_rep["launches"]["flash3_fwd"] != 2 * 12 * GRID_RSA_CHUNKS or \
-            cell_rep["launches"]["flash3_fwd"] != \
-            GRID_CELL_LAUNCHES["flash3_fwd"]:
-        fail(f"[dist] launches {rsa_rep['launches']} {cell_rep['launches']}")
-
-    # --- ms a step per mode, in turns, in one process (the launch above) ---
-    per_step_want = {"dw_db": 49, "flash3_bwd": 12, "flash3_fwd": 12}
-    for mode, got in tm["per_step"].items():
-        if {k: got[k] for k in per_step_want} != per_step_want:
-            fail(f"[dist] {mode}: a step launched {got}")
-    step_ms = {m: statistics.mean(x for t in v for x in t)
-               for m, v in tm["turns"].items()}
-    print("[dist] a step's launches, every mode: flash3_fwd 12, flash3_bwd "
-          "12, dw_db 49; ms a step in turns (single, dp, zero1, fsdp, and "
-          "back; 10 steps a turn): " + "; ".join(
-              f"{m} {step_ms[m]:.2f} (turns "
-              + ", ".join(f"{statistics.mean(t):.2f}" for t in v)
-              + f"; +{step_ms[m] - step_ms['single']:.2f})"
-              for m, v in tm["turns"].items())
-          + f"; peak in that process {tm['peak_gib']:.2f} GiB "
-          f"(four models); {smi_line()}", flush=True)
-
-    # --- the MoE ViT in dp at world size 1 (the chain's last CLI, one
-    # epoch) against epoch 0 of phase moe's run alone, bit for bit (that
-    # epoch alone here when phase moe did not run) ---
-    from vit_project_torch.cli import vit_train as train_main
-    from vit_project_torch.ckpt import serialization as ser
-    moe_alone = os.path.join(tmp, "moe", "moe_a")
-    if not os.path.isdir(moe_alone):
-        moe_alone = os.path.join(root, "moe_alone")
-        _cli(train_main.main, _moe_args(data) + [
-            "--epochs", "1", "--output_dir", moe_alone],
-            os.path.join(root, "moe_alone.log"))
-    moe_dp = os.path.join(root, "moe_dp")
-    alone = ser.load(os.path.join(moe_alone, "checkpoint_epoch_000.pth"))
-    moe_exact = _read_rows(os.path.join(moe_dp, "training_metrics.csv")) \
-        == _read_rows(os.path.join(moe_alone, "training_metrics.csv"))[:2] \
-        and all(_trees_equal(a, b) for a, b in zip(
-            _ckpt_trees(moe_dp), (alone["params"], alone["opt_state"])))
-    del alone
-    moe_want = {k: v * MOE_STEPS // MOE_EPOCHS
-                for k, v in MOE_PER_STEP.items()}
-    moe_want["flash3_fwd"] += 12
-    print(f"[dist] MoE (--moe_experts {MOE_EXPERTS} --fused_dw) under "
-          f"torchrun, world size 1 (backend {moe_rep['backend']}): "
-          f"{moe_rep['s']:.1f} s, launches "
-          + ", ".join(f"{k} {moe_rep['launches'][k]}" for k in sorted(
-              moe_want))
-          + f"; against the run alone: "
-          f"{'bit-equal rows and checkpoints' if moe_exact else 'DIFFERS'}",
-          flush=True)
-    if not moe_exact or moe_rep["backend"] != "nccl" or any(
-            moe_rep["launches"][k] != v for k, v in moe_want.items()):
-        fail(f"[dist] MoE dp at world size 1: bit-equal {moe_exact}, "
-             f"{moe_rep}")
-    for d in (moe_dp, moe_alone):
-        shutil.rmtree(d)
-
-    # --- two ranks on this card under gloo: dp, the gathered RSA, tensor
-    # parallelism (its run and its block check), expert parallelism (its
-    # run and its step) and sequence parallelism (a run of each form, their
-    # block checks and steps) ---
+    torch.cuda.empty_cache()
+    nccl_job = _dist_start(root, "torchrun", chain)
+    # --- two ranks on this card under gloo, started here and collected by
+    # finish() below, after the script's later phases: dp, the gathered
+    # RSA, tensor parallelism (its run and its block check), expert
+    # parallelism (its run and its step), sequence parallelism (a run of
+    # each form, their block checks and steps), mesh serving and the
+    # pipeline (its run and its forward and step against the whole model).
+    # Its round-trips through the host take minutes of the host's clock and
+    # little of the card's, so the launch runs beside the rest of this
+    # phase and phases clip_dist, sweep and forks, each rank and each of
+    # those counting its own launches in its own process ---
     gloo_out = os.path.join(root, "gloo_dp")
+    pp_out = os.path.join(root, "gloo_pp")
     tp_out = os.path.join(root, "gloo_tp")
     ep_out = os.path.join(root, "gloo_ep")
     sp_out = os.path.join(root, "gloo_sp")
@@ -5286,7 +5414,8 @@ def phase_dist(tmp: str):
     tp_args = ["--data_path", data, "--batch_size", str(TP_BATCH),
                "--epochs", str(DIST_EPOCHS), "--num_workers", "8", "--lr",
                DIST_LR]
-    g = _dist_run(root, "gloo", [
+    torch.cuda.empty_cache()
+    gloo_job = _dist_start(root, "gloo", [
         "--gloo", train_cli, *train_args, "--device", "cuda:0",
         "--epochs", str(GLOO_EPOCHS), "--output_dir", gloo_out, "--then",
         "vit_project_torch.cli.vit_rsa_eval", "--checkpoint_dir", single,
@@ -5300,57 +5429,262 @@ def phase_dist(tmp: str):
         "--device", "cuda:0", "--sp_devices", "2", "--output_dir", sp_out,
         "--then", train_cli, *ring_args, "--device", "cuda:0",
         "--sp_devices", "2", "--sp_ring", "--output_dir", ring_out,
-        "--then", "sp_check", "--then", "serve_mesh"], nproc=2)
-    g_rsa = [rep["then"][0] for rep in g]
-    g_rows = _read_rows(os.path.join(gloo_out, "training_metrics.csv"))
-    got = np.array([[float(v) for v in r[1:]] for r in g_rows[1:]])
-    ref = np.array([[float(v) for v in r[1:]]
-                    for r in rows["single"][1:1 + GLOO_EPOCHS]])
-    g_loss = float(np.abs(got[:, :2] / ref[:, :2] - 1).max())
-    g_acc = float(np.abs(got[:, 2] - ref[:, 2]).max())
-    half = {"flash3_fwd": 12 * (4 + 1) * GLOO_EPOCHS,
-            "flash3_bwd": 12 * 4 * GLOO_EPOCHS}
-    for rep in g:
-        if rep["backend"] != "gloo" or any(
-                rep["launches"][k] != v for k, v in half.items()):
-            fail(f"[dist] gloo rank {rep['rank']}: {rep}")
-    rho_g = pd.read_csv(os.path.join(root, "rsa_gloo.csv"))["rsa_score"]
-    rho_1 = pd.read_csv(rsa_one)["rsa_score"]
-    rho_diff = float(np.abs(rho_g.to_numpy() - rho_1.to_numpy()).max())
-    print(f"[dist] 2 ranks, gloo, one card (128 images a rank, no fused_dw): "
-          f"{g[0]['s']:.1f} s, peak {max(r['peak_gib'] for r in g):.2f} GiB "
-          f"a rank; rows " + "; ".join(",".join(r) for r in g_rows[1:])
-          + f"; against one process: losses {g_loss:.3e} relative, accuracy "
-          f"{g_acc:.3f} points; RSA over 2 ranks {g_rsa[0]['s']:.1f} s, rho "
-          f"within {rho_diff:.2e} of one process's", flush=True)
-    if not (g_loss <= DIST_LOSS_RTOL and g_acc <= DIST_ACC_ATOL
-            and rho_diff <= DIST_RHO_ATOL):
-        fail(f"[dist] gloo 2-rank run outside the tolerance: losses "
-             f"{g_loss}, accuracy {g_acc}, rho {rho_diff}")
-    shutil.rmtree(gloo_out)
-    tp = _check_tp(root, train_cli, tp_args, tp_out,
-                   [rep["then"][1] for rep in g],
-                   [rep["then"][2] for rep in g])
-    ep = _check_ep(root, train_cli, tp_args, ep_out,
-                   [rep["then"][3] for rep in g],
-                   [rep["then"][4] for rep in g])
-    sp = _check_sp(root, train_cli, ring_args, sp_out, ring_out,
-                   [[rep["then"][k] for rep in g] for k in (5, 6, 7)])
-    serve_mesh = _check_serve_mesh(mesh_rep, [rep["then"][8] for rep in g])
-    for d in ("single", "gloo_tp", "tp_one", "tp_resumed", "gloo_ep",
-              "ep_one", "gloo_sp", "gloo_ring", "ring_one", "imagenet_sp"):
-        shutil.rmtree(os.path.join(root, d))
-    RESULTS["dist"] = {
-        "runs": runs, "compare": cmp, "rsa": rsa_rep, "cell": cell_rep,
-        "time_modes": tm, "step_ms": step_ms, "moe_dp": moe_rep,
-        "moe_dp_bit_equal": moe_exact, "gloo": g, "gloo_rsa": g_rsa,
-        "gloo_rows": g_rows[1:], "gloo_loss_rel": g_loss,
-        "gloo_acc_diff": g_acc, "gloo_rho_diff": rho_diff, "tp": tp,
-        "ep": ep, "sp": sp, "serve_mesh": serve_mesh,
-        "seconds": time.time() - t_phase}
-    print(f"[dist] phase {time.time() - t_phase:.1f} s", flush=True)
-    return {**main_launches, "tp": tp["launches"], "ep": ep["launches"],
-            "sp": sp["launches"], "serve_mesh": serve_mesh["launches"]}
+        "--then", "sp_check", "--then", "serve_mesh", "--then", train_cli,
+        *ring_args, "--device", "cuda:0", "--pp_stages", str(PP_STAGES),
+        "--pp_micro", str(PP_MICRO), "--output_dir", pp_out, "--then",
+        "pp_check"], nproc=2)
+    # --- while both launches run: the CLIs alone that the torchrun ones
+    # are held to (one grid cell; the MoE run's epoch 0 when phase moe did
+    # not run), and the one-process runs the gloo launch's runs are held
+    # to, which need none of its outputs ---
+    _cli(measure_cli.main, cell + ["--output_csv",
+                                   os.path.join(root, "cell_one.csv")],
+         os.path.join(root, "cell_one.log"))
+    from vit_project_torch.cli import vit_train as train_main
+    moe_alone = os.path.join(tmp, "moe", "moe_a")
+    if not os.path.isdir(moe_alone):
+        moe_alone = os.path.join(root, "moe_alone")
+        _cli(train_main.main, _moe_args(data) + [
+            "--epochs", "1", "--output_dir", moe_alone],
+            os.path.join(root, "moe_alone.log"))
+    for name, args in (("tp_one", tp_args), ("ep_one", tp_args + [
+            "--moe_experts", str(MOE_EXPERTS), "--epochs", str(EP_EPOCHS)]),
+            ("ring_one", ring_args)):
+        _cli(train_main.main,
+             args + ["--output_dir", os.path.join(root, name)],
+             os.path.join(root, f"{name}.log"))
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    seconds = time.time() - t_phase
+    print(f"[dist] phase {seconds:.1f} s, the torchrun and gloo launches "
+          f"still running beside the later phases; the card's memory in "
+          f"use {(total - free) / 2**30:.1f} of {total / 2**30:.1f} GiB",
+          flush=True)
+
+    def finish():
+        """Collect both launches and check them (phase dist's second
+        part)."""
+        t_wait = time.time()
+        first = _dist_collect(nccl_job, timeout=900)[0]
+        g = _dist_collect(gloo_job, timeout=900)
+        print(f"[dist] the torchrun launch took {nccl_job['s']:.1f} s and "
+              f"the gloo one {gloo_job['s']:.1f} s beside the later phases; "
+              f"{time.time() - t_wait:.1f} s waited for here", flush=True)
+        # the one-process resumes _check_tp and _check_pp read (the tp and
+        # pp runs' epoch 0, the ring run alone's), in a process of their
+        # own beside the checks before those two
+        resumes = []
+        for src, name, args in (
+                (tp_out, "tp_resumed", tp_args),
+                (pp_out, "pp_resumed", ring_args + ["--epochs", "2"]),
+                (os.path.join(root, "ring_one"), "ring_e2",
+                 ring_args + ["--epochs", "2"])):
+            _resume_from_epoch0(src, os.path.join(root, name), _read_rows(
+                os.path.join(src, "training_metrics.csv")))
+            resumes += [train_cli, *args, "--output_dir",
+                        os.path.join(root, name), "--then"]
+        resume_job = _dist_start(root, "resumes", resumes[:-1], nproc=None)
+        steps = [first] + first.pop("then")
+        by_mode.update(zip(DIST_MODES[1:], steps[:3]))
+        rsa_rep, cell_rep, tm, moe_rep, mesh_rep = steps[3:]
+        runs, trees, rows = {}, {}, {}
+        for mode in DIST_MODES:
+            out = os.path.join(root, mode)
+            rep = by_mode[mode]
+            if rep["launches"] != {**{k: 0 for k in rep["launches"]},
+                                   **want}:
+                fail(f"[dist] {mode}: launches {rep['launches']}, want "
+                     f"{want}")
+            if rep["backend"] != (None if mode == "single" else "nccl"):
+                fail(f"[dist] {mode}: backend {rep['backend']}")
+            runs[mode] = rep
+            trees[mode] = _ckpt_trees(out)
+            rows[mode] = _read_rows(os.path.join(out,
+                                                 "training_metrics.csv"))
+            print(f"[dist] {mode}: {rep['s']:.1f} s, peak "
+                  f"{rep['peak_gib']:.3f} GiB ({rep['start_gib']:.3f} GiB "
+                  f"held at its start), launches "
+                  + ", ".join(f"{k} {v}" for k, v in sorted(
+                      rep["launches"].items()) if v)
+                  + "; rows "
+                  + "; ".join(",".join(r) for r in rows[mode][1:]),
+                  flush=True)
+        if [r[0] for r in rows["single"][1:]] != [str(e) for e in
+                                                   range(DIST_EPOCHS)]:
+            fail(f"[dist] single rows {rows['single']}")
+        for r in rows["single"][1:]:
+            if not all(np.isfinite([float(v) for v in r[1:]])):
+                fail(f"[dist] bad row {r}")
+        cmp = {}
+        for mode in ("dp", "zero1", "fsdp"):
+            exact = rows[mode] == rows["single"] and all(
+                _trees_equal(a, b)
+                for a, b in zip(trees[mode], trees["single"]))
+            got = np.array([[float(v) for v in r[1:]]
+                            for r in rows[mode][1:]])
+            ref = np.array([[float(v) for v in r[1:]]
+                            for r in rows["single"][1:]])
+            rel = [_rel_tree_diff(a, b) for a, b in zip(trees[mode],
+                                                        trees["single"])]
+            cmp[mode] = {
+                "bit_equal": exact, "tree_rel_diff": rel,
+                "loss_rel_diff": float(np.abs(got[:, :2] / ref[:, :2]
+                                              - 1).max()),
+                "acc_diff": float(np.abs(got[:, 2] - ref[:, 2]).max())}
+            print(f"[dist] {mode} against single: "
+                  + ("bit-equal rows and checkpoints" if exact else
+                     f"losses {cmp[mode]['loss_rel_diff']:.3e} relative, "
+                     f"accuracy {cmp[mode]['acc_diff']:.3f} points, trees "
+                     f"{rel[0]:.3e} / {rel[1]:.3e} of their largest"),
+                  flush=True)
+            if mode in ("dp", "zero1") and not exact:
+                fail(f"[dist] {mode} at world size 1 differs from one "
+                     f"process")
+            if mode == "fsdp" and not (
+                    cmp[mode]["loss_rel_diff"] <= DIST_LOSS_RTOL
+                    and cmp[mode]["acc_diff"] <= DIST_ACC_ATOL
+                    and max(rel) <= DIST_PARAM_RTOL):
+                fail(f"[dist] fsdp outside the tolerance: {cmp[mode]}")
+        del trees
+        for mode in DIST_MODES[1:]:     # the disk: 1.4 GB a run
+            shutil.rmtree(os.path.join(root, mode))
+        main_launches = {k: sum(runs[m]["launches"][k]
+                                for m in DIST_MODES if m != "single")
+                         for k in want}
+
+        # --- the per-epoch RSA and one grid cell: torchrun at world size 1
+        # (above) against the same CLIs alone (in this process) ---
+        same = {}
+        for name in ("rsa", "cell"):
+            with open(os.path.join(root, f"{name}_one.csv"), "rb") as f:
+                one = f.read()
+            with open(os.path.join(root, f"{name}_dp.csv"), "rb") as f:
+                same[name] = f.read() == one
+        print(f"[dist] torchrun world size 1 against one process: "
+              f"cli.vit_rsa_eval {rsa_rep['s']:.1f} s, flash3_fwd "
+              f"{rsa_rep['launches']['flash3_fwd']}, CSV "
+              f"{'equal' if same['rsa'] else 'DIFFERS'}; cli.vit_measure "
+              f"gaussian @ 1 {cell_rep['s']:.1f} s, flash3_fwd "
+              f"{cell_rep['launches']['flash3_fwd']} flash3_bwd "
+              f"{cell_rep['launches']['flash3_bwd']}, CSV "
+              f"{'equal' if same['cell'] else 'DIFFERS'}", flush=True)
+        if not all(same.values()):
+            fail(f"[dist] torchrun CSVs differ from one process: {same}")
+        if rsa_rep["launches"]["flash3_fwd"] != 2 * 12 * GRID_RSA_CHUNKS or \
+                cell_rep["launches"]["flash3_fwd"] != \
+                GRID_CELL_LAUNCHES["flash3_fwd"]:
+            fail(f"[dist] launches {rsa_rep['launches']} "
+                 f"{cell_rep['launches']}")
+
+        # --- ms a step per mode, in turns, in one process (the launch
+        # above) ---
+        per_step_want = {"dw_db": 49, "flash3_bwd": 12, "flash3_fwd": 12}
+        for mode, got in tm["per_step"].items():
+            if {k: got[k] for k in per_step_want} != per_step_want:
+                fail(f"[dist] {mode}: a step launched {got}")
+        step_ms = {m: statistics.mean(x for t in v for x in t)
+                   for m, v in tm["turns"].items()}
+        print("[dist] a step's launches, every mode: flash3_fwd 12, "
+              "flash3_bwd 12, dw_db 49; ms a step in turns (single, dp, "
+              "zero1, fsdp, and back; 10 steps a turn): " + "; ".join(
+                  f"{m} {step_ms[m]:.2f} (turns "
+                  + ", ".join(f"{statistics.mean(t):.2f}" for t in v)
+                  + f"; +{step_ms[m] - step_ms['single']:.2f})"
+                  for m, v in tm["turns"].items())
+              + f"; peak in that process {tm['peak_gib']:.2f} GiB "
+              f"(four models); {smi_line()}", flush=True)
+
+        # --- the MoE ViT in dp at world size 1 (the chain's last CLI, one
+        # epoch) against epoch 0 of phase moe's run alone, bit for bit
+        # (that epoch alone here when phase moe did not run) ---
+        from vit_project_torch.ckpt import serialization as ser
+        moe_dp = os.path.join(root, "moe_dp")
+        alone = ser.load(os.path.join(moe_alone,
+                                      "checkpoint_epoch_000.pth"))
+        moe_exact = _read_rows(os.path.join(
+            moe_dp, "training_metrics.csv")) == _read_rows(os.path.join(
+                moe_alone, "training_metrics.csv"))[:2] \
+            and all(_trees_equal(a, b) for a, b in zip(
+                _ckpt_trees(moe_dp), (alone["params"], alone["opt_state"])))
+        del alone
+        moe_want = {k: v * MOE_STEPS // MOE_EPOCHS
+                    for k, v in MOE_PER_STEP.items()}
+        moe_want["flash3_fwd"] += 12
+        print(f"[dist] MoE (--moe_experts {MOE_EXPERTS} --fused_dw) under "
+              f"torchrun, world size 1 (backend {moe_rep['backend']}): "
+              f"{moe_rep['s']:.1f} s, launches "
+              + ", ".join(f"{k} {moe_rep['launches'][k]}" for k in sorted(
+                  moe_want))
+              + "; against the run alone: "
+              + ("bit-equal rows and checkpoints" if moe_exact
+                 else "DIFFERS"), flush=True)
+        if not moe_exact or moe_rep["backend"] != "nccl" or any(
+                moe_rep["launches"][k] != v for k, v in moe_want.items()):
+            fail(f"[dist] MoE dp at world size 1: bit-equal {moe_exact}, "
+                 f"{moe_rep}")
+        for d in (moe_dp, moe_alone):
+            shutil.rmtree(d)
+
+        g_rsa = [rep["then"][0] for rep in g]
+        g_rows = _read_rows(os.path.join(gloo_out, "training_metrics.csv"))
+        got = np.array([[float(v) for v in r[1:]] for r in g_rows[1:]])
+        ref = np.array([[float(v) for v in r[1:]]
+                        for r in rows["single"][1:1 + GLOO_EPOCHS]])
+        g_loss = float(np.abs(got[:, :2] / ref[:, :2] - 1).max())
+        g_acc = float(np.abs(got[:, 2] - ref[:, 2]).max())
+        half = {"flash3_fwd": 12 * (4 + 1) * GLOO_EPOCHS,
+                "flash3_bwd": 12 * 4 * GLOO_EPOCHS}
+        for rep in g:
+            if rep["backend"] != "gloo" or any(
+                    rep["launches"][k] != v for k, v in half.items()):
+                fail(f"[dist] gloo rank {rep['rank']}: {rep}")
+        rho_g = pd.read_csv(os.path.join(root, "rsa_gloo.csv"))["rsa_score"]
+        rho_1 = pd.read_csv(rsa_one)["rsa_score"]
+        rho_diff = float(np.abs(rho_g.to_numpy() - rho_1.to_numpy()).max())
+        print(f"[dist] 2 ranks, gloo, one card (128 images a rank, no "
+              f"fused_dw): {g[0]['s']:.1f} s, peak "
+              f"{max(r['peak_gib'] for r in g):.2f} GiB a rank; rows "
+              + "; ".join(",".join(r) for r in g_rows[1:])
+              + f"; against one process: losses {g_loss:.3e} relative, "
+              f"accuracy {g_acc:.3f} points; RSA over 2 ranks "
+              f"{g_rsa[0]['s']:.1f} s, rho within {rho_diff:.2e} of one "
+              f"process's", flush=True)
+        if not (g_loss <= DIST_LOSS_RTOL and g_acc <= DIST_ACC_ATOL
+                and rho_diff <= DIST_RHO_ATOL):
+            fail(f"[dist] gloo 2-rank run outside the tolerance: losses "
+                 f"{g_loss}, accuracy {g_acc}, rho {rho_diff}")
+        shutil.rmtree(gloo_out)
+        ep = _check_ep(root, ep_out, [rep["then"][3] for rep in g],
+                       [rep["then"][4] for rep in g])
+        sp = _check_sp(root, sp_out, ring_out,
+                       [[rep["then"][k] for rep in g] for k in (5, 6, 7)])
+        serve_mesh = _check_serve_mesh(mesh_rep,
+                                       [rep["then"][8] for rep in g])
+        _dist_collect(resume_job)
+        tp = _check_tp(root, tp_out, [rep["then"][1] for rep in g],
+                       [rep["then"][2] for rep in g])
+        pp = _check_pp(root, pp_out,
+                       [[rep["then"][k] for rep in g] for k in (9, 10)])
+        for d in ("single", "gloo_tp", "tp_one", "tp_resumed", "gloo_ep",
+                  "ep_one", "gloo_sp", "gloo_ring", "ring_one",
+                  "imagenet_sp", "gloo_pp", "pp_resumed", "ring_e2"):
+            shutil.rmtree(os.path.join(root, d))
+        RESULTS["dist"] = {
+            "runs": runs, "compare": cmp, "rsa": rsa_rep, "cell": cell_rep,
+            "time_modes": tm, "step_ms": step_ms, "moe_dp": moe_rep,
+            "moe_dp_bit_equal": moe_exact, "gloo": g, "gloo_rsa": g_rsa,
+            "gloo_rows": g_rows[1:], "gloo_loss_rel": g_loss,
+            "gloo_acc_diff": g_acc, "gloo_rho_diff": rho_diff, "tp": tp,
+            "ep": ep, "sp": sp, "serve_mesh": serve_mesh, "pp": pp,
+            "seconds": seconds, "torchrun_s": nccl_job["s"],
+            "gloo_s": gloo_job["s"], "finish_s": time.time() - t_wait}
+        print(f"[dist] both launches checked, {time.time() - t_wait:.1f} s "
+              f"after the wait for them began", flush=True)
+        return {**main_launches, "tp": tp["launches"], "ep": ep["launches"],
+                "sp": sp["launches"], "serve_mesh": serve_mesh["launches"],
+                "pp": pp["launches"]}
+
+    return finish
 
 
 def _check_serve_mesh(nccl: dict, gloo: list) -> dict:
@@ -5405,18 +5739,15 @@ def _check_serve_mesh(nccl: dict, gloo: list) -> dict:
                 rep[k]["launches"] for rep in gloo for k in ("dp", "tp"))}}
 
 
-def _check_tp(root: str, train_cli: str, tp_args: list, tp_out: str,
-              runs: list, checks: list) -> dict:
+def _check_tp(root: str, tp_out: str, runs: list, checks: list) -> dict:
     """Phase dist's tensor-parallel checks on the gloo launch's reports
     (`runs`: each rank's cli.vit_train --tp_devices 2; `checks`: each
-    rank's _tp_check) and two one-process runs in this process on the same
-    data: the same invocation without --tp_devices (the rows within
-    TP_LOSS_RTOL and DIST_ACC_ATOL, the checkpoint's parameters within
-    DIST_PARAM_RTOL and its momentum within TP_MOMENTUM_RTOL), and the tp
-    run's epoch 0 resumed (its epoch-1 row within the same bounds of the
-    tp run's)."""
-    import importlib
-    train_main = importlib.import_module(train_cli).main
+    rank's _tp_check) and two one-process runs on the same data: phase
+    dist's "tp_one", the same invocation without --tp_devices (the rows
+    within TP_LOSS_RTOL and DIST_ACC_ATOL, the checkpoint's parameters
+    within DIST_PARAM_RTOL and its momentum within TP_MOMENTUM_RTOL), and
+    "tp_resumed", the tp run's epoch 0 resumed (its epoch-1 row within the
+    same bounds of the tp run's)."""
     want = {"flash3_fwd": 12 * (TP_STEPS + TP_VAL_BATCHES),
             "flash3_bwd": 12 * TP_STEPS}
     for rep in runs:
@@ -5425,13 +5756,8 @@ def _check_tp(root: str, train_cli: str, tp_args: list, tp_out: str,
             fail(f"[dist] tp rank {rep['rank']}: backend {rep['backend']}, "
                  f"launches {got}, want {want}")
     one = os.path.join(root, "tp_one")
-    _cli(train_main, tp_args + ["--output_dir", one],
-         os.path.join(root, "tp_one.log"))
     resumed = os.path.join(root, "tp_resumed")
     tp_rows = _read_rows(os.path.join(tp_out, "training_metrics.csv"))
-    _resume_from_epoch0(tp_out, resumed, tp_rows)
-    _cli(train_main, tp_args + ["--output_dir", resumed],
-         os.path.join(root, "tp_resumed.log"))
 
     def against(rows, ref):
         got = np.array([[float(v) for v in r[1:]] for r in rows[1:]])
@@ -5496,17 +5822,14 @@ def _check_tp(root: str, train_cli: str, tp_args: list, tp_out: str,
             "launches": {k: runs[0]["launches"][k] for k in want}}
 
 
-def _check_ep(root: str, train_cli: str, ep_args: list, ep_out: str,
-              runs: list, checks: list) -> dict:
+def _check_ep(root: str, ep_out: str, runs: list, checks: list) -> dict:
     """Phase dist's expert-parallel checks on the gloo launch's reports
     (`runs`: each rank's cli.vit_train --moe_experts 8 --ep_devices 2 for
-    EP_EPOCHS; `checks`: each rank's _ep_check) against one process in
-    this process on the same data (the MoE run without --ep_devices, as
-    long): the rows within
-    TP_LOSS_RTOL and DIST_ACC_ATOL, the checkpoint's parameters within
-    DIST_PARAM_RTOL and its momentum within TP_MOMENTUM_RTOL."""
-    import importlib
-    train_main = importlib.import_module(train_cli).main
+    EP_EPOCHS; `checks`: each rank's _ep_check) against phase dist's
+    one-process run "ep_one" on the same data (the MoE run without
+    --ep_devices, as long): the rows within TP_LOSS_RTOL and DIST_ACC_ATOL,
+    the checkpoint's parameters within DIST_PARAM_RTOL and its momentum
+    within TP_MOMENTUM_RTOL."""
     steps = 1024 // TP_BATCH * EP_EPOCHS
     want = {"flash3_fwd": 12 * (steps + 256 // TP_BATCH * EP_EPOCHS),
             "flash3_bwd": 12 * steps}
@@ -5516,10 +5839,6 @@ def _check_ep(root: str, train_cli: str, ep_args: list, ep_out: str,
             fail(f"[dist] ep rank {rep['rank']}: backend {rep['backend']}, "
                  f"launches {got}, want {want}")
     one = os.path.join(root, "ep_one")
-    _cli(train_main, ep_args + ["--moe_experts", str(MOE_EXPERTS),
-                                "--epochs", str(EP_EPOCHS),
-                                "--output_dir", one],
-         os.path.join(root, "ep_one.log"))
     rows = _read_rows(os.path.join(ep_out, "training_metrics.csv"))
     one_rows = _read_rows(os.path.join(one, "training_metrics.csv"))
     got = np.array([[float(v) for v in r[1:]] for r in rows[1:]])
@@ -5570,22 +5889,22 @@ def _check_ep(root: str, train_cli: str, ep_args: list, ep_out: str,
             "launches": {k: runs[0]["launches"][k] for k in want}}
 
 
-def _check_sp(root: str, train_cli: str, ring_args: list, sp_out: str,
-              ring_out: str, reports: list) -> dict:
+def _check_sp(root: str, sp_out: str, ring_out: str,
+              reports: list) -> dict:
     """Phase dist's sequence-parallel checks on the gloo launch's reports
     (`reports`: each rank's cli.vit_train --sp_devices 2, one epoch of the
     tp run's data; each rank's --sp_devices 2 --sp_ring, one epoch of the
     small ImageFolder; each rank's _sp_check). Each run against one
     process: the gather run against the epoch-0 row and checkpoint of
-    _check_tp's one-process run (losses within TP_LOSS_RTOL, accuracy
-    DIST_ACC_ATOL, parameters DIST_PARAM_RTOL, momentum SP_MOMENTUM_RTOL),
-    the ring run against the same invocation in one process, here (its
+    phase dist's one-process run "tp_one" (losses within TP_LOSS_RTOL,
+    accuracy DIST_ACC_ATOL, parameters DIST_PARAM_RTOL, momentum
+    SP_MOMENTUM_RTOL), the ring run against the same invocation in one
+    process, "ring_one" (its
     rows within TP_LOSS_RTOL and SP_ACC_ATOL, its trees within
     DIST_PARAM_RTOL and TP_MOMENTUM_RTOL); the momentum leaves furthest
     apart printed. 12 / 12 flash3 launches a step in the gather form and
     none in the ring's; each form's block within SP_BLOCK_RTOL of the whole
     plain block; the gather's bf16 gradient sum equal to the f32 sum."""
-    import importlib
     gather_runs, ring_runs, checks = reports
     want = {"gather": {"flash3_fwd": 12 * (SP_STEPS + SP_VAL_BATCHES),
                        "flash3_bwd": 12 * SP_STEPS},
@@ -5595,8 +5914,6 @@ def _check_sp(root: str, train_cli: str, ring_args: list, sp_out: str,
     block_want = {"gather": {"flash3_fwd": 1, "flash3_bwd": 1},
                   "ring": {"flash3_fwd": 0, "flash3_bwd": 0}}
     one = os.path.join(root, "ring_one")
-    _cli(importlib.import_module(train_cli).main,
-         ring_args + ["--output_dir", one], os.path.join(root, "ring_one.log"))
     refs = {"gather": (os.path.join(root, "tp_one"), "checkpoint_epoch_000.pth",
                        SP_MOMENTUM_RTOL, DIST_ACC_ATOL),
             "ring": (one, "checkpoint_latest.pth", TP_MOMENTUM_RTOL,
@@ -5698,6 +6015,134 @@ def _check_sp(root: str, train_cli: str, ring_args: list, sp_out: str,
     res["launches"] = {k: gather_runs[0]["launches"][k]
                        for k in ("flash3_fwd", "flash3_bwd")}
     return res
+
+
+def _check_pp(root: str, pp_out: str, reports: list) -> dict:
+    """Phase dist's pipeline checks on the gloo launch's reports
+    (`reports`: each rank's cli.vit_train --pp_stages 2 --pp_micro 4, one
+    epoch of the sp ring run's ImageFolder; each rank's _pp_check). The
+    run against the same invocation in one process (_check_sp's ring_one):
+    its rows within TP_LOSS_RTOL and SP_ACC_ATOL, its flat checkpoint,
+    read by the one-process loader, within DIST_PARAM_RTOL and
+    TP_MOMENTUM_RTOL; its epoch 0 and ring_one's each resumed for a second
+    epoch in one process ("pp_resumed", "ring_e2"), the epoch-1 rows
+    within the same bounds of each other. 6 x 4 flash3_fwd and flash3_bwd a rank a step (the bubble
+    skipped), at [16, 197, 2304]; pp_check's forward and gradients within
+    PP_LOGITS_RTOL and PP_GRAD_RTOL of the whole model's, and each planted
+    fault above its bound."""
+    from vit_project_torch.ckpt import vit_ckpt
+    from vit_project_torch.models import vit as vvit
+    from vit_project_torch.train import vit_loop
+    runs, checks = reports
+    per_step = {"flash3_fwd": 12 // PP_STAGES * PP_MICRO,
+                "flash3_bwd": 12 // PP_STAGES * PP_MICRO}
+    want = {"flash3_fwd": per_step["flash3_fwd"] * (SP_RING_STEPS
+                                                    + SP_RING_VAL_BATCHES),
+            "flash3_bwd": per_step["flash3_bwd"] * SP_RING_STEPS}
+    problems = []
+    for rep in runs:
+        got = {k: v for k, v in rep["launches"].items() if v}
+        if rep["backend"] != "gloo" or got != want:
+            problems.append(f"pp rank {rep['rank']}: backend "
+                            f"{rep['backend']}, launches {got}, want {want}")
+    one = os.path.join(root, "ring_one")
+    rows = _read_rows(os.path.join(pp_out, "training_metrics.csv"))
+    one_rows = _read_rows(os.path.join(one, "training_metrics.csv"))
+
+    def against(got_rows, ref_rows):
+        got = np.array([[float(v) for v in r[1:]] for r in got_rows[1:]])
+        ref = np.array([[float(v) for v in r[1:]] for r in ref_rows[1:]])
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            fail(f"[dist] pp rows {got_rows} against {ref_rows}")
+        return (float(np.abs(got[:, :2] / ref[:, :2] - 1).max()),
+                float(np.abs(got[:, 2] - ref[:, 2]).max()))
+    loss_rel, acc_diff = against(rows, one_rows)
+    trees, one_trees = _ckpt_trees(pp_out), _ckpt_trees(one)
+    tree_rel = [_rel_tree_diff(a, b) for a, b in zip(trees, one_trees)]
+    worst = _worst_leaves(trees[1], one_trees[1])
+    # the one-process loader takes the flat checkpoint whole (strict)
+    vit_cfg = vvit.VIT_CONFIGS["vit_base_patch16_224"]
+    ck = vit_ckpt.load_checkpoint(os.path.join(pp_out,
+                                               "checkpoint_latest.pth"))
+    vit_loop.load_trees(vvit.empty_vit(vit_cfg, "cpu"), ck["params"])
+    del trees, one_trees, ck
+    # a second epoch in one process from pp's epoch 0 and from ring_one's
+    res_rows, e2_rows = (_read_rows(os.path.join(
+        root, name, "training_metrics.csv"))
+        for name in ("pp_resumed", "ring_e2"))
+    res_loss, res_acc = against(res_rows[:1] + res_rows[2:],
+                                e2_rows[:1] + e2_rows[2:])
+    block_gib = checks[0]["held"]["whole_gib"] - checks[0]["held"][
+        "staged_gib"]
+    step_ms = [statistics.mean(c["step_ms"]) for c in checks]
+    print(f"[dist] pp 2 stages x 1 data shard, gloo, one card "
+          f"(cli.vit_train --pp_stages {PP_STAGES} --pp_micro {PP_MICRO}, "
+          f"batch {TP_BATCH}, blocks 0-5 / 6-11): {runs[0]['s']:.1f} s for "
+          f"{SP_RING_STEPS} steps and {SP_RING_VAL_BATCHES} validation "
+          f"batch, peak " + " / ".join(f"{r['peak_gib']:.2f}" for r in runs)
+          + f" GiB a rank, launches a rank flash3_fwd "
+          f"{runs[0]['launches']['flash3_fwd']} flash3_bwd "
+          f"{runs[0]['launches']['flash3_bwd']} (want {want}); rows "
+          + "; ".join(",".join(r) for r in rows[1:])
+          + f"; against one process: losses {loss_rel:.3e} relative, "
+          f"accuracy {acc_diff:.3f} points, parameters {tree_rel[0]:.3e} / "
+          f"momentum {tree_rel[1]:.3e} of their largest (bounds "
+          f"{TP_LOSS_RTOL}, {SP_ACC_ATOL:.3f}, {DIST_PARAM_RTOL}, "
+          f"{TP_MOMENTUM_RTOL}; the momentum leaves furthest apart: "
+          + ", ".join(f"{n} {v:.3e}" for n, v in worst)
+          + f"); the flat checkpoint loads whole in one process; epoch 0 "
+          f"resumed in one process against one process's own epoch 1: "
+          f"losses {res_loss:.3e}, accuracy {res_acc:.3f}", flush=True)
+    print(f"[dist] pp_check (batch {TP_BATCH}, {PP_MICRO} microbatches): "
+          + "; ".join(
+              f"rank {r} (stage {c['stage']}) forward "
+              f"{c['forward']['launches']}, logits "
+              f"{c['forward']['logits_rel']:.3e}, step "
+              f"{c['step']['launches']}, gradients of {c['step']['leaves']} "
+              f"leaves {c['step']['grad_rel']:.3e}; faults: zeros hopped "
+              f"back {c['fault_zero_hop_grad_rel']:.3e}, microbatches "
+              f"reversed {c['fault_order_logits_rel']:.3e}; qkv "
+              f"{c['qkv_shapes']}; ms a step "
+              f"{statistics.mean(c['step_ms']):.2f}"
+              f" ({', '.join(f'{t:.2f}' for t in c['step_ms'])}), a step's "
+              f"peak over {c['resident_gib']:.2f} GiB resident "
+              f"{c['step_peak_gib']:.2f} GiB"
+              for r, c in enumerate(checks))
+          + f" (bounds ||err||/||ref|| {PP_LOGITS_RTOL}, {PP_GRAD_RTOL}); "
+          f"parameters held whole {checks[0]['held']['whole_gib']:.3f} GiB, "
+          f"staged {checks[0]['held']['staged_gib']:.3f} GiB (the other "
+          f"stage's blocks {block_gib:.3f} GiB, with their momentum "
+          f"{2 * block_gib:.3f}); {smi_line()}", flush=True)
+    if not (max(loss_rel, res_loss) <= TP_LOSS_RTOL
+            and max(acc_diff, res_acc) <= SP_ACC_ATOL
+            and tree_rel[0] <= DIST_PARAM_RTOL
+            and tree_rel[1] <= TP_MOMENTUM_RTOL):
+        problems.append(f"pp outside the tolerance of one process: losses "
+                        f"{loss_rel} / {res_loss}, accuracy {acc_diff} / "
+                        f"{res_acc}, trees {tree_rel}")
+    for c in checks:
+        if c["forward"]["launches"] != {"flash3_fwd": per_step["flash3_fwd"],
+                                        "flash3_bwd": 0} \
+                or c["step"]["launches"] != per_step \
+                or c["qkv_shapes"] != [[TP_BATCH // PP_MICRO, 197, 2304]]:
+            problems.append(f"pp_check launches or shapes: {c}")
+        if not (c["forward"]["logits_rel"] <= PP_LOGITS_RTOL
+                and c["step"]["grad_rel"] <= PP_GRAD_RTOL):
+            problems.append(f"pp_check outside its bounds: {c}")
+    if max(c["fault_zero_hop_grad_rel"] for c in checks) <= PP_GRAD_RTOL \
+            or min(c["fault_order_logits_rel"]
+                   for c in checks) <= PP_LOGITS_RTOL:
+        problems.append("a planted pipeline fault reads within the bounds: "
+                        + str([(c["fault_zero_hop_grad_rel"],
+                                c["fault_order_logits_rel"])
+                               for c in checks]))
+    if problems:
+        fail("[dist] " + "; ".join(problems))
+    return {"runs": runs, "checks": checks, "rows": rows[1:],
+            "loss_rel": loss_rel, "acc_diff": acc_diff, "tree_rel": tree_rel,
+            "worst_momentum": worst, "resumed_loss_rel": res_loss,
+            "resumed_acc_diff": res_acc, "step_ms": step_ms,
+            "launches": {k: runs[0]["launches"][k] for k in want}}
 
 
 CLIP_DIST_EPOCHS = 2
@@ -5914,28 +6359,36 @@ def phase_clip_dist(tmp: str):
     sweep_cli_name = "vit_project_torch.cli.sweep"
     runs, files, rows, epoch_s = {}, {}, {}, {}
     forks, resumed = {}, {}
+    def chain_of(name):
+        argv = [*args, "--output_dir", os.path.join(root, name)]
+        res_out = os.path.join(root, f"resumed_{name}")
+        if name == "gloo2":
+            return ["--gloo", base_cli, *argv, "--device", "cuda:0",
+                    "--then", sweep_cli_name, *resumed_argv(res_out),
+                    "--device", "cuda:0", "--then", base_cli,
+                    *sp_argv(os.path.join(root, "sp_gather")),
+                    "--device", "cuda:0", "--sp_devices", "2", "--then",
+                    base_cli, *sp_argv(os.path.join(root, "sp_ring")),
+                    "--device", "cuda:0", "--sp_devices", "2",
+                    "--sp_ring", "--then", "clip_sp_check", fx["wpath"]]
+        return [base_cli, *argv, "--then", sweep_cli_name,
+                *forks_argv(os.path.join(root, "forks_dp1")), "--then",
+                sweep_cli_name, *resumed_argv(res_out), "--then",
+                "clip_step_ms", fx["wpath"]]
+    jobs = {}
     for name, nproc in (("alone", 0), ("dp1", 1), ("gloo2", 2)):
         out = os.path.join(root, name)
-        argv = [*args, "--output_dir", out]
-        res_out = os.path.join(root, f"resumed_{name}")
         if nproc == 0:
-            reps = [_alone(name, baseline_cli.main, argv, root)]
+            reps = [_alone(name, baseline_cli.main,
+                           [*args, "--output_dir", out], root)]
             text = reps[0].pop("text")
+            # both launches read the run alone's adapters: they start now
+            # and run side by side (each counts its own launches)
+            for other, n in (("dp1", 1), ("gloo2", 2)):
+                jobs[other] = _dist_start(root, other, chain_of(other),
+                                          nproc=n)
         else:
-            chain = (["--gloo", base_cli, *argv, "--device", "cuda:0",
-                      "--then", sweep_cli_name, *resumed_argv(res_out),
-                      "--device", "cuda:0", "--then", base_cli,
-                      *sp_argv(os.path.join(root, "sp_gather")),
-                      "--device", "cuda:0", "--sp_devices", "2", "--then",
-                      base_cli, *sp_argv(os.path.join(root, "sp_ring")),
-                      "--device", "cuda:0", "--sp_devices", "2",
-                      "--sp_ring", "--then", "clip_sp_check", fx["wpath"]]
-                     if nproc == 2 else
-                     [base_cli, *argv, "--then", sweep_cli_name,
-                      *forks_argv(os.path.join(root, "forks_dp1")), "--then",
-                      sweep_cli_name, *resumed_argv(res_out), "--then",
-                      "clip_step_ms", fx["wpath"]])
-            reps = _dist_run(root, name, chain, nproc=nproc)
+            reps = _dist_collect(jobs[name])
             if nproc == 1:
                 forks["forks_dp1"], res, tm = reps[0].pop("then")
                 resumed[name] = [res]
@@ -6601,12 +7054,15 @@ def main(argv=None) -> int:
             moe_launches = timed("moe", phase_moe, tmp)
         if "vit_grid" in phases:
             grid_launches = timed("vit_grid", phase_vit_grid, tmp)
+        # phase dist's first process runs beside serve_vit and serve_rn
+        dist_pre = _dist_prelude(tmp) if "dist" in phases else None
         if "serve_vit" in phases:
             serve_vit_launches = timed("serve_vit", phase_serve_vit, tmp)
         if "serve_rn" in phases:
             serve_rn_launches = timed("serve_rn", phase_serve_rn, tmp)
+        dist_finish = None
         if "dist" in phases:
-            dist_launches = timed("dist", phase_dist, tmp)
+            dist_finish = timed("dist", phase_dist, tmp, dist_pre)
         if "clip_dist" in phases:
             clip_dist_launches = timed("clip_dist", phase_clip_dist, tmp)
         if "sweep" in phases or "forks" in phases:
@@ -6614,9 +7070,13 @@ def main(argv=None) -> int:
             if "forks" in phases:
                 forks_launches = timed("forks", phase_forks, ctx)
             del ctx
+        if dist_finish is not None:
+            dist_launches = timed("dist_gloo", dist_finish)
         _CLIP_FIXTURE.clear()
         torch.cuda.empty_cache()
     finally:
+        for job in list(_BACKGROUND):
+            _dist_stop(job)
         shutil.rmtree(tmp, ignore_errors=True)
 
     def row_of(kernel, case):
@@ -6649,6 +7109,9 @@ def main(argv=None) -> int:
 
     def dist_sp(name):
         return dist_launches and dist_launches["sp"][name]
+
+    def dist_pp(name):
+        return dist_launches and dist_launches["pp"][name]
 
     def clip_sp(name):
         return clip_dist_launches and clip_dist_launches["sp"][name]
@@ -6686,6 +7149,7 @@ def main(argv=None) -> int:
                "dist_tp": dist_tp("flash3_fwd"), "moe": moe("flash3_fwd"),
                "dist_ep": dist_ep("flash3_fwd"),
                "dist_sp": dist_sp("flash3_fwd"),
+               "dist_pp": dist_pp("flash3_fwd"),
                "clip_dist": clip_dist("flash3_fwd"),
                "clip_dist_sp": clip_sp("flash3_fwd"),
                "profile": profile("flash3_fwd"),
@@ -6705,6 +7169,7 @@ def main(argv=None) -> int:
                "dist_tp": dist_tp("flash3_bwd"), "moe": moe("flash3_bwd"),
                "dist_ep": dist_ep("flash3_bwd"),
                "dist_sp": dist_sp("flash3_bwd"),
+               "dist_pp": dist_pp("flash3_bwd"),
                "clip_dist": clip_dist("flash3_bwd"),
                "clip_dist_sp": clip_sp("flash3_bwd"),
                "profile": profile("flash3_bwd")},

@@ -716,13 +716,14 @@ def test_local_rows_refuses_a_ragged_batch():
 
 def test_fork_devices_clamp_like_jax(monkeypatch, capsys):
     """min(requested, this host's cards, the group's forks): one device
-    runs as today and says so; more than one raises, naming the slice."""
+    runs as today and says so; more than one raises: not ported."""
     assert tmf.make_fork_mesh(1, 8) is None
     assert tmf.make_fork_mesh(4, 8) is None          # no card here
     assert "Fork axis on 1 device (requested 4)" in capsys.readouterr().out
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
     assert tmf.make_fork_mesh(4, 1) is None          # one fork in the group
-    with pytest.raises(NotImplementedError, match="port slice 9b"):
+    with pytest.raises(NotImplementedError,
+                       match="fork axis over several cards is not ported"):
         tmf.make_fork_mesh(4, 3)
 
     class Mesh:

@@ -485,17 +485,17 @@ def test_ordered_allgather_interleaves_the_strided_shards(ranks):
 # -- parallel/mesh.py ---------------------------------------------------------
 
 def test_make_mesh_refuses_the_later_axes():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tmesh.make_mesh(n_stage=2)
-    # the model and expert axes are ported (tests/test_torch_tp.py,
-    # tests/test_torch_ep.py); each must divide the ranks, and only one may
-    # be > 1, in JAX's words
-    for axis in ("model", "expert"):
+    # the model, stage and expert axes are ported (tests/test_torch_tp.py,
+    # tests/test_torch_pp.py, tests/test_torch_ep.py); each must divide the
+    # ranks, and only one may be > 1, in JAX's words
+    for axis in ("model", "stage", "expert"):
         with pytest.raises(ValueError, match=rf"{axis} axis \(2\) must divide "
                                              r"the device count \(1\)"):
             tmesh.make_mesh(**{f"n_{axis}": 2})
     with pytest.raises(ValueError, match="at most one"):
         tmesh.make_mesh(n_model=2, n_expert=2)
+    with pytest.raises(ValueError, match="at most one"):
+        tmesh.make_mesh(n_model=2, n_stage=2)
 
 
 @pytest.mark.parametrize("shape", [(8,), (12,), (16, 3), (24, 5, 2), (6, 4),

@@ -612,28 +612,26 @@ def test_cli_profile_dir_writes_a_trace_of_the_first_epoch(imagenet,
 
 # the modes ported since these cases were written, and what each now does
 # in JAX's words: ep without a MoE model, a train config whose expert count
-# disagrees with the explicit (dense) model config, sp in one process (its
-# axis is the ranks of a process group) and sp_ring without sp
+# disagrees with the explicit (dense) model config, sp and pp in one process
+# (their axes are the ranks of a process group) and sp_ring without sp
 PORTED_MODES = {"ep_devices": "ep_devices > 1 needs a MoE model",
                 "moe_experts": "moe_experts disagrees",
                 "sp_devices": "launch with torchrun",
-                "sp_ring": "sp_ring needs sp_devices > 1"}
+                "sp_ring": "sp_ring needs sp_devices > 1",
+                "pp_stages": "launch with torchrun"}
 
 
 @pytest.mark.parametrize("field,value", [
     ("pp_stages", 2), ("sp_devices", 2), ("sp_ring", True), ("ep_devices", 2),
     ("pp_stages", 4), ("moe_experts", 4)])
 def test_unported_modes_are_refused_by_name(imagenet, tmp_path, field, value):
-    """The unported modes raise by name; the ported ep, MoE and sp fields
-    (tests/test_torch_moe.py, tests/test_torch_ep.py, tests/test_torch_sp.py)
-    raise JAX's refusals of these configurations instead."""
+    """Every mode these cases were written for is ported now: the ep, MoE,
+    sp and pp fields (tests/test_torch_moe.py, tests/test_torch_ep.py,
+    tests/test_torch_sp.py, tests/test_torch_pp.py) raise JAX's refusals of
+    these configurations in one process."""
     cfg = dataclasses.replace(_tiny(TTrainConfig, imagenet,
                                     str(tmp_path / "x")), **{field: value})
-    if field in PORTED_MODES:
-        with pytest.raises(ValueError, match=PORTED_MODES[field]):
-            tloop.run_vit_training(cfg, vit_cfg=TTINY, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match=field):
+    with pytest.raises(ValueError, match=PORTED_MODES[field]):
         tloop.run_vit_training(cfg, vit_cfg=TTINY, device="cpu")
 
 

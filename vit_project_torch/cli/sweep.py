@@ -24,7 +24,7 @@ the order, each pinned to one card through `--worker_device_env`.
 (train/multi_fork.py): one setup for every group, one step on R*64 rows.
 `--fork_devices N` is clamped to this host's cards and the group (JAX's
 make_fork_mesh): on one card the groups run as without it; the fork axis
-over several cards comes with a later slice of the port and raises.
+over several cards is not ported and raises.
 
 Under torchrun (one rank per GPU; `--device cpu` takes gloo) each run
 trains data-parallel over the ranks, and `--batched_forks` runs every group

@@ -12,10 +12,10 @@ tensor parallelism; the ranks of a group read the same data); with
 --ep_devices E shards them over expert groups of E consecutive ranks;
 --sp_devices N shards each image's tokens over model groups of N
 consecutive ranks (sequence parallelism: the gather form on the flash
-kernels, or ring attention with --sp_ring). --batch_size is the global
-batch. The JAX CLI's pipeline flags (--pp_stages, --pp_micro) are not
-ported yet: accepted, and refused by the training loop at any value but
-their default. --fused_dw
+kernels, or ring attention with --sp_ring); --pp_stages S splits the
+blocks over stage groups of S consecutive ranks (GPipe pipeline
+parallelism, --pp_micro M microbatches a step; a stage group reads one data
+shard). --batch_size is the global batch. --fused_dw
 (no JAX flag; JAX's ViTTrainConfig field) routes the dense layers' dW and
 db through the fused kernel, one process only. --profile_dir writes a
 torch.profiler trace of the first epoch. Exits 143 when a SIGTERM stopped
@@ -33,6 +33,9 @@ the run (run it again to resume).
   torchrun --nproc_per_node 2 -m vit_project_torch.cli.vit_train \\
       --data_path imagenet/ --output_dir runs/vit_sp --sp_devices 2 \\
       [--sp_ring]
+  torchrun --nproc_per_node 2 -m vit_project_torch.cli.vit_train \\
+      --data_path imagenet/ --output_dir runs/vit_pp --pp_stages 2 \\
+      --pp_micro 4
 """
 from __future__ import annotations
 
@@ -80,9 +83,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "FLOPs) — for batch sizes/models whose activations "
                         "outgrow device memory")
     p.add_argument("--pp_stages", type=int, default=1,
-                   help="pipeline stages (not ported yet)")
+                   help="partition the block depth over N pipeline stages "
+                        "of a ('data','stage') mesh (GPipe schedule, "
+                        "parallel/pipeline.py; under torchrun, N consecutive "
+                        "ranks a stage group); 1 = plain data parallelism")
     p.add_argument("--pp_micro", type=int, default=1,
-                   help="microbatches per pipelined step (not ported yet)")
+                   help="microbatches per pipelined step (with --pp_stages; "
+                        "bubble (S-1)/(M+S-1) — use >= 4*stages)")
     p.add_argument("--device_prefetch", type=int, default=2,
                    help="lookahead depth: copy batch k+1 to the card on a "
                         "feeder thread while batch k trains; 0 disables")

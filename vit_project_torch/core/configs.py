@@ -150,8 +150,10 @@ class ViTTrainConfig:
                          # activation memory for ~1/3 extra FLOPs
     fused_dw: bool = False  # route every dense backward with a bias through
                             # the fused dW+db kernel (ops/fused_dw.py)
-    pp_stages: int = 1   # pipeline stages (not ported yet)
-    pp_micro: int = 1    # microbatches per pipelined step (with pp_stages)
+    pp_stages: int = 1   # >1: GPipe pipeline over a ('data','stage') mesh —
+                         # block depth partitioned over pp_stages ranks
+    pp_micro: int = 1    # microbatches per pipelined step (bubble fraction
+                         # (S-1)/(M+S-1); use >= 4*pp_stages in production)
     grad_accum: int = 1  # >1: split each batch into N gradient microbatches
                          # in one step; peak activation memory drops to one
                          # microbatch's, numerically the unsplit step (CE is

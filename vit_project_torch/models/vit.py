@@ -38,9 +38,13 @@ training:
   the tanh GELU by default and a per-call ``fused_dw`` that routes every
   dense layer's weight and bias gradients through ``ops/fused_dw.py``;
 - ``vit_embed`` (patch embed with the input normalization folded in, CLS,
-  positions), ``vit_encode`` (blocks, final LayerNorm over all tokens, each
-  block optionally recomputed in the backward), ``vit_classify`` (f32
-  logits from the CLS token) and ``forward_features`` (CLS or mean pooling).
+  positions), ``vit_encode`` (``classifier_blocks``: the blocks, each
+  optionally recomputed in the backward; the final LayerNorm over all
+  tokens), ``vit_classify`` (``classifier_head``: f32 logits from the CLS
+  token) and ``forward_features`` (``pool_tokens``: CLS or mean pooling).
+  A pipeline stage (``parallel/pipeline.py``) runs the stem, a range of
+  the blocks, or ``vit_pool`` (the final LayerNorm and the pool) and the
+  head, on the same functions.
 
 Both block functions serve int8 weights (``ops/quant.py``, the JAX block's
 quantized branch): ONE packed int8 projection [B, S, 3D], its q lanes then
@@ -918,7 +922,6 @@ def vit_encode(model: VisionTransformerClassifier, images: torch.Tensor, *,
     cfg = model.cfg
     _seq_parallel_checks(cfg, seq_shard, ring_attn,
                          [b.attn.qkv.weight for b in model.blocks])
-    act = _activation(cfg)
     if tp is not None and fused_dw:
         raise ValueError("fused_dw is a single-chip path; disable it under "
                          "tensor parallelism")
@@ -931,23 +934,64 @@ def vit_encode(model: VisionTransformerClassifier, images: torch.Tensor, *,
     x, sp = _seq_parallel_enter(x, seq_shard, ring_attn)
     moe = dict(capacity_factor=cfg.moe_capacity, topk=cfg.moe_topk,
                groups=moe_groups)
+    out = classifier_blocks(model, x, remat=remat, with_aux=with_aux,
+                            fused_dw=fused_dw, tp=tp, moe=moe, sp=sp)
+    if with_aux:
+        x, aux_total = out
+    else:
+        x = out
+    out = _seq_parallel_exit(
+        vnn.layer_norm(x, model.norm.weight, model.norm.bias), sp)
+    return (out, aux_total) if with_aux else out
+
+
+def classifier_blocks(model: VisionTransformerClassifier, x: torch.Tensor,
+                      start: int = 0, stop: int | None = None, *,
+                      remat: bool = False, with_aux: bool = False, **kw):
+    """Blocks [start, stop) of the classifier on x [B, S, D], each through
+    its module call (``Block.forward``: ``classifier_block``, or its tp
+    form; `kw` are its keywords), each recomputed in the backward with
+    `remat`. With `with_aux`, (x, the blocks' summed MoE aux). The trunk of
+    ``vit_encode``, and a pipeline stage's blocks
+    (``parallel/pipeline.py``)."""
+    cfg = model.cfg
+    act = _activation(cfg)
     aux_total = _no_aux(x)
-    for blk in model.blocks:
-        kw = dict(act=act, fused_dw=fused_dw, tp=tp, with_aux=with_aux,
-                  moe=moe, sp=sp)
+    for blk in model.blocks[start:stop]:
         if remat and torch.is_grad_enabled():
             out = torch.utils.checkpoint.checkpoint(
-                blk, x, cfg.heads, use_reentrant=False, **kw)
+                blk, x, cfg.heads, use_reentrant=False, act=act,
+                with_aux=with_aux, **kw)
         else:
-            out = blk(x, cfg.heads, **kw)
+            out = blk(x, cfg.heads, act=act, with_aux=with_aux, **kw)
         if with_aux:
             x, aux = out
             aux_total = aux_total + aux
         else:
             x = out
-    out = _seq_parallel_exit(
-        vnn.layer_norm(x, model.norm.weight, model.norm.bias), sp)
-    return (out, aux_total) if with_aux else out
+    return (x, aux_total) if with_aux else x
+
+
+def pool_tokens(tokens: torch.Tensor, pool: str = "token") -> torch.Tensor:
+    """pool='token': the CLS token; 'avg': the mean of the patch tokens."""
+    if pool == "avg":
+        return tokens[:, 1:].mean(dim=1)
+    return tokens[:, 0]
+
+
+def vit_pool(model: VisionTransformerClassifier, x: torch.Tensor,
+             pool: str = "token") -> torch.Tensor:
+    """The last block's tokens x [B, S, D] -> the final LayerNorm over
+    every token, then ``pool_tokens``: the pooled features."""
+    return pool_tokens(vnn.layer_norm(x, model.norm.weight, model.norm.bias),
+                       pool)
+
+
+def classifier_head(model: VisionTransformerClassifier, feats: torch.Tensor,
+                    fused_dw: bool = False) -> torch.Tensor:
+    """f32 logits [B, num_classes] from the CLS features."""
+    return vnn.dense(feats, model.head.weight.t(), model.head.bias,
+                     fused_dw=fused_dw).float()
 
 
 def vit_classify(model: VisionTransformerClassifier, images: torch.Tensor, *,
@@ -961,8 +1005,7 @@ def vit_classify(model: VisionTransformerClassifier, images: torch.Tensor, *,
                         fused_dw=fused_dw, with_aux=with_aux, **parallel)
     if with_aux:
         tokens, aux = tokens
-    logits = vnn.dense(tokens[:, 0], model.head.weight.t(), model.head.bias,
-                       fused_dw=fused_dw).float()
+    logits = classifier_head(model, tokens[:, 0], fused_dw=fused_dw)
     return (logits, aux) if with_aux else logits
 
 
@@ -973,6 +1016,4 @@ def forward_features(model: VisionTransformerClassifier, images: torch.Tensor,
     is the CLS token, pool='avg' the mean of the patch tokens."""
     tokens = vit_encode(model, images, input_norm=input_norm,
                         compute_dtype=compute_dtype, **parallel)
-    if pool == "avg":
-        return tokens[:, 1:].mean(dim=1)
-    return tokens[:, 0]
+    return pool_tokens(tokens, pool)

@@ -1,3 +1,3 @@
 """Multi-process parallelism over ``torch.distributed``: the data, tensor,
-expert and sequence axes and ring attention (counterpart of the JAX
-package's parallel/)."""
+expert, sequence and stage axes, ring attention and the GPipe pipeline
+(counterpart of the JAX package's parallel/)."""

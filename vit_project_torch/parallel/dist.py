@@ -21,6 +21,12 @@ token shards along S, and ``ring_shift`` / ``RingHop``, the hop of ring
 attention (each rank sends to the next rank of the group and receives from
 the one before). Under gloo a card's tensors go through host buffers for
 both (the arithmetic stays on the card); NCCL takes them where they are.
+
+The pipeline's stage hop over a stage group (``parallel/pipeline.py``):
+``stage_send`` / ``stage_recv``, one microbatch's activations (or, going
+back, their gradient) from one stage rank to its neighbour, behind a tag
+the receiver checks, and ``broadcast_from``, the last stage's pooled
+features to the group. Through the host under gloo as well.
 """
 from __future__ import annotations
 
@@ -311,6 +317,59 @@ class RingHop(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ring_shift([g], ctx.seq, step=-1)[0], None
+
+
+_TAG_BYTES = 8
+
+
+def stage_send(t: torch.Tensor, group, to: int, tag: int):
+    """The stage hop's sending side: `t` to index `to` of `group`, behind
+    an int64 `tag` that ``stage_recv`` checks (a hop out of the schedule's
+    order fails loudly there instead of handing over the wrong tensor).
+    Posted, not awaited: returns the work and its buffer, which must live
+    until ``wait_sends``."""
+    payload = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    head = torch.tensor([tag], dtype=torch.int64).view(torch.uint8)
+    buf = torch.cat([head.to(payload.device), payload])
+    if _via_host(buf, group):
+        buf = buf.cpu()
+    return tdist.isend(buf, tdist.get_global_rank(group, to), group), buf
+
+
+def wait_sends(pending: list) -> None:
+    """Wait for every ``stage_send`` in `pending`, and empty it."""
+    for work, _ in pending:
+        work.wait()
+    pending.clear()
+
+
+def stage_recv(shape, dtype, device, group, frm: int,
+               tag: int) -> torch.Tensor:
+    """The stage hop's receiving side: a tensor of `shape` and `dtype` from
+    index `frm` of `group`, on `device`; raises unless it came with
+    `tag`."""
+    device = torch.device(device)
+    n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+    host = device.type == "cuda" and tdist.get_backend(group) == "gloo"
+    buf = torch.empty(_TAG_BYTES + n, dtype=torch.uint8,
+                      device="cpu" if host else device)
+    tdist.recv(buf, tdist.get_global_rank(group, frm), group)
+    got = int(buf[:_TAG_BYTES].view(torch.int64).item())
+    if got != tag:
+        raise RuntimeError(f"stage hop from index {frm}: tag {got} arrived "
+                           f"where the schedule expects {tag}")
+    return buf[_TAG_BYTES:].view(dtype).view(tuple(shape)).to(device)
+
+
+def broadcast_from(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """`t` of index `src` of `group` on every rank of it, in place (the
+    others' `t` is overwritten); through the host under gloo."""
+    host = _via_host(t, group)
+    buf = t.cpu() if host else t
+    tdist.broadcast(buf, tdist.get_global_rank(group, src), group)
+    if host:
+        t.copy_(buf)
+    return t
 
 
 def primary_values(values: list) -> list:

@@ -1,6 +1,6 @@
 """The device mesh and the sharding rules (counterpart of the parts of the
 JAX package's parallel/mesh.py that data, tensor, expert and sequence
-parallelism use).
+parallelism and the pipeline use).
 
 JAX drives a mesh from one process and places arrays on it; the port runs
 one process per card, and each rank holds its own share. So:
@@ -9,9 +9,9 @@ one process per card, and each rank holds its own share. So:
   of the default group (FSDP2 takes it); ``make_mesh(n_model=T)`` is JAX's
   2-D ``("data", "model")`` mesh of shape (W/T, T) over W ranks,
   row-major, so each model group is T consecutive ranks;
-  ``make_mesh(n_expert=ep)`` is ("data", "expert") the same way.
-  ``n_stage`` (the pipeline) raises: it comes with a later slice of the
-  port.
+  ``make_mesh(n_expert=ep)`` is ("data", "expert") the same way, and
+  ``make_mesh(n_stage=S)`` ("data", "stage") for the pipeline
+  (``parallel/pipeline.py``): each stage group is S consecutive ranks.
 - ``seq_sharding(mesh)`` is JAX's sequence-parallel layout as the port
   holds it: the model group, its size n and this rank's index
   (``SeqShard``), whose ``bounds(S)`` give the rank's tokens. The split is
@@ -62,18 +62,13 @@ from . import dist
 def make_mesh(n_data: int | None = None, n_model: int = 1, n_stage: int = 1,
               n_expert: int = 1, device_type: str | None = None):
     """A DeviceMesh over the default group's ranks (one device per rank):
-    ("data",) over all of them, or with `n_model` (`n_expert`) > 1
-    ("data", "model") (("data", "expert")) of shape (W / n, n). `n_data`,
-    when given, must be the data axis that leaves. `device_type` defaults
-    to where the default group's collectives run."""
+    ("data",) over all of them, or with `n_model` (`n_stage`, `n_expert`)
+    > 1 ("data", "model") (("data", "stage"), ("data", "expert")) of shape
+    (W / n, n). `n_data`, when given, must be the data axis that leaves.
+    `device_type` defaults to where the default group's collectives run."""
     from torch.distributed.device_mesh import init_device_mesh
-    if n_stage > 1:
-        raise NotImplementedError(
-            f"make_mesh(n_stage={n_stage}): the pipeline (port slice 9, "
-            f"item 13) is not ported to vit_project_torch yet; the port's "
-            f"mesh is ('data',), ('data', 'model') or ('data', 'expert')")
-    extra = [(a, n) for a, n in (("model", n_model), ("expert", n_expert))
-             if n > 1]
+    extra = [(a, n) for a, n in (("model", n_model), ("stage", n_stage),
+                                 ("expert", n_expert)) if n > 1]
     if len(extra) > 1:
         raise ValueError("at most one of n_model/n_stage/n_expert may be > 1 "
                          f"(got {[a for a, _ in extra]})")

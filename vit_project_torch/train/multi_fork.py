@@ -47,8 +47,8 @@ same program (its trainer has no data mesh here): the primary writes the
 CSVs and checkpoints, the early-stopping decisions read the primary's eval
 losses, and the ranks meet at a barrier after each lock-step's writes and
 at the collective polls. ``--fork_devices`` is clamped as JAX's
-``make_fork_mesh`` clamps it; the fork axis over several cards comes with
-a later slice of the port.
+``make_fork_mesh`` clamps it; the fork axis over several cards is not
+ported, and raises.
 """
 from __future__ import annotations
 
@@ -85,8 +85,7 @@ def make_fork_mesh(n_requested: int, n_items: int, logger=None):
         return None
     raise NotImplementedError(
         f"--fork_devices {n_requested} ({n} cards after the clamp): the "
-        f"fork axis over several cards is not ported yet: it comes with "
-        f"port slice 9b")
+        f"fork axis over several cards is not ported yet")
 
 
 def per_chip_forks(group_size: int, mesh=None) -> int:

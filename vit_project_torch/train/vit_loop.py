@@ -109,8 +109,24 @@ group. ``zero1`` splits the momentum over the data axis (JAX's
 ``grad_accum`` and ``remat`` compose as they do alone. Checkpoints are
 the flat layout.
 
+Pipeline parallelism, ``pp`` (``pp_stages`` = S > 1, ``pp_micro`` = M,
+under torchrun with W ranks): JAX's ("data", "stage") mesh of shape (W/S,
+S), row-major, so each stage group is S consecutive ranks. Each rank holds
+its stage's L/S blocks and their momentum and the rest whole
+(``parallel/pipeline.stage_model``; the other blocks are freed); a stage
+group reads one data shard (by the data rank, as tp) and runs the GPipe
+schedule on M microbatches of it, with its explicit backward
+(``parallel/pipeline.py``). The replicated leaves' gradients, the stem's
+on stage 0 and the final LayerNorm's and the head's on the last stage,
+are summed over the stage group with the loss (only the last stage has
+it), then every gradient is averaged over the data group. Validation pads
+each batch to a multiple of M (the pad counts for nothing), and the RSA
+rounds its chunk up to one. Checkpoints gather the blocks over the stage
+group into the flat layout (``parallel/pipeline.unstage_blocks``), so pp,
+dp, one process and the JAX package resume each other's files.
+
 ``fused_dw`` is refused with more than one process, as JAX refuses it on a
-multi-device mesh. The pipeline is not ported yet and is refused by name.
+multi-device mesh.
 """
 from __future__ import annotations
 
@@ -131,6 +147,7 @@ from ..ops import moe as vmoe
 from ..ops import rsa as vrsa
 from ..parallel import dist
 from ..parallel import mesh as vmesh
+from ..parallel import pipeline as vpp
 from ..perturb import injectors
 
 IMAGENET_NORM = (IMAGENET_MEAN, IMAGENET_STD)
@@ -138,24 +155,21 @@ IMAGENET_NORM = (IMAGENET_MEAN, IMAGENET_STD)
 # loader's label_table
 IMAGE_PERTURBATIONS = ("gaussian", "uniform_gray")
 
-# ViTTrainConfig fields whose features are not ported yet, with the value
-# that leaves them off
-_UNPORTED = (("pp_stages", 1),)
-
 
 def train_mode(cfg: ViTTrainConfig, grouped: bool,
                heads: int | None = None, moe: bool | None = None) -> str:
     """"single" (no process group), "dp", "zero1", "fsdp" (fsdp wins over
-    zero1: its shards hold the momentum too, as JAX's), "tp", "ep" or
-    "sp" (zero1 under sp is the trainer's ``zero1`` flag).
+    zero1: its shards hold the momentum too, as JAX's), "tp", "ep", "sp"
+    (zero1 under sp is the trainer's ``zero1`` flag) or "pp".
     Raises on the combinations JAX refuses (in its words; `heads`, when
     given, must divide over tp_devices; `moe`, whether the model has MoE
-    blocks, defaults to cfg.moe_experts > 0), before the refusal of what is
-    not ported."""
+    blocks, defaults to cfg.moe_experts > 0), and on a second mesh axis
+    without a process group."""
     moe = cfg.moe_experts > 0 if moe is None else moe
     sharded = cfg.zero1 or cfg.fsdp
     tp, ep, sp = cfg.tp_devices > 1, cfg.ep_devices > 1, cfg.sp_devices > 1
-    if sum((cfg.pp_stages > 1, sp, ep, tp)) > 1:
+    pp = cfg.pp_stages > 1
+    if sum((pp, sp, ep, tp)) > 1:
         raise ValueError("pp_stages / sp_devices / ep_devices / tp_devices "
                          "each need the whole second mesh axis; enable at "
                          "most one")
@@ -170,7 +184,7 @@ def train_mode(cfg: ViTTrainConfig, grouped: bool,
     if ep and not moe:
         raise ValueError("ep_devices > 1 needs a MoE model "
                          "(vit_cfg.moe_experts > 0)")
-    if cfg.pp_stages > 1 and moe:
+    if pp and moe:
         raise ValueError("MoE blocks are not supported on the pipeline "
                          "path (the GPipe schedule drops the aux loss)")
     if cfg.sp_ring and not sp:
@@ -183,7 +197,7 @@ def train_mode(cfg: ViTTrainConfig, grouped: bool,
             "capacity and pollute the aux loss (a second token-mixing "
             "channel) — use the gather sp path (sp_ring=False), which "
             "never pads")
-    if sharded and cfg.pp_stages > 1:
+    if sharded and pp:
         raise ValueError("zero1/fsdp shard over the 'data' axis of the dp "
                          "mesh; they do not compose with pp_stages")
     if sharded and ep:
@@ -203,7 +217,6 @@ def train_mode(cfg: ViTTrainConfig, grouped: bool,
             "fsdp does not compose with sp_devices: fsdp's attention "
             "pin is sequence-replicated and defeats the "
             "sequence-sharded attention path")
-    refuse_unported(cfg)
     if not grouped:
         if sharded:
             raise ValueError(
@@ -224,25 +237,20 @@ def train_mode(cfg: ViTTrainConfig, grouped: bool,
                 "sp_devices shards the tokens over the ranks of a process "
                 "group: launch with torchrun (--nproc_per_node sp_devices "
                 "or a multiple of it)")
+        if pp:
+            raise ValueError(
+                "pp_stages splits the blocks over the ranks of a process "
+                "group: launch with torchrun (--nproc_per_node pp_stages "
+                "or a multiple of it)")
         return "single"
     if cfg.fused_dw and dist.world_size() > 1:
         # JAX: the kernel has no GSPMD rule, so a sharded mesh would
         # all-gather its operands to one device
         raise ValueError("fused_dw is a single-chip path; disable it with "
                          f"{dist.world_size()} processes")
-    if tp or ep or sp:
-        return "tp" if tp else "ep" if ep else "sp"
+    if tp or ep or sp or pp:
+        return "tp" if tp else "ep" if ep else "sp" if sp else "pp"
     return "fsdp" if cfg.fsdp else "zero1" if cfg.zero1 else "dp"
-
-
-def refuse_unported(cfg: ViTTrainConfig) -> None:
-    for name, off in _UNPORTED:
-        value = getattr(cfg, name)
-        if value != off:
-            raise NotImplementedError(
-                f"ViTTrainConfig.{name}={value!r} is not ported to "
-                f"vit_project_torch yet (leave it at {off!r}, or run the "
-                f"JAX package)")
 
 
 def sgd_init(params: dict) -> dict:
@@ -290,12 +298,13 @@ class ViTTrainer:
         self.cfg = train_cfg
         self.model = model
         self.device = torch.device(device)
-        # the data axis: every rank, except under tp, ep and sp, where it
-        # is the mesh's "data" dimension (a model or expert group reads one
-        # shard)
+        # the data axis: every rank, except under tp, ep, sp and pp, where
+        # it is the mesh's "data" dimension (a model, expert or stage group
+        # reads one shard)
         self.n_data, self.data_rank, self.data_group = \
             self.world, self.rank, None
         self.tp_group = self.ep_group = self.seq_shard = None
+        self.mesh = self.stages = None
         self.ring = self.mode == "sp" and bool(train_cfg.sp_ring)
         self.zero1 = self.mode == "zero1" or (self.mode == "sp"
                                               and train_cfg.zero1)
@@ -326,6 +335,13 @@ class ViTTrainer:
                     owner, leaf = name.rsplit(".", 1)
                     setattr(model.get_submodule(owner), leaf,
                             torch.nn.Parameter(local[name]))
+        if self.mode == "pp":
+            self.mesh = vmesh.make_mesh(n_stage=train_cfg.pp_stages)
+            self.data_group = self.mesh.get_group("data")
+            self.n_data = self.world // train_cfg.pp_stages
+            self.data_rank = self.mesh.get_local_rank("data")
+            self.stages = vpp.stages_of(self.mesh)
+            vpp.stage_model(model, self.mesh)
         # where the MoE layers' rows and experts live (none: one process, or
         # a data axis of one without ep, where no collective runs)
         self.moe_groups = None
@@ -355,7 +371,12 @@ class ViTTrainer:
                with_aux: bool = False):
         """f32 logits of raw 0..255 images (the normalization folded into
         the patch matrix), or of normalized images with input_norm=None;
-        with `with_aux`, (logits, the MoE load-balance loss)."""
+        with `with_aux`, (logits, the MoE load-balance loss). Under pp the
+        pipelined forward, on every rank of the stage group."""
+        if self.mode == "pp":
+            return vpp.pipeline_classify(
+                self.model, images, self.mesh, n_micro=self.cfg.pp_micro,
+                input_norm=input_norm, compute_dtype=self.compute_dtype)
         return self.model(images, input_norm=input_norm,
                           compute_dtype=self.compute_dtype, remat=remat,
                           fused_dw=self.fused_dw, tp=self.tp_group,
@@ -430,6 +451,39 @@ class ViTTrainer:
             torch._foreach_div_(grads, G)
         return total / G, grads
 
+    def _pp_grads(self, images, labels, input_norm):
+        """Under pp: (the batch loss, every local leaf's gradient), the
+        replicated leaves' and the loss summed over the stage group (each
+        comes from one stage: ``parallel/pipeline.py``). With grad_accum =
+        G > 1 each of G chunks runs the pipeline and the sums are divided by
+        G, as ``batch_grads`` does."""
+        G = self.cfg.grad_accum
+        if images.shape[0] % G != 0:
+            raise ValueError(f"grad_accum ({G}) must divide the global batch "
+                             f"({images.shape[0]})")
+        total = torch.zeros((), dtype=torch.float32, device=images.device)
+        for img_g, lbl_g in zip(images.chunk(G), labels.chunk(G)):
+            total = total + vpp.pipeline_backward(
+                self.model, img_g, lbl_g, self.mesh,
+                n_micro=self.cfg.pp_micro, input_norm=input_norm,
+                compute_dtype=self.compute_dtype, remat=self.cfg.remat)
+        named = list(self.model.named_parameters())
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for _, p in named]
+        for _, p in named:
+            p.grad = None
+        whole = [g for (n, _), g in zip(named, grads)
+                 if not vpp.is_block_leaf(n)]
+        flat = dist.all_reduce_sum(torch.cat(
+            [g.reshape(-1) for g in whole] + [total.reshape(1)]),
+            self.stages.group)
+        for g, f in zip(whole, flat[:-1].split([g.numel() for g in whole])):
+            g.copy_(f.view_as(g))
+        total = flat[-1]
+        if G > 1:
+            torch._foreach_div_(grads, G)
+        return total / G, grads
+
     def _all_reduce_mean(self, grads: list) -> list:
         """The data axis's mean of every gradient: one all-reduce of them
         all, flattened, over the data group, then a division by its size.
@@ -452,36 +506,40 @@ class ViTTrainer:
     def shard_names(self) -> list:
         """The names of the leaves split over the second mesh axis: the
         tensor-parallel leaves (``mesh.TP_LEAVES``) under tp, the expert
-        leaves (``mesh.ep_layout``) under ep; none otherwise."""
-        layout = {"tp": vmesh.tp_layout, "ep": vmesh.ep_layout}.get(
-            self.mode)
+        leaves (``mesh.ep_layout``) under ep, the stage's block leaves under
+        pp; none otherwise."""
+        layout = {"tp": vmesh.tp_layout, "ep": vmesh.ep_layout,
+                  "pp": vpp.is_block_leaf}.get(self.mode)
         return [n for n, _ in self.model.named_parameters()
                 if layout and layout(n)]
 
     def check_replicas(self, momentum: dict) -> None:
-        """Under tp and ep, raise unless the data group's ranks hold equal
-        shards and the model (expert) group's equal whole leaves, of the
-        parameters and of `momentum` (the trainer's layout) alike. Under sp
-        every rank holds the parameters and the model group's ranks their
-        data rank's momentum."""
+        """Under tp, ep and pp, raise unless the data group's ranks hold
+        equal shards (pp: equal blocks) and the model (expert, stage)
+        group's equal whole leaves, of the parameters and of `momentum`
+        (the trainer's layout) alike. Under sp every rank holds the
+        parameters and the model group's ranks their data rank's
+        momentum."""
         if self.mode == "sp":
             dist.check_replicas_equal(list(self.model.parameters()),
                                       "parameters")
             dist.check_replicas_equal(list(momentum.values()), "momentum",
                                       self.seq_shard.group)
             return
-        if self.mode not in ("tp", "ep"):
+        if self.mode not in ("tp", "ep", "pp"):
             return
         split = set(self.shard_names())
-        what = ("tensor-parallel shards" if self.mode == "tp"
-                else "expert shards")
+        what = {"tp": "tensor-parallel shards", "ep": "expert shards",
+                "pp": "stage blocks"}[self.mode]
+        across = (self.stages.group if self.mode == "pp"
+                  else self.tp_group or self.ep_group)
         for st in (dict(self.model.named_parameters()), momentum):
             dist.check_replicas_equal(
                 [t for n, t in st.items() if n in split], what,
                 self.data_group)
             dist.check_replicas_equal(
                 [t for n, t in st.items() if n not in split], "whole leaves",
-                self.tp_group or self.ep_group)
+                across)
 
     def init_momentum(self, full: dict | None = None) -> dict:
         """The momentum in this mode's layout, from `full` (every leaf
@@ -489,8 +547,11 @@ class ViTTrainer:
         the data rank's rows of the leaves ``zero1_sharding`` splits under
         zero1 (sp's too); DTensors sharded as FSDP2 shards the parameters under
         fsdp; the model rank's shards of the tensor-parallel leaves under
-        tp; the expert rank's experts under ep."""
+        tp; the expert rank's experts under ep; the stage's blocks (and the
+        rest) under pp."""
         named = dict(self.model.named_parameters())
+        if self.mode == "pp" and full is not None:
+            return {n: full[n] for n in named}
         if self.mode == "tp" and full is not None:
             return vmesh.shard_vit_params_tp(full, self.cfg.tp_devices,
                                              self.model_rank)
@@ -525,8 +586,8 @@ class ViTTrainer:
     @torch.no_grad()
     def full_state(self, momentum: dict) -> tuple[dict, dict]:
         """(parameters, momentum) by name with every leaf whole, on the
-        device; a collective under zero1, fsdp, tp and ep, which every rank
-        makes (the checkpoint trees)."""
+        device; a collective under zero1, fsdp, tp, ep and pp, which every
+        rank makes (the checkpoint trees)."""
         self._reshard()
         named = dict(self.model.named_parameters())
         if self.mode == "fsdp":
@@ -534,6 +595,8 @@ class ViTTrainer:
                     {n: m.full_tensor() for n, m in momentum.items()})
         if self.mode in ("tp", "ep"):
             return self._unshard(named), self._unshard(momentum)
+        if self.mode == "pp":
+            return self._unstage(named), self._unstage(momentum)
         if not self.zero1:
             return named, momentum
         split = [n for n, p in named.items()
@@ -558,6 +621,16 @@ class ViTTrainer:
         return unshard([
             {**state, **{n: g[t] for n, g in zip(names, gathered)}}
             for t in range(len(gathered[0]))])
+
+    def _unstage(self, state: dict) -> dict:
+        """`state` (this stage's blocks and the rest) with every stage's
+        blocks gathered over the stage group into the flat layout
+        (``pipeline.unstage_blocks`` of the [S, L/S, ...] stacks)."""
+        rest, blocks = vpp.stage_blocks(state, 1)
+        leaves = list(blocks)
+        gathered = self._gather_rows([blocks[k][0] for k in leaves],
+                                     self.stages.group)
+        return vpp.unstage_blocks(rest, dict(zip(leaves, gathered)))
 
     def _gather_rows(self, shards: list, group=None) -> list:
         """Every rank's `shards` (equal shapes on the ranks of `group`, the
@@ -608,8 +681,10 @@ class ViTTrainer:
                 bufs = [momentum[n].to_local() for n, _ in named]
         else:
             params = [p for _, p in named]
-            loss, grads = self.batch_grads(params, images_u8, labels,
-                                           input_norm)
+            loss, grads = (
+                self._pp_grads(images_u8, labels, input_norm)
+                if self.mode == "pp" else
+                self.batch_grads(params, images_u8, labels, input_norm))
             # a data axis of one has nothing to sum, except sp's model group
             if self.n_data > 1 or self.mode == "sp":
                 grads = self._all_reduce_mean(list(grads))
@@ -665,7 +740,12 @@ class ViTTrainer:
     @torch.no_grad()
     def _feature_step(self, images_u8: torch.Tensor) -> torch.Tensor:
         """CLS embeddings (forward_features, pool='token') of raw 0..255
-        images, in the compute dtype."""
+        images, in the compute dtype (pipelined under pp)."""
+        if self.mode == "pp":
+            return vpp.pipeline_features(
+                self.model, images_u8, self.mesh, n_micro=self.cfg.pp_micro,
+                pool="token", input_norm=IMAGENET_NORM,
+                compute_dtype=self.compute_dtype)
         return self.model(images_u8, pool="token", input_norm=IMAGENET_NORM,
                           compute_dtype=self.compute_dtype, tp=self.tp_group,
                           moe_groups=self.moe_groups,
@@ -754,21 +834,26 @@ class ViTTrainer:
         """(val loss, val accuracy %) over the whole validation set: one sum
         and one count for both, summed over the data axis (each data rank
         validates its strided shard; the wrap padding that evens the shards
-        counts for nothing) and read once at the end."""
+        counts for nothing) and read once at the end. Under pp each batch is
+        padded to a multiple of pp_micro (JAX's padding to data x micro),
+        and the pad counts for nothing."""
         log = logger.info if logger else print
         sums = torch.zeros(3, dtype=torch.float32, device=self.device)
         n_set = loader.num_samples()
         shards = getattr(loader, "num_shards", 1)
+        unit = self.cfg.pp_micro if self.mode == "pp" else 1
         seen = 0
         for images_u8, labels in loader.epoch(0):
-            valid = None
+            keep = np.ones(len(labels), np.float32)
             if shards > 1:
                 pos = loader.shard_id + shards * (
                     seen + np.arange(len(labels)))
                 seen += len(labels)
-                if pos[-1] >= n_set:
-                    valid = torch.from_numpy(
-                        (pos < n_set).astype(np.float32)).to(self.device)
+                keep = (pos < n_set).astype(np.float32)
+            (images_u8, labels, keep), _ = vmesh.pad_to_multiple(
+                (images_u8, labels, keep), unit)
+            valid = None if keep.all() else \
+                torch.from_numpy(keep).to(self.device)
             ls, c, n = self.eval_counts(*self.place(images_u8, labels),
                                         valid=valid)
             sums += torch.stack([ls, c, torch.as_tensor(
@@ -794,18 +879,27 @@ class ViTTrainer:
         into dataset order over the data group
         (``parallel/dist.ordered_allgather_strided``), which fixes the
         reference's rank-order concatenation (measure...effect.py:327-334,
-        SURVEY.md section 0)."""
+        SURVEY.md section 0).
+
+        Under pp the chunk is rounded up to a multiple of pp_micro and the
+        ragged tail padded (the padded rows dropped), as JAX does."""
         n = len(things_images_u8)
         mine = things_images_u8
         if self.n_data > 1:
             per = -(-n // self.n_data)
             mine = things_images_u8[
                 np.arange(self.data_rank, self.n_data * per, self.n_data) % n]
+        if self.mode == "pp":
+            unit = self.cfg.pp_micro
+            batch_size = -(-batch_size // unit) * unit
         embs = []
         for s in range(0, len(mine), batch_size):
             chunk = np.ascontiguousarray(mine[s:s + batch_size])
+            real = len(chunk)
+            if self.mode == "pp":
+                chunk, _ = vmesh.pad_to_multiple(chunk, batch_size)
             embs.append(self._feature_step(
-                torch.from_numpy(chunk).to(self.device)))
+                torch.from_numpy(chunk).to(self.device))[:real])
         emb = torch.cat(embs)
         if self.n_data > 1:
             emb = dist.ordered_allgather_strided(emb, n, self.data_group)
@@ -840,8 +934,9 @@ def run_vit_training(cfg: ViTTrainConfig, logger=None,
     train_vit_sgd.py:246-371) on `device` (default: the card; under
     torchrun, the rank's card), data-parallel over the ranks torchrun
     launched (``parallel/dist.setup_distributed``; module docstring), or
-    tensor-parallel with ``tp_devices``, or expert-parallel with
-    ``ep_devices``.
+    tensor-parallel with ``tp_devices``, expert-parallel with
+    ``ep_devices``, sequence-parallel with ``sp_devices`` or pipelined with
+    ``pp_stages``.
 
     Preemption (cfg.preempt_save): a SIGTERM mid-epoch checkpoints {params,
     momentum, scheduler, epoch, batch_idx, running loss} to
@@ -879,10 +974,11 @@ def run_vit_training(cfg: ViTTrainConfig, logger=None,
         moe_topk=cfg.moe_topk, moe_capacity=cfg.moe_capacity)
     mode = train_mode(cfg, dist.is_initialized(), vit_cfg.heads,
                       vit_cfg.moe_experts > 0)
-    # the data axis: the ranks, or under tp and ep the mesh's "data"
-    # dimension
+    # the data axis: the ranks, or under tp, ep, sp and pp the mesh's
+    # "data" dimension
     n_data = proc_count // {"tp": cfg.tp_devices, "ep": cfg.ep_devices,
-                            "sp": cfg.sp_devices}.get(mode, 1)
+                            "sp": cfg.sp_devices,
+                            "pp": cfg.pp_stages}.get(mode, 1)
 
     log("=" * 60)
     log("ViT-Base ImageNet Training (SGD)")
@@ -894,6 +990,21 @@ def run_vit_training(cfg: ViTTrainConfig, logger=None,
                "ep": f"{cfg.ep_devices} expert",
                "sp": f"{cfg.sp_devices} sequence"
                + (" (ring attention)" if cfg.sp_ring else "")}[mode])
+    if mode == "pp":
+        log(f"Pipeline: {cfg.pp_stages} stages x {n_data} data shards, "
+            f"{cfg.pp_micro} microbatches (bubble {cfg.pp_stages - 1}/"
+            f"{cfg.pp_micro + cfg.pp_stages - 1})")
+        if cfg.batch_size % cfg.grad_accum != 0:
+            raise ValueError(f"global batch {cfg.batch_size} must divide by "
+                             f"grad_accum = {cfg.grad_accum}")
+        unit = n_data * cfg.pp_micro
+        # grad_accum splits the batch before it reaches the pipeline, so the
+        # per-accum-microbatch size is what the pipeline's split must divide
+        if (cfg.batch_size // cfg.grad_accum) % unit != 0:
+            raise ValueError(
+                f"per-grad-accum batch {cfg.batch_size}//{cfg.grad_accum} = "
+                f"{cfg.batch_size // cfg.grad_accum} must divide by "
+                f"data_shards*pp_micro = {unit}")
     if vit_cfg.moe_experts:
         log(f"MoE: {vit_cfg.moe_experts} experts every {vit_cfg.moe_every} "
             f"blocks, top-{vit_cfg.moe_topk}, capacity factor "
@@ -949,7 +1060,7 @@ def run_vit_training(cfg: ViTTrainConfig, logger=None,
     # the ranks build the parameters from one seed or one checkpoint (DDP
     # would broadcast rank 0's, FSDP2 shards whatever each rank holds)
     dist.check_replicas_equal(list(model.parameters()), "parameters")
-    trainer = ViTTrainer(vit_cfg, cfg, model, dev)   # fsdp, tp, ep shard it
+    trainer = ViTTrainer(vit_cfg, cfg, model, dev)  # fsdp, tp, ep, pp shard it
     momentum = trainer.init_momentum(momentum)
     trainer.check_replicas(momentum)
 
@@ -974,12 +1085,14 @@ def run_vit_training(cfg: ViTTrainConfig, logger=None,
 
     def save_trees():
         """The JAX-layout checkpoint trees: host copies (started beside
-        validation with host_prefetch) that the primary converts; every
-        rank takes part in the gathers of zero1, fsdp and tp."""
+        validation with host_prefetch, but not under pp, whose trees JAX
+        rebuilds after validation) that the primary converts; every rank
+        takes part in the gathers of zero1, fsdp, tp, ep and pp."""
         trees = trainer.full_state(momentum)
         if not dist.is_primary():
             return None
-        return (hostcopy.prefetch_to_host(*trees) if cfg.host_prefetch
+        return (hostcopy.prefetch_to_host(*trees)
+                if cfg.host_prefetch and mode != "pp"
                 else [hostcopy.HostCopy(tree) for tree in trees])
 
     def jax_trees(copies):
