@@ -701,15 +701,124 @@ def _ln_errors(got, ref, dname):
     return errs, rel, ok
 
 
+def _ptxas_kernels(log: str) -> dict:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
+    from nvcc's -Xptxas -v report (cuda_build keeps it beside the library)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(\w+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def _ln_ptxas(report: dict, kernel: str, D: int, dtype) -> dict:
+    """The ptxas entry of the LayerNorm template instance that `kernel`
+    (ln_fwd / ln_bwd) runs at width D and dtype (width_config's warps a row
+    and chunks a thread)."""
+    import torch
+    chunks = D // 8
+    wpr = 1 if chunks <= 128 else 2 if chunks <= 256 else 4
+    vpl = min(4, -(-chunks // 32))
+    t = "13__nv_bfloat16" if dtype == torch.bfloat16 else "f"
+    key = f"{kernel}_kernelI{t}Li{wpr}ELi{vpl}E"
+    return next((v for n, v in report.items() if key in n), {})
+
+
+def _ln_host_candidates(N: int = 5082, D: int = 768, calls: int = 2000):
+    """Host µs a call of each candidate piece of the LayerNorm wrappers' host
+    path, on the host clock over `calls` calls (nothing waits for the card):
+    the stream getters, the device context, the statistics' allocation, and
+    whole forward calls on 8 rows (the C entry alone, the wrapper,
+    F.layer_norm), whose kernels take less than their host time."""
+    import torch
+    from vit_project_torch.ops import layernorm as vln
+    import torch.nn.functional as F
+    dev = torch.device("cuda", 0)
+    stats = torch.empty(2 * N, 1, device=dev)
+    vec = stats[:1, 0]
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    # whole calls on 8 rows, where the card outruns the host: what the host
+    # pays a call, the C entry alone (its launch included) beside the wrapper
+    x8 = torch.randn(8, D, device=dev)
+    w8, b8 = torch.ones(D, device=dev), torch.zeros(D, device=dev)
+    y8, m8, r8 = (torch.empty_like(t) for t in vln.ln_fwd(x8, w8, b8))
+    entry = vln._entry("ln_fwd")
+    entry_args = (x8.data_ptr(), w8.data_ptr(), b8.data_ptr(), y8.data_ptr(),
+                  m8.data_ptr(), r8.data_ptr(), 8, D, 1e-5, 0, 0,
+                  vln._stream(0))
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+    cands = {
+        "current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "_cuda_getCurrentRawStream": raw and (lambda: raw(0)),
+        "with torch.cuda.device": device_context,
+        "empty(2, N, 1).unbind(0)": lambda: torch.empty(
+            2, N, 1, device=dev).unbind(0),
+        "empty(2N, 1) + 2 slices": lambda: (
+            lambda t: (t[:N], t[N:]))(torch.empty(2 * N, 1, device=dev)),
+        "empty(2N, 1).chunk(2)": lambda: torch.empty(
+            2 * N, 1, device=dev).chunk(2),
+        "2 x empty(N, 1)": lambda: (torch.empty(N, 1, device=dev),
+                                    torch.empty(N, 1, device=dev)),
+        "2 slices of a buffer": lambda: (stats[:N], stats[N:]),
+        "empty_like(x)": lambda: torch.empty_like(stats),
+        "_check": lambda: vln._check("ln_fwd", stats, vec, vec),
+        "ln_fwd C entry, 8 rows": lambda: entry(*entry_args),
+        "ln_fwd, 8 rows": lambda: vln.ln_fwd(x8, w8, b8),
+        "F.layer_norm, 8 rows": lambda: F.layer_norm(x8, (D,), w8, b8),
+    }
+    out = {}
+    for name, fn in cands.items():
+        if fn is None:
+            out[name] = None
+            continue
+        for _ in range(50):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out[name] = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    print("[kernel] LayerNorm host path, us a call: " + "; ".join(
+        f"{n} {v:.2f}" if v is not None else f"{n} n/a"
+        for n, v in out.items()), flush=True)
+    return out
+
+
 def phase_kernel_ln(peaks):
     """ln_fwd and ln_bwd against their plain versions at ln_cases(), in f32
     and bf16 with f32 scale and bias. The library yardstick is F.layer_norm
     on the same x, scale and bias (in x's dtype where it refuses f32
-    parameters beside bf16 x; the row says which), its backward alone."""
+    parameters beside bf16 x; the row says which), its backward alone.
+    Each row also gives host_ms (kernel_ms, CUDA events around back-to-back
+    calls, less the profiler's device_ms), the device events an ln_bwd call
+    makes (one kernel), the backward's partition
+    (bwd_schedule, held to the C source's ln_bwd_schedule, and the blocks
+    the card holds at once: the whole grid, so one cooperative launch) and
+    the kernel instance's registers and spills from the build's ptxas
+    report."""
     import torch
     import torch.nn.functional as F
+    from vit_project_torch.ops import cuda_build
     from vit_project_torch.ops import layernorm as vln
     rows = []
+    ptxas = _ptxas_kernels(cuda_build.build_log("layernorm"))
+    RESULTS["kernel_ln_host_us"] = _ln_host_candidates()
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         for label, B, S, D in ln_cases():
@@ -743,29 +852,67 @@ def phase_kernel_ln(peaks):
             xl, wl, bl = (t.detach().clone().requires_grad_(True)
                           for t in (x, w, b))
             yl = F.layer_norm(xl, (D,), wl, bl)
-            it = 20
+            it = 100
+
+            def in_turns(kernel, library):
+                """(kernel ms, library ms): CUDA events around `it` calls
+                each, in turns (kernel, library, library, kernel), means."""
+                k1, l1 = cuda_ms(kernel, it, 10), cuda_ms(library, it, 10)
+                l2, k2 = cuda_ms(library, it, 10), cuda_ms(kernel, it, 10)
+                return (k1 + k2) / 2, (l1 + l2) / 2
             with torch.no_grad():
+                fwd_ms, fwd_lib = in_turns(
+                    lambda: vln.ln_fwd(x, scale, bias),
+                    lambda: F.layer_norm(x, (D,), w, b))
                 fwd_times = {
-                    "ms": cuda_ms(lambda: vln.ln_fwd(x, scale, bias), it),
+                    "ms": fwd_ms,
                     "plain_ms": cuda_ms(lambda: vln.ln_fwd_reference(
                         x, scale, bias), 5),
-                    "library_ms": cuda_ms(lambda: F.layer_norm(
-                        x, (D,), w, b), it)}
-                bwd_times = {
-                    "ms": cuda_ms(lambda: vln.ln_bwd(x, scale, mean, rstd,
-                                                     dy), it),
-                    "plain_ms": cuda_ms(lambda: _ln_plain(
-                        vln, x, scale, bias, dy), 5)}
-            bwd_times["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-                yl, (xl, wl, bl), dy, retain_graph=True), it)
+                    "library_ms": fwd_lib}
+                bwd_times = {"plain_ms": cuda_ms(lambda: _ln_plain(
+                    vln, x, scale, bias, dy), 5)}
+            bwd_times["ms"], bwd_times["library_ms"] = in_turns(
+                lambda: vln.ln_bwd(x, scale, mean, rstd, dy),
+                lambda: torch.autograd.grad(yl, (xl, wl, bl), dy,
+                                            retain_graph=True))
             # device time alone (torch.profiler): where a call's host work
             # outlasts its kernels, the event times above measure the host
             for times, fn in (
                     (fwd_times, lambda: vln.ln_fwd(x, scale, bias)),
                     (bwd_times, lambda: vln.ln_bwd(x, scale, mean, rstd, dy))):
                 prof = _profile(fn, steps=10)
-                times["device_ms"] = prof and prof["device_ms_per_call"]
+                events = prof and prof["events_per_call"]
+                # the profiler may drop an event of the 10: each event's mean
+                # time, times its count a call (a whole number)
+                times["device_ms"] = prof and sum(
+                    e["ms"] / e["calls"] * round(e["calls"])
+                    for e in events.values() if e["calls"])
                 times["wall_ms"] = prof and prof["wall_ms_per_call"]
+                times["host_ms"] = prof and times["ms"] - times["device_ms"]
+                times["device_events_per_call"] = events
+            sch = vln.bwd_schedule(N, D, dtype)
+            if vln.native_bwd_schedule(N, D, dtype) != sch:
+                fail(f"ln_bwd {label} {dname}: the C source's schedule "
+                     f"{vln.native_bwd_schedule(N, D, dtype)} is not "
+                     f"bwd_schedule's {sch}")
+            events = bwd_times["device_events_per_call"] or {}
+            bwd_times["kernels_per_call"] = sum(
+                round(v["calls"]) for e, v in events.items()
+                if "Memset" not in e and "Memcpy" not in e)
+            bwd_times["memsets_per_call"] = sum(
+                round(v["calls"]) for e, v in events.items() if "Memset" in e)
+            bwd_times["partition"] = {"blocks": sch.blocks, "rows": sch.rows,
+                                      "last_rows": N - sch.rows * (
+                                          sch.blocks - 1),
+                                      "stages": sch.stages,
+                                      "smem_bytes": sch.smem,
+                                      "resident": vln.bwd_resident(D, dtype)}
+            if events and (bwd_times["kernels_per_call"] != 1
+                           or bwd_times["memsets_per_call"]):
+                fail(f"ln_bwd {label} {dname}: {events} device events a "
+                     f"call, expected one kernel")
+            for kernel, times in (("ln_fwd", fwd_times), ("ln_bwd", bwd_times)):
+                times["ptxas"] = _ln_ptxas(ptxas, kernel, D, dtype)
             isz = x.element_size()
             n_b = -(-N // vln.BLOCK_ROWS)
             for kernel, kerrs, times, nbytes, flops in (
@@ -793,7 +940,12 @@ def phase_kernel_ln(peaks):
                       f"{times['library_ms']:.4f} ({row['library_params_dtype']}"
                       f" parameters) device_ms {times['device_ms']} "
                       f"bound_ms {bound_ms:.4f} ({bound_by}: "
-                      f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)",
+                      f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) "
+                      f"host_ms {times['host_ms']} ptxas {times['ptxas']}"
+                      + (f" | {times['kernels_per_call']} kernel, "
+                         f"{times['memsets_per_call']} memset a call, "
+                         f"partition {times['partition']}"
+                         if kernel == "ln_bwd" else ""),
                       flush=True)
             del x, scale, bias, dy, mean, rstd, xl, wl, bl, yl, w, b
             torch.cuda.empty_cache()
@@ -2420,8 +2572,12 @@ def _profile(fn, steps: int = 3):
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups: dict = {}
     rest: dict = {}
-    for name, _, us in cli_profile.device_rows(prof.key_averages()):
+    events: dict = {}
+    for name, count, us in cli_profile.device_rows(prof.key_averages()):
         ms = us / 1e3 / steps
+        e = events.setdefault(name[:80], {"calls": 0.0, "ms": 0.0})
+        e["calls"] += count / steps
+        e["ms"] += ms
         group = _group_of(name)
         groups[group] = groups.get(group, 0.0) + ms
         if group in ("elementwise/reduce", "copies", "other"):
@@ -2432,7 +2588,8 @@ def _profile(fn, steps: int = 3):
     top = dict(sorted(rest.items(), key=lambda kv: -kv[1])[:6])
     return {"ms_per_call": groups, "top_other_ms": top,
             "device_ms_per_call": busy, "wall_ms_per_call": wall_ms / steps,
-            "idle_share": max(0.0, 1 - busy * steps / wall_ms)}
+            "idle_share": max(0.0, 1 - busy * steps / wall_ms),
+            "events_per_call": events}
 
 
 def phase_vit_train(tmp: str):
@@ -7032,7 +7189,9 @@ def main(argv=None) -> int:
             print(f"[timing] {name} {phase_s[name]:.1f} s (script "
                   f"{time.time() - t_script:.1f} s)", flush=True)
     timed("build", phase_build)
-    rows = timed("kernel", phase_kernel, peaks) if "kernel" in phases else []
+    rows = timed("kernel", phase_kernel, peaks) if "kernel" in phases else (
+        timed("kernel_ln", phase_kernel_ln, peaks) if "kernel_ln" in phases
+        else [])
     ops_launches = timed("ops", phase_ops) if "ops" in phases else None
     serve_launches = train_launches = vit_launches = sweep_launches = None
     forks_launches = grid_launches = serve_vit_launches = None

@@ -6,6 +6,8 @@ on a GPU host without JAX it runs without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -531,13 +533,93 @@ def _check_ln(x, scale, bias, dy):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 768, 1024])
-@pytest.mark.parametrize("N", [1, 255, 256, 257, 5082, 50432, 67584])
+@pytest.mark.parametrize("N", [1, 100, 255, 256, 257, 2111, 2112, 2113, 5082,
+                               16448, 50432, 67584])
 def test_ln_kernels_match_plain(cuda_device, N, D, dtype):
-    """Ragged last blocks (255, 257, 5,082 = 19 x 256 + 218 rows), a block
-    with one row, the ViT-B/16 step's 50,432 rows and 264 x 256 rows (the
-    backward's blocks of 32, 128 and 256 rows), and the widths of the tests
-    and the models."""
+    """The backward's partition (ops/layernorm.py bwd_schedule) at its
+    edges: one block of one row; fewer than 264 blocks (100, 255-257 rows);
+    264 x 8 rows (the least N at the cap of 264 blocks of 8) and one either
+    side; ragged last ranges (5,082: 255 blocks of 20, the last 2 rows;
+    16,448: 262 of 63, the last 5); the ViT-B/16 step's 50,432 rows and 264
+    x 256 (whole ranges); one run of 16 blocks and many. The widths of the
+    tests and the models."""
     _check_ln(*_ln_inputs(N, D, dtype, cuda_device, seed=N + D))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln_bwd_on_two_streams_at_once(cuda_device, dtype):
+    """Two backward calls queued on two streams at once, each with its own
+    scratch: both match the plain version, and each equals the same call
+    made alone bit for bit."""
+    from vit_project_torch.ops import layernorm as tln
+    cases = [_ln_inputs(16448, 1024, dtype, cuda_device, seed=11),
+             _ln_inputs(5082, 768, dtype, cuda_device, seed=12)]
+    stats = [tln.ln_fwd(x, s, b)[1:] for x, s, b, _ in cases]
+    alone = [tln.ln_bwd(x, s, m, r, dy)
+             for (x, s, _, dy), (m, r) in zip(cases, stats)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = [None, None]
+    for _ in range(3):           # repeated, so the two overlap on the card
+        for i, ((x, s, _, dy), (m, r)) in enumerate(zip(cases, stats)):
+            streams[i].wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(streams[i]):
+                got[i] = tln.ln_bwd(x, s, m, r, dy)
+        torch.cuda.synchronize()
+        for i, ((x, s, _, dy), (m, r)) in enumerate(zip(cases, stats)):
+            assert all(torch.equal(a, b) for a, b in zip(got[i], alone[i]))
+    for (x, s, _, dy), (m, r), (dx, dsc, dbi) in zip(cases, stats, got):
+        rdx, rsc, rbi = tln.ln_bwd_reference(x, s, m, r, dy)
+        bf16 = dtype == torch.bfloat16
+        assert float((dx.float() - rdx.float()).abs().max()) <= (
+            2 ** -7 if bf16 else 1e-5) * float(rdx.float().abs().max())
+        for g, p in ((dsc, rsc), (dbi, rbi)):
+            want = tln.sum_partials(p)
+            assert float((g - want).abs().max()) <= 1e-4 * float(
+                want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,D", [(1, 64), (5082, 768), (16448, 1024),
+                                 (50432, 768), (300, 4096)])
+def test_ln_bwd_two_kernel_path_gives_the_same_bits(cuda_device, N, D, dtype,
+                                                    monkeypatch):
+    """The path ln_bwd takes on a device that cannot hold its whole grid (a
+    plain launch, then ln_sum_parts_kernel; the C entry ln_bwd_split forces
+    it) equals the one cooperative launch bit for bit."""
+    from vit_project_torch.ops import cuda_build
+    from vit_project_torch.ops import layernorm as tln
+    x, scale, bias, dy = _ln_inputs(N, D, dtype, cuda_device, seed=N)
+    _, mean, rstd = tln.ln_fwd(x, scale, bias)
+    whole = tln.ln_bwd(x, scale, mean, rstd, dy)
+    split = cuda_build.load("layernorm").ln_bwd_split
+    split.argtypes, split.restype = tln._ARGTYPES["ln_bwd"], ctypes.c_int
+    real = tln._entry
+    monkeypatch.setattr(tln, "_entry",
+                        lambda name: split if name == "ln_bwd" else real(name))
+    two = tln.ln_bwd(x, scale, mean, rstd, dy)
+    assert all(torch.equal(a, b) for a, b in zip(whole, two))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln_bwd_schedule_of_the_source_is_the_python_mirror(cuda_device,
+                                                           dtype):
+    """The C entry ln_bwd_schedule (what the launch uses) equals
+    ops/layernorm.py bwd_schedule (what the wrapper sizes the scratch by),
+    and the card holds the whole grid at once, so the launch is the single
+    cooperative one (ln_bwd_resident blocks at least the cap)."""
+    from vit_project_torch.ops import layernorm as tln
+    for N in (1, 8, 9, 263, 2111, 2112, 2113, 5082, 16448, 50432, 10 ** 6):
+        for D in (8, 64, 768, 1024, 1032, 2048, 4096):
+            assert tln.native_bwd_schedule(N, D, dtype) == tln.bwd_schedule(
+                N, D, dtype), (N, D)
+    if "H100" in torch.cuda.get_device_name(0) and "PCIe" not in \
+            torch.cuda.get_device_name(0):
+        for D in (64, 768, 1024, 4096):
+            assert tln.bwd_resident(D, dtype) >= tln.BWD_MAX_BLOCKS, D
 
 
 @pytest.mark.cuda
