@@ -153,6 +153,17 @@
    ``--memory`` at batch 256 on the card (world size 1): the arguments
    equal to the parameter, momentum and batch bytes, and the allocator's
    peak;
+6g. phase `dryrun` (after profile): the port's compile check and
+   multi-rank dry run as a user calls them (cli/dryrun.py). ``entry()``
+   in this process: ViT-B/16's bf16 logits of 8 images, 12 flash3_fwd
+   launches, against the same call on the plain attention. Beside phases
+   moe and vit_grid: ``python -m vit_project_torch.cli.dryrun 4`` (4 gloo
+   ranks sharing the card and a one-process oracle: every mode's trainer
+   step at tiny widths, each loss within JAX's bounds, the flash3 launches
+   a rank) and ViT-B/16's FSDP2 parameters and momentum on two gloo ranks
+   through the sharded checkpoint and back, bit for bit, with the bytes a
+   rank wrote and the save's seconds against the gather-then-primary
+   `.pth` save in turns;
 6e. phase `clip_dist`: CLIP-HBA training across ranks as users launch it,
    at full width (ViT-L/14's widths with its image tower cut to
    CLIP_FIXTURE_BLOCKS of 24 blocks, rank-32 DoRA, bf16, batch 64, 2
@@ -316,7 +327,7 @@ LN_TOLERANCE = {"float32": {"dx": 1e-5, "dparams": 1e-4},
 SEED = 0
 RESULTS: dict = {}
 ALL_PHASES = ("kernel", "ops", "serve", "train", "vit_train", "profile",
-              "moe",
+              "dryrun", "moe",
               "vit_grid",
               "serve_vit", "serve_rn", "dist", "clip_dist", "sweep", "forks")
 
@@ -4604,6 +4615,8 @@ def _dist_worker(report: str, argv: list) -> int:
                 extra = _serve_mesh()
             elif module == "clip_sp_check":
                 extra = _clip_sp_check(args[0])
+            elif module == "sharded_ckpt":
+                extra = _sharded_ckpt_check(args[0])
             else:
                 result = importlib.import_module(module).main(args)
                 extra = {"result": result if isinstance(result, list)
@@ -7138,6 +7151,224 @@ def _dwdb_drift(steps: int, report_path: str | None = None) -> int:
     return 0 if report.get("step1_kernel_vs_f32") == "agree" else 1
 
 
+DRYRUN_N = 4              # the gloo ranks of the dry run, sharing the card
+DRYRUN_TIMEOUT = 600      # s the dry run's launches may take
+CKPT_BATCH = 16           # the step that fills the momentum before the round
+                          # trip (8 images a rank)
+
+
+def _sharded_ckpt_check(root: str) -> dict:
+    """Two gloo ranks sharing the card: ViT-B/16's FSDP2 parameters and
+    momentum after one step (bf16 compute, batch CKPT_BATCH) through the
+    sharded checkpoint (``vit_ckpt.save_checkpoint(sharded=True)``, every
+    rank its own shards) and back into zeroed DTensors of the same
+    placement (``load_checkpoint(template=)``), bit for bit; the bytes each
+    rank wrote against its shards' bytes; and the save's seconds against
+    the gather-then-primary `.pth` save of the same state (``full_state``,
+    the JAX-layout conversion, ``save_checkpoint`` on the primary, as
+    ``run_vit_training`` saves), in turns: sharded, gathered, gathered,
+    sharded."""
+    import torch
+    import torch.distributed as tdist
+    from torch.distributed.tensor import DTensor
+    from vit_project_torch.ckpt import vit_ckpt
+    from vit_project_torch.core.configs import ViTTrainConfig
+    from vit_project_torch.models import convert as vconvert
+    from vit_project_torch.models import vit as vvit
+    from vit_project_torch.train.vit_loop import ViTTrainer
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    rank, world = tdist.get_rank(), tdist.get_world_size()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = vvit.init_vit_params(vvit.empty_vit(vvit.VIT_B16, dev), gen)
+    trainer = ViTTrainer(vvit.VIT_B16, ViTTrainConfig(
+        batch_size=CKPT_BATCH, fsdp=True), model, dev)
+    momentum = trainer.init_momentum()
+    rs = np.random.RandomState(SEED)
+    images = rs.randint(0, 255, (CKPT_BATCH, 224, 224, 3), np.uint8)
+    labels = rs.randint(0, 1000, CKPT_BATCH)
+    trainer.step(momentum, *trainer.place(images[rank::world],
+                                          labels[rank::world]), 0.01)
+    params, mom = trainer.sharded_state(momentum)
+    sched = {"last_epoch": 1, "base_lr": 0.01}
+    dcp_dir, pth_dir = (os.path.join(root, d) for d in ("dcp", "pth"))
+
+    def sharded():
+        return vit_ckpt.save_checkpoint(0, params, mom, sched, 1.0, 0.0, 0.0,
+                                        dcp_dir, sharded=True)
+
+    def gathered():
+        full_p, full_m = trainer.full_state(momentum)
+        jax_p = jax_m = None
+        if rank == 0:
+            jax_p, jax_m = (vconvert.vit_jax_from_state_dict(
+                {k: v.cpu() for k, v in t.items()}) for t in (full_p, full_m))
+        del full_p, full_m
+        return vit_ckpt.save_checkpoint(0, jax_p, jax_m, sched, 1.0, 0.0,
+                                        0.0, pth_dir)
+
+    seconds = {"sharded": [], "gathered": []}
+    for name in ("sharded", "gathered", "gathered", "sharded"):
+        torch.cuda.synchronize()
+        tdist.barrier()
+        t0 = time.time()
+        path = (sharded if name == "sharded" else gathered)()
+        tdist.barrier()
+        seconds[name].append(time.time() - t0)
+        if name == "sharded":
+            dcp_path = path
+        else:
+            pth_path = path
+    files = {f: os.path.getsize(os.path.join(dcp_path, f))
+             for f in sorted(os.listdir(dcp_path))}
+    own = sum(t.to_local().numel() * t.element_size()
+              for tree in (params, mom) for t in tree.values())
+    template = {"params": {k: torch.zeros_like(v) for k, v in params.items()},
+                "opt_state": {k: torch.zeros_like(v) for k, v in mom.items()}}
+    tdist.barrier()
+    t0 = time.time()
+    back = vit_ckpt.load_checkpoint(dcp_path, template=template)
+    torch.cuda.synchronize()
+    tdist.barrier()
+    load_s = time.time() - t0
+    unequal = [f"{tree}.{k}" for tree, src in (("params", params),
+                                               ("opt_state", mom))
+               for k, v in src.items()
+               if not torch.equal(back[tree][k].to_local(), v.to_local())]
+    sharded_leaves = sum(isinstance(v, DTensor) for tree in (params, mom)
+                         for v in tree.values())
+    out = {"seconds": seconds, "load_s": load_s, "files": files,
+           "own_bytes": own, "pth_bytes": (os.path.getsize(pth_path)
+                                           if rank == 0 else None),
+           "leaves": len(params) + len(mom), "dtensor_leaves": sharded_leaves,
+           "unequal": unequal[:8], "epoch": back["epoch"],
+           "scheduler_state": back["scheduler_state"]}
+    tdist.barrier()
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_dryrun(tmp: str):
+    """The port's compile check and multi-rank dry run as a user calls them
+    (cli/dryrun.py). Starts, in the background, the module's command line
+    (``main([DRYRUN_N])`` in a worker process of this script: its ranks
+    under gloo on the card, beside its one-process oracle) and the
+    full-width sharded
+    checkpoint round trip on two gloo ranks (_sharded_ckpt_check); then, in
+    this process, ``entry()``: ViT-B/16's bf16 logits of 8 images with 12
+    flash3_fwd launches, against the same call on the plain attention
+    (SERVE_VIT_KERNEL_RTOL of the largest). Returns finish(), which
+    collects and checks the two launches (timed as "dryrun_collect")."""
+    import torch
+    from vit_project_torch.cli import dryrun
+    from vit_project_torch.ops import attention as vattn
+    root = os.path.join(tmp, "dryrun")
+    os.makedirs(root)
+    dry_job = _dist_start(root, "dryrun", [
+        "vit_project_torch.cli.dryrun", str(DRYRUN_N), "--timeout",
+        str(DRYRUN_TIMEOUT)], nproc=None)
+    ckpt_job = _dist_start(root, "sharded_ckpt", [
+        "--gloo", "sharded_ckpt", os.path.join(root, "ckpt")], nproc=2)
+
+    fn, args = dryrun.entry()
+    blocks = args[0].cfg.layers
+    vattn.reset_launch_counts()
+    logits = fn(*args)
+    torch.cuda.synchronize()
+    entry_launches = vattn.LAUNCHES["flash3_fwd"]
+    plain = _plain_attention(lambda: fn(*args))
+    err = ((logits - plain).abs().max() / plain.abs().max()).item()
+    ms = cuda_ms(lambda: fn(*args), 10)
+    res = RESULTS["dryrun"] = {"entry": {
+        "shape": list(logits.shape), "flash3_fwd": entry_launches,
+        "err": err, "ms": ms}}
+    print(f"[dryrun] entry(): ViT-B/16 bf16 logits {list(logits.shape)} of "
+          f"8 images, {entry_launches} flash3_fwd launches, against the plain "
+          f"attention {err:.3e} of the largest (bound "
+          f"{SERVE_VIT_KERNEL_RTOL}), {ms:.3f} ms a call", flush=True)
+    if tuple(logits.shape) != (8, 1000) or \
+            not torch.isfinite(logits).all().item():
+        fail(f"[dryrun] entry() logits {list(logits.shape)} not finite "
+             f"[8, 1000]")
+    if entry_launches != blocks:
+        fail(f"[dryrun] entry() launched flash3_fwd {entry_launches} times "
+             f"({blocks} blocks)")
+    if not err <= SERVE_VIT_KERNEL_RTOL:
+        fail(f"[dryrun] entry() against the plain attention: {err:.3e}")
+    del fn, args, logits, plain
+
+    def finish():
+        """Collect the dry run and the round trip, and check them."""
+        t_wait = time.time()
+        # its main() in a worker of this script's (which makes no group)
+        _dist_collect(dry_job, timeout=DRYRUN_TIMEOUT + 60)
+        with open(dry_job["log"]) as f:
+            lines = f.read().splitlines()
+        out = json.loads(next(ln for ln in reversed(lines)
+                              if ln.startswith('{"n": ')))
+        for name, loss in out["losses"].items():
+            print(f"[dryrun] {name}: loss {loss} ("
+                  f"{out['seconds'].get(name, float('nan')):.2f} s)",
+                  flush=True)
+        for name, c in out["checks"].items():
+            print(f"[dryrun] check {name}: {'ok' if c['ok'] else 'MISSED'} "
+                  f"- {c['detail']}", flush=True)
+        ranks = out["launches"] + out["oracle_launches"]
+        print(f"[dryrun] launches a rank (flash3_fwd, flash3_bwd): "
+              + ", ".join(f"({r['flash3_fwd']}, {r['flash3_bwd']})"
+                          for r in out["launches"])
+              + f"; oracle ({out['oracle_launches'][0]['flash3_fwd']}, "
+              f"{out['oracle_launches'][0]['flash3_bwd']}); "
+              f"{dry_job['s']:.1f} s from start to exit "
+              f"({out['seconds']['total']:.1f} s in dryrun_multichip)",
+              flush=True)
+        res.update(out)
+        res["s"] = dry_job["s"]
+        if not all(c["ok"] for c in out["checks"].values()):
+            fail("[dryrun] a check missed its bound")
+        print("[dryrun] " + next(ln for ln in lines
+                                 if ln.startswith("dryrun_multichip(")),
+              flush=True)
+        if not all(r["flash3_fwd"] > 0 and r["flash3_bwd"] > 0
+                   for r in ranks):
+            fail(f"[dryrun] a rank launched no flash3 kernel: {ranks}")
+
+        ck = _dist_collect(ckpt_job, timeout=DRYRUN_TIMEOUT)
+        for r in ck:
+            print(f"[dryrun] sharded ckpt rank {r['rank']}: ViT-B/16 FSDP2 "
+                  f"{r['leaves']} leaves ({r['dtensor_leaves']} DTensors), "
+                  f"own shards {r['own_bytes']:,} bytes; sharded save "
+                  + " / ".join(f"{s:.2f}" for s in r["seconds"]["sharded"])
+                  + " s, gathered .pth save "
+                  + " / ".join(f"{s:.2f}" for s in r["seconds"]["gathered"])
+                  + f" s; load into the template {r['load_s']:.2f} s; "
+                  f"unequal leaves {r['unequal']}; peak "
+                  f"{r['peak_gib']:.2f} GiB", flush=True)
+        files = ck[0]["files"]
+        print(f"[dryrun] sharded ckpt files: "
+              + ", ".join(f"{k} {v:,} bytes" for k, v in files.items())
+              + f"; the .pth {ck[0]['pth_bytes']:,} bytes; "
+              f"{time.time() - t_wait:.1f} s waited for here", flush=True)
+        res["sharded_ckpt"] = ck
+        for r in ck:
+            mine = files.get(f"__{r['rank']}_0.distcp", 0)
+            if r["unequal"] or r["dtensor_leaves"] != r["leaves"] or \
+                    r["epoch"] != 0 or \
+                    r["scheduler_state"] != {"last_epoch": 1,
+                                             "base_lr": 0.01}:
+                fail(f"[dryrun] sharded ckpt rank {r['rank']}: not "
+                     f"bit-equal ({r['unequal']}, epoch {r['epoch']}, "
+                     f"{r['scheduler_state']})")
+            if not r["own_bytes"] <= mine <= r["own_bytes"] * 1.05 + 2**20:
+                fail(f"[dryrun] rank {r['rank']} wrote {mine:,} bytes for "
+                     f"its {r['own_bytes']:,} bytes of shards")
+        return {k: sum(r[k] for r in ranks)
+                for k in ("flash3_fwd", "flash3_bwd")} | {
+                    "entry": entry_launches}
+    return finish
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--dist_worker"]:      # a process of phase dist
@@ -7196,7 +7427,7 @@ def main(argv=None) -> int:
     serve_launches = train_launches = vit_launches = sweep_launches = None
     forks_launches = grid_launches = serve_vit_launches = None
     dist_launches = clip_dist_launches = moe_launches = None
-    serve_rn_launches = profile_launches = None
+    serve_rn_launches = profile_launches = dryrun_launches = None
     tmp = os.path.join(ROOT, "vit_project_torch", "_build",
                        f"smoke-{os.getpid()}")
     os.makedirs(tmp, exist_ok=True)
@@ -7209,10 +7440,15 @@ def main(argv=None) -> int:
             vit_launches = timed("vit_train", phase_vit_train, tmp)
         if "profile" in phases:
             profile_launches = timed("profile", phase_profile, tmp)
+        # the dry run's launches run beside moe and vit_grid
+        dryrun_finish = (timed("dryrun", phase_dryrun, tmp)
+                         if "dryrun" in phases else None)
         if "moe" in phases:
             moe_launches = timed("moe", phase_moe, tmp)
         if "vit_grid" in phases:
             grid_launches = timed("vit_grid", phase_vit_grid, tmp)
+        if dryrun_finish is not None:
+            dryrun_launches = timed("dryrun_collect", dryrun_finish)
         # phase dist's first process runs beside serve_vit and serve_rn
         dist_pre = _dist_prelude(tmp) if "dist" in phases else None
         if "serve_vit" in phases:
@@ -7287,6 +7523,9 @@ def main(argv=None) -> int:
     def clip_dist(name):
         return clip_dist_launches and clip_dist_launches[name]
 
+    def dry(name):
+        return dryrun_launches and dryrun_launches[name]
+
     def entry(name, source, replaces, launches, by_path, errors, main_row,
               at):
         return {"name": name, "route": "cuda", "source": source,
@@ -7312,7 +7551,8 @@ def main(argv=None) -> int:
                "clip_dist": clip_dist("flash3_fwd"),
                "clip_dist_sp": clip_sp("flash3_fwd"),
                "profile": profile("flash3_fwd"),
-               "dist_serve_mesh": dist_mesh("flash3_fwd")},
+               "dist_serve_mesh": dist_mesh("flash3_fwd"),
+               "entry": dry("entry"), "dryrun": dry("flash3_fwd")},
               [r["max_abs_err_o"] for r in rows
                if r["kernel"] == "flash3_fwd"],
               row_of("flash3_fwd", "image_b256"),
@@ -7331,7 +7571,8 @@ def main(argv=None) -> int:
                "dist_pp": dist_pp("flash3_bwd"),
                "clip_dist": clip_dist("flash3_bwd"),
                "clip_dist_sp": clip_sp("flash3_bwd"),
-               "profile": profile("flash3_bwd")},
+               "profile": profile("flash3_bwd"),
+               "dryrun": dry("flash3_bwd")},
               [r["max_abs_err"] for r in rows
                if r["kernel"] == "flash3_bwd"],
               row_of("flash3_bwd", "image_b64"),

@@ -10,6 +10,12 @@ each other's run trees:
 - ``save_torch`` / ``load_flat``: a flat {name: tensor} torch archive
   (``epoch{N}_dora_params.pth``, which the reference loads with torch.load).
 
+``save_sharded`` / ``load_sharded`` are the per-rank form, the counterpart
+of JAX's orbax pair: a collective in which every rank writes only the
+shards it holds, into a ``torch.distributed.checkpoint`` (DCP) directory.
+The directory is the port's own format; JAX's ``.orbax`` directories are
+not read (``vit_ckpt`` refuses them).
+
 The JAX package's random-states pickle holds optax's AdamW state,
 ``(optax._src.transform.ScaleByAdamState(count, mu, nu),
 optax._src.base.EmptyState(), optax._src.base.EmptyState())``. The port
@@ -21,13 +27,18 @@ from __future__ import annotations
 
 import glob
 import os
+import contextlib
 import pickle
+import shutil
 import time
+import warnings
 import zipfile
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+
+from ..parallel import dist
 
 
 class ScaleByAdamState(NamedTuple):
@@ -164,3 +175,130 @@ def load_flat(path: str) -> dict:
     return {k: (v.detach().float() if isinstance(v, torch.Tensor)
                 else torch.as_tensor(v, dtype=torch.float32))
             for k, v in obj.items()}
+
+
+# -- per-rank sharded checkpoints -----------------------------------------------
+# JAX writes a pod's state with orbax: every host its own array shards, and a
+# restore re-assembles global arrays against a sharding template. The port's
+# counterpart is DCP, which ships with torch: a DTensor records its global
+# shape and placement, so each rank writes the chunk it holds, and a load
+# into DTensors of the same (or another) placement reads only the chunks it
+# needs.
+
+def _saveable(tree):
+    """`tree` with numpy arrays as tensors and numpy scalars as Python
+    numbers: DCP pickles the leaves that are not tensors, and its loader
+    unpickles them with torch.load."""
+    if isinstance(tree, dict):
+        return {k: _saveable(v) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray):
+        return torch.from_numpy(tree)
+    if isinstance(tree, np.generic):
+        return tree.item()
+    return tree
+
+
+@contextlib.contextmanager
+def _dcp_call(path: str):
+    """Around a DCP save or load of `path`. Without a process group DCP
+    warns that it assumes one process, which is what the port asks of it
+    there. DCP reports a failed read or write as a CheckpointException, a
+    BaseException that ``except Exception`` would not catch: it is raised
+    again as a RuntimeError naming the directory."""
+    from torch.distributed.checkpoint.api import CheckpointException
+    with warnings.catch_warnings():
+        if not dist.is_initialized():
+            warnings.filterwarnings("ignore",
+                                    message="torch.distributed is disabled")
+        try:
+            yield
+        except CheckpointException as e:
+            raise RuntimeError(f"{path}: sharded checkpoint failed: "
+                               f"{e}") from None
+
+
+def save_sharded(path: str, tree: dict) -> None:
+    """Write `tree`, a nested dict, as a DCP directory at `path` (replaced
+    if it exists).
+
+    Collective over the default group: every rank calls it with its own
+    tree. A DTensor leaf (FSDP2's parameters, the ZeRO-1 momentum rows
+    viewed as one) goes to the file of the rank that holds each shard,
+    ``__{rank}_0.distcp``; a plain tensor must be the same on every rank
+    (replicated) and is written once, by one rank; other leaves (epoch,
+    losses, the scheduler's dict) are pickled once. The primary writes
+    ``.metadata``, each leaf's global shape and where each of its chunks
+    lies, after every rank's file is complete, so a directory without it
+    is a torn write. Works in one process without a group too."""
+    import torch.distributed.checkpoint as dcp
+    path = os.path.abspath(path)
+    if dist.is_primary() and os.path.exists(path):
+        shutil.rmtree(path)
+    dist.barrier()
+    with _dcp_call(path):
+        dcp.save(_saveable(tree), storage_writer=dcp.FileSystemWriter(path),
+                 no_dist=not dist.is_initialized())
+
+
+def _add_missing(tree: dict, keys: tuple) -> None:
+    """Put a None leaf at the path `keys` of `tree` where the path is
+    missing (creating the dicts on the way)."""
+    for k in keys[:-1]:
+        nxt = tree.setdefault(k, {})
+        if not isinstance(nxt, dict):
+            return
+        tree = nxt
+    tree.setdefault(keys[-1], None)
+
+
+def load_sharded(path: str, template: dict | None = None) -> dict:
+    """Read a ``save_sharded`` directory.
+
+    - `template` None: every leaf whole, tensors on the host (no
+      collective; each caller reads every file).
+    - `template` given: a collective, every rank with its own template.
+      Each tensor leaf of the template is restored in place, in its own
+      placement: a DTensor reads only the chunks its local shard needs
+      (whatever placement wrote them), a plain tensor the whole leaf. The
+      leaves that are not tensors come from the file whether or not the
+      template holds them. Returns the template."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.metadata import BytesStorageMetadata
+    path = os.path.abspath(path)
+    if not os.path.exists(os.path.join(path, ".metadata")):
+        raise FileNotFoundError(
+            f"{path}: no .metadata, so not a complete sharded checkpoint (a "
+            f"write that did not finish, or not a save_sharded directory)")
+    reader = dcp.FileSystemReader(path)
+    if template is None:
+        from torch.distributed.checkpoint.default_planner import \
+            _EmptyStateDictLoadPlanner
+        from torch.distributed.checkpoint.state_dict_loader import \
+            _load_state_dict
+        out: dict = {}
+        with _dcp_call(path):
+            _load_state_dict(out, storage_reader=reader,
+                             planner=_EmptyStateDictLoadPlanner(),
+                             no_dist=True)
+        return out
+    md = reader.read_metadata()
+    for fqn, meta in md.state_dict_metadata.items():
+        if isinstance(meta, BytesStorageMetadata):
+            _add_missing(template, tuple(md.planner_data[fqn]))
+    with _dcp_call(path):
+        dcp.load(template, storage_reader=reader,
+                 no_dist=not dist.is_initialized())
+    return template
+
+
+def shard_files(path: str) -> dict:
+    """Where ``save_sharded`` put each piece of a checkpoint, from its
+    metadata: {file name: [(leaf name, the chunk's offset in the leaf, or
+    None for a leaf that is not a tensor)]}."""
+    import torch.distributed.checkpoint as dcp
+    md = dcp.FileSystemReader(os.path.abspath(path)).read_metadata()
+    out: dict = {}
+    for idx, info in md.storage_data.items():
+        out.setdefault(info.relative_path, []).append(
+            (idx.fqn, None if idx.offset is None else tuple(idx.offset)))
+    return out

@@ -1,5 +1,5 @@
-"""ViT ImageNet full-state checkpointing (the single-process side of the JAX
-package's ckpt/vit_ckpt.py).
+"""ViT ImageNet full-state checkpointing (counterpart of the JAX package's
+ckpt/vit_ckpt.py).
 
 Reference contract (save_checkpoint, train_vit_sgd.py:92-123): every epoch write
 `checkpoint_epoch_{N:03d}.pth` + `checkpoint_latest.pth` containing model,
@@ -9,16 +9,25 @@ optimizer, scheduler state plus metrics, and append one row to
 The files are pickles of numpy trees through ``ckpt/serialization.py``, with
 `params` and `opt_state` (the SGD momentum) in the JAX package's ViT tree
 layout (``models/convert.py vit_jax_from_state_dict``), so either package
-resumes the other's runs. The pod-sharded `.orbax` directories the JAX
-package writes from several hosts are not ported yet and are refused.
+resumes the other's runs. In a multi-process run the primary (rank 0)
+writes the `.pth` files, the CSV row and the pruning, and the other ranks
+meet it at a barrier, so no rank reads a half-written tree. The caller
+hands every rank the full state (the ZeRO-1 momentum and the FSDP
+parameters gathered first).
 
-In a multi-process run the primary (rank 0) writes the `.pth` files, the
-CSV row and the pruning, and the other ranks meet it at a barrier, so no
-rank reads a half-written tree. The caller hands every rank the full
-state (the ZeRO-1 momentum and the FSDP parameters gathered first). The
-JAX package writes the sharded `.orbax` form there instead, every host its
-own shards; the port keeps the one `.pth` format that both packages resume
-from until `save_sharded` is ported.
+``sharded=True`` is the per-rank form, JAX's ``.orbax`` counterpart: a
+collective in which every rank writes its own shards
+(``serialization.save_sharded``, DCP) into
+`checkpoint_epoch_{N:03d}.dcp/`, and the primary points
+`checkpoint_latest.dcp.ptr` at it. There `params` and `opt_state` are the
+trainer's own flat state (``ViTTrainer.sharded_state``: the port's names
+and layout, tensors and DTensors), not JAX-layout trees. JAX defaults to
+the sharded form over several processes; the port's default stays the one
+`.pth`, which both packages resume. ``load_checkpoint`` of a `.dcp`
+without a template returns what a `.pth` holds (JAX-layout numpy trees),
+so every reader takes either file; with a template it restores in place,
+each rank its own shards. The pod-sharded `.orbax` directories the JAX
+package writes are not read and are refused.
 """
 from __future__ import annotations
 
@@ -43,21 +52,64 @@ def _refuse_orbax(path: str) -> None:
     if path.endswith(".orbax") or path.endswith(".orbax.ptr"):
         raise NotImplementedError(
             f"{path}: pod-sharded .orbax checkpoints are not ported to "
-            f"vit_project_torch yet; the port reads .pth checkpoints")
+            f"vit_project_torch yet; the port reads .pth and .dcp "
+            f"checkpoints")
+
+
+LATEST_PTR = "checkpoint_latest.dcp.ptr"
 
 
 def save_checkpoint(epoch: int, params, opt_state, sched_state: dict,
                     train_loss: float, val_loss: float, val_acc: float,
-                    output_dir: str, logger=None) -> str:
+                    output_dir: str, logger=None,
+                    sharded: bool = False) -> str:
     """Write checkpoint_epoch_{epoch:03d}.pth and checkpoint_latest.pth (a
     second name for the same bytes), and append the epoch's metrics row.
-    `params` and
-    `opt_state` are JAX-layout trees (numpy arrays or tensors). Every rank
-    calls it; only the primary writes (module docstring)."""
+    `params` and `opt_state` are JAX-layout trees (numpy arrays or
+    tensors). Every rank calls it; only the primary writes (module
+    docstring).
+
+    With `sharded`, `params` and `opt_state` are the trainer's flat state
+    (``ViTTrainer.sharded_state``) and every rank writes its own shards to
+    checkpoint_epoch_{epoch:03d}.dcp; the primary then points
+    checkpoint_latest.dcp.ptr at it (atomically) and appends the row."""
+    if sharded:
+        return _write_sharded(epoch, params, opt_state, sched_state,
+                              train_loss, val_loss, val_acc, output_dir,
+                              logger)
     path = os.path.join(output_dir, f"checkpoint_epoch_{epoch:03d}.pth")
     if _primary():
         _write(path, epoch, params, opt_state, sched_state, train_loss,
                val_loss, val_acc, output_dir, logger)
+    if _is_multiprocess():
+        dist.barrier()
+    return path
+
+
+def _write_sharded(epoch: int, params, opt_state, sched_state: dict,
+                   train_loss: float, val_loss: float, val_acc: float,
+                   output_dir: str, logger) -> str:
+    path = os.path.join(output_dir, f"checkpoint_epoch_{epoch:03d}.dcp")
+    ser.save_sharded(path, {
+        "epoch": epoch,
+        "params": params,
+        "opt_state": opt_state,
+        "scheduler_state": sched_state,
+        "train_loss": float(train_loss),
+        "val_loss": float(val_loss),
+        "val_acc": float(val_acc),
+    })
+    if _primary():
+        # 'latest' is a pointer to the epoch directory, not a second
+        # collective write of the state (JAX's .orbax.ptr)
+        def write(tmp):
+            with open(tmp, "w") as f:
+                f.write(os.path.basename(path))
+        ser.atomic_write(os.path.join(output_dir, LATEST_PTR), write)
+        if logger:
+            logger.info(f"Saved checkpoint: {os.path.basename(path)}")
+        csvio.append_vit_row(os.path.join(output_dir, "training_metrics.csv"),
+                             epoch, train_loss, val_loss, val_acc)
     if _is_multiprocess():
         dist.barrier()
     return path
@@ -102,9 +154,24 @@ def _write(path: str, epoch: int, params, opt_state, sched_state: dict,
                          epoch, train_loss, val_loss, val_acc)
 
 
-def load_checkpoint(path: str):
+def load_checkpoint(path: str, template: dict | None = None):
+    """A checkpoint's dict. A `.pth`: the pickle. A `.dcp` without
+    `template`: the same dict a `.pth` holds (every leaf whole, `params`
+    and `opt_state` as JAX-layout numpy trees). A `.dcp` with `template`
+    (a collective; {"params": ..., "opt_state": ...} in the trainer's
+    flat layout and placement, e.g. ``ViTTrainer.sharded_state``): the
+    template restored in place, each rank reading its own shards, with the
+    checkpoint's other leaves beside it."""
     _refuse_orbax(path)
-    return ser.load(path)
+    if not path.endswith(".dcp"):
+        return ser.load(path)
+    if template is not None:
+        return ser.load_sharded(path, template)
+    from ..models import convert as vconvert
+    ckpt = ser.load_sharded(path)
+    for key in ("params", "opt_state"):
+        ckpt[key] = vconvert.vit_jax_from_state_dict(ckpt[key])
+    return ckpt
 
 
 def prune_checkpoints(output_dir: str, keep_last: int, current_epoch: int,
@@ -128,14 +195,15 @@ def prune_checkpoints(output_dir: str, keep_last: int, current_epoch: int,
 def _prune(output_dir: str, keep_last: int, current_epoch: int,
            logger) -> list[str]:
     removed: list[str] = []
-    pat = re.compile(r"^checkpoint_epoch_(\d{3,})\.pth$")
+    pat = re.compile(r"^checkpoint_epoch_(\d{3,})\.(pth|dcp)$")
     cutoff = current_epoch - keep_last
     for name in os.listdir(output_dir):
         m = pat.match(name)
         if not m or int(m.group(1)) > cutoff:
             continue
+        p = os.path.join(output_dir, name)
         try:
-            os.unlink(os.path.join(output_dir, name))
+            shutil.rmtree(p) if os.path.isdir(p) else os.unlink(p)
             removed.append(name)
         except OSError:
             pass  # a vanished/locked old file must not kill training
@@ -145,26 +213,40 @@ def _prune(output_dir: str, keep_last: int, current_epoch: int,
     return removed
 
 
-def _pth_unless_orbax_newer(pth: str, orbax: tuple) -> str | None:
-    """`pth` if it exists; an .orbax candidate written after it (or without
-    it) would be the JAX package's choice, which the port cannot read, so
-    that case raises instead of resuming from a stale file."""
-    for p in orbax:
-        if os.path.exists(p) and (not os.path.exists(pth) or
-                                  os.path.getmtime(p) > os.path.getmtime(pth)):
-            _refuse_orbax(p)
-    return pth if os.path.exists(pth) else None
+def _newest(cands: list) -> str | None:
+    """The most recently written of `cands`, (path, the file whose mtime
+    dates it) pairs, among those that exist (a `.dcp` only with its
+    metadata: without it the write was torn); None without one. An
+    `.orbax` one would be the JAX package's choice, which the port cannot
+    read, so that case raises instead of resuming from a stale file."""
+    dated = [(os.path.getmtime(stamp), path) for path, stamp in cands
+             if os.path.exists(path) and os.path.exists(stamp)
+             and (not path.endswith(".dcp")
+                  or os.path.exists(os.path.join(path, ".metadata")))]
+    if not dated:
+        return None
+    path = max(dated)[1]
+    _refuse_orbax(path)
+    return path
 
 
 def epoch_checkpoint(output_dir: str, epoch: int) -> str | None:
-    """checkpoint_epoch_{N:03d}.pth, or None."""
+    """checkpoint_epoch_{N:03d} as a .pth or a .dcp, the newer by mtime
+    when both exist (JAX's rule for .orbax and .pth), or None."""
     base = os.path.join(output_dir, f"checkpoint_epoch_{epoch:03d}")
-    return _pth_unless_orbax_newer(base + ".pth", (base + ".orbax",))
+    return _newest([(base + ext, base + ext)
+                    for ext in (".pth", ".dcp", ".orbax")])
 
 
 def latest_checkpoint(output_dir: str) -> str | None:
-    """checkpoint_latest.pth, or None."""
-    return _pth_unless_orbax_newer(
-        os.path.join(output_dir, "checkpoint_latest.pth"),
-        tuple(os.path.join(output_dir, n) for n in (
-            "checkpoint_latest.orbax.ptr", "checkpoint_latest.orbax")))
+    """checkpoint_latest.pth or the .dcp that checkpoint_latest.dcp.ptr
+    names (dated by the pointer), the more recently written when both
+    exist, as JAX picks between its formats; or None."""
+    cands = [(p, p) for p in (os.path.join(output_dir, n) for n in (
+        "checkpoint_latest.pth", "checkpoint_latest.orbax.ptr",
+        "checkpoint_latest.orbax"))]
+    ptr = os.path.join(output_dir, LATEST_PTR)
+    if os.path.exists(ptr):
+        with open(ptr) as f:
+            cands.append((os.path.join(output_dir, f.read().strip()), ptr))
+    return _newest(cands)

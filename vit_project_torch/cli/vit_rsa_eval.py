@@ -35,12 +35,13 @@ from .vit_measure import load_things_for_vit
 
 
 def list_epoch_checkpoints(ckpt_dir: str) -> list[tuple[int, str]]:
-    """Every per-epoch checkpoint, one entry per epoch. An epoch held only
-    as a pod-written .orbax directory (or with an .orbax newer than its
-    .pth) raises, as vit_ckpt.epoch_checkpoint does: the port reads .pth."""
+    """Every per-epoch checkpoint (.pth or .dcp), one entry per epoch. An
+    epoch held only as a pod-written .orbax directory (or with an .orbax
+    newer than the others) raises, as vit_ckpt.epoch_checkpoint does: the
+    port reads .pth and .dcp."""
     epochs = set()
     for name in os.listdir(ckpt_dir):
-        m = re.fullmatch(r"checkpoint_epoch_(\d+)\.(pth|orbax)", name)
+        m = re.fullmatch(r"checkpoint_epoch_(\d+)\.(pth|dcp|orbax)", name)
         if m:
             epochs.add(int(m.group(1)))
     return [(e, vit_ckpt.epoch_checkpoint(ckpt_dir, e))

@@ -151,6 +151,36 @@ def all_gather_rows(local: torch.Tensor, group=None) -> torch.Tensor:
     return out.view((world,) + tuple(local.shape))
 
 
+_HOST_MESHES: dict = {}
+
+
+def full_tensor(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value on its device (``t.full_tensor()``). Under
+    gloo a card's shards go through host copies, on a CPU mesh of the same
+    ranks: DTensor's own gather of CUDA tensors over gloo (a functional
+    collective) crashed 4 gloo ranks sharing an H100 with SIGSEGV. A
+    collective over the DTensor's mesh."""
+    if not (t.is_cuda and tdist.get_backend(t.device_mesh.get_group(0))
+            == "gloo"):
+        return t.full_tensor()
+    return _full_on_host(t).to(t.device)
+
+
+def _full_on_host(t: torch.Tensor) -> torch.Tensor:
+    """``full_tensor`` of a DTensor's host copy, on the CPU."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor
+    mesh = t.device_mesh
+    host = _HOST_MESHES.get(id(mesh))
+    if host is None:
+        host = _HOST_MESHES[id(mesh)] = (mesh, DeviceMesh(
+            "cpu", mesh.mesh, mesh_dim_names=mesh.mesh_dim_names))
+    on_host = DTensor.from_local(t.to_local().detach().cpu(), host[1],
+                                 t.placements, run_check=False,
+                                 shape=t.shape, stride=t.stride())
+    return on_host.full_tensor()
+
+
 def ordered_allgather_strided(local, n_total: int, group=None):
     """Gather the ranks' rows back into DATASET order.
 

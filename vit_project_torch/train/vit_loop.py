@@ -591,8 +591,8 @@ class ViTTrainer:
         self._reshard()
         named = dict(self.model.named_parameters())
         if self.mode == "fsdp":
-            return ({n: p.full_tensor() for n, p in named.items()},
-                    {n: m.full_tensor() for n, m in momentum.items()})
+            return ({n: dist.full_tensor(p) for n, p in named.items()},
+                    {n: dist.full_tensor(m) for n, m in momentum.items()})
         if self.mode in ("tp", "ep"):
             return self._unshard(named), self._unshard(momentum)
         if self.mode == "pp":
@@ -607,6 +607,33 @@ class ViTTrainer:
         for n, r in zip(split, rows):
             full[n] = r.reshape(named[n].shape)
         return named, full
+
+    def sharded_state(self, momentum: dict) -> tuple[dict, dict]:
+        """(parameters, momentum) by name as each rank holds them, for
+        ``vit_ckpt.save_checkpoint(sharded=True)`` and as the template of
+        its load: no gather. Under fsdp the DTensors FSDP2 holds; under
+        zero1 the momentum rows as DTensors sharded on dim 0 over the data
+        axis (views of the trainer's rows, so a load into them restores the
+        momentum in place; the global shape is the leaf's); the rest whole
+        (replicated). Under tp, ep, sp and pp the shards are not yet laid
+        out for it, and it raises: gather with ``full_state``."""
+        if self.mode not in ("single", "dp", "zero1", "fsdp"):
+            raise NotImplementedError(
+                f"sharded checkpoints of mode {self.mode!r} are not ported: "
+                "save the gathered full_state")
+        self._reshard()
+        named = {n: p.detach() for n, p in self.model.named_parameters()}
+        if not self.zero1:
+            return named, dict(momentum)
+        from torch.distributed.tensor import DTensor, Shard
+        mesh = vmesh.make_mesh(device_type=self.device.type)
+        out = dict(momentum)
+        for n, p in named.items():
+            if vmesh.zero1_sharding(self.n_data, p):
+                out[n] = DTensor.from_local(
+                    momentum[n], mesh, [Shard(0)], run_check=False,
+                    shape=p.shape, stride=p.stride())
+        return named, out
 
     def _unshard(self, state: dict) -> dict:
         """`state` (parameters or momentum, this rank's shards) with every
