@@ -326,8 +326,8 @@ LN_TOLERANCE = {"float32": {"dx": 1e-5, "dparams": 1e-4},
 
 SEED = 0
 RESULTS: dict = {}
-ALL_PHASES = ("kernel", "ops", "serve", "train", "vit_train", "profile",
-              "dryrun", "moe",
+ALL_PHASES = ("kernel", "ops", "serve", "train", "vit_train", "orbax",
+              "profile", "dryrun", "moe",
               "vit_grid",
               "serve_vit", "serve_rn", "dist", "clip_dist", "sweep", "forks")
 
@@ -362,10 +362,13 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 def phase_build():
     from vit_project_torch.ops import cuda_build
     t0 = time.time()
-    paths = cuda_build.build()
+    # the CUDA kernels and the host zstd decoder (phase orbax), one
+    # compiler process each, all started together
+    paths = cuda_build.build([*cuda_build.SOURCES, *cuda_build.HOST_SOURCES])
     dt = time.time() - t0
-    print(f"[build] {len(paths)} kernel libraries in {dt:.2f} s "
-          f"(nvcc, sm_90a; cached builds take ~0 s)", flush=True)
+    print(f"[build] {len(cuda_build.SOURCES)} kernel libraries (nvcc, "
+          f"sm_90a) and {len(cuda_build.HOST_SOURCES)} host library (g++) "
+          f"in {dt:.2f} s (cached builds take ~0 s)", flush=True)
     for name in paths:
         for line in cuda_build.build_log(name).splitlines():
             if "ptxas info" in line or "spill" in line:  # registers, spills
@@ -2603,10 +2606,20 @@ def _profile(fn, steps: int = 3):
             "events_per_call": events}
 
 
-def phase_vit_train(tmp: str):
+def _vit_train_cfg(data: str, out: str, epochs: int):
+    """Phase vit_train's run: ViT-B/16, batch 256, bf16, fused_dw."""
+    from vit_project_torch.core.configs import ViTTrainConfig
+    return ViTTrainConfig(data_path=data, output_dir=out, batch_size=256,
+                          epochs=epochs, num_workers=8,
+                          compute_dtype="bfloat16", fused_dw=True,
+                          random_seed=SEED)
+
+
+def phase_vit_train(tmp: str, keep_run: bool = False):
+    """Returns the launches of the main path's run (run A); with
+    `keep_run` run A's output directory stays for phase orbax."""
     import logging
     import torch
-    from vit_project_torch.core.configs import ViTTrainConfig
     from vit_project_torch.data.packed import make_loader
     from vit_project_torch.models import vit as vvit
     from vit_project_torch.ops import attention as vattn
@@ -2621,10 +2634,7 @@ def phase_vit_train(tmp: str):
     logger.setLevel(logging.WARNING)
 
     def cfg(out, epochs):
-        return ViTTrainConfig(data_path=data, output_dir=out, batch_size=256,
-                              epochs=epochs, num_workers=8,
-                              compute_dtype="bfloat16", fused_dw=True,
-                              random_seed=SEED)
+        return _vit_train_cfg(data, out, epochs)
     print(f"[vit_train] synthetic ImageFolder (8 classes, 1,024 train / 256 "
           f"val JPEGs at 256^2) written in {time.time() - t0:.1f} s; ViT-B/16 "
           f"(width 768, 12 blocks, 12 heads, S=197, 1,000 classes), batch "
@@ -2803,10 +2813,215 @@ def phase_vit_train(tmp: str):
         "train_images_per_s": ips, "val_ms": e2["val_s"] * 1e3,
         "profile": prof, "decode_images_per_s": decode_ips,
         "epoch_s": e2["epoch_s"], "peak_mem_gib": peak_gib}
-    shutil.rmtree(out_a)
+    if not keep_run:
+        shutil.rmtree(out_a)
     del res, model, momentum, trainer, p0, m0
     torch.cuda.empty_cache()
     return launches
+
+# the orbax phase: phase vit_train's run A (ViT-B/16, batch 256, bf16,
+# fused_dw) at epoch 1, written by the port's single-process writer of the
+# JAX package's pod-sharded layout (ckpt/orbax.py write_tree) and read back
+# through vit_ckpt as a resume reads it; one more epoch resumed from the
+# .orbax and from the .pth in turn, each in its own directory. A step
+# launches what a vit_train step launches
+ORBAX_PER_STEP = {"flash3_fwd": 12, "flash3_bwd": 12, "dw_db": 49}
+ORBAX_VAL_FWD = 12             # the validation forward's, one batch of 256
+ORBAX_PHASE_LIMIT_S = 60
+
+
+def _du(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _same_leaves(a, b, where="") -> list:
+    """Where two trees differ: containers and keys, Python scalar types and
+    values, array dtypes, shapes and bits."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            return [where or "/"]
+        return [w for k in a for w in _same_leaves(a[k], b[k],
+                                                   f"{where}/{k}")]
+    if isinstance(a, (list, tuple)):
+        if type(a) is not type(b) or len(a) != len(b):
+            return [where]
+        return [w for i, (x, y) in enumerate(zip(a, b))
+                for w in _same_leaves(x, y, f"{where}/{i}")]
+    if a is None or isinstance(a, (bool, int, float)):
+        return [] if type(a) is type(b) and a == b else [where]
+    x, y = np.asarray(a), np.asarray(b)
+    same = (x.dtype == y.dtype and x.shape == y.shape
+            and x.tobytes() == y.tobytes())
+    return [] if same else [where]
+
+
+def _orbax_fixture(smi: str, device: str = "cuda") -> dict:
+    """The committed JAX-written tiny ViT .orbax (tests/data/jax_vit_orbax:
+    level-1 zstd chunks and zstd-compressed B-tree nodes, which write_tree
+    does not make) read through vit_ckpt on this host: every leaf's digest
+    against leaves.json, the decoder's Huffman, FSE and sequence forms
+    reached, and its bfloat16 momentum through the resume's load_trees onto
+    the card."""
+    import torch
+    from vit_project_torch.ckpt import orbax, vit_ckpt, zstd
+    from vit_project_torch.models import vit as vvit
+    from vit_project_torch.train import vit_loop
+
+    fx = os.path.join(ROOT, "tests", "data", "jax_vit_orbax")
+    with open(os.path.join(fx, "leaves.json")) as f:
+        want = json.load(f)
+    zstd.take_stats()
+    t0 = time.time()
+    tree = vit_ckpt.load_checkpoint(vit_ckpt.latest_checkpoint(fx))
+    read_s = time.time() - t0
+    met = zstd.take_stats()
+    got = orbax.leaf_digests(tree)
+    differ = sorted(k for k in want["leaves"].keys() | got.keys()
+                    if want["leaves"].get(k) != got.get(k))
+    unmet = [k for k in want["forms"] if not met[k]]
+    cfg = vvit.ViTConfig(**want["vit"])
+    model = vvit.empty_vit(cfg, device)
+    mom = {n: torch.empty_like(p) for n, p in model.named_parameters()}
+    vit_loop.load_trees(model, tree["params"], mom, tree["opt_state"])
+    head_m = tree["opt_state"]["head_w"]
+    loaded = isinstance(head_m, torch.Tensor) and \
+        head_m.dtype == torch.bfloat16 and torch.equal(
+        mom["head.weight"].cpu(), head_m.float().T) and np.array_equal(
+        model.head.weight.detach().cpu().numpy(),
+        np.asarray(tree["params"]["head_w"]).T)
+    same = "match leaves.json" if not differ else f"DIFFER {differ[:5]}"
+    print(f"[orbax] JAX-written tiny ViT fixture: load_checkpoint "
+          f"{read_s:.3f} s, {len(got)} leaves {same}; decoder forms met {({k: met[k] for k in want['forms']})}; "
+          f"bfloat16 momentum through load_trees onto the card "
+          f"{'equal' if loaded else 'DIFFERS'}; {smi}", flush=True)
+    if differ or unmet or not loaded:
+        fail(f"the JAX-written fixture read wrong: leaves {differ[:10]}, "
+             f"forms not met {unmet}, load_trees equal {loaded}")
+    del model, mom
+    return {"read_s": read_s, "leaves": len(got), "forms": met}
+
+
+def phase_orbax(tmp: str):
+    import logging
+    import torch
+    from vit_project_torch.ckpt import orbax
+    from vit_project_torch.ckpt import serialization as ser
+    from vit_project_torch.ckpt import vit_ckpt
+    from vit_project_torch.models import vit as vvit
+    from vit_project_torch.ops import attention as vattn
+    from vit_project_torch.ops import fused_dw as vfdw
+    from vit_project_torch.train import vit_loop
+
+    t_phase = time.time()
+    smi = smi_line()
+    data, run_a = os.path.join(tmp, "imagenet"), os.path.join(tmp, "vit_a")
+    pth = os.path.join(run_a, "checkpoint_epoch_001.pth")
+    if not os.path.exists(pth):
+        fail("phase orbax needs phase vit_train's run A (--phases "
+             "vit_train,orbax)")
+    vit_cfg = vvit.VIT_CONFIGS["vit_base_patch16_224"]
+    logger = logging.getLogger("chip_smoke.orbax")
+    logger.setLevel(logging.WARNING)
+    fixture = _orbax_fixture(smi)
+    ck = ser.load(pth)
+    pth_mb = os.path.getsize(pth) / 1e6
+
+    # the write, as the JAX package lays out an epoch (the epoch directory
+    # and the pointer 'latest' names), and the read as a resume reads it
+    out_o, out_p = (os.path.join(tmp, n) for n in ("orbax_o", "orbax_p"))
+    os.makedirs(out_o)
+    opath = os.path.join(out_o, "checkpoint_epoch_001.orbax")
+    t0 = time.time()
+    orbax.write_tree(opath, ck)
+    write_s = time.time() - t0
+    with open(os.path.join(out_o, "checkpoint_latest.orbax.ptr"), "w") as f:
+        f.write(os.path.basename(opath))
+    disk_mb = _du(opath) / 1e6
+    latest = vit_ckpt.latest_checkpoint(out_o)
+    if latest != opath:
+        fail(f"latest_checkpoint resolved {latest}, expected {opath}")
+    t0 = time.time()
+    back = vit_ckpt.load_checkpoint(latest)
+    read_s = time.time() - t0
+    differ = _same_leaves(back, ck)
+    print(f"[orbax] ViT-B/16 epoch-1 state (params, momentum, scheduler, "
+          f"metrics): write_tree {write_s:.2f} s ({disk_mb / write_s:.0f} "
+          f"MB/s), load_checkpoint of the .orbax {read_s:.2f} s "
+          f"({disk_mb / read_s:.0f} MB/s; Raw-block frames, not JAX's "
+          f"level-1 chunks); {disk_mb:.1f} MB on disk against "
+          f"the .pth's {pth_mb:.1f} MB; read back against the .pth: "
+          f"{'every leaf bit-equal' if not differ else differ[:5]}; {smi}",
+          flush=True)
+    if differ:
+        fail(f"the .orbax read back differs from the .pth at {differ[:10]}")
+    del back, ck
+
+    # one more epoch from each, rows and trees compared
+    with open(os.path.join(run_a, "training_metrics.csv")) as f:
+        rows_a = f.read()
+    os.makedirs(out_p)
+    os.link(pth, os.path.join(out_p, "checkpoint_latest.pth"))
+    for out in (out_o, out_p):
+        with open(os.path.join(out, "training_metrics.csv"), "w") as f:
+            f.write(rows_a)
+    stats = []
+    vattn.reset_launch_counts()
+    vfdw.reset_launch_counts()
+    t0 = time.time()
+    vit_loop.run_vit_training(_vit_train_cfg(data, out_o, 3), logger=logger,
+                              vit_cfg=vit_cfg, device="cuda",
+                              on_epoch=stats.append)
+    torch.cuda.synchronize()
+    resume_s = time.time() - t0
+    launches = {**vattn.LAUNCHES, **vfdw.LAUNCHES}
+    vit_loop.run_vit_training(_vit_train_cfg(data, out_p, 3), logger=logger,
+                              vit_cfg=vit_cfg, device="cuda")
+    steps = sum(e["steps"] for e in stats)
+    want = {k: v * steps for k, v in ORBAX_PER_STEP.items()}
+    want["flash3_fwd"] += ORBAX_VAL_FWD
+    if [e["epoch"] for e in stats] != [2] or any(
+            launches[k] != v for k, v in want.items()):
+        fail(f"the resume from the .orbax trained epochs "
+             f"{[e['epoch'] for e in stats]} with launches {launches}, "
+             f"expected epoch 2 and {want}")
+    rows_o, rows_p = (_read_rows(os.path.join(o, "training_metrics.csv"))
+                      for o in (out_o, out_p))
+    if [r[0] for r in rows_o[1:]] != ["0", "1", "2"]:
+        fail(f"expected rows for epochs 0-2 after the resume, got {rows_o}")
+    po, mo = _ckpt_trees(out_o)
+    pp, mp = _ckpt_trees(out_p)
+    exact = (rows_o == rows_p and not _same_leaves(po, pp)
+             and not _same_leaves(mo, mp))
+    e = stats[0]
+    print(f"[orbax] epoch 2 resumed from the .orbax: {steps} steps, "
+          f"{resume_s:.2f} s in all (epoch {e['epoch_s']:.2f} s, training "
+          f"{e['train_s']:.2f} s); launches dw_db {launches['dw_db']}, "
+          f"flash3_bwd {launches['flash3_bwd']}, flash3_fwd "
+          f"{launches['flash3_fwd']}; against the resume from the .pth: "
+          f"rows, parameters and momentum "
+          f"{'bit-exact' if exact else 'DIFFER'} (row "
+          f"{','.join(rows_o[-1])}); {smi}", flush=True)
+    if not exact:
+        fail(f"the resumes differ: rows {rows_o} vs {rows_p}")
+    del po, mo, pp, mp
+    for out in (out_o, out_p, run_a):
+        shutil.rmtree(out)
+    phase_s = time.time() - t_phase
+    print(f"[orbax] phase {phase_s:.1f} s (limit {ORBAX_PHASE_LIMIT_S} s); "
+          f"{smi}", flush=True)
+    RESULTS["orbax"] = {
+        "write_s": write_s, "read_s": read_s, "disk_mb": disk_mb,
+        "pth_mb": pth_mb, "write_mb_per_s": disk_mb / write_s,
+        "read_mb_per_s": disk_mb / read_s, "resume_s": resume_s,
+        "epoch": e, "launches": launches, "resume_bit_exact": exact,
+        "fixture": fixture, "phase_s": phase_s, "card": smi}
+    if phase_s > ORBAX_PHASE_LIMIT_S:
+        fail(f"phase orbax took {phase_s:.1f} s, above its "
+             f"{ORBAX_PHASE_LIMIT_S} s")
+    torch.cuda.empty_cache()
+    return launches
+
 
 # the profile phase: the step profiler (cli/profile.py) as a user runs it,
 # at ViT-B/16 batch 256, bf16, --fused_dw, PROFILE_STEPS traced steps after
@@ -7428,6 +7643,7 @@ def main(argv=None) -> int:
     forks_launches = grid_launches = serve_vit_launches = None
     dist_launches = clip_dist_launches = moe_launches = None
     serve_rn_launches = profile_launches = dryrun_launches = None
+    orbax_launches = None
     tmp = os.path.join(ROOT, "vit_project_torch", "_build",
                        f"smoke-{os.getpid()}")
     os.makedirs(tmp, exist_ok=True)
@@ -7437,7 +7653,10 @@ def main(argv=None) -> int:
         if "train" in phases:
             train_launches = timed("train", phase_train, tmp)
         if "vit_train" in phases:
-            vit_launches = timed("vit_train", phase_vit_train, tmp)
+            vit_launches = timed("vit_train", phase_vit_train, tmp,
+                                 "orbax" in phases)
+        if "orbax" in phases:
+            orbax_launches = timed("orbax", phase_orbax, tmp)
         if "profile" in phases:
             profile_launches = timed("profile", phase_profile, tmp)
         # the dry run's launches run beside moe and vit_grid
@@ -7526,6 +7745,9 @@ def main(argv=None) -> int:
     def dry(name):
         return dryrun_launches and dryrun_launches[name]
 
+    def orbax(name):
+        return orbax_launches and orbax_launches[name]
+
     def entry(name, source, replaces, launches, by_path, errors, main_row,
               at):
         return {"name": name, "route": "cuda", "source": source,
@@ -7541,7 +7763,7 @@ def main(argv=None) -> int:
               {"serve": serve_launches, "serve_vit": serve_vit_launches,
                "serve_rn": serve_rn_launches,
                "train": train_launches and train_launches["flash3_fwd"],
-               "vit_train": vit("flash3_fwd"),
+               "vit_train": vit("flash3_fwd"), "orbax": orbax("flash3_fwd"),
                "vit_grid": grid("flash3_fwd"), "sweep": sweep("flash3_fwd"),
                "forks": forks("flash3_fwd"), "dist": dist("flash3_fwd"),
                "dist_tp": dist_tp("flash3_fwd"), "moe": moe("flash3_fwd"),
@@ -7562,7 +7784,7 @@ def main(argv=None) -> int:
               "vit_project_tpu/ops/attention.py:480",
               train_launches and train_launches["flash3_bwd"],
               {"train": train_launches and train_launches["flash3_bwd"],
-               "vit_train": vit("flash3_bwd"),
+               "vit_train": vit("flash3_bwd"), "orbax": orbax("flash3_bwd"),
                "vit_grid": grid("flash3_bwd"), "sweep": sweep("flash3_bwd"),
                "forks": forks("flash3_bwd"), "dist": dist("flash3_bwd"),
                "dist_tp": dist_tp("flash3_bwd"), "moe": moe("flash3_bwd"),
@@ -7580,7 +7802,8 @@ def main(argv=None) -> int:
               "[64, 257, 3072], H=16; launches: the training run"),
         entry("dw_db", "vit_project_torch/csrc/dw_db.cu",
               "vit_project_tpu/ops/fused_dw.py:41", vit("dw_db"),
-              {"vit_train": vit("dw_db"), "dist": dist("dw_db"),
+              {"vit_train": vit("dw_db"), "orbax": orbax("dw_db"),
+               "dist": dist("dw_db"),
                "moe": moe("dw_db"), "profile": profile("dw_db")},
               [r["max_abs_err"] for r in rows if r["kernel"] == "dw_db"],
               row_of("dw_db", "fc1"),

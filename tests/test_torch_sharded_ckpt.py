@@ -5,7 +5,8 @@ the counterparts of the JAX package's orbax pair.
 
 In one process: round trips of every kind of leaf, the `.dcp` beside the
 `.pth` (latest, epoch, listing, pruning), a `.dcp` read back as the JAX-layout
-trees a `.pth` holds, refusals of `.orbax` and of torn directories.
+trees a `.pth` holds, a JAX-written `.orbax` beside them resolved and read as
+JAX reads it, the refusal of torn directories.
 
 Across ranks: one ``torchrun --standalone --nproc_per_node 2`` launch of this
 file (its ``__main__`` is the rank's worker), gloo on the CPU, one thread a
@@ -176,8 +177,9 @@ def test_dcp_reads_as_the_pth_of_the_same_state(tmp_path):
 
 def test_latest_and_epoch_resolve_dcp_beside_pth(tmp_path):
     """The newer of the .pth and the .dcp (dated by the pointer for
-    'latest'), as JAX resolves .orbax beside .pth; a newer .orbax is
-    refused; the listing and the pruning take .dcp epochs."""
+    'latest'), as JAX resolves .orbax beside .pth; a newer JAX-written
+    .orbax is resolved and read; the listing and the pruning take .dcp
+    epochs."""
     out = str(tmp_path)
     params, momentum = _vit_state()
     jp, jm = (tconvert.vit_jax_from_state_dict(t) for t in (params, momentum))
@@ -210,18 +212,25 @@ def test_latest_and_epoch_resolve_dcp_beside_pth(tmp_path):
                                "checkpoint_epoch_001.dcp",
                                "checkpoint_epoch_001.pth"]
     assert not os.path.exists(d1) and os.path.isdir(d2)
-    # a newer pod-written .orbax is JAX's choice, which the port refuses
+    # a newer pod-written .orbax (the JAX package's collective writer) is
+    # JAX's choice, and the port's: resolved, listed and read as JAX reads it
+    from vit_project_tpu.ckpt import vit_ckpt as jckpt
     time.sleep(0.02)
-    os.makedirs(os.path.join(out, "checkpoint_epoch_002.orbax"))
-    with open(os.path.join(out, "checkpoint_latest.orbax.ptr"), "w") as f:
-        f.write("checkpoint_epoch_002.orbax")
-    for resolve in (lambda: tckpt.latest_checkpoint(out),
-                    lambda: tckpt.epoch_checkpoint(out, 2),
-                    lambda: trsa.list_epoch_checkpoints(out)):
-        with pytest.raises(NotImplementedError, match="orbax"):
-            resolve()
-    with pytest.raises(NotImplementedError, match="orbax"):
-        tckpt.load_checkpoint(os.path.join(out, "checkpoint_epoch_002.orbax"))
+    d3 = jckpt.save_checkpoint(2, jp, jm, {"last_epoch": 3}, 1.0, 1.0, 1.0,
+                               out, sharded=True)
+    assert d3 == os.path.join(out, "checkpoint_epoch_002.orbax")
+    assert tckpt.latest_checkpoint(out) == jckpt.latest_checkpoint(out) == d3
+    assert tckpt.epoch_checkpoint(out, 2) == d3
+    assert trsa.list_epoch_checkpoints(out)[-1] == (2, d3)
+    got, want = tckpt.load_checkpoint(d3), jckpt.load_checkpoint(d3)
+    assert got["epoch"] == 2 and got["scheduler_state"] == {"last_epoch": 3}
+    import jax
+    for key in ("params", "opt_state"):
+        la, lb = (jax.tree_util.tree_leaves(t[key]) for t in (got, want))
+        assert len(la) == len(lb) == len(params)
+        for x, y in zip(la, lb):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, np.asarray(y))
 
 
 def test_resume_reads_a_dcp_latest(tmp_path):

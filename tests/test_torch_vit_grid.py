@@ -197,9 +197,15 @@ def test_rsa_eval_refuses_an_empty_dir_and_orbax(things48, backbone,
     with pytest.raises(SystemExit, match="no checkpoint_epoch_"):
         trsa.main(_rsa_args(str(empty), str(tmp_path / "r.csv"), things48) +
                   ["--device", "cpu"])
-    os.makedirs(tmp_path / "pod" / "checkpoint_epoch_000.orbax")
-    with pytest.raises(NotImplementedError, match="orbax"):
-        trsa.list_epoch_checkpoints(str(tmp_path / "pod"))
+    # a pod-written .orbax epoch is listed, as JAX lists it; one torn
+    # before its _METADATA was written is refused when it is read
+    pod = tmp_path / "pod"
+    os.makedirs(pod / "checkpoint_epoch_000.orbax")
+    assert trsa.list_epoch_checkpoints(str(pod)) == [
+        (0, str(pod / "checkpoint_epoch_000.orbax"))]
+    with pytest.raises(RuntimeError, match="no _METADATA"):
+        trsa.main(_rsa_args(str(pod), str(tmp_path / "r.csv"), things48) +
+                  ["--device", "cpu"])
 
 
 # -- the grid -----------------------------------------------------------------

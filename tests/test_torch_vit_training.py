@@ -698,6 +698,11 @@ def test_other_unported_paths_are_refused_by_name(imagenet, tmp_path):
     with pytest.raises(ValueError, match="ring_attn does not compose with "
                                          "MoE blocks"):
         tvit.vit_classify(moe, imgs, seq_shard=object(), ring_attn=True)
+    # JAX's .orbax is ported (tests/test_torch_orbax.py): the legacy full
+    # latest directory resolves as JAX resolves it, and one torn before
+    # its manifest was written is refused when it is read
     os.makedirs(tmp_path / "pod" / "checkpoint_latest.orbax")
-    with pytest.raises(NotImplementedError, match="orbax"):
-        tckpt.latest_checkpoint(str(tmp_path / "pod"))
+    latest = tckpt.latest_checkpoint(str(tmp_path / "pod"))
+    assert latest == str(tmp_path / "pod" / "checkpoint_latest.orbax")
+    with pytest.raises(RuntimeError, match="no _METADATA"):
+        tckpt.load_checkpoint(latest)

@@ -14,7 +14,7 @@ each other's run trees:
 of JAX's orbax pair: a collective in which every rank writes only the
 shards it holds, into a ``torch.distributed.checkpoint`` (DCP) directory.
 The directory is the port's own format; JAX's ``.orbax`` directories are
-not read (``vit_ckpt`` refuses them).
+read by ``ckpt/orbax.py`` (``vit_ckpt.load_checkpoint`` routes them).
 
 The JAX package's random-states pickle holds optax's AdamW state,
 ``(optax._src.transform.ScaleByAdamState(count, mu, nu),

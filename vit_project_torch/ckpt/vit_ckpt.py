@@ -26,8 +26,16 @@ the sharded form over several processes; the port's default stays the one
 `.pth`, which both packages resume. ``load_checkpoint`` of a `.dcp`
 without a template returns what a `.pth` holds (JAX-layout numpy trees),
 so every reader takes either file; with a template it restores in place,
-each rank its own shards. The pod-sharded `.orbax` directories the JAX
-package writes are not read and are refused.
+each rank its own shards.
+
+The pod-sharded `.orbax` directories the JAX package writes (by default
+over several processes: `checkpoint_epoch_{N:03d}.orbax/` and
+`checkpoint_latest.orbax.ptr`) are read by ``ckpt/orbax.py`` without orbax:
+``load_checkpoint`` returns the tree JAX's returns, and
+``epoch_checkpoint`` / ``latest_checkpoint`` resolve them by JAX's rule,
+so a run begun on a TPU pod resumes, forks, scores and serves here. A
+template with an `.orbax` raises: the port places what it restores from
+its trainer, not from orbax's shardings.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ import os
 import re
 import shutil
 
+from . import orbax
 from . import serialization as ser
 from ..core import csvio
 from ..parallel import dist
@@ -46,14 +55,6 @@ def _is_multiprocess() -> bool:
 
 def _primary() -> bool:
     return dist.is_primary()
-
-
-def _refuse_orbax(path: str) -> None:
-    if path.endswith(".orbax") or path.endswith(".orbax.ptr"):
-        raise NotImplementedError(
-            f"{path}: pod-sharded .orbax checkpoints are not ported to "
-            f"vit_project_torch yet; the port reads .pth and .dcp "
-            f"checkpoints")
 
 
 LATEST_PTR = "checkpoint_latest.dcp.ptr"
@@ -161,8 +162,15 @@ def load_checkpoint(path: str, template: dict | None = None):
     (a collective; {"params": ..., "opt_state": ...} in the trainer's
     flat layout and placement, e.g. ``ViTTrainer.sharded_state``): the
     template restored in place, each rank reading its own shards, with the
-    checkpoint's other leaves beside it."""
-    _refuse_orbax(path)
+    checkpoint's other leaves beside it. A JAX-written `.orbax`: the tree
+    JAX's ``load_checkpoint`` returns (what a `.pth` holds: JAX-layout
+    numpy trees, Python numbers); it takes no template."""
+    if path.endswith(".orbax"):
+        if template is not None:
+            raise ValueError(
+                f"{path}: a template is not taken with a .orbax checkpoint; "
+                f"the port places the restored state through its trainer")
+        return orbax.read_tree(path)
     if not path.endswith(".dcp"):
         return ser.load(path)
     if template is not None:
@@ -195,7 +203,7 @@ def prune_checkpoints(output_dir: str, keep_last: int, current_epoch: int,
 def _prune(output_dir: str, keep_last: int, current_epoch: int,
            logger) -> list[str]:
     removed: list[str] = []
-    pat = re.compile(r"^checkpoint_epoch_(\d{3,})\.(pth|dcp)$")
+    pat = re.compile(r"^checkpoint_epoch_(\d{3,})\.(pth|dcp|orbax)$")
     cutoff = current_epoch - keep_last
     for name in os.listdir(output_dir):
         m = pat.match(name)
@@ -216,37 +224,37 @@ def _prune(output_dir: str, keep_last: int, current_epoch: int,
 def _newest(cands: list) -> str | None:
     """The most recently written of `cands`, (path, the file whose mtime
     dates it) pairs, among those that exist (a `.dcp` only with its
-    metadata: without it the write was torn); None without one. An
-    `.orbax` one would be the JAX package's choice, which the port cannot
-    read, so that case raises instead of resuming from a stale file."""
+    metadata: without it the write was torn); None without one."""
     dated = [(os.path.getmtime(stamp), path) for path, stamp in cands
              if os.path.exists(path) and os.path.exists(stamp)
              and (not path.endswith(".dcp")
                   or os.path.exists(os.path.join(path, ".metadata")))]
     if not dated:
         return None
-    path = max(dated)[1]
-    _refuse_orbax(path)
-    return path
+    return max(dated)[1]
 
 
 def epoch_checkpoint(output_dir: str, epoch: int) -> str | None:
-    """checkpoint_epoch_{N:03d} as a .pth or a .dcp, the newer by mtime
-    when both exist (JAX's rule for .orbax and .pth), or None."""
+    """checkpoint_epoch_{N:03d} as a .pth, a .dcp or a .orbax, the newest
+    by mtime when several exist (JAX's rule for .orbax and .pth), or
+    None."""
     base = os.path.join(output_dir, f"checkpoint_epoch_{epoch:03d}")
     return _newest([(base + ext, base + ext)
                     for ext in (".pth", ".dcp", ".orbax")])
 
 
 def latest_checkpoint(output_dir: str) -> str | None:
-    """checkpoint_latest.pth or the .dcp that checkpoint_latest.dcp.ptr
-    names (dated by the pointer), the more recently written when both
-    exist, as JAX picks between its formats; or None."""
+    """checkpoint_latest.pth, the legacy full checkpoint_latest.orbax
+    directory, or the epoch directory that checkpoint_latest.orbax.ptr or
+    checkpoint_latest.dcp.ptr names (dated by the pointer): the most
+    recently written of those that exist, as JAX picks between its
+    formats; or None."""
     cands = [(p, p) for p in (os.path.join(output_dir, n) for n in (
-        "checkpoint_latest.pth", "checkpoint_latest.orbax.ptr",
-        "checkpoint_latest.orbax"))]
-    ptr = os.path.join(output_dir, LATEST_PTR)
-    if os.path.exists(ptr):
-        with open(ptr) as f:
-            cands.append((os.path.join(output_dir, f.read().strip()), ptr))
+        "checkpoint_latest.pth", "checkpoint_latest.orbax"))]
+    for name in ("checkpoint_latest.orbax.ptr", LATEST_PTR):
+        ptr = os.path.join(output_dir, name)
+        if os.path.exists(ptr):
+            with open(ptr) as f:
+                cands.append((os.path.join(output_dir, f.read().strip()),
+                              ptr))
     return _newest(cands)

@@ -35,10 +35,9 @@ from .vit_measure import load_things_for_vit
 
 
 def list_epoch_checkpoints(ckpt_dir: str) -> list[tuple[int, str]]:
-    """Every per-epoch checkpoint (.pth or .dcp), one entry per epoch. An
-    epoch held only as a pod-written .orbax directory (or with an .orbax
-    newer than the others) raises, as vit_ckpt.epoch_checkpoint does: the
-    port reads .pth and .dcp."""
+    """Every per-epoch checkpoint (.pth, .dcp or a pod-written .orbax
+    directory), one entry per epoch; vit_ckpt.epoch_checkpoint picks the
+    newer when an epoch has several, as JAX's listing does."""
     epochs = set()
     for name in os.listdir(ckpt_dir):
         m = re.fullmatch(r"checkpoint_epoch_(\d+)\.(pth|dcp|orbax)", name)

@@ -231,8 +231,8 @@ def adapters_to_jax(tree: dict) -> dict:
 # -- the ViT classifier ---------------------------------------------------------
 
 def _np(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        x = x.detach().cpu().numpy()
+    if isinstance(x, torch.Tensor):      # bfloat16 too, which numpy lacks
+        x = x.detach().cpu().float().numpy()
     return np.asarray(x, dtype=np.float32)
 
 
